@@ -1,0 +1,32 @@
+"""PyTorch/CUDA port of the InstantRestore serving path for NVIDIA Hopper.
+
+The package mirrors the file layout of ``instantrestore_tpu`` (the JAX
+reference) so each module has an obvious counterpart. It imports PyTorch
+only: nothing of JAX and nothing of the JAX package.
+
+Layouts at the public functions follow the JAX package (NHWC images and
+latents, ``[B, H, S, d]`` attention heads) so tests can compare like with
+like. Parameters are nested dicts/lists of tensors in PyTorch layouts
+(``weight`` ``[out, in]`` for linears, OIHW for convolutions) whose dotted
+paths are the diffusers state-dict names (see ``convert.py``).
+
+The two attention kernels of the serving path are hand-written CUDA C++ for
+``sm_90a`` (``csrc/``), compiled with ``nvcc`` on first use and loaded with
+``ctypes`` (``ops/_build.py``). On a CPU tensor each kernel wrapper runs its
+plain PyTorch version instead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another. Raises rather than quietly falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU"
+        )
+    return dev

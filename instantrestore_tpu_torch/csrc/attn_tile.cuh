@@ -1,0 +1,330 @@
+// Bound-softmax attention tile shared by the two serving kernels
+// (flash_bound.cu, shared_identity.cu). Plain C interface, no PyTorch
+// headers: built with nvcc -gencode arch=compute_90a,code=sm_90a and loaded
+// through ctypes (ops/_build.py).
+//
+// One block computes BQ query rows of one (batch, head) against every key
+// that (batch, head) sees, streamed through shared memory in tiles of BK
+// keys. The softmax needs no running max: each query row carries the
+// Cauchy-Schwarz bound of the JAX package (ops/shared_attention.py,
+// _shared_kvouter_bound_kernel),
+//     bound_i = ||q_i|| * scale * log2(e) * max_j ||k_j|| - 64,
+// so p_ij = exp2(s_ij - bound_i) <= 2^64 and out_i = sum_j p_ij v_j / sum_j p_ij.
+// p reaches 2^64, so it enters the tensor-core product as bf16 (fp32's
+// exponent range), never fp16 (overflows at 65504). Scores and the output
+// accumulator are fp32.
+//
+// Per key tile: (1) all threads copy K and V tiles to shared memory with
+// 16-byte loads (the identity kernel applies its per-(sample, head, ref,
+// channel) AdaIN affine to V here); (2) each warp computes its 16x16 score
+// fragments S = Qs K^T with bf16 WMMA (mma.sync) and stores them as fp32;
+// (3) every thread turns kColsPerThread scores of one query row into bf16
+// probabilities and adds them to its row sum; (4) each warp adds P V into
+// the output fragments it owns, which stay in registers across the whole
+// key loop. The epilogue divides by the row sums and writes bf16.
+//
+// Tiles that fit: d=64 keeps a 64x64 block in 4 warps (each warp owns 16
+// query rows x 64 channels). d=512 (the VAE mid attention) cannot hold a
+// 64x512 fp32 accumulator in one block's registers; it takes 32 query rows
+// in 8 warps, and the 32x512 accumulator is split by channel slabs across
+// the warps (64 registers each). Its K and V tiles need 176 KB of shared
+// memory, opted in with cudaFuncSetAttribute.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace irt {
+
+using namespace nvcuda;
+
+constexpr float kBoundExpShift = 64.0f;
+
+// kFlash: plain attention, row sum over bf16-rounded p, bound from the
+// unscaled fp32 q norm (JAX _flash_bound_kernel).
+// kIdentity: refs-only shared attention reading an identity cache by id,
+// row sum over fp32 p, bound from the scaled bf16 q norm, AdaIN affine on V
+// (JAX _shared_kvouter_bound_paired_kernel).
+enum class Mode { kFlash, kIdentity };
+
+template <int D, int BQ, int BK, int NW>
+struct TileCfg {
+  static constexpr int kThreads = NW * 32;
+  static constexpr int kLdh = D + 8;   // bf16 row stride of the Q, K, V tiles
+  static constexpr int kLdp = BK + 8;  // bf16 row stride of the P tile
+  static constexpr int kLds = BK + 4;  // fp32 row stride of the score tile
+  static constexpr int kLdo = D + 4;   // fp32 row stride of the output staging tile
+  static constexpr int kQOff = 0;
+  static constexpr int kKOff = kQOff + BQ * kLdh * 2;
+  static constexpr int kVOff = kKOff + BK * kLdh * 2;
+  static constexpr int kPOff = kVOff + BK * kLdh * 2;
+  static constexpr int kSOff = kPOff + BQ * kLdp * 2;
+  static constexpr int kSmemBytes = kSOff + BQ * kLds * 4;
+  static constexpr int kTpr = kThreads / BQ;          // threads per query row
+  static constexpr int kColsPerThread = BK / kTpr;    // scores per thread per tile
+  static constexpr int kDimsPerThread = D / kTpr;     // q channels per thread
+  static constexpr int kSFrags = (BQ / 16) * (BK / 16) / NW;  // score fragments per warp
+  static constexpr int kOFrags = (BQ / 16) * (D / 16) / NW;   // output fragments per warp
+
+  static_assert(kThreads % BQ == 0 && kTpr <= 32 && (kTpr & (kTpr - 1)) == 0,
+                "a query row's threads must be a power-of-two group inside one warp");
+  static_assert((BQ / 16) * (BK / 16) % NW == 0 && (BK / 16) % kSFrags == 0,
+                "a warp's score fragments must share one 16-row tile");
+  static_assert((BQ / 16) * (D / 16) % NW == 0 && (D / 16) % kOFrags == 0,
+                "a warp's output fragments must share one 16-row tile");
+  static_assert(kColsPerThread % 8 == 0 && kDimsPerThread % 8 == 0,
+                "per-thread spans are whole 16-byte vectors");
+  static_assert(BQ * kLdo * 4 <= 2 * BK * kLdh * 2,
+                "the output staging tile reuses the K and V tiles");
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
+  static_assert(kKOff % 32 == 0 && kVOff % 32 == 0 && kPOff % 32 == 0 && kSOff % 32 == 0,
+                "WMMA needs 256-bit aligned tiles");
+};
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(h2[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint4 u;
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h2[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+  return u;
+}
+
+__device__ __forceinline__ void load8f(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// q, out: [B, H, Sq, D]. Keys and values of (b, h) are N segments of S rows:
+// segment n starts at ((row * N + n) * H + h) * S * D, with row = b (flash,
+// N = 1: k/v [B, H, S, D]) or row = ids[b] (identity: cache [I, N, H, S, D]).
+// kmax: [rows, H] max key norm. aff (identity): [B, H, N, 2, D] fp32 scale
+// and shift of V. qscale = scale * log2(e).
+template <Mode M, int D, int BQ, int BK, int NW>
+__global__ void __launch_bounds__(NW * 32)
+attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const float* __restrict__ kmax,
+                 const float* __restrict__ aff,
+                 const int* __restrict__ ids,
+                 __nv_bfloat16* __restrict__ out,
+                 int H, int Sq, int S, int N, int I, float qscale) {
+  using Cfg = TileCfg<D, BQ, BK, NW>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kQOff);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kKOff);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kVOff);
+  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kPOff);
+  float* Ss = reinterpret_cast<float*>(smem + Cfg::kSOff);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t q_base = ((size_t)(b * H + h) * Sq + (size_t)blockIdx.x * BQ) * D;
+
+  int row = b;
+  if constexpr (M == Mode::kIdentity) {
+    row = ids[b];
+    if (row < 0 || row >= I) {  // an id outside the cache poisons its outputs
+      for (int c = tid; c < BQ * D; c += Cfg::kThreads)
+        out[q_base + c] = __float2bfloat16(__int_as_float(0x7fc00000));
+      return;
+    }
+  }
+  const float kmax_bh = kmax[row * H + h];
+
+  // Q tile, pre-scaled in bf16 as the JAX kernels do (q * bf16(scale*log2e)),
+  // and the per-row bound, from the thread group that owns the row.
+  const int r = tid / Cfg::kTpr;
+  const int part = tid % Cfg::kTpr;
+  const float qs_bf = __bfloat162float(__float2bfloat16(qscale));
+  float ss_raw = 0.f, ss_scaled = 0.f;
+  {
+    const __nv_bfloat16* src = q + q_base + (size_t)r * D + part * Cfg::kDimsPerThread;
+    __nv_bfloat16* dst = Qs + r * Cfg::kLdh + part * Cfg::kDimsPerThread;
+#pragma unroll
+    for (int c = 0; c < Cfg::kDimsPerThread; c += 8) {
+      float f[8], g[8];
+      unpack8(*reinterpret_cast<const uint4*>(src + c), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        ss_raw += f[e] * f[e];
+        g[e] = f[e] * qs_bf;
+      }
+      const uint4 packed = pack8(g);
+      unpack8(packed, g);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ss_scaled += g[e] * g[e];
+      *reinterpret_cast<uint4*>(dst + c) = packed;
+    }
+  }
+#pragma unroll
+  for (int off = Cfg::kTpr / 2; off > 0; off >>= 1) {
+    ss_raw += __shfl_xor_sync(0xffffffffu, ss_raw, off);
+    ss_scaled += __shfl_xor_sync(0xffffffffu, ss_scaled, off);
+  }
+  const float bound = (M == Mode::kFlash)
+                          ? sqrtf(ss_raw) * qscale * kmax_bh - kBoundExpShift
+                          : sqrtf(ss_scaled) * kmax_bh - kBoundExpShift;
+
+  // fragments owned by this warp
+  const int s_first = warp * Cfg::kSFrags;
+  const int s_rt = s_first / (BK / 16);
+  const int s_ct0 = s_first % (BK / 16);
+  const int o_first = warp * Cfg::kOFrags;
+  const int o_rt = o_first / (D / 16);
+  const int o_ct0 = o_first % (D / 16);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_frag[Cfg::kOFrags];
+#pragma unroll
+  for (int i = 0; i < Cfg::kOFrags; ++i) wmma::fill_fragment(o_frag[i], 0.f);
+  float lsum = 0.f;
+
+  const int tiles_per_seg = S / BK;
+  const int n_tiles = N * tiles_per_seg;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n = t / tiles_per_seg;
+    const int j0 = (t % tiles_per_seg) * BK;
+    const size_t kv_base = ((((size_t)row * N + n) * H + h) * S + j0) * D;
+
+    // (1) K and V tiles -> shared memory
+    const float* a_vec = nullptr;
+    if constexpr (M == Mode::kIdentity) a_vec = aff + (((size_t)b * H + h) * N + n) * 2 * D;
+    for (int c = tid; c < BK * D / 8; c += Cfg::kThreads) {
+      const int kr = c / (D / 8);
+      const int kc = (c % (D / 8)) * 8;
+      const size_t g = kv_base + (size_t)kr * D + kc;
+      *reinterpret_cast<uint4*>(Ks + kr * Cfg::kLdh + kc) = *reinterpret_cast<const uint4*>(k + g);
+      uint4 vraw = *reinterpret_cast<const uint4*>(v + g);
+      if constexpr (M == Mode::kIdentity) {
+        float f[8], sc[8], sh[8];
+        unpack8(vraw, f);
+        load8f(a_vec + kc, sc);
+        load8f(a_vec + D + kc, sh);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = f[e] * sc[e] + sh[e];
+        vraw = pack8(f);
+      }
+      *reinterpret_cast<uint4*>(Vs + kr * Cfg::kLdh + kc) = vraw;
+    }
+    __syncthreads();
+
+    // (2) scores S = Qs K^T, fp32
+    {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_frag[Cfg::kSFrags];
+#pragma unroll
+      for (int i = 0; i < Cfg::kSFrags; ++i) wmma::fill_fragment(s_frag[i], 0.f);
+#pragma unroll 4
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qa;
+        wmma::load_matrix_sync(qa, Qs + s_rt * 16 * Cfg::kLdh + kk * 16, Cfg::kLdh);
+#pragma unroll
+        for (int i = 0; i < Cfg::kSFrags; ++i) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
+          wmma::load_matrix_sync(kb, Ks + (s_ct0 + i) * 16 * Cfg::kLdh + kk * 16, Cfg::kLdh);
+          wmma::mma_sync(s_frag[i], qa, kb, s_frag[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < Cfg::kSFrags; ++i)
+        wmma::store_matrix_sync(Ss + s_rt * 16 * Cfg::kLds + (s_ct0 + i) * 16, s_frag[i],
+                                Cfg::kLds, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // (3) p = exp2(s - bound) -> bf16 P tile, row sums
+    {
+      const float* srow = Ss + r * Cfg::kLds + part * Cfg::kColsPerThread;
+      __nv_bfloat16* prow = Ps + r * Cfg::kLdp + part * Cfg::kColsPerThread;
+#pragma unroll
+      for (int c = 0; c < Cfg::kColsPerThread; c += 8) {
+        float p[8];
+        load8f(srow + c, p);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) p[e] = exp2f(p[e] - bound);
+        const uint4 packed = pack8(p);
+        if constexpr (M == Mode::kFlash) unpack8(packed, p);  // sum what the product sees
+#pragma unroll
+        for (int e = 0; e < 8; ++e) lsum += p[e];
+        *reinterpret_cast<uint4*>(prow + c) = packed;
+      }
+    }
+    __syncthreads();
+
+    // (4) O += P V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
+      wmma::load_matrix_sync(pa, Ps + o_rt * 16 * Cfg::kLdp + kk * 16, Cfg::kLdp);
+#pragma unroll
+      for (int i = 0; i < Cfg::kOFrags; ++i) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
+        wmma::load_matrix_sync(vb, Vs + kk * 16 * Cfg::kLdh + (o_ct0 + i) * 16, Cfg::kLdh);
+        wmma::mma_sync(o_frag[i], pa, vb, o_frag[i]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue: out = O / l in bf16; O is staged through the K/V tiles
+#pragma unroll
+  for (int off = Cfg::kTpr / 2; off > 0; off >>= 1)
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+  float* Os = reinterpret_cast<float*>(smem + Cfg::kKOff);
+  float* Ls = reinterpret_cast<float*>(smem + Cfg::kPOff);
+#pragma unroll
+  for (int i = 0; i < Cfg::kOFrags; ++i)
+    wmma::store_matrix_sync(Os + o_rt * 16 * Cfg::kLdo + (o_ct0 + i) * 16, o_frag[i],
+                            Cfg::kLdo, wmma::mem_row_major);
+  if (part == 0) Ls[r] = lsum;
+  __syncthreads();
+  for (int c = tid; c < BQ * D / 8; c += Cfg::kThreads) {
+    const int orow = c / (D / 8);
+    const int oc = (c % (D / 8)) * 8;
+    const float l = Ls[orow];
+    float f[8];
+    load8f(Os + orow * Cfg::kLdo + oc, f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = f[e] / l;
+    *reinterpret_cast<uint4*>(out + q_base + (size_t)orow * D + oc) = pack8(f);
+  }
+}
+
+template <Mode M, int D, int BQ, int BK, int NW>
+cudaError_t launch_attn(const void* q, const void* k, const void* v, const void* kmax,
+                        const void* aff, const void* ids, void* out, int B, int H, int Sq,
+                        int S, int N, int I, float qscale, void* stream) {
+  using Cfg = TileCfg<D, BQ, BK, NW>;
+  if (B <= 0 || H <= 0 || N <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 ||
+      B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  auto kern = attn_tile_kernel<M, D, BQ, BK, NW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Sq / BQ, H, B);
+  kern<<<grid, Cfg::kThreads, Cfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmax),
+      static_cast<const float*>(aff), static_cast<const int*>(ids),
+      static_cast<__nv_bfloat16*>(out), H, Sq, S, N, I, qscale);
+  return cudaGetLastError();
+}
+
+}  // namespace irt

@@ -1,0 +1,150 @@
+"""Warm-identity batched serving on one GPU (counterpart of
+``instantrestore_tpu/inference/serving.py``).
+
+Identities are onboarded once: their reference images go through the frozen
+VAE and UNet, and the 9 shared layers' reference K/V land in an identity
+cache with its AdaIN statistics and key-norm bounds. A restore then runs one
+VAE encode, one UNet whose shared attentions read the cache by identity id
+(the ``shared_identity`` kernel, no gather copy) and one VAE decode.
+
+Differences from the JAX engine: onboarding is a Python loop over
+identities (no ``lax.map``), there is no mesh, and a restore draws its batch
+noise from one ``torch.Generator`` (or takes it through ``noise``) instead of
+per-row PRNG keys. ``restore_cold`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from instantrestore_tpu_torch import resolve_device
+from instantrestore_tpu_torch.convert import tree_to
+from instantrestore_tpu_torch.models import scheduler as sched
+from instantrestore_tpu_torch.models.restorer import (
+    RestorerStatics,
+    get_conditioning_kv,
+    restore_forward,
+)
+from instantrestore_tpu_torch.ops.image_ops import preprocess
+from instantrestore_tpu_torch.ops.shared_attention import (
+    IdentityKVCache,
+    IdentityRef,
+    build_identity_kv_cache,
+)
+
+
+def _maybe_preprocess(images: torch.Tensor, resolution: int) -> torch.Tensor:
+    """uint8 [B, H, W, 3] -> [-1, 1] at the model resolution; float inputs
+    are taken as [-1, 1] and resized/cropped only when off-size."""
+    if images.dtype == torch.uint8:
+        return preprocess(images.float() / 255.0, resolution)
+    if images.shape[1] != resolution or images.shape[2] != resolution:
+        return preprocess(images.float() * 0.5 + 0.5, resolution)
+    return images
+
+
+class ServingEngine:
+    """Identity-cached batched restoration.
+
+        eng = ServingEngine(params, statics)             # on cuda
+        eng.onboard(identity_refs)                       # [I, N, H, W, 3] once
+        out = eng.restore(images, identity_ids)          # [B, H, W, 3], [B]
+
+    ``params`` is a bundle (``serving_bundle`` output or a training bundle);
+    it is moved to ``device`` in ``statics.compute_dtype``.
+    """
+
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        statics: RestorerStatics,
+        *,
+        device=None,
+        use_fused_attention: bool = True,
+    ):
+        if statics.train_input:
+            raise NotImplementedError(
+                "the identity cache is refs-only; train_input models are not served yet")
+        self.device = resolve_device(device)
+        self.statics = statics
+        self.params = tree_to(params, self.device, statics.compute_dtype)
+        self.use_fused_attention = use_fused_attention
+        # model pixel resolution: latent grid x the VAE's downsampling
+        self.resolution = statics.unet_cfg.sample_size * 2 ** (
+            len(statics.vae_cfg.block_out_channels) - 1)
+        self.abar = sched.make_alphas_cumprod(device=self.device)
+        self.kv_cache: Optional[List[IdentityKVCache]] = None
+
+    def _refs_kv(self, refs: torch.Tensor, generator, noise):
+        """One identity's references [N, H, W, 3] -> 9 (k, v) [N, H, S, d]."""
+        n = refs.shape[0]
+        refs = _maybe_preprocess(refs.to(self.device), self.resolution)
+        kv = get_conditioning_kv(
+            self.params, refs[None], torch.full((1,), n, device=self.device),
+            statics=self.statics, alphas_cumprod=self.abar, generator=generator,
+            noise=noise, use_fused_attention=self.use_fused_attention,
+        )
+        return [(k[0], v[0]) for k, v in kv]
+
+    @torch.no_grad()
+    def onboard(self, identity_refs: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None) -> List[IdentityKVCache]:
+        """identity_refs [I, N, H, W, 3] (uint8, or float in [-1, 1]) -> the
+        warm cache. I fixes the capacity; ``onboard_one`` replaces rows.
+        ``noise`` may give ``latent``/``diffusion`` [I, N, h, w, 4]."""
+        n_ident = identity_refs.shape[0]
+        rows: Optional[List[List[torch.Tensor]]] = None
+        for i in range(n_ident):
+            kv = self._refs_kv(identity_refs[i], generator,
+                               None if noise is None else {k: v[i] for k, v in noise.items()})
+            if rows is None:
+                rows = [[k.new_empty((n_ident, *k.shape)), v.new_empty((n_ident, *v.shape))]
+                        for k, v in kv]
+            for (rk, rv), (k, v) in zip(rows, kv):
+                rk[i], rv[i] = k, v
+        self.kv_cache = build_identity_kv_cache(rows)
+        return self.kv_cache
+
+    @torch.no_grad()
+    def onboard_one(self, identity_refs: torch.Tensor, slot: int, *,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[Dict[str, torch.Tensor]] = None) -> List[IdentityKVCache]:
+        """Onboard or replace one identity ([N, H, W, 3]) in row ``slot`` of
+        the cache, in place; other rows are untouched."""
+        if self.kv_cache is None:
+            raise RuntimeError("call onboard() first")
+        capacity = self.kv_cache[0].rk.shape[0]
+        if not 0 <= int(slot) < capacity:
+            raise ValueError(f"slot {slot} out of range for a cache of {capacity} identities")
+        kv = self._refs_kv(identity_refs, generator, noise)
+        new = build_identity_kv_cache([(k[None], v[None]) for k, v in kv])
+        for cur, one in zip(self.kv_cache, new):
+            for field in ("rk", "rv", "content_mean", "content_std", "kmax"):
+                getattr(cur, field)[slot] = getattr(one, field)[0]
+        return self.kv_cache
+
+    @torch.no_grad()
+    def restore(self, images: torch.Tensor, identity_ids, *,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Warm restore: images [B, H, W, 3] (uint8, or float in [-1, 1]) of
+        identities ``identity_ids`` [B] -> [B, res, res, 3] in [-1, 1].
+        ``noise`` may give ``latent``/``diffusion`` [B, h, w, 4]."""
+        if self.kv_cache is None:
+            raise RuntimeError("call onboard() first")
+        ids = torch.as_tensor(identity_ids)
+        if ids.device.type == "cpu":
+            capacity = self.kv_cache[0].rk.shape[0]
+            if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= capacity):
+                raise ValueError(f"identity ids outside [0, {capacity})")
+        ids = ids.to(device=self.device, dtype=torch.long)
+        images = _maybe_preprocess(images.to(self.device), self.resolution)
+        ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
+        out = restore_forward(
+            self.params, images, statics=self.statics, precomputed_ref_kv=ref_kv,
+            generator=generator, noise=noise,
+            use_fused_attention=self.use_fused_attention,
+        )
+        return out["output_image"]

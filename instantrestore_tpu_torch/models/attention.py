@@ -1,0 +1,122 @@
+"""Multi-head attention of the restoration UNet, including shared-image
+attention (counterpart of ``instantrestore_tpu/models/attention.py``).
+
+* ``capture_kv=True`` returns the head-split K/V projections [B, H, S, d]
+  (the frozen capture pass).
+* ``ref_kv=(ref_k, ref_v)`` [B, N, H, S, d] widens self-attention with the
+  references; invalid references are zeroed K/V rows, not masked.
+* ``ref_kv=IdentityRef(cache, ids)`` reads an onboarded identity cache by id
+  (warm serving; refs-only).
+* AdaIN of reference values onto the input values' statistics uses the
+  unbiased std with +1e-5 added to the std.
+
+``use_fused=True`` sends plain self-attention and the identity-cache branch
+to the kernels of ``ops/shared_attention.py``; the unfused branch is the JAX
+package's einsum softmax. A per-call ``(ref_k, ref_v)`` tuple (cold restore)
+takes the unfused branch: its kernel (the JAX package's
+``_shared_kvouter_bound_kernel``) is not ported yet. Cross-attention over the
+77 text tokens is always matmul + softmax.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from instantrestore_tpu_torch.ops.primitives import dense
+from instantrestore_tpu_torch.ops.shared_attention import (
+    IdentityRef,
+    flash_attention,
+    shared_attention_identity,
+)
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, S, h*d] -> [B, h, S, d] (a view)."""
+    b, s, inner = x.shape
+    return x.reshape(b, s, heads, inner // heads).transpose(1, 2)
+
+
+def _to_out_from_heads(p: dict, out_heads: torch.Tensor, *, lora_scaling: float) -> torch.Tensor:
+    """to_out applied to head-split [B, h, S, d] output (merge + linear)."""
+    b, h, s, d = out_heads.shape
+    return dense(p, out_heads.transpose(1, 2).reshape(b, s, h * d), lora_scaling=lora_scaling)
+
+
+def adain_stats(v: torch.Tensor, dim: int, eps: float = 1e-5):
+    """Mean and unbiased std (+eps on the std) over ``dim``, keepdim, fp32."""
+    vf = v.float()
+    return vf.mean(dim=dim, keepdim=True), vf.var(dim=dim, unbiased=True, keepdim=True).sqrt() + eps
+
+
+def widen_kv(k, v, ref_k, ref_v, *, use_adain: bool = False, train_input: bool = True):
+    """Concatenate per-head reference K/V [B, N, h, S, d] onto the input K/V
+    [B, h, S, d]: [B, h, (1 + N) * S, d], or [B, h, N * S, d] refs-only."""
+    b, n, heads, s, d = ref_k.shape
+    rk = ref_k.permute(0, 2, 1, 3, 4)
+    rv = ref_v.permute(0, 2, 1, 3, 4)
+    if use_adain:
+        style_mean, style_std = adain_stats(v, dim=2)       # [B, h, 1, d]
+        content_mean, content_std = adain_stats(rv, dim=3)  # [B, h, N, 1, d]
+        rvf = (rv.float() - content_mean) / content_std
+        rv = (rvf * style_std[:, :, None] + style_mean[:, :, None]).to(v.dtype)
+    rk = rk.reshape(b, heads, n * s, d).to(k.dtype)
+    rv = rv.reshape(b, heads, n * s, d).to(v.dtype)
+    if train_input:
+        return torch.cat([k, rk], dim=2), torch.cat([v, rv], dim=2)
+    return rk, rv
+
+
+def softmax_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Unfused attention: fp32 logits and softmax, P in v's dtype, fp32
+    accumulation, output in q's dtype."""
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1)
+    return (probs.to(v.dtype).float() @ v.float()).to(q.dtype)
+
+
+def attention(
+    p: dict,
+    hidden: torch.Tensor,
+    *,
+    heads: int,
+    encoder_hidden: Optional[torch.Tensor] = None,
+    ref_kv=None,
+    use_adain: bool = False,
+    train_input: bool = True,
+    capture_kv: bool = False,
+    lora_scaling: float = 1.0,
+    use_fused: bool = False,
+) -> Tuple[torch.Tensor, dict]:
+    """hidden [B, S, C]; returns (out [B, S, C], aux with 'kv' when
+    ``capture_kv``)."""
+    aux = {}
+    ctx = hidden if encoder_hidden is None else encoder_hidden
+    q = _split_heads(dense(p["to_q"], hidden, lora_scaling=lora_scaling), heads)
+    k = _split_heads(dense(p["to_k"], ctx, lora_scaling=lora_scaling), heads)
+    v = _split_heads(dense(p["to_v"], ctx, lora_scaling=lora_scaling), heads)
+    if capture_kv:
+        aux["kv"] = (k, v)
+    scale = q.shape[-1] ** -0.5
+
+    if isinstance(ref_kv, IdentityRef):
+        if train_input:
+            raise ValueError("the identity cache is refs-only (train_input=False)")
+        if use_fused:
+            out = shared_attention_identity(
+                q.contiguous(), k, v, ref_kv.cache, ref_kv.ids, scale=scale, use_adain=use_adain
+            )
+        else:
+            cache, ids = ref_kv.cache, ref_kv.ids
+            wk, wv = widen_kv(k, v, cache.rk[ids], cache.rv[ids], use_adain=use_adain,
+                              train_input=False)
+            out = softmax_attention(q, wk, wv, scale)
+    elif ref_kv is not None:
+        k, v = widen_kv(k, v, ref_kv[0], ref_kv[1], use_adain=use_adain, train_input=train_input)
+        out = softmax_attention(q, k, v, scale)
+    elif use_fused:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
+    else:
+        out = softmax_attention(q, k, v, scale)
+    return _to_out_from_heads(p["to_out"], out, lora_scaling=lora_scaling), aux

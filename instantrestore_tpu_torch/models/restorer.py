@@ -1,0 +1,237 @@
+"""The InstantRestore model: single-step personalized face restoration
+(counterpart of ``instantrestore_tpu/models/restorer.py``).
+
+One parameter bundle holds the LoRA'd restoration UNet/VAE; the frozen
+"original" nets that capture reference K/V are views of the same base
+weights (LoRA stripped, pretrained conv_in), or explicit trees in a serving
+bundle. This slice ports the warm-identity path: ``get_conditioning_kv``
+(onboarding) and ``restore_forward`` with precomputed reference K/V.
+
+Randomness: the forwards draw their standard-normal noise from an explicit
+``torch.Generator`` or take it ready-made through ``noise`` (keys ``latent``
+and ``diffusion``), which is how tests inject the noise JAX drew.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from instantrestore_tpu_torch.models import scheduler as sched
+from instantrestore_tpu_torch.models.lora import (
+    UNET_LORA_TARGETS,
+    VAE_LORA_TARGETS,
+    attach_lora,
+    merge_lora,
+    strip_lora,
+)
+from instantrestore_tpu_torch.models.unet import UNetConfig, init_unet_params, unet_apply
+from instantrestore_tpu_torch.models.vae import (
+    VAEConfig,
+    init_vae_params,
+    sample_latent,
+    vae_decode,
+    vae_encode,
+)
+from instantrestore_tpu_torch.ops.shared_attention import IdentityRef
+
+COND_TIMESTEP = 1      # noise level of the reference branch
+SERVING_TIMESTEP = 249  # fixed restore timestep at inference
+# random LoRA B ~ N(0, 1e-3) instead of peft's zeros, so the merged
+# restoration nets differ from the frozen capture nets as trained ones do
+LORA_B_STD = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class RestorerStatics:
+    """Static knobs of the restore forward."""
+
+    unet_cfg: UNetConfig = UNetConfig()
+    vae_cfg: VAEConfig = VAEConfig()
+    use_shared_attention: bool = True
+    use_adain: bool = False
+    train_input: bool = True
+    use_shortcuts: bool = False
+    unet_lora_scaling: float = 0.5  # alpha = r // 2 at training
+    vae_lora_scaling: float = 0.5
+    compute_dtype: Any = torch.bfloat16
+
+
+def init_restorer_params(
+    gen: torch.Generator,
+    statics: RestorerStatics,
+    *,
+    lora_rank_unet: int = 32,
+    lora_rank_vae: int = 32,
+    device=None,
+) -> Dict[str, Any]:
+    """Random-init bundle at any width, fp32, drawn from ``gen`` (whose
+    device must be ``device``): ``unet`` and ``vae`` with LoRA factors on the
+    reference's target modules, ``unet_orig_conv_in`` and the prompt
+    embedding ``caption_enc`` [1, 77, ctx]. LoRA B starts at N(0,
+    ``LORA_B_STD``) rather than peft's zeros."""
+    if statics.use_shortcuts:
+        raise NotImplementedError("random init of the VAE skip convs is not ported")
+    base_unet = init_unet_params(gen, statics.unet_cfg, device=device)
+    base_vae = init_vae_params(gen, statics.vae_cfg, device=device)
+    unet = attach_lora(base_unet, gen, lora_rank_unet, UNET_LORA_TARGETS,
+                       b_std=LORA_B_STD, device=device)
+    vae = attach_lora(base_vae, gen, lora_rank_vae, VAE_LORA_TARGETS,
+                      b_std=LORA_B_STD, device=device)
+    caption = torch.randn((1, 77, statics.unet_cfg.cross_attention_dim),
+                          generator=gen, device=device)
+    return {
+        "unet": unet,
+        "unet_orig_conv_in": dict(unet["conv_in"]),
+        "vae": vae,
+        "caption_enc": caption,
+    }
+
+
+def original_unet_view(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The frozen K/V-capture UNet: base weights with the pretrained conv_in
+    (or the bundle's explicit ``original_unet``)."""
+    if "original_unet" in params:
+        return params["original_unet"]
+    view = strip_lora(params["unet"])
+    view["conv_in"] = params["unet_orig_conv_in"]
+    return view
+
+
+def original_vae_view(params: Dict[str, Any]) -> Dict[str, Any]:
+    if "original_vae" in params:
+        return params["original_vae"]
+    return strip_lora(params["vae"])
+
+
+def serving_bundle(params: Dict[str, Any], statics: RestorerStatics) -> Dict[str, Any]:
+    """Inference bundle: LoRA merged into the restoration nets, the frozen
+    originals materialised explicitly for the capture branch."""
+    return {
+        "unet": merge_lora(params["unet"], statics.unet_lora_scaling),
+        "vae": merge_lora(params["vae"], statics.vae_lora_scaling),
+        "original_unet": original_unet_view(params),
+        "original_vae": original_vae_view(params),
+        "caption_enc": params["caption_enc"],
+    }
+
+
+def mask_ref_kv(kv, valid_indices: torch.Tensor, batch: int, n_refs: int):
+    """Captured head-split [B*N, H, S, d] K/V -> [B, N, H, S, d], zeroing
+    references at or beyond each sample's valid count."""
+    valid = valid_indices.to(kv[0][0].device)
+    mask = torch.arange(n_refs, device=valid.device)[None, :] < valid[:, None]
+    masked = []
+    for k, v in kv:
+        m = mask[:, :, None, None, None].to(k.dtype)
+        masked.append((k.reshape(batch, n_refs, *k.shape[1:]) * m,
+                       v.reshape(batch, n_refs, *v.shape[1:]) * m))
+    return masked
+
+
+def _noise(noise: Optional[Dict[str, torch.Tensor]], key: str, like: torch.Tensor,
+           generator: Optional[torch.Generator]) -> torch.Tensor:
+    if noise is not None and key in noise:
+        n = noise[key]
+        if n.shape != like.shape:
+            raise ValueError(f"noise[{key!r}] has shape {tuple(n.shape)}, expected {tuple(like.shape)}")
+        return n.to(device=like.device, dtype=like.dtype)
+    if generator is None:
+        raise ValueError(f"no noise[{key!r}] given: pass it or a torch.Generator")
+    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def get_conditioning_kv(
+    params: Dict[str, Any],
+    cond_images: torch.Tensor,
+    valid_indices: torch.Tensor,
+    *,
+    statics: RestorerStatics,
+    alphas_cumprod: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Dict[str, torch.Tensor]] = None,
+    use_fused_attention: bool = False,
+):
+    """Reference branch: cond_images [B, N, H, W, 3] in [-1, 1] -> 9 masked
+    (K, V) pairs [B, N, H, S, d] from the frozen nets at t=1. ``noise`` may
+    give ``latent`` and ``diffusion`` [B*N, h, w, 4]."""
+    b, n = cond_images.shape[:2]
+    flat = cond_images.reshape(b * n, *cond_images.shape[2:])
+    sf = statics.vae_cfg.scaling_factor
+    mean, logvar, _ = vae_encode(
+        original_vae_view(params), flat, cfg=statics.vae_cfg,
+        compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention,
+    )
+    z = sample_latent(mean, logvar, _noise(noise, "latent", mean, generator)) * sf
+    t1 = torch.full((b * n,), COND_TIMESTEP, dtype=torch.long, device=z.device)
+    zt = sched.add_noise(alphas_cumprod, z, _noise(noise, "diffusion", z, generator), t1)
+    caption = params["caption_enc"].expand(b * n, *params["caption_enc"].shape[1:])
+    _, aux = unet_apply(
+        original_unet_view(params), zt, t1, caption, cfg=statics.unet_cfg,
+        capture_kv=True, use_fused_attention=use_fused_attention,
+        compute_dtype=statics.compute_dtype,
+    )
+    return mask_ref_kv(aux["kv"], valid_indices, b, n)
+
+
+def restore_forward(
+    params: Dict[str, Any],
+    image: torch.Tensor,
+    *,
+    statics: RestorerStatics,
+    precomputed_ref_kv=None,
+    timestep: int = SERVING_TIMESTEP,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Dict[str, torch.Tensor]] = None,
+    use_fused_attention: bool = False,
+    debug_taps: bool = False,
+) -> Dict[str, Any]:
+    """Restore degraded images [B, H, W, 3] in [-1, 1] against precomputed
+    reference K/V (a list of 9 ``(k, v)`` [B, N, H, S, d] or ``IdentityRef``
+    entries; None runs without shared attention).
+
+    ``noise`` may give ``latent`` and ``diffusion`` [B, h, w, 4]. Returns
+    {output_image [B, H, W, 3] in [-1, 1], timestep, latent_pred, and taps
+    when ``debug_taps``: vae_enc_mean, vae_enc_logvar, latent, latent_noised,
+    unet_eps, x0, decoded, unet.<stage>}."""
+    b = image.shape[0]
+    abar = sched.make_alphas_cumprod(device=image.device)
+    sf = statics.vae_cfg.scaling_factor
+    mean, logvar, skip_acts = vae_encode(
+        params["vae"], image, cfg=statics.vae_cfg, lora_scaling=statics.vae_lora_scaling,
+        compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention,
+    )
+    z = sample_latent(mean, logvar, _noise(noise, "latent", mean, generator)) * sf
+
+    tb = torch.full((b,), timestep, dtype=torch.long, device=z.device)
+    zt = sched.add_noise(abar, z, _noise(noise, "diffusion", z, generator), tb)
+    caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
+    ref_kv = precomputed_ref_kv if statics.use_shared_attention else None
+    eps, aux = unet_apply(
+        params["unet"], zt, tb, caption, cfg=statics.unet_cfg, ref_kv=ref_kv,
+        use_adain=statics.use_adain, train_input=statics.train_input,
+        use_fused_attention=use_fused_attention, capture_taps=debug_taps,
+        lora_scaling=statics.unet_lora_scaling, compute_dtype=statics.compute_dtype,
+    )
+    x0 = sched.pred_original_sample(abar, eps, zt, tb)
+    out = vae_decode(
+        params["vae"], x0 / sf, cfg=statics.vae_cfg,
+        skip_acts=skip_acts if statics.use_shortcuts else None,
+        lora_scaling=statics.vae_lora_scaling, compute_dtype=statics.compute_dtype,
+        use_fused_attention=use_fused_attention,
+    )
+    result = {"output_image": torch.clamp(out, -1.0, 1.0), "timestep": timestep,
+              "latent_pred": x0}
+    if debug_taps:
+        taps = {"vae_enc_mean": mean, "vae_enc_logvar": logvar, "latent": z,
+                "latent_noised": zt, "unet_eps": eps, "x0": x0, "decoded": out}
+        for k, v in aux["taps"].items():
+            taps[f"unet.{k}"] = v
+        if ref_kv is not None:
+            for i, entry in enumerate(ref_kv):
+                if not isinstance(entry, IdentityRef):
+                    taps[f"ref_kv.{i}.k"], taps[f"ref_kv.{i}.v"] = entry
+        result["taps"] = taps
+    return result

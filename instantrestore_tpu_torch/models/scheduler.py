@@ -1,0 +1,40 @@
+"""Single-step DDPM math for the SD-Turbo restoration pass (counterpart of
+``instantrestore_tpu/models/scheduler.py``): the sd-turbo schedule (1000
+steps, scaled_linear betas in [0.00085, 0.012], epsilon prediction),
+forward diffusion and the closed-form x0 estimate."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def make_alphas_cumprod(
+    num_train_timesteps: int = 1000,
+    beta_start: float = 0.00085,
+    beta_end: float = 0.012,
+    device=None,
+) -> torch.Tensor:
+    """Cumulative alpha-bar table [T] in fp32 (computed in float64)."""
+    betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_train_timesteps,
+                        dtype=np.float64) ** 2
+    abar = np.cumprod(1.0 - betas).astype(np.float32)
+    return torch.from_numpy(abar).to(device)
+
+
+def _per_sample(abar_t: torch.Tensor, ndim: int) -> torch.Tensor:
+    return abar_t.reshape(abar_t.shape[0], *([1] * (ndim - 1)))
+
+
+def add_noise(alphas_cumprod, sample, noise, timesteps) -> torch.Tensor:
+    """x_t = sqrt(abar_t) * x0 + sqrt(1 - abar_t) * noise; ``timesteps`` [B]."""
+    abar = _per_sample(alphas_cumprod[timesteps].to(sample.dtype), sample.ndim)
+    return torch.sqrt(abar) * sample + torch.sqrt(1.0 - abar) * noise
+
+
+def pred_original_sample(alphas_cumprod, model_output, sample, timesteps) -> torch.Tensor:
+    """x0 = (x_t - sqrt(1 - abar_t) * eps) / sqrt(abar_t), in fp32, cast back
+    to the sample dtype."""
+    abar = _per_sample(alphas_cumprod[timesteps].float(), sample.ndim)
+    x0 = (sample.float() - torch.sqrt(1.0 - abar) * model_output.float()) / torch.sqrt(abar)
+    return x0.to(sample.dtype)

@@ -1,0 +1,36 @@
+"""The PyTorch port stands alone: no file of ``instantrestore_tpu_torch/``
+nor ``chip_smoke.py`` imports JAX or anything of the JAX package."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "instantrestore_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "instantrestore_tpu")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_the_rule_itself():
+    assert _forbidden("jax.numpy") and _forbidden("instantrestore_tpu.ops.primitives")
+    assert _forbidden("instantrestore_tpu")
+    assert not _forbidden("instantrestore_tpu_torch.ops.primitives")
+    assert not _forbidden("instantrestore_tpu_torch")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    bad = sorted({m for m in _imported_modules(path) if _forbidden(m)})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
