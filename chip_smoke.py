@@ -10,16 +10,34 @@
    bf16, held against its plain PyTorch version (max-abs error within a
    stated tolerance) and timed beside the plain version, one PyTorch
    library call on the same inputs (scaled_dot_product_attention, timed
-   here only) and the card's bound for the same work;
-4. slice phase: random full-width SD-Turbo weights (seeded), LoRA rank 32
+   here only) and the card's bound for the same work. shared_flash_bound
+   runs refs-only and with the input segment, with the AdaIN affine and one
+   zeroed reference, plus an odd-N identity-cache row; the per-call paired
+   route (INSTANTRESTORE_ATTN_ALGO=kv_outer_bound_paired) runs through the
+   identity kernel;
+4. warm phase: random full-width SD-Turbo weights (seeded), LoRA rank 32
    merged by serving_bundle, bf16; onboards 16 identities x 4 uint8 512^2
    references and restores batch 16 a few times. Checks the output
    ([16, 512, 512, 3] and finite; restore clamps it to [-1, 1], so the
-   range holds by construction and is not checked), the kernel launch counts of the
-   main path (9 + 9 per restore, 17 flash launches per onboarded identity),
-   agreement with the unfused path on two samples, and that replacing one
-   identity's references changes exactly that identity's outputs;
-5. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   range holds by construction and is not checked), the kernel launch
+   counts (9 + 9 per restore, 17 flash launches per onboarded identity),
+   agreement with the unfused path on two samples; prints bound slack and a
+   torch.profiler breakdown;
+5. cold phase: restore_cold of the same batch with each sample's identity
+   references re-encoded in the call (64 references captured in one pass);
+   checks launches per cold restore (9 shared_flash_bound, 0
+   shared_identity, 26 flash_bound), output shape and finiteness, agreement
+   with the unfused path on two samples and with the warm restore of the
+   same references and noise; prints latency, faces/sec, peak memory and a
+   profile;
+6. other paths at reduced batch: a train_input engine (warm restore through
+   shared_flash_bound with its input segment), restore_forward_multistep
+   (749, 499, 249), a cold restore under kv_outer_bound_paired (the identity
+   kernel on per-call K/V; agrees with the default algorithm), and
+   Predictor.predict_batch; each checks its launch counts and output;
+7. replacing one identity's references changes exactly its outputs;
+8. prints {"kernels": [...]} (launches summed over the paths of 4-7) and,
+   last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository beside it.
@@ -38,8 +56,10 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3 rate
 BATCH, N_IDENT, N_REFS, RES = 16, 16, 4, 512
 RESTORE_RUNS = 3
-# (heads, tokens, launches per restore) of the main path at 512 px, head dim 64
+# (heads, tokens, launches per restore) of the main path at 512 px, head dim 64:
+# the warm restore's shared_identity and the cold restore's shared_flash_bound
 SHARED_SHAPES = [(20, 256, 3), (10, 1024, 3), (5, 4096, 3)]
+ODD_SHAPE = (10, 1024)  # the odd-N and per-call paired rows run at this layer
 FLASH_SHAPES = [(5, 4096, 64, 2), (10, 1024, 64, 2), (20, 256, 64, 2), (20, 64, 64, 1),
                 (1, 4096, 512, 2)]
 
@@ -112,6 +132,17 @@ def kernel_phase(card: str):
 
     results = []
 
+    def widened(rk, rv, aff, k_in=None, v_in=None, include_input=False):
+        """K/V as the kernel sees them (bf16 affine), for the library call."""
+        b, n, h, s, d = rk.shape
+        a = aff.to(rv.dtype).float()
+        keys = rk.permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d)
+        vals = (rv.permute(0, 2, 1, 3, 4).float() * a[:, :, :, 0, None, :]
+                + a[:, :, :, 1, None, :]).to(rv.dtype).reshape(b, h, n * s, d)
+        if include_input:
+            keys, vals = torch.cat([k_in, keys], dim=2), torch.cat([v_in, vals], dim=2)
+        return keys.contiguous(), vals.contiguous()
+
     # kernel 1: identity-cached shared attention (ids shuffled, with repeats)
     ids = torch.tensor([3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3], device=dev)
     rows = []
@@ -130,9 +161,7 @@ def kernel_phase(card: str):
         plain = lambda: sa.shared_identity_plain(q, rk, rv, aff, cache.kmax, ids, scale=scale)
         ref = plain()
         err, tol, rel_rms = compare(f"shared_identity H={h} S={s}", out, ref)
-        keys = rk[ids].permute(0, 2, 1, 3, 4).reshape(BATCH, h, N_REFS * s, d).contiguous()
-        vals = (rv[ids].permute(0, 2, 1, 3, 4).float() * vs[:, :, :, None]
-                + vh[:, :, :, None]).to(bf).reshape(BATCH, h, N_REFS * s, d).contiguous()
+        keys, vals = widened(rk[ids], rv[ids], aff)
         lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
         n_keys = N_REFS * s
         uniq = int(torch.unique(ids).numel())
@@ -169,6 +198,100 @@ def kernel_phase(card: str):
         torch.cuda.empty_cache()
     results.append(("flash_attention_bound", "instantrestore_tpu_torch/csrc/flash_bound.cu",
                     "instantrestore_tpu/ops/shared_attention.py:174", rows))
+
+    # kernel 3: shared attention over [input |] per-call references; a cold
+    # restore launches the refs-only rows, a train_input model the others
+    rows = []
+    for h, s, per_restore in SHARED_SHAPES:
+        d, scale = 64, 64 ** -0.5
+        q, k_in, v_in = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
+        rk, rv = rnd(BATCH, N_REFS, h, s, d), rnd(BATCH, N_REFS, h, s, d)
+        rk[1, N_REFS - 1] = 0  # a masked reference: zeroed, still attended
+        rv[1, N_REFS - 1] = 0
+        vs, vh = sa.adain_affine(v_in, rv)
+        aff = torch.stack([vs, vh], dim=3).contiguous()
+        for inc in (False, True):
+            call = lambda inc=inc: sa.shared_flash_attention(q, k_in, v_in, rk, rv, scale=scale,
+                                                             v_affine=(vs, vh), include_input=inc)
+            out = call()
+            torch.cuda.synchronize()
+            kmax = sa.key_norm_max(rk, (1, 3))
+            if inc:
+                kmax = torch.maximum(kmax, sa.key_norm_max(k_in, 2))
+            plain = lambda inc=inc, kmax=kmax: sa.shared_flash_bound_plain(
+                q, k_in, v_in, rk, rv, aff, kmax, scale=scale, include_input=inc)
+            ref = plain()
+            err, tol, rel_rms = compare(f"shared_flash_bound H={h} S={s} input={inc}", out, ref)
+            keys, vals = widened(rk, rv, aff, k_in, v_in, inc)
+            lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
+            n_keys = (N_REFS + inc) * s
+            nbytes = (2 * BATCH * h * s * d * 2 + inc * 2 * BATCH * h * s * d * 2
+                      + 2 * BATCH * N_REFS * h * s * d * 2 + BATCH * h * N_REFS * 2 * d * 4
+                      + BATCH * h * 4)
+            b_ms, b_by = bound(4.0 * BATCH * h * s * n_keys * d, nbytes)
+            rows.append(dict(heads=h, tokens=s, keys=n_keys, input=inc,
+                             per_restore=0 if inc else per_restore,
+                             max_abs_err=err, tol=tol, rel_rms=rel_rms,
+                             ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
+                             library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
+            del out, ref, keys, vals
+        if (h, s) == ODD_SHAPE:
+            # row 1b: the per-call paired route runs the identity kernel
+            call = lambda: sa.shared_flash_attention(q, k_in, v_in, rk, rv, scale=scale,
+                                                     v_affine=(vs, vh), include_input=False,
+                                                     algo="kv_outer_bound_paired")
+            out = call()
+            torch.cuda.synchronize()
+            rows_b = torch.arange(BATCH, device=dev)
+            kmax = sa.key_norm_max(rk, (1, 3))
+            plain = lambda: sa.shared_identity_plain(q, rk, rv, aff, kmax, rows_b, scale=scale)
+            ref = plain()
+            err, tol, rel_rms = compare(f"paired route H={h} S={s}", out, ref)
+            keys, vals = widened(rk, rv, aff)
+            lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
+            nbytes = (2 * BATCH * h * s * d * 2 + 2 * BATCH * N_REFS * h * s * d * 2
+                      + BATCH * h * N_REFS * 2 * d * 4 + BATCH * h * 4 + BATCH * 8)
+            b_ms, b_by = bound(4.0 * BATCH * h * s * N_REFS * s * d, nbytes)
+            results[0][3].append(dict(heads=h, tokens=s, keys=N_REFS * s,
+                                      route="per-call paired (kv_outer_bound_paired)",
+                                      per_restore=0, max_abs_err=err, tol=tol, rel_rms=rel_rms,
+                                      ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
+                                      library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
+            del out, ref, keys, vals
+        del q, k_in, v_in, rk, rv, aff
+        torch.cuda.empty_cache()
+
+    # odd N: the identity cache read by id through the same kernel
+    h, s = ODD_SHAPE
+    d, scale, n_odd = 64, 64 ** -0.5, N_REFS - 1
+    q, v_in = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
+    (cache,) = sa.build_identity_kv_cache([(rnd(N_IDENT, n_odd, h, s, d),
+                                            rnd(N_IDENT, n_odd, h, s, d))])
+    call = lambda: sa.shared_attention_identity(q, None, v_in, cache, ids, scale=scale,
+                                                use_adain=True)
+    out = call()
+    torch.cuda.synchronize()
+    vs, vh = sa.adain_affine_from_stats(v_in, cache.content_mean[ids], cache.content_std[ids])
+    aff = torch.stack([vs, vh], dim=3).contiguous()
+    kmax = cache.kmax[ids]
+    plain = lambda: sa.shared_flash_bound_plain(q, None, None, cache.rk, cache.rv, aff, kmax, ids,
+                                                scale=scale, include_input=False)
+    ref = plain()
+    err, tol, rel_rms = compare(f"shared_flash_bound odd N={n_odd} H={h} S={s}", out, ref)
+    keys, vals = widened(cache.rk[ids], cache.rv[ids], aff)
+    lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
+    uniq = int(torch.unique(ids).numel())
+    nbytes = (2 * BATCH * h * s * d * 2 + 2 * uniq * n_odd * h * s * d * 2
+              + BATCH * h * n_odd * 2 * d * 4 + BATCH * h * 4 + BATCH * 8)
+    b_ms, b_by = bound(4.0 * BATCH * h * s * n_odd * s * d, nbytes)
+    rows.append(dict(heads=h, tokens=s, keys=n_odd * s, route=f"identity cache, N={n_odd}",
+                     per_restore=0, max_abs_err=err, tol=tol, rel_rms=rel_rms,
+                     ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
+                     library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
+    del q, v_in, cache, out, ref, keys, vals
+    torch.cuda.empty_cache()
+    results.append(("shared_flash_bound", "instantrestore_tpu_torch/csrc/shared_flash_bound.cu",
+                    "instantrestore_tpu/ops/shared_attention.py:429", rows))
 
     for name, _, _, rows in results:
         for r in rows:
@@ -228,8 +351,8 @@ def measure_slack(engine, images, ids, noise):
     return max(r[2] for r in records)
 
 
-def profile_restore(engine, images, ids, noise, card: str):
-    """Device time of one restore by kernel, from torch.profiler."""
+def profile_run(fn, what: str, card: str):
+    """Device time of one call of ``fn`` by kernel, from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -237,7 +360,7 @@ def profile_restore(engine, images, ids, noise, card: str):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.restore(images, ids, noise=noise)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -249,14 +372,43 @@ def profile_restore(engine, images, ids, noise, card: str):
     if busy == 0:
         print("profiler: no device time recorded")
         return
-    print(f"profile of one restore [{card}]: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
+    print(f"profile of {what} [{card}]: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
           f"(profiler on); kernels by device time:")
     for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t:8.2f} ms {t / busy * 100:5.1f}%  x{cnt:<4d} {name[:110]}")
 
 
-def slice_phase(card: str):
-    """The warm-identity serving path at full width; returns launch counts."""
+KERNEL_NAMES = ("shared_identity_attention", "flash_attention_bound", "shared_flash_bound")
+
+
+def launch_counts():
+    """Launches since the last reset, by kernel name."""
+    from instantrestore_tpu_torch.ops import shared_attention as sa
+
+    return dict(zip(KERNEL_NAMES, (sa.shared_identity.launches, sa.flash_attention.launches,
+                                   sa.shared_flash_bound.launches)))
+
+
+def check_launches(failures, what: str, got: dict, runs: int, **per_run):
+    """Each kernel launched ``per_run[kernel] * runs`` times (absent: 0)."""
+    want = {k: per_run.get(k, 0) * runs for k in KERNEL_NAMES}
+    print(f"launches, {what}: {got}")
+    if got != want:
+        failures.append(f"{what}: launches {got}, expected {want}")
+
+
+def add_counts(total: dict, got: dict):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def mean_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().mean())
+
+
+def warm_phase(card: str):
+    """The warm-identity serving path at full width; returns its context
+    (engine, inputs, outputs) and launch counts."""
     import torch
 
     from instantrestore_tpu_torch.inference.serving import ServingEngine
@@ -285,6 +437,9 @@ def slice_phase(card: str):
     lat = RES // 8
     noise = {k: torch.randn((BATCH, lat, lat, 4), generator=host).to(dev)
              for k in ("latent", "diffusion")}
+    # explicit onboarding noise, so that the cold phase can reuse it
+    onboard_noise = {k: torch.randn((N_IDENT, N_REFS, lat, lat, 4), generator=host).to(dev)
+                     for k in ("latent", "diffusion")}
 
     # warm-up: a one-identity onboarding takes cuDNN's first-call set-up, so
     # that the onboarding time below is a steady figure
@@ -295,11 +450,12 @@ def slice_phase(card: str):
     sa.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine.onboard(refs, generator=torch.Generator(device=dev).manual_seed(2))
+    engine.onboard(refs, noise=onboard_noise)
     torch.cuda.synchronize()
     onboard_s = time.perf_counter() - t0
-    onboard_counts = (sa.shared_attention_identity.launches, sa.flash_attention.launches)
+    onboard_counts = launch_counts()
 
+    sa.reset_launch_counts()
     lat_s, out = [], None
     for _ in range(RESTORE_RUNS + 1):  # the first run includes cuDNN's first-call set-up
         torch.cuda.synchronize()
@@ -307,17 +463,16 @@ def slice_phase(card: str):
         out = engine.restore(images, ids, noise=noise)
         torch.cuda.synchronize()
         lat_s.append(time.perf_counter() - t0)
-    restore_counts = (sa.shared_attention_identity.launches - onboard_counts[0],
-                      sa.flash_attention.launches - onboard_counts[1])
-    total_counts = (sa.shared_attention_identity.launches, sa.flash_attention.launches)
+    restore_counts = launch_counts()
     n_restores = RESTORE_RUNS + 1
     failures = []
-    print(f"launches: onboarding {onboard_counts}, {n_restores} restores {restore_counts} "
-          "(shared_identity, flash_bound)")
-    if onboard_counts != (0, 17 * N_IDENT):
-        failures.append(f"onboarding launches {onboard_counts}, expected (0, {17 * N_IDENT})")
-    if restore_counts != (9 * n_restores, 9 * n_restores):
-        failures.append(f"restore launches {restore_counts}, expected 9 + 9 per restore")
+    check_launches(failures, f"onboarding {N_IDENT} identities", onboard_counts, N_IDENT,
+                   flash_attention_bound=17)
+    check_launches(failures, f"{n_restores} warm restores", restore_counts, n_restores,
+                   shared_identity_attention=9, flash_attention_bound=9)
+    total = {}
+    add_counts(total, onboard_counts)
+    add_counts(total, restore_counts)
     if tuple(out.shape) != (BATCH, RES, RES, 3):
         failures.append(f"output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all():
@@ -344,22 +499,182 @@ def slice_phase(card: str):
         failures.append("fused path disagrees with the unfused path")
 
     measure_slack(engine, images, ids, noise)
-    profile_restore(engine, images, ids, noise, card)
+    profile_run(lambda: engine.restore(images, ids, noise=noise), "one restore", card)
+    if failures:
+        raise AssertionError("warm phase failed: " + "; ".join(failures))
+    return dict(engine=engine, refs=refs, images=images, ids=ids, noise=noise,
+                onboard_noise=onboard_noise, out=out, host=host), total
 
-    # ---- replacing one identity's refs changes exactly its samples ----
+
+def _rows(noise, n: int):
+    """The first n samples' entries of a restore's noise dict."""
+    return {k: v[: n * N_REFS] if k.startswith("cond_") else v[:n] for k, v in noise.items()}
+
+
+def cold_phase(card: str, w):
+    """restore_cold of the warm phase's batch, each sample's identity
+    references re-encoded in the call; returns the noise, output and counts."""
+    import torch
+
+    from instantrestore_tpu_torch.ops import shared_attention as sa
+
+    engine, ids, images = w["engine"], w["ids"], w["images"]
+    dev_ids = ids.to(engine.device)
+    cond = w["refs"][ids]  # [B, N, 512, 512, 3] uint8: the identities' own references
+    lat = RES // 8
+    # the onboarding noise of each sample's identity, so that cold equals warm
+    noise = dict(w["noise"])
+    for k, v in w["onboard_noise"].items():
+        noise[f"cond_{k}"] = v[dev_ids].reshape(BATCH * N_REFS, lat, lat, 4)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.reset_launch_counts()
+    lat_s, out = [], None
+    for _ in range(RESTORE_RUNS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.restore_cold(images, cond, noise=noise)
+        torch.cuda.synchronize()
+        lat_s.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    failures = []
+    check_launches(failures, f"{RESTORE_RUNS + 1} cold restores", counts, RESTORE_RUNS + 1,
+                   shared_flash_bound=9, flash_attention_bound=26)
+    if tuple(out.shape) != (BATCH, RES, RES, 3):
+        failures.append(f"cold output shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        failures.append("non-finite cold output")
+    steady = statistics.median(lat_s[1:])
+    print(f"cold restore batch {BATCH} x {N_REFS} refs re-encoded: first {lat_s[0] * 1e3:.1f} ms, "
+          f"steady median {steady * 1e3:.1f} ms over {RESTORE_RUNS} runs "
+          f"{[round(x * 1e3, 1) for x in lat_s[1:]]} [{card}]")
+    print(f"cold faces/sec: {BATCH / steady:.2f} (batch {BATCH}, {N_REFS} refs, 512 px, bf16) "
+          f"[{card}]")
+    print(f"cold peak device memory: {peak:.2f} GiB")
+
+    engine.use_fused_attention = False
+    ref = engine.restore_cold(images[:2], cond[:2], noise=_rows(noise, 2))
+    engine.use_fused_attention = True
+    unfused = mean_abs(out[:2], ref)
+    warm = mean_abs(out, w["out"])
+    print(f"cold fused vs unfused attention (2 samples): max-abs "
+          f"{float((out[:2].float() - ref.float()).abs().max()):.4f}, mean-abs {unfused:.5f}")
+    print(f"cold vs warm restore of the same references and noise ({BATCH} samples): max-abs "
+          f"{float((out.float() - w['out'].float()).abs().max()):.4f}, mean-abs {warm:.5f}")
+    if unfused > 2e-2:
+        failures.append("cold fused path disagrees with the unfused path")
+    if warm > 2e-2:
+        failures.append("cold restore disagrees with the warm restore")
+    profile_run(lambda: engine.restore_cold(images, cond, noise=noise), "one cold restore", card)
+    if failures:
+        raise AssertionError("cold phase failed: " + "; ".join(failures))
+    return dict(cond=cond, noise=noise, out=out), counts
+
+
+def other_paths(card: str, w, cold):
+    """The train_input engine, multistep, the paired algorithm and the
+    Predictor at reduced batch; returns their summed launch counts."""
+    import dataclasses
+
+    import torch
+
+    from instantrestore_tpu_torch.inference.predictor import Predictor
+    from instantrestore_tpu_torch.inference.serving import ServingEngine
+    from instantrestore_tpu_torch.models.restorer import restore_forward_multistep
+    from instantrestore_tpu_torch.ops import shared_attention as sa
+    from instantrestore_tpu_torch.ops.image_ops import preprocess
+
+    engine, images, refs = w["engine"], w["images"], w["refs"]
+    dev = engine.device
+    failures, total = [], {}
+
+    def finite(what, out, shape):
+        if tuple(out.shape) != shape or not torch.isfinite(torch.as_tensor(out)).all():
+            failures.append(f"{what}: output of shape {tuple(out.shape)}, or not finite")
+
+    # 1. a train_input model served warm: gather + the input segment
+    statics = dataclasses.replace(engine.statics, train_input=True)
+    ti = ServingEngine(engine.params, statics, device=dev)
+    sa.reset_launch_counts()
+    ti.onboard(refs[:4], generator=torch.Generator(device=dev).manual_seed(4))
+    noise4 = {k: v[:4] for k, v in w["noise"].items()}
+    out = ti.restore(images[:4], torch.arange(4), noise=noise4)
+    counts = launch_counts()
+    check_launches(failures, "train_input engine: onboard 4 + restore batch 4", counts, 1,
+                   flash_attention_bound=17 * 4 + 9, shared_flash_bound=9)
+    add_counts(total, counts)
+    finite("train_input restore", out, (4, RES, RES, 3))
+    ti.use_fused_attention = False
+    ref = ti.restore(images[:2], torch.arange(2), noise={k: v[:2] for k, v in noise4.items()})
+    diff = mean_abs(out[:2], ref)
+    print(f"train_input restore, fused vs unfused (2 samples): mean-abs {diff:.5f}")
+    if diff > 2e-2:
+        failures.append("train_input fused path disagrees with the unfused path")
+    del ti
+
+    # 2. multistep: one capture, three DDIM steps over the same references
+    pre = preprocess(images[:4].to(dev).float() / 255.0, RES)
+    conds = preprocess(cold["cond"][:4].to(dev).reshape(4 * N_REFS, RES, RES, 3).float() / 255.0,
+                       RES).reshape(4, N_REFS, RES, RES, 3)
+    sa.reset_launch_counts()
+    with torch.no_grad():
+        out = restore_forward_multistep(engine.params, pre, conds, statics=engine.statics,
+                                        timesteps=(749, 499, 249),
+                                        generator=torch.Generator(device=dev).manual_seed(5),
+                                        use_fused_attention=True)["output_image"]
+    counts = launch_counts()
+    check_launches(failures, "multistep (749, 499, 249), batch 4", counts, 1,
+                   shared_flash_bound=27, flash_attention_bound=17 + 1 + 3 * 7 + 1)
+    add_counts(total, counts)
+    finite("multistep", out, (4, RES, RES, 3))
+
+    # 3. the per-call paired algorithm (row 1b) on a cold restore
+    os.environ["INSTANTRESTORE_ATTN_ALGO"] = "kv_outer_bound_paired"
+    try:
+        sa.reset_launch_counts()
+        out = engine.restore_cold(images[:2], cold["cond"][:2], noise=_rows(cold["noise"], 2))
+        counts = launch_counts()
+    finally:
+        del os.environ["INSTANTRESTORE_ATTN_ALGO"]
+    check_launches(failures, "cold restore batch 2, kv_outer_bound_paired", counts, 1,
+                   shared_identity_attention=9, flash_attention_bound=26)
+    add_counts(total, counts)
+    diff = mean_abs(out, cold["out"][:2])
+    print(f"kv_outer_bound_paired vs kv_outer_bound cold restore (2 samples): mean-abs {diff:.5f}")
+    if diff > 2e-2:
+        failures.append("the paired algorithm disagrees with the default one")
+
+    # 4. the Predictor, array in and out
+    pred = Predictor(params=engine.params, statics=engine.statics, device=dev, seed=6)
+    sa.reset_launch_counts()
+    arr = pred.predict_batch(pre[:2], conds[:2])
+    counts = launch_counts()
+    check_launches(failures, "Predictor.predict_batch, batch 2", counts, 1,
+                   shared_flash_bound=9, flash_attention_bound=26)
+    add_counts(total, counts)
+    finite("Predictor.predict_batch", arr, (2, RES, RES, 3))
+    if failures:
+        raise AssertionError("other paths failed: " + "; ".join(failures))
+    return total
+
+
+def replace_identity(w):
+    """Replacing one identity's refs changes exactly its samples."""
+    import torch
+
+    engine, ids, images, out = w["engine"], w["ids"], w["images"], w["out"]
     slot = int(ids[0])
-    new_refs = torch.randint(0, 256, (N_REFS, RES, RES, 3), dtype=torch.uint8, generator=host)
-    engine.onboard_one(new_refs, slot, generator=torch.Generator(device=dev).manual_seed(3))
-    out2 = engine.restore(images, ids, noise=noise)
+    new_refs = torch.randint(0, 256, (N_REFS, RES, RES, 3), dtype=torch.uint8, generator=w["host"])
+    engine.onboard_one(new_refs, slot, generator=torch.Generator(device=engine.device).manual_seed(3))
+    out2 = engine.restore(images, ids, noise=w["noise"])
     per_sample = (out2.float() - out.float()).abs().flatten(1).amax(dim=1).cpu()
     hit = ids == slot
     print(f"identity {slot} replaced: max-abs change on its samples "
           f"{per_sample[hit].tolist()}, on the others {float(per_sample[~hit].max()):.2e}")
     if float(per_sample[hit].min()) < 1e-2 or float(per_sample[~hit].max()) > 1e-3:
-        failures.append("replacing an identity did not change exactly its outputs")
-    if failures:
-        raise AssertionError("slice phase failed: " + "; ".join(failures))
-    return total_counts
+        raise AssertionError("replacing an identity did not change exactly its outputs")
 
 
 def main() -> int:
@@ -383,8 +698,15 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     results = kernel_phase(card)
-    launches = slice_phase(card)
-    counts = {"shared_identity_attention": launches[0], "flash_attention_bound": launches[1]}
+    warm, counts = warm_phase(card)
+    cold, cold_counts = cold_phase(card, warm)
+    add_counts(counts, cold_counts)
+    add_counts(counts, other_paths(card, warm, cold))
+    replace_identity(warm)
+    print(f"launches over the paths: {counts}")
+    missing = [name for name in KERNEL_NAMES if counts.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a path: {missing}")
     kernels = []
     for name, source, replaces, rows in results:
         b_ms = sum(r["bound_ms"] * r["per_restore"] for r in rows)
@@ -393,7 +715,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # times are per restore: each shape's time times its launches per restore
+            # times are per restore (warm for shared_identity_attention and
+            # flash_attention_bound, cold for shared_flash_bound): each
+            # shape's time times its launches per restore
             "ms": sum(r["ms"] * r["per_restore"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["per_restore"] for r in rows),
             "bound_ms": b_ms,

@@ -1,5 +1,5 @@
-// Bound-softmax attention tile shared by the two serving kernels
-// (flash_bound.cu, shared_identity.cu). Plain C interface, no PyTorch
+// Bound-softmax attention tile shared by the serving kernels (flash_bound.cu,
+// shared_identity.cu, shared_flash_bound.cu). Plain C interface, no PyTorch
 // headers: built with nvcc -gencode arch=compute_90a,code=sm_90a and loaded
 // through ctypes (ops/_build.py).
 //
@@ -15,8 +15,8 @@
 // accumulator are fp32.
 //
 // Per key tile: (1) all threads copy K and V tiles to shared memory with
-// 16-byte loads (the identity kernel applies its per-(sample, head, ref,
-// channel) AdaIN affine to V here); (2) each warp computes its 16x16 score
+// 16-byte loads (the shared kernels apply their per-(sample, head, ref,
+// channel) AdaIN affine to reference V here); (2) each warp computes its 16x16 score
 // fragments S = Qs K^T with bf16 WMMA (mma.sync) and stores them as fp32;
 // (3) every thread turns kColsPerThread scores of one query row into bf16
 // probabilities and adds them to its row sum; (4) each warp adds P V into
@@ -47,8 +47,12 @@ constexpr float kBoundExpShift = 64.0f;
 // unscaled fp32 q norm (JAX _flash_bound_kernel).
 // kIdentity: refs-only shared attention reading an identity cache by id,
 // row sum over fp32 p, bound from the scaled bf16 q norm, AdaIN affine on V
-// (JAX _shared_kvouter_bound_paired_kernel).
-enum class Mode { kFlash, kIdentity };
+// in fp32 (JAX _shared_kvouter_bound_paired_kernel).
+// kShared: shared attention over [input |] N references, read per call
+// (row = b) or from an identity cache by id (row = ids[b]); kFlash's bound and
+// row sum, AdaIN affine with bf16 scale and shift on the reference segments
+// only (JAX _shared_kvouter_bound_kernel).
+enum class Mode { kFlash, kIdentity, kShared };
 
 template <int D, int BQ, int BK, int NW>
 struct TileCfg {
@@ -109,21 +113,27 @@ __device__ __forceinline__ void load8f(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// q, out: [B, H, Sq, D]. Keys and values of (b, h) are N segments of S rows:
-// segment n starts at ((row * N + n) * H + h) * S * D, with row = b (flash,
-// N = 1: k/v [B, H, S, D]) or row = ids[b] (identity: cache [I, N, H, S, D]).
-// kmax: [rows, H] max key norm. aff (identity): [B, H, N, 2, D] fp32 scale
-// and shift of V. qscale = scale * log2(e).
+// q, out: [B, H, Sq, D]. Keys and values of (b, h) are n_in input segments
+// (kShared with the input: k_in/v_in [B, H, S, D], first) followed by N
+// reference segments of S rows: reference n starts at
+// ((row * N + n) * H + h) * S * D in k/v, with row = b (flash, N = 1: k/v
+// [B, H, S, D]; kShared without ids: [B, N, H, S, D]) or row = ids[b]
+// (identity, and kShared with ids: cache [I, N, H, S, D]). kmax: max key
+// norm, [I, H] read at row (identity) or [B, H] read at b (flash, kShared).
+// aff (identity, kShared): [B, H, N, 2, D] fp32 scale and shift of the
+// reference V. qscale = scale * log2(e).
 template <Mode M, int D, int BQ, int BK, int NW>
 __global__ void __launch_bounds__(NW * 32)
 attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k_in,
+                 const __nv_bfloat16* __restrict__ v_in,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const float* __restrict__ kmax,
                  const float* __restrict__ aff,
                  const int* __restrict__ ids,
                  __nv_bfloat16* __restrict__ out,
-                 int H, int Sq, int S, int N, int I, float qscale) {
+                 int H, int Sq, int S, int N, int I, int n_in, float qscale) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kQOff);
@@ -139,7 +149,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t q_base = ((size_t)(b * H + h) * Sq + (size_t)blockIdx.x * BQ) * D;
 
   int row = b;
-  if constexpr (M == Mode::kIdentity) {
+  if (M != Mode::kFlash && ids != nullptr) {
     row = ids[b];
     if (row < 0 || row >= I) {  // an id outside the cache poisons its outputs
       for (int c = tid; c < BQ * D; c += Cfg::kThreads)
@@ -147,7 +157,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
       return;
     }
   }
-  const float kmax_bh = kmax[row * H + h];
+  const float kmax_bh = kmax[(M == Mode::kIdentity ? row : b) * H + h];
 
   // Q tile, pre-scaled in bf16 as the JAX kernels do (q * bf16(scale*log2e)),
   // and the per-row bound, from the thread group that owns the row.
@@ -179,9 +189,9 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     ss_raw += __shfl_xor_sync(0xffffffffu, ss_raw, off);
     ss_scaled += __shfl_xor_sync(0xffffffffu, ss_scaled, off);
   }
-  const float bound = (M == Mode::kFlash)
-                          ? sqrtf(ss_raw) * qscale * kmax_bh - kBoundExpShift
-                          : sqrtf(ss_scaled) * kmax_bh - kBoundExpShift;
+  const float bound = (M == Mode::kIdentity)
+                          ? sqrtf(ss_scaled) * kmax_bh - kBoundExpShift
+                          : sqrtf(ss_raw) * qscale * kmax_bh - kBoundExpShift;
 
   // fragments owned by this warp
   const int s_first = warp * Cfg::kSFrags;
@@ -197,26 +207,41 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   float lsum = 0.f;
 
   const int tiles_per_seg = S / BK;
-  const int n_tiles = N * tiles_per_seg;
+  const int n_tiles = (n_in + N) * tiles_per_seg;
   for (int t = 0; t < n_tiles; ++t) {
-    const int n = t / tiles_per_seg;
+    const int n = t / tiles_per_seg - n_in;  // reference index; -1 is the input
     const int j0 = (t % tiles_per_seg) * BK;
-    const size_t kv_base = ((((size_t)row * N + n) * H + h) * S + j0) * D;
 
-    // (1) K and V tiles -> shared memory
+    // (1) K and V tiles -> shared memory, with the AdaIN affine on reference
+    // V. kIdentity: fp32 scale and shift. kShared: scale and shift rounded to
+    // bf16, as the JAX kernel casts them, then one bf16 rounding of v * a + c
+    // computed in fp32; the JAX kernel rounds the product and the sum to bf16
+    // each, which differs by at most 1 bf16 ulp of the value.
+    const __nv_bfloat16* kt = k_in;
+    const __nv_bfloat16* vt = v_in;
+    size_t kv_base = (((size_t)b * H + h) * S + j0) * D;
     const float* a_vec = nullptr;
-    if constexpr (M == Mode::kIdentity) a_vec = aff + (((size_t)b * H + h) * N + n) * 2 * D;
+    if (n >= 0) {
+      kt = k;
+      vt = v;
+      kv_base = ((((size_t)row * N + n) * H + h) * S + j0) * D;
+      if constexpr (M != Mode::kFlash) a_vec = aff + (((size_t)b * H + h) * N + n) * 2 * D;
+    }
     for (int c = tid; c < BK * D / 8; c += Cfg::kThreads) {
       const int kr = c / (D / 8);
       const int kc = (c % (D / 8)) * 8;
       const size_t g = kv_base + (size_t)kr * D + kc;
-      *reinterpret_cast<uint4*>(Ks + kr * Cfg::kLdh + kc) = *reinterpret_cast<const uint4*>(k + g);
-      uint4 vraw = *reinterpret_cast<const uint4*>(v + g);
-      if constexpr (M == Mode::kIdentity) {
+      *reinterpret_cast<uint4*>(Ks + kr * Cfg::kLdh + kc) = *reinterpret_cast<const uint4*>(kt + g);
+      uint4 vraw = *reinterpret_cast<const uint4*>(vt + g);
+      if (M != Mode::kFlash && a_vec != nullptr) {
         float f[8], sc[8], sh[8];
         unpack8(vraw, f);
         load8f(a_vec + kc, sc);
         load8f(a_vec + D + kc, sh);
+        if constexpr (M == Mode::kShared) {
+          unpack8(pack8(sc), sc);
+          unpack8(pack8(sh), sh);
+        }
 #pragma unroll
         for (int e = 0; e < 8; ++e) f[e] = f[e] * sc[e] + sh[e];
         vraw = pack8(f);
@@ -259,7 +284,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 8; ++e) p[e] = exp2f(p[e] - bound);
         const uint4 packed = pack8(p);
-        if constexpr (M == Mode::kFlash) unpack8(packed, p);  // sum what the product sees
+        if constexpr (M != Mode::kIdentity) unpack8(packed, p);  // sum what the product sees
 #pragma unroll
         for (int e = 0; e < 8; ++e) lsum += p[e];
         *reinterpret_cast<uint4*>(prow + c) = packed;
@@ -307,12 +332,15 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <Mode M, int D, int BQ, int BK, int NW>
-cudaError_t launch_attn(const void* q, const void* k, const void* v, const void* kmax,
-                        const void* aff, const void* ids, void* out, int B, int H, int Sq,
-                        int S, int N, int I, float qscale, void* stream) {
+cudaError_t launch_attn(const void* q, const void* k_in, const void* v_in, const void* k,
+                        const void* v, const void* kmax, const void* aff, const void* ids,
+                        void* out, int B, int H, int Sq, int S, int N, int I, int n_in,
+                        float qscale, void* stream) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   if (B <= 0 || H <= 0 || N <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 ||
-      B > 65535 || H > 65535)
+      B > 65535 || H > 65535 || n_in < 0 || n_in > 1 ||
+      (n_in == 1 && (k_in == nullptr || v_in == nullptr)) ||
+      (M == Mode::kIdentity && ids == nullptr) || (M != Mode::kFlash && aff == nullptr))
     return cudaErrorInvalidValue;
   auto kern = attn_tile_kernel<M, D, BQ, BK, NW>;
   cudaError_t err =
@@ -320,10 +348,11 @@ cudaError_t launch_attn(const void* q, const void* k, const void* v, const void*
   if (err != cudaSuccess) return err;
   const dim3 grid(Sq / BQ, H, B);
   kern<<<grid, Cfg::kThreads, Cfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_in),
+      static_cast<const __nv_bfloat16*>(v_in), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmax),
       static_cast<const float*>(aff), static_cast<const int*>(ids),
-      static_cast<__nv_bfloat16*>(out), H, Sq, S, N, I, qscale);
+      static_cast<__nv_bfloat16*>(out), H, Sq, S, N, I, n_in, qscale);
   return cudaGetLastError();
 }
 

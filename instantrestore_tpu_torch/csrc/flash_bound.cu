@@ -27,9 +27,11 @@ extern "C" int irt_flash_bound_bf16(const void* q, const void* k, const void* v,
   using irt::Mode;
   if (D == 64)
     return (int)irt::launch_attn<Mode::kFlash, 64, 64, 64, 4>(
-        q, k, v, kmax, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, qscale, stream);
+        q, nullptr, nullptr, k, v, kmax, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0, qscale,
+        stream);
   if (D == 512)
     return (int)irt::launch_attn<Mode::kFlash, 512, 32, 64, 8>(
-        q, k, v, kmax, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, qscale, stream);
+        q, nullptr, nullptr, k, v, kmax, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0, qscale,
+        stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,6 +31,6 @@ extern "C" int irt_shared_identity_bf16(const void* q, const void* rk, const voi
   using irt::Mode;
   if (D == 64)
     return (int)irt::launch_attn<Mode::kIdentity, 64, 64, 64, 4>(
-        q, rk, rv, kmax, aff, ids, out, B, H, Sq, S, N, I, qscale, stream);
+        q, nullptr, nullptr, rk, rv, kmax, aff, ids, out, B, H, Sq, S, N, I, 0, qscale, stream);
   return (int)cudaErrorInvalidValue;
 }

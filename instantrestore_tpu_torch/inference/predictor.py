@@ -1,0 +1,178 @@
+"""Predictor: the single and batch inference surface (counterpart of
+``instantrestore_tpu/inference/predictor.py``, the reference's test.py /
+gradio demo).
+
+Preprocess with LANCZOS resize, center crop and [-1, 1] normalisation, run
+one cold restore forward at timestep 249 against up to 4 references
+(missing ones padded by flipped copies), and optionally report the
+per-reference attention-mass percentages summed over the 9 shared layers.
+
+Not ported yet (ROADMAP.md): loading a checkpoint (``checkpoint_path``;
+pass a parameter bundle as ``params``) and FaceID conditioning
+(``condition_on_face_embeds``); both raise.
+
+Randomness comes from a ``torch.Generator`` seeded with ``seed``; ``predict``
+and ``predict_batch`` also take ready-made ``noise`` as ``restore_forward``
+does. PIL is imported only where images are read or written.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from instantrestore_tpu_torch import resolve_device
+from instantrestore_tpu_torch.convert import tree_to
+from instantrestore_tpu_torch.data.transforms import denormalize_pm1, infer_transform
+from instantrestore_tpu_torch.models.restorer import RestorerStatics, restore_forward
+
+
+def attention_mass_percentages(attn_probs: Sequence[Optional[torch.Tensor]], n_refs: int = 4,
+                               train_input: bool = False) -> List[float]:
+    """Per-reference mean attention mass summed over the shared layers'
+    probabilities [B, h, Sq, Skv], normalised to percentages (rounded to 3
+    decimals, the last one taking the remainder). With ``train_input`` the
+    first segment is the input image and is skipped. Layers without
+    probabilities (None) are skipped."""
+    means = np.zeros(n_refs)
+    offset = 1 if train_input else 0
+    for probs in attn_probs:
+        if probs is None:
+            continue
+        probs = torch.as_tensor(probs)
+        q = probs.shape[2]
+        for ref_idx in range(n_refs):
+            seg = probs[:, :, :, q * (ref_idx + offset): q * (ref_idx + offset + 1)]
+            means[ref_idx] += float(seg.float().mean())
+    total = means.sum()
+    normalized = [round(float(m / total) * 100, 3) for m in means]
+    normalized[-1] = round(100 - sum(normalized[:-1]), 3)
+    return normalized
+
+
+class Predictor:
+    """Holds the weights on the device and restores many images.
+
+    ``params`` is a parameter bundle (``init_restorer_params`` or
+    ``serving_bundle`` output, or a converted JAX tree), moved to ``device``
+    (CUDA unless asked otherwise) in ``dtype``. ``deterministic`` takes the
+    latent's mode instead of sampling it and reseeds the noise with ``seed``
+    on every ``predict``."""
+
+    def __init__(
+        self,
+        checkpoint_path: Optional[str] = None,
+        *,
+        params: Optional[Dict[str, Any]] = None,
+        statics: Optional[RestorerStatics] = None,
+        noise_timestep: int = 249,
+        dtype=torch.bfloat16,
+        use_fused_attention: Optional[bool] = None,
+        seed: int = 0,
+        resolution: int = 512,
+        deterministic: bool = False,
+        device=None,
+    ):
+        if checkpoint_path is not None:
+            raise NotImplementedError(
+                "checkpoint loading is not ported yet (ROADMAP.md Queue 1); pass params=")
+        if params is None:
+            raise ValueError("need params (checkpoint loading is not ported yet, ROADMAP.md)")
+        self.statics = statics or RestorerStatics()
+        if self.statics.condition_on_face_embeds:
+            raise NotImplementedError(
+                "FaceID conditioning (condition_on_face_embeds) is not ported yet (ROADMAP.md Queue 1)")
+        self.device = resolve_device(device)
+        # the frozen text tower never runs at inference; caption_enc suffices
+        params = {k: v for k, v in params.items() if k != "text_encoder"}
+        self.params = tree_to(params, self.device, dtype)
+        self.noise_timestep = noise_timestep
+        self.resolution = resolution
+        self.deterministic = deterministic
+        self._seed = seed
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if use_fused_attention is None:
+            use_fused_attention = self.device.type == "cuda"
+        self._fused = use_fused_attention
+
+    @torch.no_grad()
+    def _fwd(self, image, conds, valid, generator, save_attn: bool, noise):
+        return restore_forward(
+            self.params, image, conds, valid, statics=self.statics,
+            timestep=self.noise_timestep, save_attn_probs=save_attn,
+            sample_posterior=not self.deterministic, generator=generator, noise=noise,
+            use_fused_attention=self._fused and not save_attn,
+        )
+
+    # -- preprocessing --------------------------------------------------
+
+    @staticmethod
+    def prepare_image(img, resolution: int = 512) -> np.ndarray:
+        return infer_transform(img, resolution)
+
+    def prepare_conditioning_images(self, cond_imgs, max_refs: int = 4,
+                                    resolution: int = 512) -> Tuple[np.ndarray, int]:
+        """Up to ``max_refs`` references [N, res, res, 3]; missing ones are
+        copies of the given ones, every other copy flipped left-right."""
+        refs = [self.prepare_image(im, resolution) for im in cond_imgs[:max_refs]]
+        n_valid = len(refs)
+        for i in range(max_refs - n_valid):
+            refs.append(refs[i % n_valid][:, ::-1] if i % 2 == 0 else refs[i % n_valid])
+        return np.stack(refs), n_valid
+
+    # -- prediction -----------------------------------------------------
+
+    def predict(self, input_img, cond_imgs, *, return_attention: bool = False,
+                noise: Optional[Dict[str, torch.Tensor]] = None):
+        """One restoration of a PIL image against PIL references. Returns
+        (PIL image, attention percentages or None)."""
+        from PIL import Image
+
+        image = torch.from_numpy(self.prepare_image(input_img, self.resolution))[None]
+        conds, _ = self.prepare_conditioning_images(cond_imgs, resolution=self.resolution)
+        # padded references count as valid, as in the reference Predictor
+        valid = torch.full((1,), conds.shape[0], device=self.device)
+        generator = (torch.Generator(device=self.device).manual_seed(self._seed)
+                     if self.deterministic else self.generator)
+        out = self._fwd(image.to(self.device), torch.from_numpy(conds)[None].to(self.device),
+                        valid, generator, return_attention, noise)
+        pred = out["output_image"][0].float().cpu().numpy()
+        pil = Image.fromarray((denormalize_pm1(pred) * 255).astype(np.uint8))
+        attn = None
+        if return_attention:
+            attn = attention_mass_percentages(out["attn_probs"], n_refs=conds.shape[0],
+                                              train_input=self.statics.train_input)
+        return pil, attn
+
+    def predict_batch(self, images, conds, valid=None, *,
+                      noise: Optional[Dict[str, torch.Tensor]] = None) -> np.ndarray:
+        """Array in, array out: images [B, res, res, 3] and conds
+        [B, N, res, res, 3] in [-1, 1] (numpy or tensors) -> [B, res, res, 3]
+        float32 numpy in [-1, 1]."""
+        images = torch.as_tensor(images).to(self.device)
+        conds = torch.as_tensor(conds).to(self.device)
+        if valid is None:
+            valid = torch.full((images.shape[0],), conds.shape[1])
+        out = self._fwd(images, conds, torch.as_tensor(valid).to(self.device), self.generator,
+                        False, noise)
+        return out["output_image"].float().cpu().numpy()
+
+    def run_directory(self, data_root: str, results_dir: str = "results", max_refs: int = 4):
+        """For each identity directory under ``data_root`` holding
+        ``degraded.png`` and ``conditioning/*``, write
+        ``results_dir/<identity>.png``."""
+        from PIL import Image
+
+        out_dir = Path(results_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for identity in sorted(p for p in Path(data_root).glob("*") if p.is_dir()):
+            degraded = identity / "degraded.png"
+            if not degraded.exists():
+                continue
+            conds = [Image.open(p).convert("RGB")
+                     for p in sorted((identity / "conditioning").glob("*"))][:max_refs]
+            pred, _ = self.predict(Image.open(degraded).convert("RGB"), conds)
+            pred.save(out_dir / f"{identity.name}.png")

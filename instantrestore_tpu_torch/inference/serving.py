@@ -1,16 +1,25 @@
-"""Warm-identity batched serving on one GPU (counterpart of
+"""Batched serving on one GPU (counterpart of
 ``instantrestore_tpu/inference/serving.py``).
 
-Identities are onboarded once: their reference images go through the frozen
-VAE and UNet, and the 9 shared layers' reference K/V land in an identity
-cache with its AdaIN statistics and key-norm bounds. A restore then runs one
-VAE encode, one UNet whose shared attentions read the cache by identity id
-(the ``shared_identity`` kernel, no gather copy) and one VAE decode.
+Warm path: identities are onboarded once; their reference images go through
+the frozen VAE and UNet, and the 9 shared layers' reference K/V land in a
+cache. A restore then runs one VAE encode, one UNet whose shared attentions
+read that cache, and one VAE decode. Refs-only models (``train_input=False``,
+the shipped configuration) keep an identity cache with its AdaIN statistics
+and key-norm bounds, read by identity id (the ``shared_identity`` kernel, no
+gather copy). ``train_input`` models attend to the input image's own K/V as
+well, which the identity cache does not model: as in the JAX engine they keep
+a plain ``[(k, v) x 9]`` cache of ``[I, N, H, S, d]`` leaves, gather each
+restore's rows and take the per-call shared attention (``shared_flash_bound``
+with its input segment).
+
+Cold path: ``restore_cold`` re-encodes each request's references in the call
+(the reference implementation's own flow).
 
 Differences from the JAX engine: onboarding is a Python loop over
 identities (no ``lax.map``), there is no mesh, and a restore draws its batch
 noise from one ``torch.Generator`` (or takes it through ``noise``) instead of
-per-row PRNG keys. ``restore_cold`` is not ported yet.
+per-row PRNG keys.
 """
 
 from __future__ import annotations
@@ -28,11 +37,7 @@ from instantrestore_tpu_torch.models.restorer import (
     restore_forward,
 )
 from instantrestore_tpu_torch.ops.image_ops import preprocess
-from instantrestore_tpu_torch.ops.shared_attention import (
-    IdentityKVCache,
-    IdentityRef,
-    build_identity_kv_cache,
-)
+from instantrestore_tpu_torch.ops.shared_attention import IdentityRef, build_identity_kv_cache
 
 
 def _maybe_preprocess(images: torch.Tensor, resolution: int) -> torch.Tensor:
@@ -46,11 +51,12 @@ def _maybe_preprocess(images: torch.Tensor, resolution: int) -> torch.Tensor:
 
 
 class ServingEngine:
-    """Identity-cached batched restoration.
+    """Batched restoration, warm (identity-cached) and cold.
 
         eng = ServingEngine(params, statics)             # on cuda
         eng.onboard(identity_refs)                       # [I, N, H, W, 3] once
         out = eng.restore(images, identity_ids)          # [B, H, W, 3], [B]
+        out = eng.restore_cold(images, cond_images)      # refs [B, N, H, W, 3]
 
     ``params`` is a bundle (``serving_bundle`` output or a training bundle);
     it is moved to ``device`` in ``statics.compute_dtype``.
@@ -64,9 +70,6 @@ class ServingEngine:
         device=None,
         use_fused_attention: bool = True,
     ):
-        if statics.train_input:
-            raise NotImplementedError(
-                "the identity cache is refs-only; train_input models are not served yet")
         self.device = resolve_device(device)
         self.statics = statics
         self.params = tree_to(params, self.device, statics.compute_dtype)
@@ -75,13 +78,15 @@ class ServingEngine:
         self.resolution = statics.unet_cfg.sample_size * 2 ** (
             len(statics.vae_cfg.block_out_channels) - 1)
         self.abar = sched.make_alphas_cumprod(device=self.device)
-        self.kv_cache: Optional[List[IdentityKVCache]] = None
+        # the identity cache is refs-only; train_input models keep (k, v) rows
+        self.identity_cache = not statics.train_input
+        self.kv_cache: Optional[List[Any]] = None
 
     def _refs_kv(self, refs: torch.Tensor, generator, noise):
         """One identity's references [N, H, W, 3] -> 9 (k, v) [N, H, S, d]."""
         n = refs.shape[0]
         refs = _maybe_preprocess(refs.to(self.device), self.resolution)
-        kv = get_conditioning_kv(
+        kv, _ = get_conditioning_kv(
             self.params, refs[None], torch.full((1,), n, device=self.device),
             statics=self.statics, alphas_cumprod=self.abar, generator=generator,
             noise=noise, use_fused_attention=self.use_fused_attention,
@@ -90,10 +95,12 @@ class ServingEngine:
 
     @torch.no_grad()
     def onboard(self, identity_refs: torch.Tensor, *, generator: Optional[torch.Generator] = None,
-                noise: Optional[Dict[str, torch.Tensor]] = None) -> List[IdentityKVCache]:
+                noise: Optional[Dict[str, torch.Tensor]] = None) -> List[Any]:
         """identity_refs [I, N, H, W, 3] (uint8, or float in [-1, 1]) -> the
-        warm cache. I fixes the capacity; ``onboard_one`` replaces rows.
-        ``noise`` may give ``latent``/``diffusion`` [I, N, h, w, 4]."""
+        warm cache: 9 ``IdentityKVCache`` layers, or (k, v) [I, N, H, S, d]
+        pairs for a train_input model. I fixes the capacity; ``onboard_one``
+        replaces rows. ``noise`` may give ``latent``/``diffusion``
+        [I, N, h, w, 4]."""
         n_ident = identity_refs.shape[0]
         rows: Optional[List[List[torch.Tensor]]] = None
         for i in range(n_ident):
@@ -104,26 +111,35 @@ class ServingEngine:
                         for k, v in kv]
             for (rk, rv), (k, v) in zip(rows, kv):
                 rk[i], rv[i] = k, v
-        self.kv_cache = build_identity_kv_cache(rows)
+        self.kv_cache = (build_identity_kv_cache(rows) if self.identity_cache
+                         else [(k, v) for k, v in rows])
         return self.kv_cache
 
     @torch.no_grad()
     def onboard_one(self, identity_refs: torch.Tensor, slot: int, *,
                     generator: Optional[torch.Generator] = None,
-                    noise: Optional[Dict[str, torch.Tensor]] = None) -> List[IdentityKVCache]:
+                    noise: Optional[Dict[str, torch.Tensor]] = None) -> List[Any]:
         """Onboard or replace one identity ([N, H, W, 3]) in row ``slot`` of
         the cache, in place; other rows are untouched."""
         if self.kv_cache is None:
             raise RuntimeError("call onboard() first")
-        capacity = self.kv_cache[0].rk.shape[0]
+        capacity = self._capacity()
         if not 0 <= int(slot) < capacity:
             raise ValueError(f"slot {slot} out of range for a cache of {capacity} identities")
         kv = self._refs_kv(identity_refs, generator, noise)
+        if not self.identity_cache:
+            for (rk, rv), (k, v) in zip(self.kv_cache, kv):
+                rk[slot], rv[slot] = k, v
+            return self.kv_cache
         new = build_identity_kv_cache([(k[None], v[None]) for k, v in kv])
         for cur, one in zip(self.kv_cache, new):
             for field in ("rk", "rv", "content_mean", "content_std", "kmax"):
                 getattr(cur, field)[slot] = getattr(one, field)[0]
         return self.kv_cache
+
+    def _capacity(self) -> int:
+        first = self.kv_cache[0]
+        return (first.rk if self.identity_cache else first[0]).shape[0]
 
     @torch.no_grad()
     def restore(self, images: torch.Tensor, identity_ids, *,
@@ -136,15 +152,38 @@ class ServingEngine:
             raise RuntimeError("call onboard() first")
         ids = torch.as_tensor(identity_ids)
         if ids.device.type == "cpu":
-            capacity = self.kv_cache[0].rk.shape[0]
+            capacity = self._capacity()
             if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= capacity):
                 raise ValueError(f"identity ids outside [0, {capacity})")
         ids = ids.to(device=self.device, dtype=torch.long)
         images = _maybe_preprocess(images.to(self.device), self.resolution)
-        ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
+        if self.identity_cache:
+            ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
+        else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
+            ref_kv = [(k[ids], v[ids]) for k, v in self.kv_cache]
         out = restore_forward(
             self.params, images, statics=self.statics, precomputed_ref_kv=ref_kv,
             generator=generator, noise=noise,
             use_fused_attention=self.use_fused_attention,
+        )
+        return out["output_image"]
+
+    @torch.no_grad()
+    def restore_cold(self, images: torch.Tensor, cond_images: torch.Tensor, *,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Cold restore: images [B, H, W, 3] with their references
+        cond_images [B, N, H, W, 3] (each uint8, or float in [-1, 1]),
+        re-encoded in this call -> [B, res, res, 3] in [-1, 1]. ``noise``
+        may give ``latent``/``diffusion`` [B, h, w, 4] and
+        ``cond_latent``/``cond_diffusion`` [B*N, h, w, 4]."""
+        images = _maybe_preprocess(images.to(self.device), self.resolution)
+        b, n = cond_images.shape[:2]
+        res = self.resolution
+        conds = _maybe_preprocess(cond_images.to(self.device).reshape(b * n, *cond_images.shape[2:]),
+                                  res).reshape(b, n, res, res, 3)
+        out = restore_forward(
+            self.params, images, conds, statics=self.statics, generator=generator,
+            noise=noise, use_fused_attention=self.use_fused_attention,
         )
         return out["output_image"]

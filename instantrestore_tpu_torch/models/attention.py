@@ -9,13 +9,15 @@ attention (counterpart of ``instantrestore_tpu/models/attention.py``).
   (warm serving; refs-only).
 * AdaIN of reference values onto the input values' statistics uses the
   unbiased std with +1e-5 added to the std.
+* ``save_probs=True`` returns the fp32 attention probabilities in
+  ``aux["probs"]`` (the unfused branch; the Predictor's attention-mass
+  percentages).
 
-``use_fused=True`` sends plain self-attention and the identity-cache branch
-to the kernels of ``ops/shared_attention.py``; the unfused branch is the JAX
-package's einsum softmax. A per-call ``(ref_k, ref_v)`` tuple (cold restore)
-takes the unfused branch: its kernel (the JAX package's
-``_shared_kvouter_bound_kernel``) is not ported yet. Cross-attention over the
-77 text tokens is always matmul + softmax.
+``use_fused=True`` sends plain self-attention, per-call ``(ref_k, ref_v)``
+shared attention (cold restore, ``train_input`` models; the AdaIN affine
+folds into the kernel) and the identity-cache branch to the kernels of
+``ops/shared_attention.py``; the unfused branch is the JAX package's einsum
+softmax. Cross-attention over the 77 text tokens is always matmul + softmax.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ import torch
 from instantrestore_tpu_torch.ops.primitives import dense
 from instantrestore_tpu_torch.ops.shared_attention import (
     IdentityRef,
+    adain_affine,
     flash_attention,
     shared_attention_identity,
+    shared_flash_attention,
 )
 
 
@@ -68,12 +72,14 @@ def widen_kv(k, v, ref_k, ref_v, *, use_adain: bool = False, train_input: bool =
     return rk, rv
 
 
-def softmax_attention(q, k, v, scale: float) -> torch.Tensor:
+def softmax_attention(q, k, v, scale: float, *, return_probs: bool = False):
     """Unfused attention: fp32 logits and softmax, P in v's dtype, fp32
-    accumulation, output in q's dtype."""
+    accumulation, output in q's dtype; with ``return_probs`` also the fp32
+    probabilities."""
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1)
-    return (probs.to(v.dtype).float() @ v.float()).to(q.dtype)
+    out = (probs.to(v.dtype).float() @ v.float()).to(q.dtype)
+    return (out, probs) if return_probs else out
 
 
 def attention(
@@ -86,11 +92,12 @@ def attention(
     use_adain: bool = False,
     train_input: bool = True,
     capture_kv: bool = False,
+    save_probs: bool = False,
     lora_scaling: float = 1.0,
     use_fused: bool = False,
 ) -> Tuple[torch.Tensor, dict]:
     """hidden [B, S, C]; returns (out [B, S, C], aux with 'kv' when
-    ``capture_kv``)."""
+    ``capture_kv`` and 'probs' [B, h, Sq, Skv] when ``save_probs``)."""
     aux = {}
     ctx = hidden if encoder_hidden is None else encoder_hidden
     q = _split_heads(dense(p["to_q"], hidden, lora_scaling=lora_scaling), heads)
@@ -101,8 +108,8 @@ def attention(
     scale = q.shape[-1] ** -0.5
 
     if isinstance(ref_kv, IdentityRef):
-        if train_input:
-            raise ValueError("the identity cache is refs-only (train_input=False)")
+        if train_input or save_probs:
+            raise ValueError("the identity cache is refs-only (train_input=False) and keeps no probs")
         if use_fused:
             out = shared_attention_identity(
                 q.contiguous(), k, v, ref_kv.cache, ref_kv.ids, scale=scale, use_adain=use_adain
@@ -112,11 +119,22 @@ def attention(
             wk, wv = widen_kv(k, v, cache.rk[ids], cache.rv[ids], use_adain=use_adain,
                               train_input=False)
             out = softmax_attention(q, wk, wv, scale)
-    elif ref_kv is not None:
-        k, v = widen_kv(k, v, ref_kv[0], ref_kv[1], use_adain=use_adain, train_input=train_input)
-        out = softmax_attention(q, k, v, scale)
-    elif use_fused:
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
+    elif use_fused and not save_probs:
+        if ref_kv is not None:
+            rk, rv = ref_kv
+            affine = adain_affine(v, rv) if use_adain else None
+            out = shared_flash_attention(
+                q.contiguous(), k.contiguous() if train_input else k,
+                v.contiguous() if train_input else v, rk.contiguous(), rv.contiguous(),
+                scale=scale, v_affine=affine, include_input=train_input,
+            )
+        else:
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
     else:
-        out = softmax_attention(q, k, v, scale)
+        if ref_kv is not None:
+            k, v = widen_kv(k, v, ref_kv[0], ref_kv[1], use_adain=use_adain,
+                            train_input=train_input)
+        out = softmax_attention(q, k, v, scale, return_probs=save_probs)
+        if save_probs:
+            out, aux["probs"] = out
     return _to_out_from_heads(p["to_out"], out, lora_scaling=lora_scaling), aux

@@ -4,18 +4,21 @@
 One parameter bundle holds the LoRA'd restoration UNet/VAE; the frozen
 "original" nets that capture reference K/V are views of the same base
 weights (LoRA stripped, pretrained conv_in), or explicit trees in a serving
-bundle. This slice ports the warm-identity path: ``get_conditioning_kv``
-(onboarding) and ``restore_forward`` with precomputed reference K/V.
+bundle. Ported: ``get_conditioning_kv`` (the reference branch),
+``restore_forward`` against references encoded in the call (cold) or
+precomputed (warm), and ``restore_forward_multistep``. The timestep is fixed
+(drawing it from ``noise_timesteps`` is training, not ported).
 
 Randomness: the forwards draw their standard-normal noise from an explicit
 ``torch.Generator`` or take it ready-made through ``noise`` (keys ``latent``
-and ``diffusion``), which is how tests inject the noise JAX drew.
+and ``diffusion`` for the input, ``cond_latent`` and ``cond_diffusion`` for
+the references), which is how tests inject the noise JAX drew.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,6 +57,8 @@ class RestorerStatics:
     use_adain: bool = False
     train_input: bool = True
     use_shortcuts: bool = False
+    # FaceID conditioning is not ported (ROADMAP.md); the Predictor refuses it
+    condition_on_face_embeds: bool = False
     unet_lora_scaling: float = 0.5  # alpha = r // 2 at training
     vae_lora_scaling: float = 0.5
     compute_dtype: Any = torch.bfloat16
@@ -152,50 +157,92 @@ def get_conditioning_kv(
     alphas_cumprod: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Dict[str, torch.Tensor]] = None,
+    sample_posterior: bool = True,
+    decode_conditions: bool = False,
     use_fused_attention: bool = False,
+    debug_taps: bool = False,
 ):
-    """Reference branch: cond_images [B, N, H, W, 3] in [-1, 1] -> 9 masked
-    (K, V) pairs [B, N, H, S, d] from the frozen nets at t=1. ``noise`` may
-    give ``latent`` and ``diffusion`` [B*N, h, w, 4]."""
+    """Reference branch: cond_images [B, N, H, W, 3] in [-1, 1] -> (9 masked
+    (K, V) pairs [B, N, H, S, d] from the frozen nets at t=1, the decoded
+    references [B, N, H, W, 3] when ``decode_conditions`` else None), plus
+    the taps {cond_latent, cond_latent_noised} [B*N, h, w, 4] as a third
+    element when ``debug_taps``. ``noise`` may give ``latent`` and
+    ``diffusion`` [B*N, h, w, 4]."""
     b, n = cond_images.shape[:2]
     flat = cond_images.reshape(b * n, *cond_images.shape[2:])
     sf = statics.vae_cfg.scaling_factor
+    ovae = original_vae_view(params)
     mean, logvar, _ = vae_encode(
-        original_vae_view(params), flat, cfg=statics.vae_cfg,
+        ovae, flat, cfg=statics.vae_cfg,
         compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention,
     )
-    z = sample_latent(mean, logvar, _noise(noise, "latent", mean, generator)) * sf
+    eps = _noise(noise, "latent", mean, generator) if sample_posterior else None
+    z = sample_latent(mean, logvar, eps) * sf
     t1 = torch.full((b * n,), COND_TIMESTEP, dtype=torch.long, device=z.device)
     zt = sched.add_noise(alphas_cumprod, z, _noise(noise, "diffusion", z, generator), t1)
     caption = params["caption_enc"].expand(b * n, *params["caption_enc"].shape[1:])
-    _, aux = unet_apply(
+    eps_pred, aux = unet_apply(
         original_unet_view(params), zt, t1, caption, cfg=statics.unet_cfg,
         capture_kv=True, use_fused_attention=use_fused_attention,
         compute_dtype=statics.compute_dtype,
     )
-    return mask_ref_kv(aux["kv"], valid_indices, b, n)
+    ref_kv = mask_ref_kv(aux["kv"], valid_indices, b, n)
+    decoded = None
+    if decode_conditions:
+        x0 = sched.pred_original_sample(alphas_cumprod, eps_pred, zt, t1)
+        decoded = torch.clamp(
+            vae_decode(ovae, x0 / sf, cfg=statics.vae_cfg, compute_dtype=statics.compute_dtype,
+                       use_fused_attention=use_fused_attention),
+            -1.0, 1.0,
+        ).reshape(b, n, *cond_images.shape[2:])
+    if debug_taps:
+        return ref_kv, decoded, {"cond_latent": z, "cond_latent_noised": zt}
+    return ref_kv, decoded
+
+
+def _cond_noise(noise: Optional[Dict[str, torch.Tensor]]):
+    """The reference branch's entries of a forward's ``noise`` dict."""
+    if noise is None:
+        return None
+    return {k[len("cond_"):]: v for k, v in noise.items() if k.startswith("cond_")}
 
 
 def restore_forward(
     params: Dict[str, Any],
     image: torch.Tensor,
+    cond_images: Optional[torch.Tensor] = None,
+    valid_indices: Optional[torch.Tensor] = None,
     *,
     statics: RestorerStatics,
-    precomputed_ref_kv=None,
     timestep: int = SERVING_TIMESTEP,
+    sample_posterior: bool = True,
+    decode_conditions: bool = False,
+    save_attn_probs: bool = False,
+    probs_layers: Optional[Sequence[int]] = None,
+    precomputed_ref_kv=None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Dict[str, torch.Tensor]] = None,
     use_fused_attention: bool = False,
     debug_taps: bool = False,
 ) -> Dict[str, Any]:
-    """Restore degraded images [B, H, W, 3] in [-1, 1] against precomputed
-    reference K/V (a list of 9 ``(k, v)`` [B, N, H, S, d] or ``IdentityRef``
-    entries; None runs without shared attention).
+    """Restore degraded images [B, H, W, 3] in [-1, 1].
 
-    ``noise`` may give ``latent`` and ``diffusion`` [B, h, w, 4]. Returns
-    {output_image [B, H, W, 3] in [-1, 1], timestep, latent_pred, and taps
-    when ``debug_taps``: vae_enc_mean, vae_enc_logvar, latent, latent_noised,
-    unet_eps, x0, decoded, unet.<stage>}."""
+    The references are either encoded here from ``cond_images``
+    [B, N, H, W, 3] in [-1, 1] with ``valid_indices`` [B] valid counts (all
+    N when None; cold restore), or given as ``precomputed_ref_kv``: a list of
+    9 ``(k, v)`` [B, N, H, S, d] or ``IdentityRef`` entries (warm restore).
+    Neither runs without shared attention.
+
+    ``noise`` may give ``latent`` and ``diffusion`` [B, h, w, 4], and
+    ``cond_latent`` and ``cond_diffusion`` [B*N, h, w, 4]. Returns
+    {output_image [B, H, W, 3] in [-1, 1], timestep, latent_pred;
+    output_image_conditions when ``decode_conditions``; attn_probs when
+    ``save_attn_probs``; taps when ``debug_taps``: vae_enc_mean,
+    vae_enc_logvar, latent, latent_noised, unet_eps, x0, decoded,
+    cond_latent, cond_latent_noised, unet.<stage>, ref_kv.<i>.k/v}."""
+    if timestep is None:
+        raise NotImplementedError("drawing the timestep from noise_timesteps is training, "
+                                  "not ported yet (ROADMAP.md)")
     b = image.shape[0]
     abar = sched.make_alphas_cumprod(device=image.device)
     sf = statics.vae_cfg.scaling_factor
@@ -203,19 +250,37 @@ def restore_forward(
         params["vae"], image, cfg=statics.vae_cfg, lora_scaling=statics.vae_lora_scaling,
         compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention,
     )
-    z = sample_latent(mean, logvar, _noise(noise, "latent", mean, generator)) * sf
+    eps = _noise(noise, "latent", mean, generator) if sample_posterior else None
+    z = sample_latent(mean, logvar, eps) * sf
+
+    ref_kv, decoded_conds, cond_taps = None, None, {}
+    if precomputed_ref_kv is not None:
+        ref_kv = precomputed_ref_kv
+    elif cond_images is not None and statics.use_shared_attention:
+        if valid_indices is None:
+            valid_indices = torch.full((b,), cond_images.shape[1], device=image.device)
+        ref_kv, decoded_conds, *rest = get_conditioning_kv(
+            params, cond_images, valid_indices, statics=statics, alphas_cumprod=abar,
+            generator=generator, noise=_cond_noise(noise), sample_posterior=sample_posterior,
+            decode_conditions=decode_conditions, use_fused_attention=use_fused_attention,
+            debug_taps=debug_taps,
+        )
+        if debug_taps:
+            cond_taps = rest[0]
 
     tb = torch.full((b,), timestep, dtype=torch.long, device=z.device)
     zt = sched.add_noise(abar, z, _noise(noise, "diffusion", z, generator), tb)
     caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
-    ref_kv = precomputed_ref_kv if statics.use_shared_attention else None
-    eps, aux = unet_apply(
+    if not statics.use_shared_attention:
+        ref_kv = None
+    eps_pred, aux = unet_apply(
         params["unet"], zt, tb, caption, cfg=statics.unet_cfg, ref_kv=ref_kv,
         use_adain=statics.use_adain, train_input=statics.train_input,
+        save_attn_probs=save_attn_probs, probs_layers=probs_layers,
         use_fused_attention=use_fused_attention, capture_taps=debug_taps,
         lora_scaling=statics.unet_lora_scaling, compute_dtype=statics.compute_dtype,
     )
-    x0 = sched.pred_original_sample(abar, eps, zt, tb)
+    x0 = sched.pred_original_sample(abar, eps_pred, zt, tb)
     out = vae_decode(
         params["vae"], x0 / sf, cfg=statics.vae_cfg,
         skip_acts=skip_acts if statics.use_shortcuts else None,
@@ -224,9 +289,14 @@ def restore_forward(
     )
     result = {"output_image": torch.clamp(out, -1.0, 1.0), "timestep": timestep,
               "latent_pred": x0}
+    if decoded_conds is not None:
+        result["output_image_conditions"] = decoded_conds
+    if save_attn_probs:
+        result["attn_probs"] = aux.get("attn_probs")
     if debug_taps:
         taps = {"vae_enc_mean": mean, "vae_enc_logvar": logvar, "latent": z,
-                "latent_noised": zt, "unet_eps": eps, "x0": x0, "decoded": out}
+                "latent_noised": zt, "unet_eps": eps_pred, "x0": x0, "decoded": out}
+        taps.update(cond_taps)
         for k, v in aux["taps"].items():
             taps[f"unet.{k}"] = v
         if ref_kv is not None:
@@ -235,3 +305,62 @@ def restore_forward(
                     taps[f"ref_kv.{i}.k"], taps[f"ref_kv.{i}.v"] = entry
         result["taps"] = taps
     return result
+
+
+def restore_forward_multistep(
+    params: Dict[str, Any],
+    image: torch.Tensor,
+    cond_images: Optional[torch.Tensor] = None,
+    valid_indices: Optional[torch.Tensor] = None,
+    *,
+    statics: RestorerStatics,
+    timesteps: Tuple[int, ...] = (749, 499, 249),
+    sample_posterior: bool = True,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Dict[str, torch.Tensor]] = None,
+    use_fused_attention: bool = False,
+) -> Dict[str, Any]:
+    """Multi-step restoration: noise the input latent to ``timesteps[0]``,
+    then DDIM-denoise through the list with the same reference K/V at every
+    step (captured once), and decode. Single-step equals timesteps=(249,).
+    ``noise`` keys as in ``restore_forward``. Returns {output_image}."""
+    b = image.shape[0]
+    abar = sched.make_alphas_cumprod(device=image.device)
+    sf = statics.vae_cfg.scaling_factor
+    mean, logvar, skip_acts = vae_encode(
+        params["vae"], image, cfg=statics.vae_cfg, lora_scaling=statics.vae_lora_scaling,
+        compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention,
+    )
+    eps = _noise(noise, "latent", mean, generator) if sample_posterior else None
+    z = sample_latent(mean, logvar, eps) * sf
+
+    ref_kv = None
+    if cond_images is not None and statics.use_shared_attention:
+        if valid_indices is None:
+            valid_indices = torch.full((b,), cond_images.shape[1], device=image.device)
+        ref_kv, _ = get_conditioning_kv(
+            params, cond_images, valid_indices, statics=statics, alphas_cumprod=abar,
+            generator=generator, noise=_cond_noise(noise), sample_posterior=sample_posterior,
+            use_fused_attention=use_fused_attention,
+        )
+
+    caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
+    t0 = torch.full((b,), timesteps[0], dtype=torch.long, device=z.device)
+    x = sched.add_noise(abar, z, _noise(noise, "diffusion", z, generator), t0)
+    for i, t in enumerate(timesteps):
+        tb = torch.full((b,), t, dtype=torch.long, device=z.device)
+        eps_pred, _ = unet_apply(
+            params["unet"], x, tb, caption, cfg=statics.unet_cfg, ref_kv=ref_kv,
+            use_adain=statics.use_adain, train_input=statics.train_input,
+            use_fused_attention=use_fused_attention, lora_scaling=statics.unet_lora_scaling,
+            compute_dtype=statics.compute_dtype,
+        )
+        t_next = timesteps[i + 1] if i + 1 < len(timesteps) else -1
+        x = sched.ddim_step(abar, eps_pred, x, tb, torch.full_like(tb, t_next))
+    out = vae_decode(
+        params["vae"], x / sf, cfg=statics.vae_cfg,
+        skip_acts=skip_acts if statics.use_shortcuts else None,
+        lora_scaling=statics.vae_lora_scaling, compute_dtype=statics.compute_dtype,
+        use_fused_attention=use_fused_attention,
+    )
+    return {"output_image": torch.clamp(out, -1.0, 1.0)}

@@ -1,7 +1,8 @@
-"""Single-step DDPM math for the SD-Turbo restoration pass (counterpart of
+"""DDPM math for the SD-Turbo restoration pass (counterpart of
 ``instantrestore_tpu/models/scheduler.py``): the sd-turbo schedule (1000
 steps, scaled_linear betas in [0.00085, 0.012], epsilon prediction),
-forward diffusion and the closed-form x0 estimate."""
+forward diffusion, the closed-form x0 estimate and the DDIM step of the
+multi-step restore."""
 
 from __future__ import annotations
 
@@ -38,3 +39,16 @@ def pred_original_sample(alphas_cumprod, model_output, sample, timesteps) -> tor
     abar = _per_sample(alphas_cumprod[timesteps].float(), sample.ndim)
     x0 = (sample.float() - torch.sqrt(1.0 - abar) * model_output.float()) / torch.sqrt(abar)
     return x0.to(sample.dtype)
+
+
+def ddim_step(alphas_cumprod, model_output, sample, timestep, prev_timestep) -> torch.Tensor:
+    """Deterministic DDIM update x_t -> x_t' (eta = 0) for epsilon
+    prediction; ``timestep``/``prev_timestep`` [B], prev < 0 means to x0.
+    fp32 inside, cast back to the sample dtype."""
+    x0 = pred_original_sample(alphas_cumprod, model_output, sample, timestep)
+    prev = torch.as_tensor(prev_timestep, device=alphas_cumprod.device)
+    abar_prev = torch.where(prev >= 0, alphas_cumprod[prev.clamp(min=0)],
+                            torch.ones((), device=alphas_cumprod.device)).float()
+    abar_prev = _per_sample(abar_prev, sample.ndim)
+    out = torch.sqrt(abar_prev) * x0.float() + torch.sqrt(1.0 - abar_prev) * model_output.float()
+    return out.to(sample.dtype)

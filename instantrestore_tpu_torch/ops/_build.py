@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_bound", "shared_identity")
+SOURCES = ("flash_bound", "shared_identity", "shared_flash_bound")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +41,9 @@ SIGNATURES = {
     },
     "shared_identity": {
         "irt_shared_identity_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
+    },
+    "shared_flash_bound": {
+        "irt_shared_flash_bound_bf16": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
     },
 }
 

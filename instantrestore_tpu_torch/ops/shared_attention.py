@@ -1,5 +1,5 @@
-"""Fused attention of the serving path: the bound-softmax flash attention and
-the identity-cached shared attention (counterpart of
+"""Fused attention of the serving paths: the bound-softmax flash attention and
+the shared-image attention over reference K/V (counterpart of
 ``instantrestore_tpu/ops/shared_attention.py``).
 
 Each kernel comes as a wrapper, a plain PyTorch version of the same function
@@ -7,9 +7,17 @@ and a launch count:
 
 * ``flash_attention`` -> CUDA kernel ``csrc/flash_bound.cu`` (replaces the
   TPU kernel ``_flash_bound_kernel``); plain version ``flash_attention_plain``.
-* ``shared_attention_identity`` -> CUDA kernel ``csrc/shared_identity.cu``
-  (replaces ``_shared_kvouter_bound_paired_kernel``); plain version
+* ``shared_identity`` -> CUDA kernel ``csrc/shared_identity.cu`` (replaces
+  ``_shared_kvouter_bound_paired_kernel``); plain version
   ``shared_identity_plain``.
+* ``shared_flash_bound`` -> CUDA kernel ``csrc/shared_flash_bound.cu``
+  (replaces ``_shared_kvouter_bound_kernel``); plain version
+  ``shared_flash_bound_plain``.
+
+``shared_flash_attention`` (per-call reference K/V: cold restore, the
+Predictor, ``train_input`` models) and ``shared_attention_identity`` (an
+onboarded identity cache) choose among the shared kernels as the JAX package
+does.
 
 A wrapper given CUDA tensors launches its kernel (bf16 only) or raises; given
 CPU tensors it runs the plain version. ``<wrapper>.launches`` counts kernel
@@ -26,7 +34,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, NamedTuple
+import os
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,16 +51,17 @@ def _stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda(name: str, dtype, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
+def _check_cuda(name: str, *typed) -> None:
+    """Each (tensor, dtype) pair: on the first tensor's device, contiguous,
+    16-byte aligned and of that dtype."""
+    dev = typed[0][0].device
+    for t, dtype in typed:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor data is not 16-byte aligned")
-    for t in tensors[:3]:
         if t.dtype != dtype:
             raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
 
@@ -100,17 +110,26 @@ def flash_attention_plain(q, k, v, *, scale: float) -> torch.Tensor:
     return _bound_softmax_av(_q_scaled(q, scale), k, v, bound, q.dtype, sum_rounded=True)
 
 
-def flash_attention(q, k, v, *, scale: float) -> torch.Tensor:
+def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v for q [B, H, Sq, d], k/v [B, H, Skv, d];
     the CUDA kernel takes bf16, d in {64, 512}, Sq % (64 if d == 64 else 32)
-    == 0 and Skv % 64 == 0."""
+    == 0 and Skv % 64 == 0. ``algo`` (default: ``INSTANTRESTORE_FLASH_ALGO``,
+    else ``bound``) selects the algorithm as in the JAX package; only the
+    bound softmax is ported."""
+    if algo is None:
+        algo = os.environ.get("INSTANTRESTORE_FLASH_ALGO", "bound")
+    if algo != "bound":
+        raise NotImplementedError(
+            f"flash attention algo {algo!r} runs the TPU kernel _flash_kernel "
+            "(instantrestore_tpu/ops/shared_attention.py:58), not ported yet (ROADMAP.md Queue 2)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    _check_cuda("flash_attention", torch.bfloat16, q, k, v)
+    bf = torch.bfloat16
+    _check_cuda("flash_attention", (q, bf), (k, bf), (v, bf))
     bq = 64 if d == 64 else 32
     if (d not in (64, 512) or k.shape != (b, h, skv, d) or v.shape != k.shape
             or sq % bq or skv % 64):
@@ -131,7 +150,7 @@ flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# identity-cached serving attention
+# reference K/V: the identity cache and the AdaIN affine
 # ---------------------------------------------------------------------------
 
 
@@ -190,11 +209,37 @@ def adain_affine_from_stats(v_in, content_mean, content_std, eps: float = 1e-5):
     return scale, shift
 
 
+def _affine(v_affine, b: int, h: int, n: int, d: int, device) -> torch.Tensor:
+    """Reference V scale and shift packed as [B, H, N, 2, d] fp32; the
+    identity when ``v_affine`` is None."""
+    if v_affine is None:
+        vs = torch.ones((b, h, n, d), dtype=torch.float32, device=device)
+        vh = torch.zeros_like(vs)
+    else:
+        vs, vh = (a.float() for a in v_affine)
+    return torch.stack([vs, vh], dim=3).contiguous()
+
+
+def adain_affine(v_in, ref_v, eps: float = 1e-5):
+    """Per-(b, h, ref, channel) scale and shift with v * scale + shift ==
+    AdaIN of the reference values onto the input values' statistics
+    (unbiased std, eps added to the std). v_in [B, H, S, d]; ref_v
+    [B, N, H, S, d]; returns two [B, H, N, d] fp32 tensors."""
+    rf = ref_v.float()
+    return adain_affine_from_stats(v_in, rf.mean(dim=3),
+                                   rf.var(dim=3, unbiased=True).sqrt() + eps, eps)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: refs-only shared attention, fp32 affine and row sum
+# ---------------------------------------------------------------------------
+
+
 def shared_identity_plain(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/shared_identity.cu``.
 
-    q [B, H, Sq, d]; rk/rv cache [I, N, H, S, d]; aff [B, H, N, 2, d] fp32
-    (V scale, shift); kmax [I, H]; ids [B]."""
+    q [B, H, Sq, d]; rk/rv [I, N, H, S, d]; aff [B, H, N, 2, d] fp32 (V
+    scale, shift); kmax [I, H] over each row's reference keys; ids [B]."""
     b, h, sq, d = q.shape
     n, s = rk.shape[1], rk.shape[3]
     ids = ids.long()
@@ -207,52 +252,199 @@ def shared_identity_plain(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.T
                              sum_rounded=False)
 
 
-def shared_attention_identity(q, k_in, v_in, cache: IdentityKVCache, ids, *,
-                              scale: float, use_adain: bool) -> torch.Tensor:
-    """Refs-only shared attention over identity ``ids[b]``'s cached reference
-    KV: softmax(q K^T * scale) (V * a + c), with (a, c) the AdaIN affine of
-    the cached content statistics onto ``v_in``'s (or identity when
-    ``use_adain`` is off). ``k_in`` is unused (refs-only), as in the JAX
-    package. The CUDA kernel takes bf16 at d=64 with Sq % 64 == 0 and
-    S % 64 == 0."""
-    del k_in
-    b, h, sq, d = q.shape
-    n = cache.rk.shape[1]
-    if use_adain:
-        vs, vh = adain_affine_from_stats(v_in, cache.content_mean[ids], cache.content_std[ids])
-    else:
-        vs = torch.ones((b, h, n, d), dtype=torch.float32, device=q.device)
-        vh = torch.zeros_like(vs)
-    aff = torch.stack([vs, vh], dim=3).contiguous()  # [B, H, N, 2, d]
+def shared_identity(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
+    """softmax(q K^T * scale) (V * a + c) over the N * S reference keys of
+    row ``ids[b]`` of rk/rv [I, N, H, S, d], with the numerics of the TPU's
+    paired kernel: bound from the pre-scaled q's norm, fp32 affine, fp32 row
+    sum. aff [B, H, N, 2, d] fp32; kmax [I, H] fp32. The CUDA kernel takes
+    bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0."""
     if q.device.type == "cpu":
-        return shared_identity_plain(q, cache.rk, cache.rv, aff, cache.kmax, ids, scale=scale)
+        return shared_identity_plain(q, rk, rv, aff, kmax, ids, scale=scale)
     if not q.is_cuda:
-        raise ValueError(f"shared_attention_identity: no kernel for device {q.device}")
-    i_rows, _, _, s, _ = cache.rk.shape
+        raise ValueError(f"shared_identity: no kernel for device {q.device}")
+    b, h, sq, d = q.shape
+    i_rows, n, _, s, _ = rk.shape
     ids32 = ids.to(device=q.device, dtype=torch.int32).contiguous()
-    _check_cuda("shared_attention_identity", torch.bfloat16, q, cache.rk, cache.rv,
-                aff, cache.kmax, ids32)
-    if (d != 64 or cache.rk.shape != (i_rows, n, h, s, d) or cache.rv.shape != cache.rk.shape
-            or cache.kmax.shape != (i_rows, h) or cache.kmax.dtype != torch.float32
+    bf, f32 = torch.bfloat16, torch.float32
+    _check_cuda("shared_identity", (q, bf), (rk, bf), (rv, bf), (aff, f32), (kmax, f32),
+                (ids32, torch.int32))
+    if (d != 64 or rk.shape != (i_rows, n, h, s, d) or rv.shape != rk.shape
+            or aff.shape != (b, h, n, 2, d) or kmax.shape != (i_rows, h)
             or ids32.shape != (b,) or sq % 64 or s % 64):
         raise ValueError(
-            f"shared_attention_identity: unsupported shapes q {tuple(q.shape)} "
-            f"cache {tuple(cache.rk.shape)} ids {tuple(ids32.shape)}")
+            f"shared_identity: unsupported shapes q {tuple(q.shape)} "
+            f"cache {tuple(rk.shape)} ids {tuple(ids32.shape)}")
     out = torch.empty_like(q)
     rc = _build.load("shared_identity").irt_shared_identity_bf16(
-        q.data_ptr(), cache.rk.data_ptr(), cache.rv.data_ptr(), cache.kmax.data_ptr(),
-        aff.data_ptr(), ids32.data_ptr(), out.data_ptr(),
+        q.data_ptr(), rk.data_ptr(), rv.data_ptr(), kmax.data_ptr(), aff.data_ptr(),
+        ids32.data_ptr(), out.data_ptr(),
         b, h, sq, s, n, i_rows, d, ctypes.c_float(scale * LOG2E), _stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"shared_identity kernel launch failed: CUDA error {rc}")
-    shared_attention_identity.launches += 1
+    shared_identity.launches += 1
     return out
 
 
-shared_attention_identity.launches = 0
+shared_identity.launches = 0
 
-KERNEL_WRAPPERS = (flash_attention, shared_attention_identity)
+
+# ---------------------------------------------------------------------------
+# kernel 3: shared attention over [input |] references, bf16 affine, rounded
+# row sum
+# ---------------------------------------------------------------------------
+
+
+def shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: float,
+                             include_input: bool) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/shared_flash_bound.cu``.
+
+    q [B, H, Sq, d]; k_in/v_in [B, H, S, d] (read only when
+    ``include_input``); rk/rv [B, N, H, S, d], or an identity cache
+    [I, N, H, S, d] read at rows ``ids``; aff [B, H, N, 2, d] fp32, rounded to
+    the value dtype before use; kmax [B, H] fp32 over every key a row sees.
+    The affine is one rounding of ``v * a + c`` computed in fp32, as in the
+    kernel."""
+    b, h, sq, d = q.shape
+    if ids is not None:
+        rk, rv = rk[ids.long()], rv[ids.long()]
+    n, s = rk.shape[1], rk.shape[3]
+    keys = rk.permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d)
+    a = aff.to(rv.dtype).float()
+    vals = (rv.permute(0, 2, 1, 3, 4).float() * a[:, :, :, 0, None, :]
+            + a[:, :, :, 1, None, :]).to(rv.dtype).reshape(b, h, n * s, d)
+    if include_input:
+        keys = torch.cat([k_in, keys], dim=2)
+        vals = torch.cat([v_in, vals], dim=2)
+    bound = _row_norm(q) * (scale * LOG2E) * kmax[:, :, None, None] - BOUND_EXP_SHIFT
+    return _bound_softmax_av(_q_scaled(q, scale), keys, vals, bound, q.dtype, sum_rounded=True)
+
+
+def shared_flash_bound(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: float,
+                       include_input: bool) -> torch.Tensor:
+    """softmax(q [K_in |] K_1..N ^T * scale) [V_in |] (V_n * a_n + c_n) with
+    the numerics of the TPU's ``_shared_kvouter_bound_kernel`` (bound from the
+    unscaled q norm, bf16 affine, row sum over bf16-rounded p). Shapes as in
+    ``shared_flash_bound_plain``. The CUDA kernel takes bf16 at d = 64 with
+    Sq % 64 == 0 and S % 64 == 0."""
+    if q.device.type == "cpu":
+        return shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, ids, scale=scale,
+                                        include_input=include_input)
+    if not q.is_cuda:
+        raise ValueError(f"shared_flash_bound: no kernel for device {q.device}")
+    b, h, sq, d = q.shape
+    rows, n, _, s, _ = rk.shape
+    bf, f32 = torch.bfloat16, torch.float32
+    typed = [(q, bf), (rk, bf), (rv, bf), (aff, f32), (kmax, f32)]
+    if include_input:
+        typed += [(k_in, bf), (v_in, bf)]
+    ids32 = None
+    if ids is not None:
+        ids32 = ids.to(device=q.device, dtype=torch.int32).contiguous()
+        typed.append((ids32, torch.int32))
+    _check_cuda("shared_flash_bound", *typed)
+    if (d != 64 or rk.shape != (rows, n, h, s, d) or rv.shape != rk.shape
+            or aff.shape != (b, h, n, 2, d) or kmax.shape != (b, h) or sq % 64 or s % 64
+            or (ids32 is None and rows != b) or (ids32 is not None and ids32.shape != (b,))
+            or (include_input and (k_in.shape != (b, h, s, d) or v_in.shape != k_in.shape))):
+        raise ValueError(
+            f"shared_flash_bound: unsupported shapes q {tuple(q.shape)} refs {tuple(rk.shape)}"
+            f" input {tuple(k_in.shape) if include_input else None}")
+    out = torch.empty_like(q)
+    rc = _build.load("shared_flash_bound").irt_shared_flash_bound_bf16(
+        q.data_ptr(), k_in.data_ptr() if include_input else None,
+        v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
+        kmax.data_ptr(), aff.data_ptr(), None if ids32 is None else ids32.data_ptr(),
+        out.data_ptr(), b, h, sq, s, n, rows, int(include_input), d,
+        ctypes.c_float(scale * LOG2E), _stream_ptr(q),
+    )
+    if rc != 0:
+        raise RuntimeError(f"shared_flash_bound kernel launch failed: CUDA error {rc}")
+    shared_flash_bound.launches += 1
+    return out
+
+
+shared_flash_bound.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the two entry points of shared attention: per-call references and the
+# identity cache
+# ---------------------------------------------------------------------------
+
+# TPU kernels behind the algorithms that are not ported yet
+_UNPORTED_SHARED = {
+    "kv_outer": "_shared_kvouter_kernel (instantrestore_tpu/ops/shared_attention.py:339)",
+    "kv_outer_packed": "_shared_kvouter_packed_kernel (instantrestore_tpu/ops/shared_attention.py:599)",
+    "q_outer": "_shared_kernel (instantrestore_tpu/ops/shared_attention.py:265)",
+}
+
+
+def shared_flash_attention(q, k_in, v_in, ref_k, ref_v, *, scale: float,
+                           v_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           include_input: bool = True,
+                           algo: Optional[str] = None) -> torch.Tensor:
+    """Fused widened attention over [input |] ref_1 .. ref_N K/V with
+    per-call references: q/k_in/v_in [B, H, S, d], ref_k/ref_v
+    [B, N, H, S, d], ``v_affine`` = (scale, shift) [B, H, N, d] applied to
+    the reference values (identity when None).
+
+    ``algo`` (default: ``INSTANTRESTORE_ATTN_ALGO``, else ``kv_outer_bound``)
+    chooses the kernel as in the JAX package: ``kv_outer_bound`` runs
+    ``shared_flash_bound``; ``kv_outer_bound_paired`` runs ``shared_identity``
+    on the per-call K/V (rows ``arange(B)``) when the call is refs-only with
+    even N and d <= 64, else falls back to ``kv_outer_bound``. The online-max
+    algorithms are not ported and raise."""
+    b, h, sq, d = q.shape
+    n = ref_k.shape[1]
+    aff = _affine(v_affine, b, h, n, d, q.device)
+    if algo is None:
+        algo = os.environ.get("INSTANTRESTORE_ATTN_ALGO", "kv_outer_bound")
+    if algo == "kv_outer_bound_paired":
+        if not include_input and n % 2 == 0 and d <= 64:
+            return shared_identity(q, ref_k, ref_v, aff, key_norm_max(ref_k, (1, 3)),
+                                   torch.arange(b, device=q.device), scale=scale)
+        algo = "kv_outer_bound"  # pairing needs refs-only and even N
+    if algo == "kv_outer_bound":
+        kmax = key_norm_max(ref_k, (1, 3))
+        if include_input:
+            kmax = torch.maximum(kmax, key_norm_max(k_in, 2))
+        return shared_flash_bound(q, k_in, v_in, ref_k, ref_v, aff, kmax, scale=scale,
+                                  include_input=include_input)
+    if algo == "kv_outer_packed" and d <= 64 and h % 2 == 0:
+        kernel = _UNPORTED_SHARED["kv_outer_packed"]
+    elif algo.startswith("kv_outer"):
+        kernel = _UNPORTED_SHARED["kv_outer"]
+    else:
+        kernel = _UNPORTED_SHARED["q_outer"]
+    raise NotImplementedError(
+        f"shared attention algo {algo!r} runs the TPU kernel {kernel}, not ported yet "
+        "(ROADMAP.md Queue 2)")
+
+
+def shared_attention_identity(q, k_in, v_in, cache: IdentityKVCache, ids, *,
+                              scale: float, use_adain: bool) -> torch.Tensor:
+    """Refs-only shared attention over identity ``ids[b]``'s cached reference
+    KV: softmax(q K^T * scale) (V * a + c), with (a, c) the AdaIN affine of
+    the cached content statistics onto ``v_in``'s (or the identity when
+    ``use_adain`` is off). ``k_in`` is unused (refs-only), as in the JAX
+    package. Even N at d <= 64 runs ``shared_identity`` (the TPU's paired
+    kernel); odd N or d > 64 runs ``shared_flash_bound`` on the cache by id,
+    as the JAX package's unpaired branch does."""
+    del k_in
+    b, h, sq, d = q.shape
+    n = cache.rk.shape[1]
+    affine = None
+    if use_adain:
+        affine = adain_affine_from_stats(v_in, cache.content_mean[ids], cache.content_std[ids])
+    aff = _affine(affine, b, h, n, d, q.device)
+    if n % 2 == 0 and d <= 64:
+        return shared_identity(q, cache.rk, cache.rv, aff, cache.kmax, ids, scale=scale)
+    return shared_flash_bound(q, None, None, cache.rk, cache.rv, aff, cache.kmax[ids.long()],
+                              ids, scale=scale, include_input=False)
+
+
+KERNEL_WRAPPERS = (flash_attention, shared_identity, shared_flash_bound)
 
 
 def reset_launch_counts() -> None:

@@ -2,6 +2,8 @@
 nor ``chip_smoke.py`` imports JAX or anything of the JAX package."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -34,3 +36,23 @@ def test_the_rule_itself():
 def test_port_file_imports_no_jax(path):
     bad = sorted({m for m in _imported_modules(path) if _forbidden(m)})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+NEW_MODULES = ("instantrestore_tpu_torch/data/transforms.py",
+               "instantrestore_tpu_torch/inference/predictor.py",
+               "instantrestore_tpu_torch/csrc/shared_flash_bound.cu")
+
+
+def test_cold_slice_modules_are_covered():
+    files = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert set(NEW_MODULES[:2]) <= files
+    assert (ROOT / NEW_MODULES[2]).is_file()
+
+
+def test_port_imports_without_pillow():
+    """PIL is imported where images are read or written, never at module
+    import: the card's machine does not promise Pillow."""
+    code = ("import sys; sys.modules['PIL'] = None; "
+            "import instantrestore_tpu_torch.inference.predictor, "
+            "instantrestore_tpu_torch.inference.serving, instantrestore_tpu_torch.data.transforms")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)

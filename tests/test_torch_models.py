@@ -12,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from instantrestore_tpu.models import attention as jattn
 from instantrestore_tpu.models import restorer as jrest
 from instantrestore_tpu.models import unet as junet
 from instantrestore_tpu.models import vae as jvae
 from instantrestore_tpu.ops import shared_attention as jsa
 from instantrestore_tpu_torch.convert import from_jax_tree
+from instantrestore_tpu_torch.models import attention as tattn
 from instantrestore_tpu_torch.models import restorer as trest
 from instantrestore_tpu_torch.models import unet as tunet
 from instantrestore_tpu_torch.models import vae as tvae
@@ -138,6 +140,82 @@ def test_unet_ref_kv_matches_jax(unet_params, unet_inputs, refs, use_adain, trai
     _close(et, ej)
     for i in range(9):
         _close(auxt["taps"][f"shared_attn_{i}"], auxj["taps"][f"shared_attn_{i}"])
+
+
+def _jrefs(refs):
+    return [(jnp.asarray(k), jnp.asarray(v)) for k, v in refs]
+
+
+def _trefs(refs):
+    return [(torch.from_numpy(np.array(k)), torch.from_numpy(np.array(v))) for k, v in refs]
+
+
+@pytest.mark.parametrize("use_adain", [True, False])
+@pytest.mark.parametrize("train_input", [True, False])
+def test_attention_fused_per_call_matches_jax(rng, use_adain, train_input):
+    """One shared self-attention layer, per-call references, fused: the
+    port's kernel path (plain version here) vs the JAX package's Pallas path
+    (interpret mode)."""
+    c, heads, s, n = 32, 2, 64, 3
+    p = {name: {"kernel": jnp.asarray(rng.uniform(-1, 1, (c, c)) / np.sqrt(c), jnp.float32)}
+         for name in ("to_q", "to_k", "to_v")}
+    p["to_out"] = {"kernel": jnp.asarray(rng.uniform(-1, 1, (c, c)) / np.sqrt(c), jnp.float32),
+                   "bias": jnp.asarray(0.1 * rng.normal(size=c), jnp.float32)}
+    hidden = rng.normal(size=(2, s, c)).astype(np.float32)
+    rk = rng.normal(size=(2, n, heads, s, c // heads)).astype(np.float32)
+    rv = rng.normal(size=(2, n, heads, s, c // heads)).astype(np.float32)
+    rk[0, 2] = rv[0, 2] = 0.0
+    jout, _ = jattn.attention(p, jnp.asarray(hidden), heads=heads,
+                              ref_kv=(jnp.asarray(rk), jnp.asarray(rv)), use_adain=use_adain,
+                              train_input=train_input, use_fused=True)
+    tp = from_jax_tree(jax.tree_util.tree_map(np.asarray, p))
+    tout, _ = tattn.attention(tp, torch.from_numpy(hidden), heads=heads,
+                              ref_kv=(torch.from_numpy(rk), torch.from_numpy(rv)),
+                              use_adain=use_adain, train_input=train_input, use_fused=True)
+    _close(tout, jout)
+
+
+@pytest.mark.parametrize("use_adain,train_input", [(True, False), (False, True)])
+def test_unet_fused_per_call_matches_jax(unet_params, unet_inputs, refs, use_adain, train_input):
+    """The whole UNet with per-call references on the fused path of both
+    packages (JAX: Pallas in interpret mode; port: the kernels' plain
+    versions)."""
+    jp, tp = unet_params
+    x, t, ctx = unet_inputs
+    ej, _ = junet.unet_apply(jp, jnp.asarray(x[:2]), jnp.asarray(t[:2]), jnp.asarray(ctx[:2]),
+                             cfg=UCFG, ref_kv=_jrefs(refs), use_adain=use_adain,
+                             train_input=train_input, use_fused_attention=True,
+                             compute_dtype=jnp.float32)
+    tsa.reset_launch_counts()
+    et, _ = tunet.unet_apply(tp, torch.from_numpy(x[:2]), torch.from_numpy(t[:2]).long(),
+                             torch.from_numpy(ctx[:2]), cfg=T_UCFG, ref_kv=_trefs(refs),
+                             use_adain=use_adain, train_input=train_input,
+                             use_fused_attention=True, compute_dtype=torch.float32)
+    _close(et, ej)
+    assert [fn.launches for fn in tsa.KERNEL_WRAPPERS] == [0, 0, 0]
+
+
+def test_unet_attn_probs_match_jax(unet_params, unet_inputs, refs):
+    """save_attn_probs with probs_layers: fp32 probabilities of the chosen
+    shared layers, None elsewhere, as the JAX package returns them."""
+    jp, tp = unet_params
+    x, t, ctx = unet_inputs
+    layers = (0, 4, 8)
+    _, auxj = junet.unet_apply(jp, jnp.asarray(x[:2]), jnp.asarray(t[:2]), jnp.asarray(ctx[:2]),
+                               cfg=UCFG, ref_kv=_jrefs(refs), use_adain=True, train_input=False,
+                               save_attn_probs=True, probs_layers=layers,
+                               compute_dtype=jnp.float32)
+    _, auxt = tunet.unet_apply(tp, torch.from_numpy(x[:2]), torch.from_numpy(t[:2]).long(),
+                               torch.from_numpy(ctx[:2]), cfg=T_UCFG, ref_kv=_trefs(refs),
+                               use_adain=True, train_input=False, save_attn_probs=True,
+                               probs_layers=layers, use_fused_attention=True,
+                               compute_dtype=torch.float32)
+    assert len(auxt["attn_probs"]) == len(auxj["attn_probs"]) == 9
+    for i, (pt, pj) in enumerate(zip(auxt["attn_probs"], auxj["attn_probs"])):
+        assert (pt is None) == (pj is None) == (i not in layers)
+        if pj is not None:
+            assert pt.dtype == torch.float32
+            _close(pt, pj, rtol=1e-4, atol=1e-6)
 
 
 IDS = np.array([1, 1, 0, 1])
