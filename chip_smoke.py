@@ -10,11 +10,16 @@
    bf16, held against its plain PyTorch version (max-abs error within a
    stated tolerance) and timed beside the plain version, one PyTorch
    library call on the same inputs (scaled_dot_product_attention, timed
-   here only) and the card's bound for the same work. shared_flash_bound
-   runs refs-only and with the input segment, with the AdaIN affine and one
-   zeroed reference, plus an odd-N identity-cache row; the per-call paired
-   route (INSTANTRESTORE_ATTN_ALGO=kv_outer_bound_paired) runs through the
-   identity kernel;
+   here only) and the card's bound for the same work. The bound and the
+   online kernel of each function run on the same inputs: flash_bound and
+   flash_online (d=64 and the d=512 VAE shape); shared_flash_bound,
+   shared_online and shared_online_pair refs-only and with the input
+   segment, with the AdaIN affine and one zeroed reference. Also an odd-N
+   identity-cache row, the per-call paired route
+   (INSTANTRESTORE_ATTN_ALGO=kv_outer_bound_paired, the identity kernel) and
+   the q_outer route (shared_online). The escape hatch: on a call whose
+   bound slack passes 190 log2 units the bound kernel returns no finite
+   row, the online kernel finite rows equal to its plain version;
 4. warm phase: random full-width SD-Turbo weights (seeded), LoRA rank 32
    merged by serving_bundle, bf16; onboards 16 identities x 4 uint8 512^2
    references and restores batch 16 a few times. Checks the output
@@ -28,15 +33,25 @@
    checks launches per cold restore (9 shared_flash_bound, 0
    shared_identity, 26 flash_bound), output shape and finiteness, agreement
    with the unfused path on two samples and with the warm restore of the
-   same references and noise; prints latency, faces/sec, peak memory and a
+   same references and noise; prints latency, faces/sec, peak memory, the
+   bound slack of every layer of a cold restore and a profile;
+6. online-max phase: the same batch-16 restore_cold under
+   INSTANTRESTORE_ATTN_ALGO=kv_outer and INSTANTRESTORE_FLASH_ALGO=online;
+   checks launches per restore (9 shared_online, 26 flash_online, 0 of any
+   bound kernel), output shape and finiteness, agreement with the default
+   algorithms' cold restore; prints latency, faces/sec, peak memory and a
    profile;
-6. other paths at reduced batch: a train_input engine (warm restore through
+7. other paths at reduced batch: a train_input engine (warm restore through
    shared_flash_bound with its input segment), restore_forward_multistep
    (749, 499, 249), a cold restore under kv_outer_bound_paired (the identity
-   kernel on per-call K/V; agrees with the default algorithm), and
-   Predictor.predict_batch; each checks its launch counts and output;
-7. replacing one identity's references changes exactly its outputs;
-8. prints {"kernels": [...]} (launches summed over the paths of 4-7) and,
+   kernel on per-call K/V), a warm restore under FLASH_ALGO=online, the
+   train_input engine under kv_outer (shared_online with its input
+   segment), cold restores under q_outer and kv_outer_packed (the pair
+   kernel on the even-H layers, shared_online on the H = 5 ones), and
+   Predictor.predict_batch; each checks its launch counts and its output
+   against the default algorithms';
+8. replacing one identity's references changes exactly its outputs;
+9. prints {"kernels": [...]} (launches summed over the paths of 4-8) and,
    last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -45,6 +60,7 @@ It needs a CUDA device and the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -58,6 +74,7 @@ BATCH, N_IDENT, N_REFS, RES = 16, 16, 4, 512
 RESTORE_RUNS = 3
 # (heads, tokens, launches per restore) of the main path at 512 px, head dim 64:
 # the warm restore's shared_identity and the cold restore's shared_flash_bound
+# or shared_online
 SHARED_SHAPES = [(20, 256, 3), (10, 1024, 3), (5, 4096, 3)]
 ODD_SHAPE = (10, 1024)  # the odd-N and per-call paired rows run at this layer
 FLASH_SHAPES = [(5, 4096, 64, 2), (10, 1024, 64, 2), (20, 256, 64, 2), (20, 64, 64, 1),
@@ -130,7 +147,16 @@ def kernel_phase(card: str):
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(bf)
 
-    results = []
+    def row(label, call, plain, lib, flops, nbytes, **meta):
+        """One launch against its plain version, then the three times."""
+        out = call()
+        torch.cuda.synchronize()
+        err, tol, rel_rms = compare(label, out, plain())
+        del out
+        b_ms, b_by = bound(flops, nbytes)
+        return dict(**meta, max_abs_err=err, tol=tol, rel_rms=rel_rms, ms=cuda_ms(call, 10),
+                    plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(lib, 10), bound_ms=b_ms,
+                    bound_by=b_by)
 
     def widened(rk, rv, aff, k_in=None, v_in=None, include_input=False):
         """K/V as the kernel sees them (bf16 affine), for the library call."""
@@ -143,160 +169,189 @@ def kernel_phase(card: str):
             keys, vals = torch.cat([k_in, keys], dim=2), torch.cat([v_in, vals], dim=2)
         return keys.contiguous(), vals.contiguous()
 
+    d, scale = 64, 64 ** -0.5  # every shared kernel runs at head dim 64
+    ident_rows, flash_rows, bound_rows = [], [], []
+    fonline_rows, online_rows, pair_rows = [], [], []
+
     # kernel 1: identity-cached shared attention (ids shuffled, with repeats)
     ids = torch.tensor([3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3], device=dev)
-    rows = []
+    uniq = int(torch.unique(ids).numel())
     for h, s, per_restore in SHARED_SHAPES:
-        d = 64
         q, v_in = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
         rk, rv = rnd(N_IDENT, N_REFS, h, s, d), rnd(N_IDENT, N_REFS, h, s, d)
         (cache,) = sa.build_identity_kv_cache([(rk, rv)])
-        scale = d ** -0.5
-        call = lambda: sa.shared_attention_identity(q, None, v_in, cache, ids, scale=scale,
-                                                    use_adain=True)
-        out = call()
-        torch.cuda.synchronize()
         vs, vh = sa.adain_affine_from_stats(v_in, cache.content_mean[ids], cache.content_std[ids])
         aff = torch.stack([vs, vh], dim=3).contiguous()
-        plain = lambda: sa.shared_identity_plain(q, rk, rv, aff, cache.kmax, ids, scale=scale)
-        ref = plain()
-        err, tol, rel_rms = compare(f"shared_identity H={h} S={s}", out, ref)
         keys, vals = widened(rk[ids], rv[ids], aff)
-        lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
         n_keys = N_REFS * s
-        uniq = int(torch.unique(ids).numel())
-        nbytes = (2 * BATCH * h * s * d * 2 + 2 * uniq * N_REFS * h * s * d * 2
-                  + BATCH * h * N_REFS * 2 * d * 4 + uniq * h * 4 + BATCH * 8)
-        b_ms, b_by = bound(4.0 * BATCH * h * s * n_keys * d, nbytes)
-        rows.append(dict(heads=h, tokens=s, keys=n_keys, per_restore=per_restore,
-                         max_abs_err=err, tol=tol, rel_rms=rel_rms,
-                         ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
-                         library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
-        del q, v_in, rk, rv, cache, keys, vals, aff, out, ref
+        ident_rows.append(row(
+            f"shared_identity H={h} S={s}",
+            lambda: sa.shared_attention_identity(q, None, v_in, cache, ids, scale=scale,
+                                                 use_adain=True),
+            lambda: sa.shared_identity_plain(q, rk, rv, aff, cache.kmax, ids, scale=scale),
+            lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale),
+            4.0 * BATCH * h * s * n_keys * d,
+            (2 * BATCH * h * s * d * 2 + 2 * uniq * N_REFS * h * s * d * 2
+             + BATCH * h * N_REFS * 2 * d * 4 + uniq * h * 4 + BATCH * 8),
+            heads=h, tokens=s, keys=n_keys, per_restore=per_restore))
+        del q, v_in, rk, rv, cache, keys, vals, aff
         torch.cuda.empty_cache()
-    results.append(("shared_identity_attention", "instantrestore_tpu_torch/csrc/shared_identity.cu",
-                    "instantrestore_tpu/ops/shared_attention.py:803", rows))
 
-    # kernel 2: plain bound-softmax flash attention
-    rows = []
-    for h, s, d, per_restore in FLASH_SHAPES:
-        q, k, v = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
-        scale = d ** -0.5
-        call = lambda: sa.flash_attention(q, k, v, scale=scale)
-        out = call()
-        torch.cuda.synchronize()
-        plain = lambda: sa.flash_attention_plain(q, k, v, scale=scale)
-        ref = plain()
-        err, tol, rel_rms = compare(f"flash_bound H={h} S={s} d={d}", out, ref)
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
-        b_ms, b_by = bound(4.0 * BATCH * h * s * s * d, 4 * BATCH * h * s * d * 2 + BATCH * h * 4)
-        rows.append(dict(heads=h, tokens=s, head_dim=d, per_restore=per_restore,
-                         max_abs_err=err, tol=tol, rel_rms=rel_rms,
-                         ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
-                         library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
-        del q, k, v, out, ref
+    # kernels 2 and 8: plain flash attention, bound softmax and online softmax,
+    # on the same inputs (the online kernel reads no kmax: 4 bytes per (b, h) fewer)
+    for h, s, fd, per_restore in FLASH_SHAPES:
+        q, k, v = rnd(BATCH, h, s, fd), rnd(BATCH, h, s, fd), rnd(BATCH, h, s, fd)
+        fscale = fd ** -0.5
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=fscale)
+        flops, nbytes = 4.0 * BATCH * h * s * s * fd, 4 * BATCH * h * s * fd * 2
+        meta = dict(heads=h, tokens=s, head_dim=fd, per_restore=per_restore)
+        flash_rows.append(row(f"flash_bound H={h} S={s} d={fd}",
+                              lambda: sa.flash_attention(q, k, v, scale=fscale, algo="bound"),
+                              lambda: sa.flash_attention_plain(q, k, v, scale=fscale),
+                              lib, flops, nbytes + BATCH * h * 4, **meta))
+        fonline_rows.append(row(f"flash_online H={h} S={s} d={fd}",
+                                lambda: sa.flash_attention(q, k, v, scale=fscale, algo="online"),
+                                lambda: sa.flash_online_plain(q, k, v, scale=fscale),
+                                lib, flops, nbytes, **meta))
+        del q, k, v
         torch.cuda.empty_cache()
-    results.append(("flash_attention_bound", "instantrestore_tpu_torch/csrc/flash_bound.cu",
-                    "instantrestore_tpu/ops/shared_attention.py:174", rows))
 
-    # kernel 3: shared attention over [input |] per-call references; a cold
-    # restore launches the refs-only rows, a train_input model the others
-    rows = []
+    # kernels 3, 7 and 10: shared attention over [input |] per-call references,
+    # bound and online, on the same inputs; a cold restore launches the
+    # refs-only rows, a train_input model the others
     for h, s, per_restore in SHARED_SHAPES:
-        d, scale = 64, 64 ** -0.5
         q, k_in, v_in = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
         rk, rv = rnd(BATCH, N_REFS, h, s, d), rnd(BATCH, N_REFS, h, s, d)
         rk[1, N_REFS - 1] = 0  # a masked reference: zeroed, still attended
         rv[1, N_REFS - 1] = 0
         vs, vh = sa.adain_affine(v_in, rv)
         aff = torch.stack([vs, vh], dim=3).contiguous()
+
+        def shared(algo, inc):
+            return sa.shared_flash_attention(q, k_in, v_in, rk, rv, scale=scale,
+                                             v_affine=(vs, vh), include_input=inc, algo=algo)
+
         for inc in (False, True):
-            call = lambda inc=inc: sa.shared_flash_attention(q, k_in, v_in, rk, rv, scale=scale,
-                                                             v_affine=(vs, vh), include_input=inc)
-            out = call()
-            torch.cuda.synchronize()
             kmax = sa.key_norm_max(rk, (1, 3))
             if inc:
                 kmax = torch.maximum(kmax, sa.key_norm_max(k_in, 2))
-            plain = lambda inc=inc, kmax=kmax: sa.shared_flash_bound_plain(
-                q, k_in, v_in, rk, rv, aff, kmax, scale=scale, include_input=inc)
-            ref = plain()
-            err, tol, rel_rms = compare(f"shared_flash_bound H={h} S={s} input={inc}", out, ref)
             keys, vals = widened(rk, rv, aff, k_in, v_in, inc)
             lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
             n_keys = (N_REFS + inc) * s
+            flops = 4.0 * BATCH * h * s * n_keys * d
             nbytes = (2 * BATCH * h * s * d * 2 + inc * 2 * BATCH * h * s * d * 2
-                      + 2 * BATCH * N_REFS * h * s * d * 2 + BATCH * h * N_REFS * 2 * d * 4
-                      + BATCH * h * 4)
-            b_ms, b_by = bound(4.0 * BATCH * h * s * n_keys * d, nbytes)
-            rows.append(dict(heads=h, tokens=s, keys=n_keys, input=inc,
-                             per_restore=0 if inc else per_restore,
-                             max_abs_err=err, tol=tol, rel_rms=rel_rms,
-                             ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
-                             library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
-            del out, ref, keys, vals
-        if (h, s) == ODD_SHAPE:
-            # row 1b: the per-call paired route runs the identity kernel
-            call = lambda: sa.shared_flash_attention(q, k_in, v_in, rk, rv, scale=scale,
-                                                     v_affine=(vs, vh), include_input=False,
-                                                     algo="kv_outer_bound_paired")
-            out = call()
-            torch.cuda.synchronize()
-            rows_b = torch.arange(BATCH, device=dev)
-            kmax = sa.key_norm_max(rk, (1, 3))
-            plain = lambda: sa.shared_identity_plain(q, rk, rv, aff, kmax, rows_b, scale=scale)
-            ref = plain()
-            err, tol, rel_rms = compare(f"paired route H={h} S={s}", out, ref)
-            keys, vals = widened(rk, rv, aff)
-            lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
-            nbytes = (2 * BATCH * h * s * d * 2 + 2 * BATCH * N_REFS * h * s * d * 2
-                      + BATCH * h * N_REFS * 2 * d * 4 + BATCH * h * 4 + BATCH * 8)
-            b_ms, b_by = bound(4.0 * BATCH * h * s * N_REFS * s * d, nbytes)
-            results[0][3].append(dict(heads=h, tokens=s, keys=N_REFS * s,
-                                      route="per-call paired (kv_outer_bound_paired)",
-                                      per_restore=0, max_abs_err=err, tol=tol, rel_rms=rel_rms,
-                                      ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
-                                      library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
-            del out, ref, keys, vals
+                      + 2 * BATCH * N_REFS * h * s * d * 2 + BATCH * h * N_REFS * 2 * d * 4)
+            meta = dict(heads=h, tokens=s, keys=n_keys, input=inc,
+                        per_restore=0 if inc else per_restore)
+            bound_rows.append(row(
+                f"shared_flash_bound H={h} S={s} input={inc}",
+                lambda: shared("kv_outer_bound", inc),
+                lambda: sa.shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, scale=scale,
+                                                    include_input=inc),
+                lib, flops, nbytes + BATCH * h * 4, **meta))
+            online_plain = lambda: sa.shared_online_plain(q, k_in, v_in, rk, rv, aff, scale=scale,
+                                                          include_input=inc)
+            online_rows.append(row(f"shared_online H={h} S={s} input={inc}",
+                                   lambda: shared("kv_outer", inc), online_plain, lib, flops,
+                                   nbytes, **meta))
+            if h % 2 == 0:  # odd H falls through to shared_online, as in the JAX package
+                pair_rows.append(row(
+                    f"shared_online_pair H={h} S={s} input={inc}",
+                    lambda: shared("kv_outer_packed", inc),
+                    lambda: sa.shared_online_pair_plain(q, k_in, v_in, rk, rv, aff, scale=scale,
+                                                        include_input=inc),
+                    lib, flops, nbytes, **meta))
+            if (h, s) == ODD_SHAPE and not inc:
+                # row 9: the Q-outer algorithm's name runs the same kernel
+                online_rows.append(row(f"q_outer route H={h} S={s}",
+                                       lambda: shared("q_outer", inc), online_plain, lib, flops,
+                                       nbytes, **dict(meta, route="q_outer", per_restore=0)))
+                # row 1b: the per-call paired route runs the identity kernel
+                rows_b = torch.arange(BATCH, device=dev)
+                ident_rows.append(row(
+                    f"paired route H={h} S={s}",
+                    lambda: shared("kv_outer_bound_paired", inc),
+                    lambda: sa.shared_identity_plain(q, rk, rv, aff, kmax, rows_b, scale=scale),
+                    lib, flops, nbytes + BATCH * h * 4 + BATCH * 8,
+                    heads=h, tokens=s, keys=n_keys,
+                    route="per-call paired (kv_outer_bound_paired)", per_restore=0))
+            del keys, vals
         del q, k_in, v_in, rk, rv, aff
         torch.cuda.empty_cache()
 
-    # odd N: the identity cache read by id through the same kernel
+    # odd N: the identity cache read by id through the bound kernel
     h, s = ODD_SHAPE
-    d, scale, n_odd = 64, 64 ** -0.5, N_REFS - 1
+    n_odd = N_REFS - 1
     q, v_in = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
     (cache,) = sa.build_identity_kv_cache([(rnd(N_IDENT, n_odd, h, s, d),
                                             rnd(N_IDENT, n_odd, h, s, d))])
-    call = lambda: sa.shared_attention_identity(q, None, v_in, cache, ids, scale=scale,
-                                                use_adain=True)
-    out = call()
-    torch.cuda.synchronize()
     vs, vh = sa.adain_affine_from_stats(v_in, cache.content_mean[ids], cache.content_std[ids])
     aff = torch.stack([vs, vh], dim=3).contiguous()
     kmax = cache.kmax[ids]
-    plain = lambda: sa.shared_flash_bound_plain(q, None, None, cache.rk, cache.rv, aff, kmax, ids,
-                                                scale=scale, include_input=False)
-    ref = plain()
-    err, tol, rel_rms = compare(f"shared_flash_bound odd N={n_odd} H={h} S={s}", out, ref)
     keys, vals = widened(cache.rk[ids], cache.rv[ids], aff)
-    lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
-    uniq = int(torch.unique(ids).numel())
-    nbytes = (2 * BATCH * h * s * d * 2 + 2 * uniq * n_odd * h * s * d * 2
-              + BATCH * h * n_odd * 2 * d * 4 + BATCH * h * 4 + BATCH * 8)
-    b_ms, b_by = bound(4.0 * BATCH * h * s * n_odd * s * d, nbytes)
-    rows.append(dict(heads=h, tokens=s, keys=n_odd * s, route=f"identity cache, N={n_odd}",
-                     per_restore=0, max_abs_err=err, tol=tol, rel_rms=rel_rms,
-                     ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 2),
-                     library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
-    del q, v_in, cache, out, ref, keys, vals
+    bound_rows.append(row(
+        f"shared_flash_bound odd N={n_odd} H={h} S={s}",
+        lambda: sa.shared_attention_identity(q, None, v_in, cache, ids, scale=scale,
+                                             use_adain=True),
+        lambda: sa.shared_flash_bound_plain(q, None, None, cache.rk, cache.rv, aff, kmax, ids,
+                                            scale=scale, include_input=False),
+        lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale),
+        4.0 * BATCH * h * s * n_odd * s * d,
+        (2 * BATCH * h * s * d * 2 + 2 * uniq * n_odd * h * s * d * 2
+         + BATCH * h * n_odd * 2 * d * 4 + BATCH * h * 4 + BATCH * 8),
+        heads=h, tokens=s, keys=n_odd * s, route=f"identity cache, N={n_odd}", per_restore=0))
+    del q, v_in, cache, keys, vals
     torch.cuda.empty_cache()
-    results.append(("shared_flash_bound", "instantrestore_tpu_torch/csrc/shared_flash_bound.cu",
-                    "instantrestore_tpu/ops/shared_attention.py:429", rows))
 
+    src, jax_src = "instantrestore_tpu_torch/csrc/", "instantrestore_tpu/ops/shared_attention.py:"
+    results = [
+        ("shared_identity_attention", src + "shared_identity.cu", jax_src + "803", ident_rows),
+        ("flash_attention_bound", src + "flash_bound.cu", jax_src + "174", flash_rows),
+        ("shared_flash_bound", src + "shared_flash_bound.cu", jax_src + "429", bound_rows),
+        ("flash_attention_online", src + "flash_online.cu", jax_src + "58", fonline_rows),
+        ("shared_online", src + "shared_online.cu", jax_src + "339", online_rows),
+        ("shared_online_pair", src + "shared_online_pair.cu", jax_src + "599", pair_rows),
+    ]
     for name, _, _, rows in results:
         for r in rows:
             print(f"kernel {name} {json.dumps(r)} [{card}]")
+    escape_hatch(card)
     return results
+
+
+def escape_hatch(card: str):
+    """Bound slack beyond ~190 log2 units on the card: one large-norm key
+    orthogonal to every query lifts every row's bound far above its scores.
+    The bound kernel flushes each p to 0 and returns 0 / 0; the online kernel
+    stays finite and equals its plain version."""
+    import torch
+
+    from instantrestore_tpu_torch.ops import shared_attention as sa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    b, h, s, d, n = 2, 10, 1024, 64, N_REFS
+    q = torch.randn((b, h, s, d), generator=g, device=dev)
+    q[..., d // 2:] = 0
+    q = q.to(torch.bfloat16)
+    rk = torch.randn((b, n, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+    rv = torch.randn((b, n, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+    rk[:, 1, :, 5, :] = 0
+    rk[:, 1, :, 5, d - 1] = 4096.0
+    scale = d ** -0.5
+    slack = _slack(q, rk.permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d), scale)
+    kw = dict(scale=scale, include_input=False)
+    bound_out = sa.shared_flash_attention(q, None, None, rk, rv, algo="kv_outer_bound", **kw)
+    online_out = sa.shared_flash_attention(q, None, None, rk, rv, algo="kv_outer", **kw)
+    torch.cuda.synchronize()
+    plain = sa.shared_online_plain(q, None, None, rk, rv, sa._affine(None, b, h, n, d, dev), **kw)
+    err, tol, rel_rms = compare("escape hatch, shared_online", online_out, plain)
+    bad_rows = int((~torch.isfinite(bound_out).all(dim=-1)).sum())
+    print(f"escape hatch [{card}]: slack {slack:.0f} log2 units; shared_flash_bound non-finite "
+          f"rows {bad_rows} of {b * h * s}; shared_online finite, max-abs {err:.5f} (tol "
+          f"{tol:.4f}), relative RMS {rel_rms:.2e} against its plain version")
+    if slack <= 190 or bad_rows != b * h * s:
+        raise AssertionError("escape hatch: the bound kernel did not lose every row")
 
 
 def _slack(q, keys, scale: float) -> float:
@@ -320,35 +375,55 @@ def _slack(q, keys, scale: float) -> float:
     return worst
 
 
-def measure_slack(engine, images, ids, noise):
-    """One restore with every attention call recording its bound slack."""
+def measure_slack(run, what: str):
+    """``run()`` (one restore under the default algorithms) with every
+    bound-softmax attention call recording its slack, printed per layer."""
+    import torch
+
     from instantrestore_tpu_torch.models import attention as attn_mod
     from instantrestore_tpu_torch.models import vae as vae_mod
 
     flash, ident = attn_mod.flash_attention, attn_mod.shared_attention_identity
+    shared = attn_mod.shared_flash_attention
     records = []
+
+    def ref_keys(rk):
+        b, n, h, s, d = rk.shape
+        return rk.permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d)
 
     def flash_rec(q, k, v, *, scale):
         records.append(("flash_attention_bound", tuple(q.shape), _slack(q, k, scale)))
         return flash(q, k, v, scale=scale)
 
     def ident_rec(q, k_in, v_in, cache, ids_, *, scale, use_adain):
-        b, h, _, d = q.shape
-        n, s = cache.rk.shape[1], cache.rk.shape[3]
-        keys = cache.rk[ids_].permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d)
-        records.append(("shared_identity_attention", tuple(q.shape), _slack(q, keys, scale)))
+        records.append(("shared_identity_attention", tuple(q.shape),
+                        _slack(q, ref_keys(cache.rk[ids_]), scale)))
         return ident(q, k_in, v_in, cache, ids_, scale=scale, use_adain=use_adain)
+
+    def shared_rec(q, k_in, v_in, rk, rv, *, scale, v_affine, include_input):
+        keys = ref_keys(rk)
+        if include_input:
+            keys = torch.cat([k_in, keys], dim=2)
+        records.append(("shared_flash_bound", tuple(q.shape), _slack(q, keys, scale)))
+        return shared(q, k_in, v_in, rk, rv, scale=scale, v_affine=v_affine,
+                      include_input=include_input)
 
     attn_mod.flash_attention, vae_mod.flash_attention = flash_rec, flash_rec
     attn_mod.shared_attention_identity = ident_rec
+    attn_mod.shared_flash_attention = shared_rec
     try:
-        engine.restore(images, ids, noise=noise)
+        run()
     finally:
         attn_mod.flash_attention, vae_mod.flash_attention = flash, flash
         attn_mod.shared_attention_identity = ident
+        attn_mod.shared_flash_attention = shared
+    by_layer = {}  # calls of one kernel at one shape, in call order
     for name, shape, slack in records:
-        print(f"bound slack {name} q{list(shape)}: max {slack:.2f} log2 units (rows flush beyond ~190)")
-    return max(r[2] for r in records)
+        by_layer.setdefault((name, shape), []).append(round(slack, 2))
+    for (name, shape), slacks in by_layer.items():
+        print(f"bound slack, {what}, {name} q{list(shape)}: max {max(slacks):.2f} log2 units "
+              f"over {len(slacks)} calls {slacks} (rows flush beyond ~190)")
+    return records
 
 
 def profile_run(fn, what: str, card: str):
@@ -378,15 +453,39 @@ def profile_run(fn, what: str, card: str):
         print(f"  {t:8.2f} ms {t / busy * 100:5.1f}%  x{cnt:<4d} {name[:110]}")
 
 
-KERNEL_NAMES = ("shared_identity_attention", "flash_attention_bound", "shared_flash_bound")
+# kernel name -> its wrapper in ops/shared_attention.py, which holds the launch count
+KERNEL_WRAPPERS = {
+    "shared_identity_attention": "shared_identity", "flash_attention_bound": "flash_attention",
+    "shared_flash_bound": "shared_flash_bound", "flash_attention_online": "flash_online",
+    "shared_online": "shared_online", "shared_online_pair": "shared_online_pair",
+}
+KERNEL_NAMES = tuple(KERNEL_WRAPPERS)
 
 
 def launch_counts():
     """Launches since the last reset, by kernel name."""
     from instantrestore_tpu_torch.ops import shared_attention as sa
 
-    return dict(zip(KERNEL_NAMES, (sa.shared_identity.launches, sa.flash_attention.launches,
-                                   sa.shared_flash_bound.launches)))
+    return {name: getattr(sa, wrapper).launches for name, wrapper in KERNEL_WRAPPERS.items()}
+
+
+@contextlib.contextmanager
+def algo_env(attn=None, flash=None):
+    """INSTANTRESTORE_ATTN_ALGO / INSTANTRESTORE_FLASH_ALGO set for the block,
+    and put back as they were after it."""
+    wanted = {"INSTANTRESTORE_ATTN_ALGO": attn, "INSTANTRESTORE_FLASH_ALGO": flash}
+    before = {k: os.environ.get(k) for k in wanted}
+    try:
+        for k, v in wanted.items():
+            if v is not None:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def check_launches(failures, what: str, got: dict, runs: int, **per_run):
@@ -498,7 +597,7 @@ def warm_phase(card: str):
     if float(diff.mean()) > 2e-2:
         failures.append("fused path disagrees with the unfused path")
 
-    measure_slack(engine, images, ids, noise)
+    measure_slack(lambda: engine.restore(images, ids, noise=noise), "warm restore")
     profile_run(lambda: engine.restore(images, ids, noise=noise), "one restore", card)
     if failures:
         raise AssertionError("warm phase failed: " + "; ".join(failures))
@@ -567,10 +666,65 @@ def cold_phase(card: str, w):
         failures.append("cold fused path disagrees with the unfused path")
     if warm > 2e-2:
         failures.append("cold restore disagrees with the warm restore")
+    # the slack that decides whether an operator needs the online algorithms
+    records = measure_slack(
+        lambda: engine.restore_cold(images[:4], cond[:4], noise=_rows(noise, 4)),
+        "cold restore, first 4 samples")
+    worst = max(r[2] for r in records if r[0] == "shared_flash_bound")
+    print(f"bound slack of shared_flash_bound over the cold restore's reference keys: max "
+          f"{worst:.2f} log2 units over {sum(r[0] == 'shared_flash_bound' for r in records)} layers")
     profile_run(lambda: engine.restore_cold(images, cond, noise=noise), "one cold restore", card)
     if failures:
         raise AssertionError("cold phase failed: " + "; ".join(failures))
     return dict(cond=cond, noise=noise, out=out), counts
+
+
+def online_phase(card: str, w, cold):
+    """The online-max path at full width: the cold phase's batch-16
+    restore_cold under INSTANTRESTORE_ATTN_ALGO=kv_outer and
+    INSTANTRESTORE_FLASH_ALGO=online; returns its launch counts."""
+    import torch
+
+    from instantrestore_tpu_torch.ops import shared_attention as sa
+
+    engine, images = w["engine"], w["images"]
+    with algo_env(attn="kv_outer", flash="online"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sa.reset_launch_counts()
+        lat_s, out = [], None
+        for _ in range(RESTORE_RUNS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.restore_cold(images, cold["cond"], noise=cold["noise"])
+            torch.cuda.synchronize()
+            lat_s.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        profile_run(lambda: engine.restore_cold(images, cold["cond"], noise=cold["noise"]),
+                    "one cold restore under kv_outer + online", card)
+    failures = []
+    check_launches(failures, f"{RESTORE_RUNS + 1} cold restores under kv_outer + online", counts,
+                   RESTORE_RUNS + 1, shared_online=9, flash_attention_online=26)
+    if tuple(out.shape) != (BATCH, RES, RES, 3):
+        failures.append(f"online cold output shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        failures.append("non-finite online cold output")
+    steady = statistics.median(lat_s[1:])
+    print(f"cold restore under kv_outer + online, batch {BATCH} x {N_REFS} refs: first "
+          f"{lat_s[0] * 1e3:.1f} ms, steady median {steady * 1e3:.1f} ms over {RESTORE_RUNS} runs "
+          f"{[round(x * 1e3, 1) for x in lat_s[1:]]} [{card}]")
+    print(f"online cold faces/sec: {BATCH / steady:.2f} (batch {BATCH}, {N_REFS} refs, 512 px, "
+          f"bf16) [{card}]")
+    print(f"online cold peak device memory: {peak:.2f} GiB")
+    diff = mean_abs(out, cold["out"])
+    print(f"kv_outer + online vs the default algorithms, cold restore ({BATCH} samples): max-abs "
+          f"{float((out.float() - cold['out'].float()).abs().max()):.4f}, mean-abs {diff:.5f}")
+    if diff > 2e-2:
+        failures.append("the online algorithms disagree with the default ones")
+    if failures:
+        raise AssertionError("online phase failed: " + "; ".join(failures))
+    return counts
 
 
 def other_paths(card: str, w, cold):
@@ -612,7 +766,8 @@ def other_paths(card: str, w, cold):
     print(f"train_input restore, fused vs unfused (2 samples): mean-abs {diff:.5f}")
     if diff > 2e-2:
         failures.append("train_input fused path disagrees with the unfused path")
-    del ti
+    ti.use_fused_attention = True
+    ti_out = out
 
     # 2. multistep: one capture, three DDIM steps over the same references
     pre = preprocess(images[:4].to(dev).float() / 255.0, RES)
@@ -631,20 +786,40 @@ def other_paths(card: str, w, cold):
     finite("multistep", out, (4, RES, RES, 3))
 
     # 3. the per-call paired algorithm (row 1b) on a cold restore
-    os.environ["INSTANTRESTORE_ATTN_ALGO"] = "kv_outer_bound_paired"
-    try:
-        sa.reset_launch_counts()
-        out = engine.restore_cold(images[:2], cold["cond"][:2], noise=_rows(cold["noise"], 2))
-        counts = launch_counts()
-    finally:
-        del os.environ["INSTANTRESTORE_ATTN_ALGO"]
-    check_launches(failures, "cold restore batch 2, kv_outer_bound_paired", counts, 1,
-                   shared_identity_attention=9, flash_attention_bound=26)
-    add_counts(total, counts)
-    diff = mean_abs(out, cold["out"][:2])
-    print(f"kv_outer_bound_paired vs kv_outer_bound cold restore (2 samples): mean-abs {diff:.5f}")
-    if diff > 2e-2:
-        failures.append("the paired algorithm disagrees with the default one")
+    def under(what, run, ref, attn=None, flash=None, **per_run):
+        """``run()`` under the given algorithms: its launch counts, and its
+        agreement with the default algorithms' output ``ref``."""
+        with algo_env(attn=attn, flash=flash):
+            sa.reset_launch_counts()
+            out = run()
+            counts = launch_counts()
+        check_launches(failures, what, counts, 1, **per_run)
+        add_counts(total, counts)
+        diff = mean_abs(out, ref)
+        print(f"{what} vs the default algorithms: mean-abs {diff:.5f}")
+        if not torch.isfinite(out).all() or diff > 2e-2:
+            failures.append(f"{what} disagrees with the default algorithms")
+
+    cold2 = lambda: engine.restore_cold(images[:2], cold["cond"][:2], noise=_rows(cold["noise"], 2))
+    under("cold restore batch 2, kv_outer_bound_paired", cold2, cold["out"][:2],
+          attn="kv_outer_bound_paired", shared_identity_attention=9, flash_attention_bound=26)
+
+    # 3b. the online-max family at reduced batch: a warm restore under
+    # FLASH_ALGO=online (the identity cache takes no algorithm), the
+    # train_input engine under kv_outer (the online kernel with its input
+    # segment), cold restores under q_outer and kv_outer_packed (the H = 5
+    # layers fall through to shared_online)
+    under("warm restore batch 4, FLASH_ALGO=online",
+          lambda: engine.restore(images[:4], w["ids"][:4], noise=noise4), w["out"][:4],
+          attn="kv_outer", flash="online", shared_identity_attention=9, flash_attention_online=9)
+    under("train_input restore batch 4, kv_outer",
+          lambda: ti.restore(images[:4], torch.arange(4), noise=noise4), ti_out,
+          attn="kv_outer", shared_online=9, flash_attention_bound=9)
+    del ti
+    under("cold restore batch 2, q_outer", cold2, cold["out"][:2], attn="q_outer",
+          shared_online=9, flash_attention_bound=26)
+    under("cold restore batch 2, kv_outer_packed", cold2, cold["out"][:2], attn="kv_outer_packed",
+          shared_online_pair=6, shared_online=3, flash_attention_bound=26)
 
     # 4. the Predictor, array in and out
     pred = Predictor(params=engine.params, statics=engine.statics, device=dev, seed=6)
@@ -694,13 +869,15 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  ptxas {name}: {line.strip()}")
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "Compiling entry function" in line):
+                print(f"  ptxas {name}: {line.strip()[:150]}")
 
     results = kernel_phase(card)
     warm, counts = warm_phase(card)
     cold, cold_counts = cold_phase(card, warm)
     add_counts(counts, cold_counts)
+    add_counts(counts, online_phase(card, warm, cold))
     add_counts(counts, other_paths(card, warm, cold))
     replace_identity(warm)
     print(f"launches over the paths: {counts}")
@@ -716,8 +893,10 @@ def main() -> int:
             "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             # times are per restore (warm for shared_identity_attention and
-            # flash_attention_bound, cold for shared_flash_bound): each
-            # shape's time times its launches per restore
+            # the two flash kernels, cold for shared_flash_bound and
+            # shared_online, cold under kv_outer_packed for
+            # shared_online_pair): each shape's time times its launches
+            # per restore
             "ms": sum(r["ms"] * r["per_restore"] for r in rows),
             "plain_ms": sum(r["plain_ms"] * r["per_restore"] for r in rows),
             "bound_ms": b_ms,

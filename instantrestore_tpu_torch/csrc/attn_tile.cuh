@@ -1,18 +1,34 @@
-// Bound-softmax attention tile shared by the serving kernels (flash_bound.cu,
-// shared_identity.cu, shared_flash_bound.cu). Plain C interface, no PyTorch
-// headers: built with nvcc -gencode arch=compute_90a,code=sm_90a and loaded
-// through ctypes (ops/_build.py).
+// Attention tile shared by the serving kernels: the bound-softmax ones
+// (flash_bound.cu, shared_identity.cu, shared_flash_bound.cu) and the
+// online-max ones (flash_online.cu, shared_online.cu, shared_online_pair.cu).
+// Plain C interface, no PyTorch headers: built with nvcc -gencode
+// arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
 // One block computes BQ query rows of one (batch, head) against every key
 // that (batch, head) sees, streamed through shared memory in tiles of BK
-// keys. The softmax needs no running max: each query row carries the
-// Cauchy-Schwarz bound of the JAX package (ops/shared_attention.py,
-// _shared_kvouter_bound_kernel),
+// keys. Scores and the output accumulator are fp32. Two softmax policies:
+//
+// Bound: no running max. Each query row carries the Cauchy-Schwarz bound of
+// the JAX package (ops/shared_attention.py, _shared_kvouter_bound_kernel),
 //     bound_i = ||q_i|| * scale * log2(e) * max_j ||k_j|| - 64,
 // so p_ij = exp2(s_ij - bound_i) <= 2^64 and out_i = sum_j p_ij v_j / sum_j p_ij.
 // p reaches 2^64, so it enters the tensor-core product as bf16 (fp32's
-// exponent range), never fp16 (overflows at 65504). Scores and the output
-// accumulator are fp32.
+// exponent range), never fp16 (overflows at 65504). A row whose largest
+// score lies more than ~190 log2 units under its bound flushes to 0 / 0.
+//
+// Online: the running max of the JAX package's _flash_kernel and
+// _shared_kvouter_kernel. Each query row keeps m (log2 units, started at the
+// finite -1e30, so that the first alpha is exp2(-1e30 - m) = 0 and never
+// inf - inf); per key tile m_new = max(m, rowmax(s)), alpha = exp2(m - m_new),
+// p = exp2(s - m_new) <= 1, and the row sum and the output accumulator are
+// rescaled by alpha before the tile's P V is added. No row can flush. At
+// d < 128 the argument s - m_new is rounded to bf16 before exp2 and the row
+// sum adds the bf16-rounded p; at d >= 128 p stays fp32 for the sum and only
+// the product's operand is rounded (as _flash_kernel's two branches do).
+// The accumulator lives in WMMA fragments whose element-to-row mapping is
+// opaque, so the rows' alphas go through a [BQ, 16] fp32 tile in shared
+// memory that each warp loads as a fragment of the same type and multiplies
+// in element by element (every channel slab of the d=512 tile included).
 //
 // Per key tile: (1) all threads copy K and V tiles to shared memory with
 // 16-byte loads (the shared kernels apply their per-(sample, head, ref,
@@ -24,7 +40,8 @@
 // key loop. The epilogue divides by the row sums and writes bf16.
 //
 // Tiles that fit: d=64 keeps a 64x64 block in 4 warps (each warp owns 16
-// query rows x 64 channels). d=512 (the VAE mid attention) cannot hold a
+// query rows x 64 channels); with HP=2 a block of 8 warps owns a pair of
+// heads, each half working on its own tiles (shared_online_pair.cu). d=512 (the VAE mid attention) cannot hold a
 // 64x512 fp32 accumulator in one block's registers; it takes 32 query rows
 // in 8 warps, and the 32x512 accumulator is split by channel slabs across
 // the warps (64 registers each). Its K and V tiles need 176 KB of shared
@@ -52,7 +69,17 @@ constexpr float kBoundExpShift = 64.0f;
 // (row = b) or from an identity cache by id (row = ids[b]); kFlash's bound and
 // row sum, AdaIN affine with bf16 scale and shift on the reference segments
 // only (JAX _shared_kvouter_bound_kernel).
-enum class Mode { kFlash, kIdentity, kShared };
+// kFlashOnline: plain attention with the running max (JAX _flash_kernel).
+// kSharedOnline: kShared's keys, values and affine with the running max (JAX
+// _shared_kvouter_kernel, _shared_kernel, _shared_kvouter_packed_kernel).
+enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kSharedOnline };
+
+__host__ __device__ constexpr bool is_online(Mode m) { return m == Mode::kFlashOnline || m == Mode::kSharedOnline; }
+__host__ __device__ constexpr bool has_affine(Mode m) { return m != Mode::kFlash && m != Mode::kFlashOnline; }
+__host__ __device__ constexpr bool bf16_affine(Mode m) { return m == Mode::kShared || m == Mode::kSharedOnline; }
+
+constexpr float kNegInf = -1e30f;  // the JAX kernels' finite sentinel
+constexpr int kAlphaCols = 16;     // width of the alpha tile: one fp32 WMMA fragment
 
 template <int D, int BQ, int BK, int NW>
 struct TileCfg {
@@ -67,6 +94,8 @@ struct TileCfg {
   static constexpr int kPOff = kVOff + BK * kLdh * 2;
   static constexpr int kSOff = kPOff + BQ * kLdp * 2;
   static constexpr int kSmemBytes = kSOff + BQ * kLds * 4;
+  static constexpr int kAOff = kSmemBytes;  // the online policy's alpha tile
+  static constexpr int kOnlineSmemBytes = kAOff + BQ * kAlphaCols * 4;
   static constexpr int kTpr = kThreads / BQ;          // threads per query row
   static constexpr int kColsPerThread = BK / kTpr;    // scores per thread per tile
   static constexpr int kDimsPerThread = D / kTpr;     // q channels per thread
@@ -83,8 +112,9 @@ struct TileCfg {
                 "per-thread spans are whole 16-byte vectors");
   static_assert(BQ * kLdo * 4 <= 2 * BK * kLdh * 2,
                 "the output staging tile reuses the K and V tiles");
-  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
-  static_assert(kKOff % 32 == 0 && kVOff % 32 == 0 && kPOff % 32 == 0 && kSOff % 32 == 0,
+  static_assert(kOnlineSmemBytes <= 232448, "over the 227 KB a block may use");
+  static_assert(kKOff % 32 == 0 && kVOff % 32 == 0 && kPOff % 32 == 0 && kSOff % 32 == 0 &&
+                    kAOff % 32 == 0 && kOnlineSmemBytes % 128 == 0 && kSmemBytes % 128 == 0,
                 "WMMA needs 256-bit aligned tiles");
 };
 
@@ -120,10 +150,12 @@ __device__ __forceinline__ void load8f(const float* p, float* f) {
 // [B, H, S, D]; kShared without ids: [B, N, H, S, D]) or row = ids[b]
 // (identity, and kShared with ids: cache [I, N, H, S, D]). kmax: max key
 // norm, [I, H] read at row (identity) or [B, H] read at b (flash, kShared).
-// aff (identity, kShared): [B, H, N, 2, D] fp32 scale and shift of the
-// reference V. qscale = scale * log2(e).
-template <Mode M, int D, int BQ, int BK, int NW>
-__global__ void __launch_bounds__(NW * 32)
+// The online modes read no kmax. aff (every mode but the flash ones):
+// [B, H, N, 2, D] fp32 scale and shift of the reference V. qscale = scale *
+// log2(e). A block holds HP groups of NW warps, group g working on head
+// blockIdx.y * HP + g with its own tiles.
+template <Mode M, int D, int BQ, int BK, int NW, int HP = 1>
+__global__ void __launch_bounds__(NW * 32 * HP)
 attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k_in,
                  const __nv_bfloat16* __restrict__ v_in,
@@ -135,21 +167,28 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ out,
                  int H, int Sq, int S, int N, int I, int n_in, float qscale) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
-  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool kOnline = is_online(M);
+  constexpr bool kArgBf16 = D < 128;  // online: round s - m to bf16 before exp2
+  extern __shared__ __align__(128) unsigned char smem_block[];
+  // thread within its head's group, and the group
+  const int tid = HP == 1 ? threadIdx.x : threadIdx.x % Cfg::kThreads;
+  const int grp = HP == 1 ? 0 : threadIdx.x / Cfg::kThreads;
+  unsigned char* smem =
+      smem_block + grp * (kOnline ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes);
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kQOff);
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kKOff);
   __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kVOff);
   __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kPOff);
   float* Ss = reinterpret_cast<float*>(smem + Cfg::kSOff);
+  float* Al = reinterpret_cast<float*>(smem + Cfg::kAOff);
 
-  const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y * HP + grp;
   const int b = blockIdx.z;
   const size_t q_base = ((size_t)(b * H + h) * Sq + (size_t)blockIdx.x * BQ) * D;
 
   int row = b;
-  if (M != Mode::kFlash && ids != nullptr) {
+  if (has_affine(M) && ids != nullptr) {
     row = ids[b];
     if (row < 0 || row >= I) {  // an id outside the cache poisons its outputs
       for (int c = tid; c < BQ * D; c += Cfg::kThreads)
@@ -157,7 +196,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
       return;
     }
   }
-  const float kmax_bh = kmax[(M == Mode::kIdentity ? row : b) * H + h];
+  const float kmax_bh = kOnline ? 0.f : kmax[(M == Mode::kIdentity ? row : b) * H + h];
 
   // Q tile, pre-scaled in bf16 as the JAX kernels do (q * bf16(scale*log2e)),
   // and the per-row bound, from the thread group that owns the row.
@@ -205,6 +244,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < Cfg::kOFrags; ++i) wmma::fill_fragment(o_frag[i], 0.f);
   float lsum = 0.f;
+  float m_run = kNegInf;
 
   const int tiles_per_seg = S / BK;
   const int n_tiles = (n_in + N) * tiles_per_seg;
@@ -213,7 +253,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     const int j0 = (t % tiles_per_seg) * BK;
 
     // (1) K and V tiles -> shared memory, with the AdaIN affine on reference
-    // V. kIdentity: fp32 scale and shift. kShared: scale and shift rounded to
+    // V. kIdentity: fp32 scale and shift. kShared, kSharedOnline: rounded to
     // bf16, as the JAX kernel casts them, then one bf16 rounding of v * a + c
     // computed in fp32; the JAX kernel rounds the product and the sum to bf16
     // each, which differs by at most 1 bf16 ulp of the value.
@@ -225,7 +265,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
       kt = k;
       vt = v;
       kv_base = ((((size_t)row * N + n) * H + h) * S + j0) * D;
-      if constexpr (M != Mode::kFlash) a_vec = aff + (((size_t)b * H + h) * N + n) * 2 * D;
+      if constexpr (has_affine(M)) a_vec = aff + (((size_t)b * H + h) * N + n) * 2 * D;
     }
     for (int c = tid; c < BK * D / 8; c += Cfg::kThreads) {
       const int kr = c / (D / 8);
@@ -233,12 +273,12 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
       const size_t g = kv_base + (size_t)kr * D + kc;
       *reinterpret_cast<uint4*>(Ks + kr * Cfg::kLdh + kc) = *reinterpret_cast<const uint4*>(kt + g);
       uint4 vraw = *reinterpret_cast<const uint4*>(vt + g);
-      if (M != Mode::kFlash && a_vec != nullptr) {
+      if (has_affine(M) && a_vec != nullptr) {
         float f[8], sc[8], sh[8];
         unpack8(vraw, f);
         load8f(a_vec + kc, sc);
         load8f(a_vec + D + kc, sh);
-        if constexpr (M == Mode::kShared) {
+        if constexpr (bf16_affine(M)) {
           unpack8(pack8(sc), sc);
           unpack8(pack8(sh), sh);
         }
@@ -273,18 +313,42 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // (3) p = exp2(s - bound) -> bf16 P tile, row sums
+    // (3) p = exp2(s - bound), or exp2(s - running max) -> bf16 P tile, row sums
     {
       const float* srow = Ss + r * Cfg::kLds + part * Cfg::kColsPerThread;
       __nv_bfloat16* prow = Ps + r * Cfg::kLdp + part * Cfg::kColsPerThread;
+      float shift = bound;
+      if constexpr (kOnline) {
+        float m_new = m_run;
+#pragma unroll
+        for (int c = 0; c < Cfg::kColsPerThread; c += 8) {
+          float sc[8];
+          load8f(srow + c, sc);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) m_new = fmaxf(m_new, sc[e]);
+        }
+#pragma unroll
+        for (int off = Cfg::kTpr / 2; off > 0; off >>= 1)
+          m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, off));
+        const float alpha = exp2f(m_run - m_new);
+        m_run = m_new;
+        shift = m_new;
+        lsum *= alpha;  // each thread's share of the row sum takes the row's alpha
+        for (int c = part; c < kAlphaCols; c += Cfg::kTpr) Al[r * kAlphaCols + c] = alpha;
+      }
 #pragma unroll
       for (int c = 0; c < Cfg::kColsPerThread; c += 8) {
         float p[8];
         load8f(srow + c, p);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) p[e] = exp2f(p[e] - bound);
+        for (int e = 0; e < 8; ++e) {
+          float arg = p[e] - shift;
+          if constexpr (kOnline && kArgBf16) arg = __bfloat162float(__float2bfloat16(arg));
+          p[e] = exp2f(arg);
+        }
         const uint4 packed = pack8(p);
-        if constexpr (M != Mode::kIdentity) unpack8(packed, p);  // sum what the product sees
+        // sum what the product sees, except where the JAX kernel sums fp32 p
+        if constexpr (kOnline ? kArgBf16 : M != Mode::kIdentity) unpack8(packed, p);
 #pragma unroll
         for (int e = 0; e < 8; ++e) lsum += p[e];
         *reinterpret_cast<uint4*>(prow + c) = packed;
@@ -292,7 +356,17 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // (4) O += P V
+    // (4) O = O * alpha + P V
+    if constexpr (kOnline) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> a_frag;
+      wmma::load_matrix_sync(a_frag, Al + o_rt * 16 * kAlphaCols, kAlphaCols,
+                             wmma::mem_row_major);
+#pragma unroll
+      for (int i = 0; i < Cfg::kOFrags; ++i) {
+#pragma unroll
+        for (int e = 0; e < a_frag.num_elements; ++e) o_frag[i].x[e] *= a_frag.x[e];
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
@@ -331,23 +405,26 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <Mode M, int D, int BQ, int BK, int NW>
+template <Mode M, int D, int BQ, int BK, int NW, int HP = 1>
 cudaError_t launch_attn(const void* q, const void* k_in, const void* v_in, const void* k,
                         const void* v, const void* kmax, const void* aff, const void* ids,
                         void* out, int B, int H, int Sq, int S, int N, int I, int n_in,
                         float qscale, void* stream) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   if (B <= 0 || H <= 0 || N <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 ||
-      B > 65535 || H > 65535 || n_in < 0 || n_in > 1 ||
+      B > 65535 || H > 65535 || H % HP != 0 || n_in < 0 || n_in > 1 ||
       (n_in == 1 && (k_in == nullptr || v_in == nullptr)) ||
-      (M == Mode::kIdentity && ids == nullptr) || (M != Mode::kFlash && aff == nullptr))
+      (M == Mode::kIdentity && ids == nullptr) || (has_affine(M) && aff == nullptr) ||
+      (!is_online(M) && kmax == nullptr))
     return cudaErrorInvalidValue;
-  auto kern = attn_tile_kernel<M, D, BQ, BK, NW>;
+  constexpr int kBytes = HP * (is_online(M) ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes);
+  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+  auto kern = attn_tile_kernel<M, D, BQ, BK, NW, HP>;
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Sq / BQ, H, B);
-  kern<<<grid, Cfg::kThreads, Cfg::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(Sq / BQ, H / HP, B);
+  kern<<<grid, Cfg::kThreads * HP, kBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_in),
       static_cast<const __nv_bfloat16*>(v_in), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmax),

@@ -27,7 +27,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_bound", "shared_identity", "shared_flash_bound")
+SOURCES = ("flash_bound", "shared_identity", "shared_flash_bound", "flash_online",
+           "shared_online", "shared_online_pair")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +45,15 @@ SIGNATURES = {
     },
     "shared_flash_bound": {
         "irt_shared_flash_bound_bf16": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
+    },
+    "flash_online": {
+        "irt_flash_online_bf16": ([_P] * 4 + [_I] * 5 + [_F, _P], _I),
+    },
+    "shared_online": {
+        "irt_shared_online_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
+    },
+    "shared_online_pair": {
+        "irt_shared_online_pair_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     },
 }
 

@@ -1,5 +1,6 @@
-"""Fused attention of the serving paths: the bound-softmax flash attention and
-the shared-image attention over reference K/V (counterpart of
+"""Fused attention of the serving paths: plain flash attention and the
+shared-image attention over reference K/V, each with the bound softmax and
+with the online (running-max) softmax (counterpart of
 ``instantrestore_tpu/ops/shared_attention.py``).
 
 Each kernel comes as a wrapper, a plain PyTorch version of the same function
@@ -7,27 +8,50 @@ and a launch count:
 
 * ``flash_attention`` -> CUDA kernel ``csrc/flash_bound.cu`` (replaces the
   TPU kernel ``_flash_bound_kernel``); plain version ``flash_attention_plain``.
-* ``shared_identity`` -> CUDA kernel ``csrc/shared_identity.cu`` (replaces
-  ``_shared_kvouter_bound_paired_kernel``); plain version
-  ``shared_identity_plain``.
-* ``shared_flash_bound`` -> CUDA kernel ``csrc/shared_flash_bound.cu``
-  (replaces ``_shared_kvouter_bound_kernel``); plain version
-  ``shared_flash_bound_plain``.
+* ``shared_identity`` -> ``csrc/shared_identity.cu`` (replaces
+  ``_shared_kvouter_bound_paired_kernel``); plain ``shared_identity_plain``.
+* ``shared_flash_bound`` -> ``csrc/shared_flash_bound.cu`` (replaces
+  ``_shared_kvouter_bound_kernel``); plain ``shared_flash_bound_plain``.
+* ``flash_online`` -> ``csrc/flash_online.cu`` (replaces ``_flash_kernel``);
+  plain ``flash_online_plain``.
+* ``shared_online`` -> ``csrc/shared_online.cu`` (replaces
+  ``_shared_kvouter_kernel`` and serves ``_shared_kernel``'s algorithm too:
+  the KV-outer and Q-outer grids of the TPU are one work assignment on the
+  card); plain ``shared_online_plain``.
+* ``shared_online_pair`` -> ``csrc/shared_online_pair.cu`` (replaces
+  ``_shared_kvouter_packed_kernel``: one thread block per head pair); plain
+  ``shared_online_pair_plain``.
 
-``shared_flash_attention`` (per-call reference K/V: cold restore, the
-Predictor, ``train_input`` models) and ``shared_attention_identity`` (an
-onboarded identity cache) choose among the shared kernels as the JAX package
-does.
+Which algorithm runs which, read from the environment at each call as in the
+JAX package: ``INSTANTRESTORE_FLASH_ALGO`` = ``bound`` (default) runs
+``flash_attention``'s own kernel, any other value (``online``) runs
+``flash_online``. ``INSTANTRESTORE_ATTN_ALGO`` = ``kv_outer_bound`` (default)
+runs ``shared_flash_bound``; ``kv_outer_bound_paired`` runs
+``shared_identity`` on refs-only calls with even N, else the default;
+``kv_outer_packed`` runs ``shared_online_pair`` at d <= 64 and even H, else
+``shared_online``; ``kv_outer``, ``q_outer`` and every other string run
+``shared_online``. ``shared_flash_attention`` (per-call reference K/V: cold
+restore, the Predictor, ``train_input`` models) takes the algorithm;
+``shared_attention_identity`` (an onboarded identity cache) takes none and
+always runs a bound kernel, as in the JAX package.
 
 A wrapper given CUDA tensors launches its kernel (bf16 only) or raises; given
 CPU tensors it runs the plain version. ``<wrapper>.launches`` counts kernel
 launches and nothing else.
 
 Numerics (shared with the JAX package): logits in log2 units, q pre-scaled
-by ``scale * log2 e`` in the input dtype, no running max but the
+by ``scale * log2 e`` in the input dtype, fp32 scores and accumulator, P @ V
+in the input dtype. The bound kernels keep no running max but the
 Cauchy-Schwarz bound ``||q_i|| * scale * log2 e * max_j ||k_j|| - 64``
-(``BOUND_EXP_SHIFT``), fp32 scores and accumulator, P @ V in the input dtype.
-A whole row comes out NaN only if its bound slack exceeds ~190 log2 units.
+(``BOUND_EXP_SHIFT``), and only they can lose a row: it comes out NaN when
+its bound slack exceeds ~190 log2 units. The online kernels keep a running
+max per row (from the finite ``NEG_INF``), rescale the row sum and the
+accumulator by ``exp2(m - m_new)`` per key chunk, and cannot: they are the
+way out for such weights. Their result depends on the key chunk at bf16
+rounding level (the running max differs per chunk); the kernels' chunk is
+``ONLINE_BLOCK_K`` keys and the plain versions take it as ``block_k``. The
+TPU tile knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are
+not read.
 """
 
 from __future__ import annotations
@@ -43,6 +67,8 @@ from instantrestore_tpu_torch.ops import _build
 
 LOG2E = 1.4426950408889634
 BOUND_EXP_SHIFT = 64.0
+NEG_INF = -1e30  # the online kernels' starting max: finite, so exp2(m - m_new) is never NaN
+ONLINE_BLOCK_K = 64  # key chunk of the online CUDA kernels (BK of csrc/attn_tile.cuh)
 # plain versions materialise fp32 score blocks of at most this many elements
 _PLAIN_BLOCK_ELEMS = 1 << 28
 
@@ -97,6 +123,36 @@ def _bound_softmax_av(qs, keys, vals, bound, out_dtype, *, sum_rounded: bool):
     return out
 
 
+def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: bool):
+    """sum_j p_ij v_j / sum_j p_ij with a running max over key chunks of
+    ``block_k``: m_new = max(m, rowmax(s)), alpha = exp2(m - m_new), row sum
+    and fp32 accumulator rescaled by alpha. ``arg_rounded``: p =
+    exp2((s - m_new) rounded to the value dtype), summed as rounded;
+    otherwise p = exp2(s - m_new) in fp32, summed in fp32, and only the
+    product's operand is rounded."""
+    b, h, sq, _ = qs.shape
+    skv = keys.shape[2]
+    if block_k <= 0 or skv % block_k:
+        raise ValueError(f"key chunk {block_k} does not divide {skv} keys")
+    qf = qs.float()
+    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=qs.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, sq, vals.shape[-1]), dtype=torch.float32, device=qs.device)
+    for j in range(0, skv, block_k):
+        s = qf @ keys[:, :, j : j + block_k].float().transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        if arg_rounded:
+            p = psum = torch.exp2((s - m_new).to(vals.dtype)).float()
+        else:
+            psum = torch.exp2(s - m_new)
+            p = psum.to(vals.dtype).float()
+        l = alpha * l + psum.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ vals[:, :, j : j + block_k].float()
+        m = m_new
+    return (acc / l).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel 2: plain attention with the bound softmax
 # ---------------------------------------------------------------------------
@@ -110,30 +166,35 @@ def flash_attention_plain(q, k, v, *, scale: float) -> torch.Tensor:
     return _bound_softmax_av(_q_scaled(q, scale), k, v, bound, q.dtype, sum_rounded=True)
 
 
-def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v for q [B, H, Sq, d], k/v [B, H, Skv, d];
-    the CUDA kernel takes bf16, d in {64, 512}, Sq % (64 if d == 64 else 32)
-    == 0 and Skv % 64 == 0. ``algo`` (default: ``INSTANTRESTORE_FLASH_ALGO``,
-    else ``bound``) selects the algorithm as in the JAX package; only the
-    bound softmax is ported."""
-    if algo is None:
-        algo = os.environ.get("INSTANTRESTORE_FLASH_ALGO", "bound")
-    if algo != "bound":
-        raise NotImplementedError(
-            f"flash attention algo {algo!r} runs the TPU kernel _flash_kernel "
-            "(instantrestore_tpu/ops/shared_attention.py:58), not ported yet (ROADMAP.md Queue 2)")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale)
+def _check_flash(name: str, q, k, v) -> None:
+    """The flash kernels' inputs: CUDA bf16, d in {64, 512}, whole tiles."""
     if not q.is_cuda:
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+        raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, sq, d = q.shape
     skv = k.shape[2]
     bf = torch.bfloat16
-    _check_cuda("flash_attention", (q, bf), (k, bf), (v, bf))
+    _check_cuda(name, (q, bf), (k, bf), (v, bf))
     bq = 64 if d == 64 else 32
     if (d not in (64, 512) or k.shape != (b, h, skv, d) or v.shape != k.shape
             or sq % bq or skv % 64):
-        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+
+
+def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v for q [B, H, Sq, d], k/v [B, H, Skv, d];
+    the CUDA kernels take bf16, d in {64, 512}, Sq % (64 if d == 64 else 32)
+    == 0 and Skv % 64 == 0. ``algo`` (default: ``INSTANTRESTORE_FLASH_ALGO``,
+    else ``bound``) selects the algorithm as in the JAX package: ``bound``
+    runs this wrapper's kernel, any other value ``flash_online``."""
+    if algo is None:
+        algo = os.environ.get("INSTANTRESTORE_FLASH_ALGO", "bound")
+    if algo != "bound":
+        return flash_online(q, k, v, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale)
+    _check_flash("flash_attention", q, k, v)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
     kmax = key_norm_max(k, 2).contiguous()
     out = torch.empty_like(q)
     rc = _build.load("flash_bound").irt_flash_bound_bf16(
@@ -147,6 +208,43 @@ def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> tor
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: plain attention with the online softmax
+# ---------------------------------------------------------------------------
+
+
+def flash_online_plain(q, k, v, *, scale: float, block_k: int = ONLINE_BLOCK_K) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/flash_online.cu``: q [B, H, Sq, d],
+    k/v [B, H, Skv, d] -> [B, H, Sq, d], the running max taken over key chunks
+    of ``min(block_k, Skv)``. d < 128 rounds the exponent's argument to the
+    value dtype, d >= 128 keeps p in fp32 for the row sum, as the TPU kernel's
+    two branches do."""
+    return _online_softmax_av(_q_scaled(q, scale), k, v, q.dtype,
+                              block_k=min(block_k, k.shape[2]), arg_rounded=q.shape[-1] < 128)
+
+
+def flash_online(q, k, v, *, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v with the numerics of the TPU's
+    ``_flash_kernel`` (running max, no bound: no row can flush). Shapes and
+    the CUDA kernel's limits as ``flash_attention``."""
+    if q.device.type == "cpu":
+        return flash_online_plain(q, k, v, scale=scale)
+    _check_flash("flash_online", q, k, v)
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    rc = _build.load("flash_online").irt_flash_online_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, sq, k.shape[2], d, ctypes.c_float(scale * LOG2E), _stream_ptr(q),
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_online kernel launch failed: CUDA error {rc}")
+    flash_online.launches += 1
+    return out
+
+
+flash_online.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +393,22 @@ shared_identity.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _widen_rounded_affine(k_in, v_in, rk, rv, aff, include_input: bool):
+    """Keys and values [B, H, (1 +) N * S, d] as the per-call shared kernels
+    see them: segments in the order input (raw), ref 1 .. N; scale and shift
+    rounded to the value dtype, then one rounding of ``v * a + c`` computed
+    in fp32."""
+    b, n, h, s, d = rk.shape
+    keys = rk.permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d)
+    a = aff.to(rv.dtype).float()
+    vals = (rv.permute(0, 2, 1, 3, 4).float() * a[:, :, :, 0, None, :]
+            + a[:, :, :, 1, None, :]).to(rv.dtype).reshape(b, h, n * s, d)
+    if include_input:
+        keys = torch.cat([k_in, keys], dim=2)
+        vals = torch.cat([v_in, vals], dim=2)
+    return keys, vals
+
+
 def shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: float,
                              include_input: bool) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/shared_flash_bound.cu``.
@@ -305,17 +419,9 @@ def shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scal
     the value dtype before use; kmax [B, H] fp32 over every key a row sees.
     The affine is one rounding of ``v * a + c`` computed in fp32, as in the
     kernel."""
-    b, h, sq, d = q.shape
     if ids is not None:
         rk, rv = rk[ids.long()], rv[ids.long()]
-    n, s = rk.shape[1], rk.shape[3]
-    keys = rk.permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d)
-    a = aff.to(rv.dtype).float()
-    vals = (rv.permute(0, 2, 1, 3, 4).float() * a[:, :, :, 0, None, :]
-            + a[:, :, :, 1, None, :]).to(rv.dtype).reshape(b, h, n * s, d)
-    if include_input:
-        keys = torch.cat([k_in, keys], dim=2)
-        vals = torch.cat([v_in, vals], dim=2)
+    keys, vals = _widen_rounded_affine(k_in, v_in, rk, rv, aff, include_input)
     bound = _row_norm(q) * (scale * LOG2E) * kmax[:, :, None, None] - BOUND_EXP_SHIFT
     return _bound_softmax_av(_q_scaled(q, scale), keys, vals, bound, q.dtype, sum_rounded=True)
 
@@ -368,17 +474,110 @@ shared_flash_bound.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# kernels 7, 9, 10: shared attention over [input |] references with the
+# online softmax
+# ---------------------------------------------------------------------------
+
+
+def shared_online_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_input: bool,
+                        block_k: int = ONLINE_BLOCK_K) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/shared_online.cu``.
+
+    q [B, H, Sq, d]; k_in/v_in [B, H, S, d] (read only when
+    ``include_input``); rk/rv [B, N, H, S, d]; aff [B, H, N, 2, d] fp32,
+    rounded to the value dtype before use, the affine one rounding of
+    ``v * a + c`` computed in fp32, as in the kernel. Segments in the order
+    input, ref 1 .. N; the running max is taken over key chunks of
+    ``min(block_k, S)``, which never straddle a segment."""
+    keys, vals = _widen_rounded_affine(k_in, v_in, rk, rv, aff, include_input)
+    s = rk.shape[3]
+    bk = min(block_k, s)
+    if s % bk:
+        raise ValueError(f"key chunk {bk} does not divide the segment length {s}")
+    return _online_softmax_av(_q_scaled(q, scale), keys, vals, q.dtype, block_k=bk,
+                              arg_rounded=True)
+
+
+def shared_online_pair_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_input: bool,
+                             block_k: int = ONLINE_BLOCK_K) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/shared_online_pair.cu``: per head the
+    pair kernel computes ``shared_online``'s function (the TPU's packed kernel
+    sums the rounded p in fp32 on the VPU, the same number as the ones
+    column), so this is ``shared_online_plain`` on an even number of heads."""
+    if q.shape[1] % 2:
+        raise ValueError(f"shared_online_pair: odd number of heads {q.shape[1]}")
+    return shared_online_plain(q, k_in, v_in, rk, rv, aff, scale=scale,
+                               include_input=include_input, block_k=block_k)
+
+
+def _launch_shared_online(wrapper, source: str, q, k_in, v_in, rk, rv, aff, *, scale: float,
+                          include_input: bool, heads_per_block: int) -> torch.Tensor:
+    """Check the inputs of an online shared kernel, launch ``csrc/<source>.cu``
+    and count the launch on ``wrapper``."""
+    if not q.is_cuda:
+        raise ValueError(f"{source}: no kernel for device {q.device}")
+    b, h, sq, d = q.shape
+    rows, n, _, s, _ = rk.shape
+    bf, f32 = torch.bfloat16, torch.float32
+    typed = [(q, bf), (rk, bf), (rv, bf), (aff, f32)]
+    if include_input:
+        typed += [(k_in, bf), (v_in, bf)]
+    _check_cuda(source, *typed)
+    if (d != 64 or rk.shape != (b, n, h, s, d) or rv.shape != rk.shape
+            or aff.shape != (b, h, n, 2, d) or sq % 64 or s % 64 or h % heads_per_block
+            or (include_input and (k_in.shape != (b, h, s, d) or v_in.shape != k_in.shape))):
+        raise ValueError(
+            f"{source}: unsupported shapes q {tuple(q.shape)} refs {tuple(rk.shape)}"
+            f" input {tuple(k_in.shape) if include_input else None}")
+    out = torch.empty_like(q)
+    rc = getattr(_build.load(source), f"irt_{source}_bf16")(
+        q.data_ptr(), k_in.data_ptr() if include_input else None,
+        v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
+        aff.data_ptr(), out.data_ptr(), b, h, sq, s, n, int(include_input), d,
+        ctypes.c_float(scale * LOG2E), _stream_ptr(q),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return out
+
+
+def shared_online(q, k_in, v_in, rk, rv, aff, *, scale: float,
+                  include_input: bool) -> torch.Tensor:
+    """softmax(q [K_in |] K_1..N ^T * scale) [V_in |] (V_n * a_n + c_n) with
+    the numerics of the TPU's ``_shared_kvouter_kernel`` and
+    ``_shared_kernel`` (running max, no bound: no row can flush; bf16 affine;
+    row sum over bf16-rounded p). Shapes as in ``shared_online_plain``. The
+    CUDA kernel takes bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0."""
+    if q.device.type == "cpu":
+        return shared_online_plain(q, k_in, v_in, rk, rv, aff, scale=scale,
+                                   include_input=include_input)
+    return _launch_shared_online(shared_online, "shared_online", q, k_in, v_in, rk, rv, aff,
+                                 scale=scale, include_input=include_input, heads_per_block=1)
+
+
+shared_online.launches = 0
+
+
+def shared_online_pair(q, k_in, v_in, rk, rv, aff, *, scale: float,
+                       include_input: bool) -> torch.Tensor:
+    """``shared_online``'s function with one thread block per head pair (the
+    TPU's ``_shared_kvouter_packed_kernel``); H must be even."""
+    if q.device.type == "cpu":
+        return shared_online_pair_plain(q, k_in, v_in, rk, rv, aff, scale=scale,
+                                        include_input=include_input)
+    return _launch_shared_online(shared_online_pair, "shared_online_pair", q, k_in, v_in, rk, rv,
+                                 aff, scale=scale, include_input=include_input,
+                                 heads_per_block=2)
+
+
+shared_online_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the two entry points of shared attention: per-call references and the
 # identity cache
 # ---------------------------------------------------------------------------
-
-# TPU kernels behind the algorithms that are not ported yet
-_UNPORTED_SHARED = {
-    "kv_outer": "_shared_kvouter_kernel (instantrestore_tpu/ops/shared_attention.py:339)",
-    "kv_outer_packed": "_shared_kvouter_packed_kernel (instantrestore_tpu/ops/shared_attention.py:599)",
-    "q_outer": "_shared_kernel (instantrestore_tpu/ops/shared_attention.py:265)",
-}
-
 
 def shared_flash_attention(q, k_in, v_in, ref_k, ref_v, *, scale: float,
                            v_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -390,11 +589,16 @@ def shared_flash_attention(q, k_in, v_in, ref_k, ref_v, *, scale: float,
     the reference values (identity when None).
 
     ``algo`` (default: ``INSTANTRESTORE_ATTN_ALGO``, else ``kv_outer_bound``)
-    chooses the kernel as in the JAX package: ``kv_outer_bound`` runs
+    chooses the kernel as the JAX package does: ``kv_outer_bound`` runs
     ``shared_flash_bound``; ``kv_outer_bound_paired`` runs ``shared_identity``
     on the per-call K/V (rows ``arange(B)``) when the call is refs-only with
-    even N and d <= 64, else falls back to ``kv_outer_bound``. The online-max
-    algorithms are not ported and raise."""
+    even N and d <= 64, else falls back to ``kv_outer_bound``;
+    ``kv_outer_packed`` runs ``shared_online_pair`` at d <= 64 and even H,
+    else ``shared_online``; ``kv_outer``, ``q_outer`` and every other string
+    run ``shared_online`` (the TPU's KV-outer kernel for a ``kv_outer*``
+    string and its Q-outer kernel for the rest compute one function). Only
+    the two bound algorithms can lose a row to bound slack beyond ~190 log2
+    units; the online ones are the way out."""
     b, h, sq, d = q.shape
     n = ref_k.shape[1]
     aff = _affine(v_affine, b, h, n, d, q.device)
@@ -412,14 +616,10 @@ def shared_flash_attention(q, k_in, v_in, ref_k, ref_v, *, scale: float,
         return shared_flash_bound(q, k_in, v_in, ref_k, ref_v, aff, kmax, scale=scale,
                                   include_input=include_input)
     if algo == "kv_outer_packed" and d <= 64 and h % 2 == 0:
-        kernel = _UNPORTED_SHARED["kv_outer_packed"]
-    elif algo.startswith("kv_outer"):
-        kernel = _UNPORTED_SHARED["kv_outer"]
-    else:
-        kernel = _UNPORTED_SHARED["q_outer"]
-    raise NotImplementedError(
-        f"shared attention algo {algo!r} runs the TPU kernel {kernel}, not ported yet "
-        "(ROADMAP.md Queue 2)")
+        return shared_online_pair(q, k_in, v_in, ref_k, ref_v, aff, scale=scale,
+                                  include_input=include_input)
+    return shared_online(q, k_in, v_in, ref_k, ref_v, aff, scale=scale,
+                         include_input=include_input)
 
 
 def shared_attention_identity(q, k_in, v_in, cache: IdentityKVCache, ids, *,
@@ -444,7 +644,8 @@ def shared_attention_identity(q, k_in, v_in, cache: IdentityKVCache, ids, *,
                               ids, scale=scale, include_input=False)
 
 
-KERNEL_WRAPPERS = (flash_attention, shared_identity, shared_flash_bound)
+KERNEL_WRAPPERS = (flash_attention, shared_identity, shared_flash_bound, flash_online,
+                   shared_online, shared_online_pair)
 
 
 def reset_launch_counts() -> None:

@@ -32,7 +32,7 @@ def no_kernel_build(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
     tsa.reset_launch_counts()
     yield
-    assert [fn.launches for fn in tsa.KERNEL_WRAPPERS] == [0, 0, 0]
+    assert not any(fn.launches for fn in tsa.KERNEL_WRAPPERS)
 
 
 @pytest.mark.parametrize("b,h,s,skv,d", [
@@ -226,10 +226,7 @@ def test_paired_route_matches_pallas(rng, monkeypatch, include_input):
         jnp.asarray(q), jnp.asarray(k_in), jnp.asarray(v_in), jnp.asarray(rk), jnp.asarray(rv),
         scale=scale, v_affine=jsa.adain_affine(jnp.asarray(v_in), jnp.asarray(rv)),
         include_input=include_input, block_q=16, block_k=16, interpret=True)
-    calls = []
-    for name in ("shared_identity_plain", "shared_flash_bound_plain"):
-        real = getattr(tsa, name)
-        monkeypatch.setattr(tsa, name, lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
+    calls = _record_plain_calls(monkeypatch)
     out = tsa.shared_flash_attention(_t(q), _t(k_in), _t(v_in), _t(rk), _t(rv), scale=scale,
                                      v_affine=tsa.adain_affine(_t(v_in), _t(rv)),
                                      include_input=include_input)
@@ -245,27 +242,58 @@ def test_adain_affine_matches_jax(rng):
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
 
 
-@pytest.mark.parametrize("algo,kernel", [
-    ("kv_outer", "_shared_kvouter_kernel"), ("q_outer", "_shared_kernel"),
-    ("kv_outer_packed", "_shared_kvouter_packed_kernel"),
+def record_calls(monkeypatch, module, names):
+    """Wrap ``module.<name>`` for each name; returns the list that collects
+    the names as they are called."""
+    calls = []
+    for name in names:
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
+    return calls
+
+
+def _record_plain_calls(monkeypatch):
+    """Every plain version the port runs from here on, by name, in order."""
+    return record_calls(monkeypatch, tsa, [n for n in dir(tsa) if n.endswith("_plain")])
+
+
+@pytest.mark.parametrize("algo,heads,plain", [
+    ("kv_outer", 2, ["shared_online_plain"]),
+    ("q_outer", 2, ["shared_online_plain"]),
+    ("kv_outer_packed", 2, ["shared_online_pair_plain", "shared_online_plain"]),
+    ("kv_outer_packed", 3, ["shared_online_plain"]),  # odd H falls through to kv_outer
+    ("kv_outer_future", 2, ["shared_online_plain"]),  # JAX: any kv_outer* string -> KV-outer
+    ("no_such_algo", 2, ["shared_online_plain"]),     # JAX: anything else -> Q-outer
 ])
-def test_unported_shared_algos_raise(rng, monkeypatch, algo, kernel):
+def test_online_shared_algos_route(rng, monkeypatch, algo, heads, plain):
+    """INSTANTRESTORE_ATTN_ALGO routes the online-max family as the JAX
+    package does (the pair kernel's plain version is shared_online's on an
+    even number of heads, so it records both), and the result is the Pallas
+    kernel's that JAX runs under the same string."""
     monkeypatch.setenv("INSTANTRESTORE_ATTN_ALGO", algo)
-    q, k_in, v_in, rk, rv = (_t(x) for x in _shared_inputs(rng, 4))
-    with pytest.raises(NotImplementedError, match=kernel):
-        tsa.shared_flash_attention(q, k_in, v_in, rk, rv, scale=0.25)
+    q, k_in, v_in, rk, rv = _shared_inputs(rng, 4, h=heads)
+    ref = jsa.shared_flash_attention(*(jnp.asarray(x) for x in (q, k_in, v_in, rk, rv)),
+                                     scale=0.25, block_q=16, block_k=16, interpret=True)
+    calls = _record_plain_calls(monkeypatch)
+    out = tsa.shared_flash_attention(*(_t(x) for x in (q, k_in, v_in, rk, rv)), scale=0.25)
+    assert calls == plain
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
 def test_flash_algo_env(rng, monkeypatch):
     """INSTANTRESTORE_FLASH_ALGO selects the algorithm as in JAX: ``bound``
-    runs the ported kernel, ``online`` (the TPU's _flash_kernel) raises."""
+    runs the bound kernel, ``online`` and any other value the online one
+    (the TPU's _flash_kernel)."""
     q, k, v = (_t(rng.normal(size=(1, 2, 32, 16))) for _ in range(3))
-    monkeypatch.setenv("INSTANTRESTORE_FLASH_ALGO", "bound")
-    torch.testing.assert_close(tsa.flash_attention(q, k, v, scale=0.25),
-                               tsa.flash_attention_plain(q, k, v, scale=0.25))
-    monkeypatch.setenv("INSTANTRESTORE_FLASH_ALGO", "online")
-    with pytest.raises(NotImplementedError, match="_flash_kernel"):
-        tsa.flash_attention(q, k, v, scale=0.25)
+    calls = _record_plain_calls(monkeypatch)
+    for algo in ("bound", "online", "anything_else"):
+        monkeypatch.setenv("INSTANTRESTORE_FLASH_ALGO", algo)
+        out = tsa.flash_attention(q, k, v, scale=0.25)
+        torch.testing.assert_close(out, tsa.flash_attention_plain(q, k, v, scale=0.25),
+                                   rtol=2e-5, atol=2e-5)
+    assert calls == ["flash_attention_plain"] * 2 + ["flash_online_plain",
+                                                     "flash_attention_plain"] * 2
 
 
 def test_wrappers_reject_other_devices():
@@ -280,3 +308,8 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         tsa.shared_identity(q, r, r, aff, torch.zeros((1, 1), device="meta"),
                             torch.zeros(1, dtype=torch.long), scale=0.125)
+    with pytest.raises(ValueError):
+        tsa.flash_online(q, q, q, scale=0.125)
+    for wrapper in (tsa.shared_online, tsa.shared_online_pair):
+        with pytest.raises(ValueError):
+            wrapper(q, q, q, r, r, aff, scale=0.125, include_input=True)

@@ -49,6 +49,24 @@ def test_cold_slice_modules_are_covered():
     assert (ROOT / NEW_MODULES[2]).is_file()
 
 
+def test_every_kernel_source_is_in_the_checkout():
+    """The list of ops/_build.py, its ctypes signatures and csrc/*.cu name the same
+    six kernels, the online-max family among them, and each source includes
+    nothing but the shared tile and the CUDA toolkit's headers."""
+    from instantrestore_tpu_torch.ops import _build
+
+    on_disk = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert set(_build.SOURCES) == set(_build.SIGNATURES) == on_disk
+    assert {"flash_online", "shared_online", "shared_online_pair"} <= on_disk
+    assert len(_build.SOURCES) == 6
+    for path in sorted(_build.CSRC.glob("*.cu*")):
+        includes = [ln.split()[1] for ln in path.read_text().splitlines()
+                    if ln.startswith("#include")]
+        assert includes and all(
+            inc in ('"attn_tile.cuh"', "<cuda_bf16.h>", "<cuda_runtime.h>", "<mma.h>", "<stdint.h>")
+            for inc in includes), (path.name, includes)
+
+
 def test_port_imports_without_pillow():
     """PIL is imported where images are read or written, never at module
     import: the card's machine does not promise Pillow."""

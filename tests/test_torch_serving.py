@@ -133,7 +133,7 @@ def test_restore_matches_jax(slice_run):
     assert out.shape == (len(IDS), RES, RES, 3)
     np.testing.assert_allclose(out.numpy(), slice_run["jax_out"], rtol=0, atol=1e-3)
     # CPU tensors take the plain versions: no kernel launched
-    assert [fn.launches for fn in tsa.KERNEL_WRAPPERS] == [0, 0, 0]
+    assert not any(fn.launches for fn in tsa.KERNEL_WRAPPERS)
     # float [-1, 1] input and the unfused attention path give the same image
     engine.use_fused_attention = False
     try:
