@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only kernels,vjp,serving,training]
+
+Without arguments every phase runs and the last two lines are the result;
+``--only`` runs the named phases for a quick look and prints no result line.
 
 1. prints the card (nvidia-smi name and power limit);
 2. builds the CUDA kernels of instantrestore_tpu_torch/csrc (one nvcc each,
@@ -20,6 +23,14 @@
    the q_outer route (shared_online). The escape hatch: on a call whose
    bound slack passes 190 log2 units the bound kernel returns no finite
    row, the online kernel finite rows equal to its plain version;
+3b. flash-VJP kernel phase ("vjp"): flash_fwd_lse, flash_bwd_dq and
+   flash_bwd_dkv at the shapes a batch-2 train step gives them (the 9 shared
+   layers on K/V widened over 4 references, the UNet's down/mid
+   self-attention, the d=512 VAE attention): out, LSE, dQ, dK, dV against the
+   plain versions on the same inputs, two launches of the backward kernels
+   bit-identical, one mid shape against fp32 autograd through the unfused
+   attention; timed beside the plain versions, scaled_dot_product_attention
+   forward and its autograd backward (dQ, dK, dV together), and the bounds;
 4. warm phase: random full-width SD-Turbo weights (seeded), LoRA rank 32
    merged by serving_bundle, bf16; onboards 16 identities x 4 uint8 512^2
    references and restores batch 16 a few times. Checks the output
@@ -51,7 +62,22 @@
    Predictor.predict_batch; each checks its launch counts and its output
    against the default algorithms';
 8. replacing one identity's references changes exactly its outputs;
-9. prints {"kernels": [...]} (launches summed over the paths of 4-8) and,
+9. training phase: the generator step at full width (batch 2, 4 references,
+   512 px, fp32 params with unmerged rank-32 LoRA, bf16 compute, L2 + LPIPS
+   with random VGG weights, AdamW with global-norm clipping on the LoRA
+   leaves and unet.conv_in, fused attention, remat): a warm-up step and 4
+   timed steps. Checks a finite loss and gradients; launches per step (36
+   flash_fwd_lse: 18 attentions with a gradient, each forward run again when
+   remat rebuilds its stage; 18 flash_bwd_dq; 18 flash_bwd_dkv; 17
+   flash_bound in the frozen capture and no backward launch from it); only
+   trainable leaves changed; under deterministic cuDNN two runs of one step
+   give identical gradients, remat=False gives the same bits (or its
+   out-of-memory line is printed), and the fused step agrees with the
+   unfused one on the loss and on gradients by leaf group; a step with
+   save_seg_sums and the attention regularisers runs. Prints ms per step,
+   faces/sec, peak memory with and without remat and a profile with the
+   share of the three flash-VJP kernels;
+10. prints {"kernels": [...]} (launches summed over the paths of 4-9) and,
    last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -79,6 +105,16 @@ SHARED_SHAPES = [(20, 256, 3), (10, 1024, 3), (5, 4096, 3)]
 ODD_SHAPE = (10, 1024)  # the odd-N and per-call paired rows run at this layer
 FLASH_SHAPES = [(5, 4096, 64, 2), (10, 1024, 64, 2), (20, 256, 64, 2), (20, 64, 64, 1),
                 (1, 4096, 512, 2)]
+TRAIN_BATCH, TRAIN_STEPS = 2, 4
+# (heads, queries, keys, head dim, launches per train step) of the differentiable
+# attention at batch 2, refs-only with 4 references: the 9 shared up-block
+# layers on the widened K/V, the restoration UNet's down/mid self-attention,
+# the VAE mid attention of the encoder and the decoder
+VJP_SHAPES = [(20, 256, 1024, 64, 3), (10, 1024, 4096, 64, 3), (5, 4096, 16384, 64, 3),
+              (5, 4096, 4096, 64, 2), (10, 1024, 1024, 64, 2), (20, 256, 256, 64, 2),
+              (20, 64, 64, 64, 1), (1, 4096, 4096, 512, 2)]
+VJP_AUTOGRAD_SHAPE = (10, 1024, 4096, 64)  # held against fp32 autograd too
+VJP_AUTOGRAD_REL_RMS = 3e-2  # bf16 P, dS and outputs against an fp32 reference
 
 
 def card_line() -> str:
@@ -176,7 +212,7 @@ def kernel_phase(card: str):
     # kernel 1: identity-cached shared attention (ids shuffled, with repeats)
     ids = torch.tensor([3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3], device=dev)
     uniq = int(torch.unique(ids).numel())
-    for h, s, per_restore in SHARED_SHAPES:
+    for h, s, per_pass in SHARED_SHAPES:
         q, v_in = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
         rk, rv = rnd(N_IDENT, N_REFS, h, s, d), rnd(N_IDENT, N_REFS, h, s, d)
         (cache,) = sa.build_identity_kv_cache([(rk, rv)])
@@ -193,18 +229,18 @@ def kernel_phase(card: str):
             4.0 * BATCH * h * s * n_keys * d,
             (2 * BATCH * h * s * d * 2 + 2 * uniq * N_REFS * h * s * d * 2
              + BATCH * h * N_REFS * 2 * d * 4 + uniq * h * 4 + BATCH * 8),
-            heads=h, tokens=s, keys=n_keys, per_restore=per_restore))
+            heads=h, tokens=s, keys=n_keys, per_pass=per_pass))
         del q, v_in, rk, rv, cache, keys, vals, aff
         torch.cuda.empty_cache()
 
     # kernels 2 and 8: plain flash attention, bound softmax and online softmax,
     # on the same inputs (the online kernel reads no kmax: 4 bytes per (b, h) fewer)
-    for h, s, fd, per_restore in FLASH_SHAPES:
+    for h, s, fd, per_pass in FLASH_SHAPES:
         q, k, v = rnd(BATCH, h, s, fd), rnd(BATCH, h, s, fd), rnd(BATCH, h, s, fd)
         fscale = fd ** -0.5
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=fscale)
         flops, nbytes = 4.0 * BATCH * h * s * s * fd, 4 * BATCH * h * s * fd * 2
-        meta = dict(heads=h, tokens=s, head_dim=fd, per_restore=per_restore)
+        meta = dict(heads=h, tokens=s, head_dim=fd, per_pass=per_pass)
         flash_rows.append(row(f"flash_bound H={h} S={s} d={fd}",
                               lambda: sa.flash_attention(q, k, v, scale=fscale, algo="bound"),
                               lambda: sa.flash_attention_plain(q, k, v, scale=fscale),
@@ -219,7 +255,7 @@ def kernel_phase(card: str):
     # kernels 3, 7 and 10: shared attention over [input |] per-call references,
     # bound and online, on the same inputs; a cold restore launches the
     # refs-only rows, a train_input model the others
-    for h, s, per_restore in SHARED_SHAPES:
+    for h, s, per_pass in SHARED_SHAPES:
         q, k_in, v_in = rnd(BATCH, h, s, d), rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
         rk, rv = rnd(BATCH, N_REFS, h, s, d), rnd(BATCH, N_REFS, h, s, d)
         rk[1, N_REFS - 1] = 0  # a masked reference: zeroed, still attended
@@ -242,7 +278,7 @@ def kernel_phase(card: str):
             nbytes = (2 * BATCH * h * s * d * 2 + inc * 2 * BATCH * h * s * d * 2
                       + 2 * BATCH * N_REFS * h * s * d * 2 + BATCH * h * N_REFS * 2 * d * 4)
             meta = dict(heads=h, tokens=s, keys=n_keys, input=inc,
-                        per_restore=0 if inc else per_restore)
+                        per_pass=0 if inc else per_pass)
             bound_rows.append(row(
                 f"shared_flash_bound H={h} S={s} input={inc}",
                 lambda: shared("kv_outer_bound", inc),
@@ -265,7 +301,7 @@ def kernel_phase(card: str):
                 # row 9: the Q-outer algorithm's name runs the same kernel
                 online_rows.append(row(f"q_outer route H={h} S={s}",
                                        lambda: shared("q_outer", inc), online_plain, lib, flops,
-                                       nbytes, **dict(meta, route="q_outer", per_restore=0)))
+                                       nbytes, **dict(meta, route="q_outer", per_pass=0)))
                 # row 1b: the per-call paired route runs the identity kernel
                 rows_b = torch.arange(BATCH, device=dev)
                 ident_rows.append(row(
@@ -274,7 +310,7 @@ def kernel_phase(card: str):
                     lambda: sa.shared_identity_plain(q, rk, rv, aff, kmax, rows_b, scale=scale),
                     lib, flops, nbytes + BATCH * h * 4 + BATCH * 8,
                     heads=h, tokens=s, keys=n_keys,
-                    route="per-call paired (kv_outer_bound_paired)", per_restore=0))
+                    route="per-call paired (kv_outer_bound_paired)", per_pass=0))
             del keys, vals
         del q, k_in, v_in, rk, rv, aff
         torch.cuda.empty_cache()
@@ -299,7 +335,7 @@ def kernel_phase(card: str):
         4.0 * BATCH * h * s * n_odd * s * d,
         (2 * BATCH * h * s * d * 2 + 2 * uniq * n_odd * h * s * d * 2
          + BATCH * h * n_odd * 2 * d * 4 + BATCH * h * 4 + BATCH * 8),
-        heads=h, tokens=s, keys=n_odd * s, route=f"identity cache, N={n_odd}", per_restore=0))
+        heads=h, tokens=s, keys=n_odd * s, route=f"identity cache, N={n_odd}", per_pass=0))
     del q, v_in, cache, keys, vals
     torch.cuda.empty_cache()
 
@@ -316,6 +352,108 @@ def kernel_phase(card: str):
         for r in rows:
             print(f"kernel {name} {json.dumps(r)} [{card}]")
     escape_hatch(card)
+    return results
+
+
+def vjp_kernel_phase(card: str):
+    """The forward-with-LSE kernel and the two backward kernels against their
+    plain versions at a train step's shapes, batch 2. The backward kernels
+    and their plain versions take the forward kernel's out and lse."""
+    import torch
+    import torch.nn.functional as F
+
+    from instantrestore_tpu_torch.models.attention import softmax_attention
+    from instantrestore_tpu_torch.ops import flash_vjp as fv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bsz = TRAIN_BATCH
+    fwd_rows, dq_rows, dkv_rows = [], [], []
+    for h, sq, skv, d, per_pass in VJP_SHAPES:
+        q, k, v, do = (torch.randn((bsz, h, n, d), generator=g, device=dev).to(torch.bfloat16)
+                       for n in (sq, skv, skv, sq))
+        scale = d ** -0.5
+        out, lse = fv.flash_fwd_lse(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        delta = (do.float() * out.float()).sum(dim=-1)
+        args = (q, k, v, do, lse, delta)
+        work = float(bsz) * h * sq * skv * d
+        qb, kb, rb = bsz * h * sq * d * 2, bsz * h * skv * d * 2, bsz * h * sq * 4
+        meta = dict(heads=h, queries=sq, keys=skv, head_dim=d, per_pass=per_pass)
+        label = f"H={h} Sq={sq} Skv={skv} d={d}"
+
+        ref_out, ref_lse = fv.flash_fwd_lse_plain(q, k, v, scale=scale)
+        err, tol, rel = compare(f"flash_fwd_lse {label}", out, ref_out)
+        lse_err, _, _ = compare(f"flash_fwd_lse lse {label}", lse, ref_lse)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                      retain_graph=True), 5)
+        b_ms, b_by = bound(4 * work, 2 * qb + 2 * kb + rb)
+        fwd_rows.append(dict(
+            **meta, max_abs_err=err, tol=tol, rel_rms=rel, lse_max_abs_err=lse_err,
+            ms=cuda_ms(lambda: fv.flash_fwd_lse(q, k, v, scale=scale), 5),
+            plain_ms=cuda_ms(lambda: fv.flash_fwd_lse_plain(q, k, v, scale=scale), 1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5),
+            bound_ms=b_ms, bound_by=b_by))
+        del lib_out, qg, kg, vg, ref_out, ref_lse
+
+        dq = fv.flash_bwd_dq(*args, scale=scale)
+        torch.cuda.synchronize()
+        err, tol, rel = compare(f"flash_bwd_dq {label}", dq,
+                                fv.flash_bwd_dq_plain(*args, scale=scale))
+        b_ms, b_by = bound(6 * work, 3 * qb + 2 * kb + 2 * rb)
+        dq_rows.append(dict(
+            **meta, max_abs_err=err, tol=tol, rel_rms=rel,
+            ms=cuda_ms(lambda: fv.flash_bwd_dq(*args, scale=scale), 5),
+            plain_ms=cuda_ms(lambda: fv.flash_bwd_dq_plain(*args, scale=scale), 1),
+            library_ms=lib_bwd, library="sdpa backward, dQ, dK and dV together",
+            bound_ms=b_ms, bound_by=b_by))
+
+        dk, dv = fv.flash_bwd_dkv(*args, scale=scale)
+        torch.cuda.synchronize()
+        ref_dk, ref_dv = fv.flash_bwd_dkv_plain(*args, scale=scale)
+        err_k, tol_k, rel_k = compare(f"flash_bwd_dkv dK {label}", dk, ref_dk)
+        err_v, tol_v, rel_v = compare(f"flash_bwd_dkv dV {label}", dv, ref_dv)
+        del ref_dk, ref_dv
+        dk2, dv2 = fv.flash_bwd_dkv(*args, scale=scale)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                and torch.equal(dq, fv.flash_bwd_dq(*args, scale=scale))):
+            raise AssertionError(f"backward kernels {label}: two launches differ")
+        del dk2, dv2
+        b_ms, b_by = bound(8 * work, 2 * qb + 4 * kb + 2 * rb)
+        dkv_rows.append(dict(
+            **meta, max_abs_err=max(err_k, err_v), tol=min(tol_k, tol_v),
+            rel_rms=max(rel_k, rel_v),
+            ms=cuda_ms(lambda: fv.flash_bwd_dkv(*args, scale=scale), 5),
+            plain_ms=cuda_ms(lambda: fv.flash_bwd_dkv_plain(*args, scale=scale), 1),
+            library_ms=lib_bwd, library="sdpa backward, dQ, dK and dV together",
+            bound_ms=b_ms, bound_by=b_by))
+
+        if (h, sq, skv, d) == VJP_AUTOGRAD_SHAPE:
+            # the same gradients from fp32 autograd through the unfused attention
+            qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+            ref = torch.autograd.grad(softmax_attention(qf, kf, vf, scale), (qf, kf, vf),
+                                      do.float())
+            rels = [float((a.float() - r).norm() / r.norm()) for a, r in zip((dq, dk, dv), ref)]
+            print(f"backward kernels {label} against fp32 autograd through softmax_attention "
+                  f"[{card}]: relative RMS dQ {rels[0]:.2e}, dK {rels[1]:.2e}, dV {rels[2]:.2e} "
+                  f"(tol {VJP_AUTOGRAD_REL_RMS})")
+            if max(rels) > VJP_AUTOGRAD_REL_RMS:
+                raise AssertionError("backward kernels disagree with fp32 autograd")
+            del qf, kf, vf, ref
+        del q, k, v, do, out, lse, delta, args, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    src, jax_src = "instantrestore_tpu_torch/csrc/", "instantrestore_tpu/ops/flash_vjp.py:"
+    results = [
+        ("flash_fwd_lse", src + "flash_fwd_lse.cu", jax_src + "78", fwd_rows),
+        ("flash_bwd_dq", src + "flash_bwd_dq.cu", jax_src + "169", dq_rows),
+        ("flash_bwd_dkv", src + "flash_bwd_dkv.cu", jax_src + "203", dkv_rows),
+    ]
+    for name, _, _, rows in results:
+        for r in rows:
+            print(f"kernel {name} {json.dumps(r)} [{card}]")
     return results
 
 
@@ -426,8 +564,10 @@ def measure_slack(run, what: str):
     return records
 
 
-def profile_run(fn, what: str, card: str):
-    """Device time of one call of ``fn`` by kernel, from torch.profiler."""
+def profile_run(fn, what: str, card: str, shares=None):
+    """Device time of one call of ``fn`` by kernel, from torch.profiler;
+    ``shares`` {label: name fragments} also prints those kernels' summed
+    share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -451,22 +591,38 @@ def profile_run(fn, what: str, card: str):
           f"(profiler on); kernels by device time:")
     for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t:8.2f} ms {t / busy * 100:5.1f}%  x{cnt:<4d} {name[:110]}")
+    for label, fragments in (shares or {}).items():
+        hits = [(t, cnt) for name, (t, cnt) in by_name.items() if any(f in name for f in fragments)]
+        t, cnt = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        print(f"  {label}: {t:.2f} ms in {cnt} launches, {t / busy * 100:.1f}% of device time")
 
 
-# kernel name -> its wrapper in ops/shared_attention.py, which holds the launch count
+# kernel name -> its wrapper (ops/shared_attention.py, ops/flash_vjp.py for the
+# last three), which holds the launch count
 KERNEL_WRAPPERS = {
     "shared_identity_attention": "shared_identity", "flash_attention_bound": "flash_attention",
     "shared_flash_bound": "shared_flash_bound", "flash_attention_online": "flash_online",
     "shared_online": "shared_online", "shared_online_pair": "shared_online_pair",
+    "flash_fwd_lse": "flash_fwd_lse", "flash_bwd_dq": "flash_bwd_dq",
+    "flash_bwd_dkv": "flash_bwd_dkv",
 }
 KERNEL_NAMES = tuple(KERNEL_WRAPPERS)
 
 
+def reset_counts():
+    """Zero every kernel wrapper's launch count."""
+    from instantrestore_tpu_torch.ops.flash_vjp import reset_launch_counts
+
+    reset_launch_counts()
+
+
 def launch_counts():
     """Launches since the last reset, by kernel name."""
+    from instantrestore_tpu_torch.ops import flash_vjp as fv
     from instantrestore_tpu_torch.ops import shared_attention as sa
 
-    return {name: getattr(sa, wrapper).launches for name, wrapper in KERNEL_WRAPPERS.items()}
+    return {name: getattr(sa if hasattr(sa, wrapper) else fv, wrapper).launches
+            for name, wrapper in KERNEL_WRAPPERS.items()}
 
 
 @contextlib.contextmanager
@@ -516,7 +672,6 @@ def warm_phase(card: str):
         init_restorer_params,
         serving_bundle,
     )
-    from instantrestore_tpu_torch.ops import shared_attention as sa
 
     dev = torch.device("cuda")
     statics = RestorerStatics(use_adain=True, train_input=False)  # full SD-Turbo widths, bf16
@@ -546,7 +701,7 @@ def warm_phase(card: str):
     torch.cuda.synchronize()
 
     # ---- main path: onboarding, then restores ----
-    sa.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.onboard(refs, noise=onboard_noise)
@@ -554,7 +709,7 @@ def warm_phase(card: str):
     onboard_s = time.perf_counter() - t0
     onboard_counts = launch_counts()
 
-    sa.reset_launch_counts()
+    reset_counts()
     lat_s, out = [], None
     for _ in range(RESTORE_RUNS + 1):  # the first run includes cuDNN's first-call set-up
         torch.cuda.synchronize()
@@ -615,7 +770,6 @@ def cold_phase(card: str, w):
     references re-encoded in the call; returns the noise, output and counts."""
     import torch
 
-    from instantrestore_tpu_torch.ops import shared_attention as sa
 
     engine, ids, images = w["engine"], w["ids"], w["images"]
     dev_ids = ids.to(engine.device)
@@ -628,7 +782,7 @@ def cold_phase(card: str, w):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sa.reset_launch_counts()
+    reset_counts()
     lat_s, out = [], None
     for _ in range(RESTORE_RUNS + 1):
         torch.cuda.synchronize()
@@ -685,13 +839,12 @@ def online_phase(card: str, w, cold):
     INSTANTRESTORE_FLASH_ALGO=online; returns its launch counts."""
     import torch
 
-    from instantrestore_tpu_torch.ops import shared_attention as sa
 
     engine, images = w["engine"], w["images"]
     with algo_env(attn="kv_outer", flash="online"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sa.reset_launch_counts()
+        reset_counts()
         lat_s, out = [], None
         for _ in range(RESTORE_RUNS + 1):
             torch.cuda.synchronize()
@@ -737,7 +890,6 @@ def other_paths(card: str, w, cold):
     from instantrestore_tpu_torch.inference.predictor import Predictor
     from instantrestore_tpu_torch.inference.serving import ServingEngine
     from instantrestore_tpu_torch.models.restorer import restore_forward_multistep
-    from instantrestore_tpu_torch.ops import shared_attention as sa
     from instantrestore_tpu_torch.ops.image_ops import preprocess
 
     engine, images, refs = w["engine"], w["images"], w["refs"]
@@ -751,7 +903,7 @@ def other_paths(card: str, w, cold):
     # 1. a train_input model served warm: gather + the input segment
     statics = dataclasses.replace(engine.statics, train_input=True)
     ti = ServingEngine(engine.params, statics, device=dev)
-    sa.reset_launch_counts()
+    reset_counts()
     ti.onboard(refs[:4], generator=torch.Generator(device=dev).manual_seed(4))
     noise4 = {k: v[:4] for k, v in w["noise"].items()}
     out = ti.restore(images[:4], torch.arange(4), noise=noise4)
@@ -773,7 +925,7 @@ def other_paths(card: str, w, cold):
     pre = preprocess(images[:4].to(dev).float() / 255.0, RES)
     conds = preprocess(cold["cond"][:4].to(dev).reshape(4 * N_REFS, RES, RES, 3).float() / 255.0,
                        RES).reshape(4, N_REFS, RES, RES, 3)
-    sa.reset_launch_counts()
+    reset_counts()
     with torch.no_grad():
         out = restore_forward_multistep(engine.params, pre, conds, statics=engine.statics,
                                         timesteps=(749, 499, 249),
@@ -790,7 +942,7 @@ def other_paths(card: str, w, cold):
         """``run()`` under the given algorithms: its launch counts, and its
         agreement with the default algorithms' output ``ref``."""
         with algo_env(attn=attn, flash=flash):
-            sa.reset_launch_counts()
+            reset_counts()
             out = run()
             counts = launch_counts()
         check_launches(failures, what, counts, 1, **per_run)
@@ -823,7 +975,7 @@ def other_paths(card: str, w, cold):
 
     # 4. the Predictor, array in and out
     pred = Predictor(params=engine.params, statics=engine.statics, device=dev, seed=6)
-    sa.reset_launch_counts()
+    reset_counts()
     arr = pred.predict_batch(pre[:2], conds[:2])
     counts = launch_counts()
     check_launches(failures, "Predictor.predict_batch, batch 2", counts, 1,
@@ -852,8 +1004,237 @@ def replace_identity(w):
         raise AssertionError("replacing an identity did not change exactly its outputs")
 
 
-def main() -> int:
+def _tree_leaves(tree, prefix=""):
+    """(dotted path, tensor) of every leaf of a param tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{prefix}.{k}" if prefix else str(k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{prefix}.{i}")
+    else:
+        yield prefix, tree
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms for the block (its default
+    backward-filter algorithms may sum in an order that changes per call)."""
     import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+# fused against unfused attention in one bf16 train step: the loss, and each
+# leaf group's gradient by relative RMS error
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_GRAD_REL_TOL = 0.1
+
+
+def training_phase(card: str):
+    """The generator training step at full width: batch 2, 4 references,
+    512 px, bf16 compute over fp32 params, LoRA rank 32 unmerged, L2 + LPIPS,
+    AdamW with global-norm clipping on the LoRA leaves and unet.conv_in,
+    fused attention with its kernel backward, remat. Returns its launch
+    counts over the timed steps."""
+    import torch
+
+    from instantrestore_tpu_torch.configs.config import OptimConfig, SchedulerType
+    from instantrestore_tpu_torch.convert import tree_to
+    from instantrestore_tpu_torch.models.lora import count_lora_params, trainable_mask
+    from instantrestore_tpu_torch.models.restorer import RestorerStatics, init_restorer_params
+    from instantrestore_tpu_torch.training.losses.composite import compute_generator_loss
+    from instantrestore_tpu_torch.training.losses.lpips import init_lpips_params
+    from instantrestore_tpu_torch.training.optim import make_optimizer, trainable_leaves
+    from instantrestore_tpu_torch.training.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    statics = RestorerStatics(use_adain=True, train_input=False)  # full SD-Turbo widths, bf16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tree_to(init_restorer_params(gen, statics, lora_rank_unet=32, lora_rank_vae=32,
+                                          device=dev), dev)
+    lpips_params = tree_to(init_lpips_params(gen, device=dev), dev)
+    mask = {
+        "unet": trainable_mask(params["unet"], extra_trainable=("conv_in",)),
+        "unet_orig_conv_in": trainable_mask(params["unet_orig_conv_in"]),
+        "vae": trainable_mask(params["vae"]),
+        "caption_enc": False,
+    }
+    leaves = trainable_leaves(params, mask)
+    trainable_ids = {id(t) for t in leaves}
+    n_train = sum(t.numel() for t in leaves)
+    print(f"training params: {sum(t.numel() for _, t in _tree_leaves(params)) / 1e6:.1f} M leaves' "
+          f"elements, {n_train / 1e6:.2f} M trainable in {len(leaves)} leaves "
+          f"({(count_lora_params(params['unet']) + count_lora_params(params['vae'])) / 1e6:.2f} M LoRA)")
+    start = {name: t.clone() for name, t in _tree_leaves(params)}
+
+    host = torch.Generator().manual_seed(3)
+
+    def images(*shape):
+        return torch.rand(shape, generator=host) * 2.0 - 1.0
+
+    bsz, lat = TRAIN_BATCH, RES // 8
+    batch = {"image": images(bsz, RES, RES, 3), "gt": images(bsz, RES, RES, 3),
+             "conditioning_images": images(bsz, N_REFS, RES, RES, 3),
+             "valid_indices": torch.full((bsz,), N_REFS),
+             "pos_reg_idx": torch.zeros(bsz, dtype=torch.long),
+             "neg_reg_idx": torch.ones(bsz, dtype=torch.long)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    noise = {k: torch.randn((n, lat, lat, 4), generator=host).to(dev)
+             for k, n in (("latent", bsz), ("diffusion", bsz), ("cond_latent", bsz * N_REFS),
+                          ("cond_diffusion", bsz * N_REFS))}
+
+    def stepper(cfg, **kw):
+        loss_fn = lambda out, b, c: compute_generator_loss(
+            out, b, c, lpips_params=lpips_params, train_input=statics.train_input, generator=gen)
+        return make_train_step(statics, cfg, make_optimizer(cfg, 1000, mask), mask, loss_fn,
+                               use_fused_attention=kw.pop("fused", True),
+                               remat=kw.pop("remat", True), device=dev, **kw)
+
+    def timed(step, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, _ = step(params, batch, **kw)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    failures = []
+
+    # ---- main path: a warm-up step, then the timed steps ----
+    ocfg = OptimConfig(lambda_l2=1.0, lambda_lpips=1.0)
+    step = stepper(ocfg)
+    metrics, first_s, _ = timed(step, generator=gen)
+    reset_counts()
+    step_s, peaks, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        metrics, dt, peak = timed(step, generator=gen)
+        step_s.append(dt)
+        peaks.append(peak)
+        losses.append(float(metrics["loss"]))
+    counts = launch_counts()
+    # per step: 9 shared + 7 down/mid + 2 VAE attentions with a gradient, their
+    # forward run a second time when remat rebuilds the stages in the backward;
+    # the frozen capture (16 UNet self-attentions at batch 8 and a VAE encode)
+    # wants no gradient, runs the bound kernel once and no backward kernel
+    check_launches(failures, f"{TRAIN_STEPS} train steps", counts, TRAIN_STEPS,
+                   flash_fwd_lse=2 * 18, flash_bwd_dq=18, flash_bwd_dkv=18,
+                   flash_attention_bound=17)
+    grads_finite = all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)) or not grads_finite:
+        failures.append(f"non-finite loss {losses} or gradient")
+    steady = statistics.median(step_s)
+    print(f"train step batch {bsz} x {N_REFS} refs, 512 px, bf16, fused attention, remat: first "
+          f"{first_s * 1e3:.1f} ms, steady median {steady * 1e3:.1f} ms over {TRAIN_STEPS} steps "
+          f"{[round(x * 1e3, 1) for x in step_s]} [{card}]")
+    print(f"train faces/sec: {bsz / steady:.2f} (batch {bsz}, {N_REFS} refs, 512 px, L2 + LPIPS, "
+          f"AdamW on {n_train / 1e6:.2f} M params) [{card}]")
+    print(f"train peak device memory, remat=True: {max(peaks):.2f} GiB; losses {losses}; "
+          f"grad norm {float(metrics['grad_norm']):.4f}")
+
+    # only the trainable leaves moved, and every one of them under a non-zero rate
+    moved = {name for name, t in _tree_leaves(params) if not torch.equal(t, start[name])}
+    wanted = {name for name, t in _tree_leaves(params) if id(t) in trainable_ids}
+    print(f"leaves changed after {TRAIN_STEPS + 1} steps: {len(moved)} of {len(start)}; "
+          f"trainable {len(wanted)}")
+    if moved - wanted:
+        failures.append(f"frozen leaves changed: {sorted(moved - wanted)[:5]}")
+    if len(moved) < 0.9 * len(wanted):
+        failures.append(f"only {len(moved)} of {len(wanted)} trainable leaves changed")
+    del start
+
+    # ---- the same step again and again from one state: a rate of 0 ----
+    still = OptimConfig(lambda_l2=1.0, lambda_lpips=1.0, learning_rate=0.0,
+                        scheduler_type=SchedulerType.CONSTANT)
+    fixed = dict(noise=noise, timestep=499)
+
+    def grads_of(step_fn):
+        metrics, dt, peak = timed(step_fn, **fixed)
+        return float(metrics["loss"]), [t.grad for t in leaves], dt, peak
+
+    with deterministic_cudnn():
+        loss_a, g_a, _, _ = grads_of(stepper(still))
+        loss_b, g_b, _, _ = grads_of(stepper(still))
+        same = loss_a == loss_b and all(torch.equal(a, b) for a, b in zip(g_a, g_b))
+        print(f"two runs of one step from one state: loss {loss_a} and {loss_b}, gradients "
+              f"{'identical' if same else 'DIFFER'}")
+        if not same:
+            failures.append("two runs of the same step gave different gradients")
+        del g_b
+
+        try:
+            loss_n, g_n, dt_n, peak_n = grads_of(stepper(still, remat=False))
+        except torch.cuda.OutOfMemoryError:
+            print(f"remat=False does not fit the card at batch {bsz} [{card}]")
+        else:
+            same = loss_n == loss_a and all(torch.equal(a, b) for a, b in zip(g_a, g_n))
+            print(f"remat=False: {dt_n * 1e3:.1f} ms, peak device memory {peak_n:.2f} GiB; "
+                  f"loss and gradients {'identical to' if same else 'DIFFER from'} remat=True "
+                  f"[{card}]")
+            if not same:
+                failures.append("remat=True and remat=False disagree")
+            del g_n
+        torch.cuda.empty_cache()
+
+        loss_u, g_u, dt_u, peak_u = grads_of(stepper(still, fused=False))
+    groups = {}
+    names = [n for n, t in _tree_leaves(params) if id(t) in trainable_ids]
+    for name, a, u in zip(names, g_a, g_u):
+        key = name.split(".")[0] + (" conv_in" if ".conv_in." in name and name.startswith("unet")
+                                    else " LoRA")
+        num, den = groups.get(key, (0.0, 0.0))
+        groups[key] = (num + float((a - u).square().sum()), den + float(u.square().sum()))
+    rels = {k: (num / den) ** 0.5 for k, (num, den) in groups.items()}
+    loss_rel = abs(loss_a - loss_u) / abs(loss_u)
+    print(f"fused vs unfused train step (same noise, timestep 499): loss {loss_a:.6f} vs "
+          f"{loss_u:.6f} (relative {loss_rel:.2e}, tol {TRAIN_LOSS_REL_TOL}); gradient relative "
+          f"RMS error by group {({k: round(v, 4) for k, v in rels.items()})} (tol "
+          f"{TRAIN_GRAD_REL_TOL}); unfused step {dt_u * 1e3:.1f} ms, peak {peak_u:.2f} GiB [{card}]")
+    if loss_rel > TRAIN_LOSS_REL_TOL or max(rels.values()) > TRAIN_GRAD_REL_TOL:
+        failures.append("the fused train step disagrees with the unfused one")
+    del g_a, g_u
+    torch.cuda.empty_cache()
+
+    # ---- the attention regularisers on streamed segment sums ----
+    reg_cfg = OptimConfig(lambda_l2=1.0, lambda_lpips=1.0, lambda_attn_reg=0.01,
+                          lambda_pos_reg=0.1, lambda_neg_reg=0.1, learning_rate=0.0,
+                          scheduler_type=SchedulerType.CONSTANT)
+    metrics, dt, peak = timed(stepper(reg_cfg, save_seg_sums=True), generator=gen)
+    terms = {k: round(float(v), 5) for k, v in metrics.items()}
+    print(f"train step with save_seg_sums and the attention regularisers: {dt * 1e3:.1f} ms, "
+          f"peak {peak:.2f} GiB, {terms} [{card}]")
+    missing = {"loss_attn_reg", "loss_attn_pos_reg", "loss_attn_neg_reg"} - set(terms)
+    if missing or not all(v == v and abs(v) != float("inf") for v in terms.values()):
+        failures.append(f"segment-sum step: missing terms {sorted(missing)} or non-finite {terms}")
+
+    profile_run(lambda: step(params, batch, generator=gen), "one train step", card,
+                shares={"rows 4-6 (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)":
+                        ("(irt::Mode)5", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")})
+    if failures:
+        raise AssertionError("training phase failed: " + "; ".join(failures))
+    return counts
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
+                    "them (kernels, vjp, serving, training); a partial run prints no result line")
+    only = set(filter(None, ap.parse_args().only.split(",")))
+    unknown = only - {"kernels", "vjp", "serving", "training"}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    def wanted(phase):
+        return not only or phase in only
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -873,37 +1254,56 @@ def main() -> int:
                     or "Compiling entry function" in line):
                 print(f"  ptxas {name}: {line.strip()[:150]}")
 
-    results = kernel_phase(card)
-    warm, counts = warm_phase(card)
-    cold, cold_counts = cold_phase(card, warm)
-    add_counts(counts, cold_counts)
-    add_counts(counts, online_phase(card, warm, cold))
-    add_counts(counts, other_paths(card, warm, cold))
-    replace_identity(warm)
+    results, counts = [], {}
+    if wanted("kernels"):
+        results += kernel_phase(card)
+    if wanted("vjp"):
+        results += vjp_kernel_phase(card)
+    if wanted("serving"):
+        warm, counts = warm_phase(card)
+        cold, cold_counts = cold_phase(card, warm)
+        add_counts(counts, cold_counts)
+        add_counts(counts, online_phase(card, warm, cold))
+        add_counts(counts, other_paths(card, warm, cold))
+        replace_identity(warm)
+        del warm, cold
+        torch.cuda.empty_cache()
+    if wanted("training"):
+        add_counts(counts, training_phase(card))
     print(f"launches over the paths: {counts}")
+    if only:
+        print(f"partial run ({sorted(only)}): no result line")
+        return 0
     missing = [name for name in KERNEL_NAMES if counts.get(name, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")
     kernels = []
     for name, source, replaces, rows in results:
-        b_ms = sum(r["bound_ms"] * r["per_restore"] for r in rows)
-        ops_ms = sum(r["bound_ms"] * r["per_restore"] for r in rows if r["bound_by"] == "operations")
+        b_ms = sum(r["bound_ms"] * r["per_pass"] for r in rows)
+        ops_ms = sum(r["bound_ms"] * r["per_pass"] for r in rows if r["bound_by"] == "operations")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # times are per restore (warm for shared_identity_attention and
-            # the two flash kernels, cold for shared_flash_bound and
-            # shared_online, cold under kv_outer_packed for
-            # shared_online_pair): each shape's time times its launches
-            # per restore
-            "ms": sum(r["ms"] * r["per_restore"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] * r["per_restore"] for r in rows),
+            # times are per pass of the kernel's path (a warm restore for
+            # shared_identity_attention and the two flash kernels, a cold
+            # one for shared_flash_bound and shared_online, cold under
+            # kv_outer_packed for shared_online_pair, a train step for the
+            # three flash-VJP kernels): each shape's time times its launches
+            # per pass
+            "ms": sum(r["ms"] * r["per_pass"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] * r["per_pass"] for r in rows),
             "bound_ms": b_ms,
             "bound_by": "operations" if ops_ms >= b_ms / 2 else "bytes",
-            "library_ms": sum(r["library_ms"] * r["per_restore"] for r in rows),
+            "library_ms": sum(r["library_ms"] * r["per_pass"] for r in rows),
             "shapes": rows,
         })
+    # the order in which to redesign the kernels: the factor over the library
+    # call, then the time above the bound per pass of the kernel's path
+    for k in sorted(kernels, key=lambda k: -k["ms"] / k["library_ms"]):
+        print(f"kernel {k['name']}: {k['ms'] / k['library_ms']:.2f}x its library call per pass "
+              f"({k['ms']:.2f} vs {k['library_ms']:.2f} ms), {k['ms'] - k['bound_ms']:.2f} ms above "
+              f"its bound of {k['bound_ms']:.2f} ms [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

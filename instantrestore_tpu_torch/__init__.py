@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the InstantRestore serving path for NVIDIA Hopper.
+"""PyTorch/CUDA port of InstantRestore for NVIDIA Hopper: the serving paths
+and the generator training step.
 
 The package mirrors the file layout of ``instantrestore_tpu`` (the JAX
 reference) so each module has an obvious counterpart. It imports PyTorch
@@ -10,10 +11,12 @@ like. Parameters are nested dicts/lists of tensors in PyTorch layouts
 (``weight`` ``[out, in]`` for linears, OIHW for convolutions) whose dotted
 paths are the diffusers state-dict names (see ``convert.py``).
 
-The two attention kernels of the serving path are hand-written CUDA C++ for
-``sm_90a`` (``csrc/``), compiled with ``nvcc`` on first use and loaded with
-``ctypes`` (``ops/_build.py``). On a CPU tensor each kernel wrapper runs its
-plain PyTorch version instead.
+The nine attention kernels (six of the serving paths, ``ops/shared_attention
+.py``; the forward with its log-sum-exp and the two backward kernels of
+training, ``ops/flash_vjp.py``) are hand-written CUDA C++ for ``sm_90a``
+(``csrc/``), compiled with ``nvcc`` on first use and loaded with ``ctypes``
+(``ops/_build.py``). On a CPU tensor each kernel wrapper runs its plain
+PyTorch version instead.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Parameter trees: JAX-layout numpy trees -> the port's PyTorch trees, and
+"""Parameter trees: JAX-layout numpy trees <-> the port's PyTorch trees, and
 the port's trees <-> flat diffusers-style state dicts.
 
 The port keeps the JAX package's tree nesting (dicts and lists whose keys
@@ -59,6 +59,28 @@ def from_jax_tree(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [from_jax_tree(v) for v in tree]
     return _tensor(tree)
+
+
+def to_jax_tree(tree: Any) -> Any:
+    """Inverse of ``from_jax_tree``: a port tree (params, gradients laid out
+    like them, updated params) -> the JAX layout as numpy arrays, so that it
+    can be laid beside a JAX tree leaf by leaf. A 1-D ``weight`` is a norm's
+    ``scale``; 2-D and 4-D ones are dense and conv kernels."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, val in tree.items():
+            if not isinstance(val, torch.Tensor):
+                out[key] = to_jax_tree(val)
+                continue
+            a = val.detach().cpu().float().numpy()
+            if key in ("weight", "lora_A", "lora_B") and a.ndim >= 2:
+                a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            name = key if key != "weight" else ("scale" if a.ndim == 1 else "kernel")
+            out[name] = np.ascontiguousarray(a)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [to_jax_tree(v) for v in tree]
+    return tree.detach().cpu().float().numpy()
 
 
 def state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:

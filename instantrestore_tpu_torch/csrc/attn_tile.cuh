@@ -1,6 +1,8 @@
 // Attention tile shared by the serving kernels: the bound-softmax ones
 // (flash_bound.cu, shared_identity.cu, shared_flash_bound.cu) and the
-// online-max ones (flash_online.cu, shared_online.cu, shared_online_pair.cu).
+// online-max ones (flash_online.cu, shared_online.cu, shared_online_pair.cu),
+// and by the training forward (flash_fwd_lse.cu: the online policy plus the
+// log-sum-exp of each row).
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
@@ -72,10 +74,16 @@ constexpr float kBoundExpShift = 64.0f;
 // kFlashOnline: plain attention with the running max (JAX _flash_kernel).
 // kSharedOnline: kShared's keys, values and affine with the running max (JAX
 // _shared_kvouter_kernel, _shared_kernel, _shared_kvouter_packed_kernel).
-enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kSharedOnline };
+// kFlashLse: kFlashOnline that also writes lse2 = m + log2(row sum), the
+// residual of the backward kernels (JAX ops/flash_vjp.py, _fwd_lse_kernel).
+enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kSharedOnline, kFlashLse };
 
-__host__ __device__ constexpr bool is_online(Mode m) { return m == Mode::kFlashOnline || m == Mode::kSharedOnline; }
-__host__ __device__ constexpr bool has_affine(Mode m) { return m != Mode::kFlash && m != Mode::kFlashOnline; }
+__host__ __device__ constexpr bool is_online(Mode m) {
+  return m == Mode::kFlashOnline || m == Mode::kSharedOnline || m == Mode::kFlashLse;
+}
+__host__ __device__ constexpr bool has_affine(Mode m) {
+  return m != Mode::kFlash && m != Mode::kFlashOnline && m != Mode::kFlashLse;
+}
 __host__ __device__ constexpr bool bf16_affine(Mode m) { return m == Mode::kShared || m == Mode::kSharedOnline; }
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' finite sentinel
@@ -153,7 +161,8 @@ __device__ __forceinline__ void load8f(const float* p, float* f) {
 // The online modes read no kmax. aff (every mode but the flash ones):
 // [B, H, N, 2, D] fp32 scale and shift of the reference V. qscale = scale *
 // log2(e). A block holds HP groups of NW warps, group g working on head
-// blockIdx.y * HP + g with its own tiles.
+// blockIdx.y * HP + g with its own tiles. lse (kFlashLse only): [B, H, Sq]
+// fp32, log2 units.
 template <Mode M, int D, int BQ, int BK, int NW, int HP = 1>
 __global__ void __launch_bounds__(NW * 32 * HP)
 attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
@@ -165,7 +174,8 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
                  const float* __restrict__ aff,
                  const int* __restrict__ ids,
                  __nv_bfloat16* __restrict__ out,
-                 int H, int Sq, int S, int N, int I, int n_in, float qscale) {
+                 int H, int Sq, int S, int N, int I, int n_in, float qscale,
+                 float* __restrict__ lse) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   constexpr bool kOnline = is_online(M);
   constexpr bool kArgBf16 = D < 128;  // online: round s - m to bf16 before exp2
@@ -392,6 +402,10 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     wmma::store_matrix_sync(Os + o_rt * 16 * Cfg::kLdo + (o_ct0 + i) * 16, o_frag[i],
                             Cfg::kLdo, wmma::mem_row_major);
   if (part == 0) Ls[r] = lsum;
+  if constexpr (M == Mode::kFlashLse) {
+    if (part == 0)
+      lse[(size_t)(b * H + h) * Sq + (size_t)blockIdx.x * BQ + r] = m_run + log2f(lsum);
+  }
   __syncthreads();
   for (int c = tid; c < BQ * D / 8; c += Cfg::kThreads) {
     const int orow = c / (D / 8);
@@ -409,13 +423,13 @@ template <Mode M, int D, int BQ, int BK, int NW, int HP = 1>
 cudaError_t launch_attn(const void* q, const void* k_in, const void* v_in, const void* k,
                         const void* v, const void* kmax, const void* aff, const void* ids,
                         void* out, int B, int H, int Sq, int S, int N, int I, int n_in,
-                        float qscale, void* stream) {
+                        float qscale, void* stream, void* lse = nullptr) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   if (B <= 0 || H <= 0 || N <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 ||
       B > 65535 || H > 65535 || H % HP != 0 || n_in < 0 || n_in > 1 ||
       (n_in == 1 && (k_in == nullptr || v_in == nullptr)) ||
       (M == Mode::kIdentity && ids == nullptr) || (has_affine(M) && aff == nullptr) ||
-      (!is_online(M) && kmax == nullptr))
+      (!is_online(M) && kmax == nullptr) || (M == Mode::kFlashLse && lse == nullptr))
     return cudaErrorInvalidValue;
   constexpr int kBytes = HP * (is_online(M) ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes);
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
@@ -429,7 +443,8 @@ cudaError_t launch_attn(const void* q, const void* k_in, const void* v_in, const
       static_cast<const __nv_bfloat16*>(v_in), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmax),
       static_cast<const float*>(aff), static_cast<const int*>(ids),
-      static_cast<__nv_bfloat16*>(out), H, Sq, S, N, I, n_in, qscale);
+      static_cast<__nv_bfloat16*>(out), H, Sq, S, N, I, n_in, qscale,
+      static_cast<float*>(lse));
   return cudaGetLastError();
 }
 

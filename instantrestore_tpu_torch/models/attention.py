@@ -13,26 +13,32 @@ attention (counterpart of ``instantrestore_tpu/models/attention.py``).
   ``aux["probs"]`` (the unfused branch; the Predictor's attention-mass
   percentages).
 
+* ``save_seg_sums=True`` returns each KV segment's softmax mass per query in
+  ``aux["seg_sums"]`` [B, h, Sq, n_seg], streamed segment by segment (the
+  attention regularisers of training; never a [B, h, Sq, n_seg * S] tensor).
+
 ``use_fused=True`` sends plain self-attention, per-call ``(ref_k, ref_v)``
 shared attention (cold restore, ``train_input`` models; the AdaIN affine
 folds into the kernel) and the identity-cache branch to the kernels of
-``ops/shared_attention.py``; the unfused branch is the JAX package's einsum
-softmax. Cross-attention over the 77 text tokens is always matmul + softmax.
+``ops/shared_attention.py``; where an input wants a gradient (training) the
+first two run the differentiable kernels of ``ops/flash_vjp.py``. The unfused
+branch is the JAX package's einsum softmax. Cross-attention over the 77 text
+tokens is always matmul + softmax.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from instantrestore_tpu_torch.ops.flash_vjp import flash_attention, shared_flash_attention
 from instantrestore_tpu_torch.ops.primitives import dense
 from instantrestore_tpu_torch.ops.shared_attention import (
     IdentityRef,
     adain_affine,
-    flash_attention,
     shared_attention_identity,
-    shared_flash_attention,
 )
 
 
@@ -82,6 +88,36 @@ def softmax_attention(q, k, v, scale: float, *, return_probs: bool = False):
     return (out, probs) if return_probs else out
 
 
+def segment_softmax_sums(q: torch.Tensor, k_segments: Sequence[torch.Tensor],
+                         scale: float) -> torch.Tensor:
+    """Per-query softmax mass of each KV segment, [B, h, Sq, n_seg] with rows
+    summing to 1, without the [B, h, Sq, n_seg * S] probabilities: the
+    segments are streamed twice (row max without gradient, then exp-sums),
+    one [B, h, Sq, S] fp32 logits block alive at a time and each segment's
+    block rebuilt in the backward. q [B, h, Sq, d]; k_segments: the widened
+    K/V's segments [B, h, S, d] in ``widen_kv`` order."""
+    qf = q.float()
+
+    def logits(k_seg):
+        return (qf @ k_seg.float().transpose(-1, -2)) * scale
+
+    with torch.no_grad():
+        m = logits(k_segments[0]).amax(dim=-1)
+        for k_seg in k_segments[1:]:
+            m = torch.maximum(m, logits(k_seg).amax(dim=-1))
+        m = m[..., None]
+
+    def seg_sum(k_seg):
+        return torch.exp(logits(k_seg) - m).sum(dim=-1)
+
+    if torch.is_grad_enabled():
+        sums = [checkpoint(seg_sum, k_seg, use_reentrant=False) for k_seg in k_segments]
+    else:
+        sums = [seg_sum(k_seg) for k_seg in k_segments]
+    sums = torch.stack(sums, dim=-1)
+    return sums / sums.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
 def attention(
     p: dict,
     hidden: torch.Tensor,
@@ -93,11 +129,14 @@ def attention(
     train_input: bool = True,
     capture_kv: bool = False,
     save_probs: bool = False,
+    save_seg_sums: bool = False,
     lora_scaling: float = 1.0,
     use_fused: bool = False,
 ) -> Tuple[torch.Tensor, dict]:
     """hidden [B, S, C]; returns (out [B, S, C], aux with 'kv' when
-    ``capture_kv`` and 'probs' [B, h, Sq, Skv] when ``save_probs``)."""
+    ``capture_kv``, 'probs' [B, h, Sq, Skv] when ``save_probs`` and 'seg_sums'
+    [B, h, Sq, n_seg] when ``save_seg_sums`` and per-call references are
+    given)."""
     aux = {}
     ctx = hidden if encoder_hidden is None else encoder_hidden
     q = _split_heads(dense(p["to_q"], hidden, lora_scaling=lora_scaling), heads)
@@ -108,8 +147,9 @@ def attention(
     scale = q.shape[-1] ** -0.5
 
     if isinstance(ref_kv, IdentityRef):
-        if train_input or save_probs:
-            raise ValueError("the identity cache is refs-only (train_input=False) and keeps no probs")
+        if train_input or save_probs or save_seg_sums:
+            raise ValueError("the identity cache is refs-only (train_input=False) and keeps no "
+                             "probs or segment sums")
         if use_fused:
             out = shared_attention_identity(
                 q.contiguous(), k, v, ref_kv.cache, ref_kv.ids, scale=scale, use_adain=use_adain
@@ -119,7 +159,14 @@ def attention(
             wk, wv = widen_kv(k, v, cache.rk[ids], cache.rv[ids], use_adain=use_adain,
                               train_input=False)
             out = softmax_attention(q, wk, wv, scale)
-    elif use_fused and not save_probs:
+        return _to_out_from_heads(p["to_out"], out, lora_scaling=lora_scaling), aux
+
+    if save_seg_sums and ref_kv is not None:
+        rk = ref_kv[0]
+        segs = ([k] if train_input else []) + [rk[:, i] for i in range(rk.shape[1])]
+        aux["seg_sums"] = segment_softmax_sums(q, segs, scale)
+
+    if use_fused and not save_probs:
         if ref_kv is not None:
             rk, rv = ref_kv
             affine = adain_affine(v, rv) if use_adain else None

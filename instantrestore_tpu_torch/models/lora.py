@@ -1,12 +1,14 @@
-"""LoRA merge/strip over port param trees (counterpart of
-``instantrestore_tpu/models/lora.py``), with the reference's target lists.
+"""LoRA attach/merge/strip and the trainable mask over port param trees
+(counterpart of ``instantrestore_tpu/models/lora.py``), with the reference's
+target lists. Trainables of the generator: the LoRA leaves everywhere, plus
+the modules named in ``extra_trainable`` (the UNet's ``conv_in``).
 
 Factors use peft's layouts: linear A [r, in], B [out, r]; conv A
 [r, in, kh, kw], B [out, r, 1, 1]."""
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
@@ -25,28 +27,60 @@ VAE_LORA_TARGETS = (
 _TORCH_NAMES = {"net_0_proj": "net.0.proj", "net_2": "net.2", "to_out": "to_out.0"}
 
 
+def _matches(name: str, targets: Sequence[str]) -> bool:
+    """peft's rule: the dotted name equals a target or ends with ``.<target>``."""
+    return any(name == t or name.endswith("." + t) for t in targets)
+
+
+def _child(name: str, key) -> str:
+    key = _TORCH_NAMES.get(key, str(key))
+    return f"{name}.{key}" if name else key
+
+
 def attach_lora(params: Any, gen, rank: int, targets, *, b_std: float, device=None) -> Any:
     """Copy of ``params`` with LoRA factors on every module whose dotted
-    diffusers name equals a target or ends with ``.<target>`` (peft's rule)."""
-
-    def matches(name):
-        return any(name == t or name.endswith("." + t) for t in targets)
+    diffusers name matches a target."""
 
     def walk(node, name):
         if isinstance(node, dict):
             if "weight" in node and node["weight"].ndim >= 2:
-                if matches(name) and "lora_A" not in node:
+                if _matches(name, targets) and "lora_A" not in node:
                     return add_lora(node, gen, rank, b_std=b_std, device=device)
                 return node
-            return {
-                k: walk(v, f"{name}.{_TORCH_NAMES.get(k, k)}" if name else _TORCH_NAMES.get(k, k))
-                for k, v in node.items()
-            }
+            return {k: walk(v, _child(name, k)) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, f"{name}.{i}") for i, v in enumerate(node)]
+            return [walk(v, _child(name, i)) for i, v in enumerate(node)]
         return node
 
     return walk(params, "")
+
+
+def trainable_mask(params: Any, *, extra_trainable: Sequence[str] = ()) -> Any:
+    """Tree of bools shaped like ``params``: True for the LoRA leaves and for
+    every leaf of a module whose dotted name matches ``extra_trainable``
+    (``("conv_in",)`` for the UNet)."""
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            full = _matches(name, extra_trainable)
+            return {k: True if k in ("lora_A", "lora_B")
+                    else walk(v, _child(name, k)) if isinstance(v, (dict, list)) else full
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, _child(name, i)) for i, v in enumerate(node)]
+        return _matches(name, extra_trainable)
+
+    return walk(params, "")
+
+
+def count_lora_params(params: Any) -> int:
+    """Number of elements in the LoRA leaves of a tree."""
+    if isinstance(params, dict):
+        return sum(v.numel() if k in ("lora_A", "lora_B") else count_lora_params(v)
+                   for k, v in params.items())
+    if isinstance(params, list):
+        return sum(count_lora_params(v) for v in params)
+    return 0
 
 
 def merge_lora(params: Any, scaling: float) -> Any:

@@ -6,13 +6,16 @@ One parameter bundle holds the LoRA'd restoration UNet/VAE; the frozen
 weights (LoRA stripped, pretrained conv_in), or explicit trees in a serving
 bundle. Ported: ``get_conditioning_kv`` (the reference branch),
 ``restore_forward`` against references encoded in the call (cold) or
-precomputed (warm), and ``restore_forward_multistep``. The timestep is fixed
-(drawing it from ``noise_timesteps`` is training, not ported).
+precomputed (warm), for serving (fixed timestep) and for training
+(``timestep=None`` draws one per batch from ``statics.noise_timesteps``;
+``remat`` checkpoints each stage; ``save_seg_sums``), and
+``restore_forward_multistep``.
 
-Randomness: the forwards draw their standard-normal noise from an explicit
-``torch.Generator`` or take it ready-made through ``noise`` (keys ``latent``
-and ``diffusion`` for the input, ``cond_latent`` and ``cond_diffusion`` for
-the references), which is how tests inject the noise JAX drew.
+Randomness: the forwards draw their standard-normal noise, and the training
+timestep, from an explicit ``torch.Generator``, or take the noise ready-made
+through ``noise`` (keys ``latent`` and ``diffusion`` for the input,
+``cond_latent`` and ``cond_diffusion`` for the references) and the timestep
+through ``timestep``, which is how tests inject what JAX drew.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from instantrestore_tpu_torch.configs.config import ModelConfig
 from instantrestore_tpu_torch.models import scheduler as sched
 from instantrestore_tpu_torch.models.lora import (
     UNET_LORA_TARGETS,
@@ -40,6 +45,7 @@ from instantrestore_tpu_torch.models.vae import (
 )
 from instantrestore_tpu_torch.ops.shared_attention import IdentityRef
 
+NOISE_TIMESTEPS = (249, 499, 749)  # the training timesteps, one drawn per batch
 COND_TIMESTEP = 1      # noise level of the reference branch
 SERVING_TIMESTEP = 249  # fixed restore timestep at inference
 # random LoRA B ~ N(0, 1e-3) instead of peft's zeros, so the merged
@@ -61,7 +67,25 @@ class RestorerStatics:
     condition_on_face_embeds: bool = False
     unet_lora_scaling: float = 0.5  # alpha = r // 2 at training
     vae_lora_scaling: float = 0.5
+    noise_timesteps: Tuple[int, ...] = NOISE_TIMESTEPS
     compute_dtype: Any = torch.bfloat16
+
+    @classmethod
+    def from_model_config(cls, mcfg: ModelConfig, **overrides) -> "RestorerStatics":
+        if mcfg.train_reference_networks:
+            raise NotImplementedError("LoRA on the frozen capture networks "
+                                      "(train_reference_networks) is not ported")
+        kw = dict(
+            use_shared_attention=mcfg.use_shared_attention,
+            use_adain=mcfg.use_adain,
+            train_input=mcfg.train_input,
+            use_shortcuts=mcfg.use_shortcuts,
+            unet_lora_scaling=(mcfg.lora_rank_unet // 2) / mcfg.lora_rank_unet,
+            vae_lora_scaling=(mcfg.lora_rank_vae // 2) / mcfg.lora_rank_vae,
+        )
+        kw.update(overrides)
+        kw.setdefault("condition_on_face_embeds", mcfg.condition_on_face_embeds)
+        return cls(**kw)
 
 
 def init_restorer_params(
@@ -74,9 +98,10 @@ def init_restorer_params(
 ) -> Dict[str, Any]:
     """Random-init bundle at any width, fp32, drawn from ``gen`` (whose
     device must be ``device``): ``unet`` and ``vae`` with LoRA factors on the
-    reference's target modules, ``unet_orig_conv_in`` and the prompt
-    embedding ``caption_enc`` [1, 77, ctx]. LoRA B starts at N(0,
-    ``LORA_B_STD``) rather than peft's zeros."""
+    reference's target modules, ``unet_orig_conv_in`` (its own copy of the
+    UNet's conv_in, which training updates in place) and the prompt embedding
+    ``caption_enc`` [1, 77, ctx]. LoRA B starts at N(0, ``LORA_B_STD``)
+    rather than peft's zeros."""
     if statics.use_shortcuts:
         raise NotImplementedError("random init of the VAE skip convs is not ported")
     base_unet = init_unet_params(gen, statics.unet_cfg, device=device)
@@ -89,7 +114,7 @@ def init_restorer_params(
                           generator=gen, device=device)
     return {
         "unet": unet,
-        "unet_orig_conv_in": dict(unet["conv_in"]),
+        "unet_orig_conv_in": {k: v.clone() for k, v in unet["conv_in"].items()},
         "vae": vae,
         "caption_enc": caption,
     }
@@ -214,15 +239,17 @@ def restore_forward(
     valid_indices: Optional[torch.Tensor] = None,
     *,
     statics: RestorerStatics,
-    timestep: int = SERVING_TIMESTEP,
+    timestep: Optional[int] = SERVING_TIMESTEP,
     sample_posterior: bool = True,
     decode_conditions: bool = False,
     save_attn_probs: bool = False,
     probs_layers: Optional[Sequence[int]] = None,
+    save_seg_sums: bool = False,
     precomputed_ref_kv=None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Dict[str, torch.Tensor]] = None,
     use_fused_attention: bool = False,
+    remat: bool = False,
     debug_taps: bool = False,
 ) -> Dict[str, Any]:
     """Restore degraded images [B, H, W, 3] in [-1, 1].
@@ -233,23 +260,34 @@ def restore_forward(
     9 ``(k, v)`` [B, N, H, S, d] or ``IdentityRef`` entries (warm restore).
     Neither runs without shared attention.
 
+    ``timestep=None`` (training) draws one timestep for the batch from
+    ``statics.noise_timesteps`` with ``generator``. ``remat`` checkpoints
+    each stage (encode, capture, UNet, decode): its activations are rebuilt
+    in the backward instead of kept; all noise is drawn outside the stages, so
+    the rebuilt forward is the first one.
+
     ``noise`` may give ``latent`` and ``diffusion`` [B, h, w, 4], and
     ``cond_latent`` and ``cond_diffusion`` [B*N, h, w, 4]. Returns
     {output_image [B, H, W, 3] in [-1, 1], timestep, latent_pred;
     output_image_conditions when ``decode_conditions``; attn_probs when
-    ``save_attn_probs``; taps when ``debug_taps``: vae_enc_mean,
-    vae_enc_logvar, latent, latent_noised, unet_eps, x0, decoded,
-    cond_latent, cond_latent_noised, unet.<stage>, ref_kv.<i>.k/v}."""
-    if timestep is None:
-        raise NotImplementedError("drawing the timestep from noise_timesteps is training, "
-                                  "not ported yet (ROADMAP.md)")
+    ``save_attn_probs``; attn_seg_sums when ``save_seg_sums``; taps when
+    ``debug_taps``: vae_enc_mean, vae_enc_logvar, latent, latent_noised,
+    unet_eps, x0, decoded, cond_latent, cond_latent_noised, unet.<stage>,
+    ref_kv.<i>.k/v}."""
+
+    def stage(fn, *args):
+        # no stage draws random numbers, so there is no RNG state to preserve
+        return (checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+                if remat else fn(*args))
+
     b = image.shape[0]
     abar = sched.make_alphas_cumprod(device=image.device)
     sf = statics.vae_cfg.scaling_factor
-    mean, logvar, skip_acts = vae_encode(
-        params["vae"], image, cfg=statics.vae_cfg, lora_scaling=statics.vae_lora_scaling,
-        compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention,
-    )
+    mean, logvar, skip_acts = stage(
+        lambda p, img: vae_encode(
+            p, img, cfg=statics.vae_cfg, lora_scaling=statics.vae_lora_scaling,
+            compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention),
+        params["vae"], image)
     eps = _noise(noise, "latent", mean, generator) if sample_posterior else None
     z = sample_latent(mean, logvar, eps) * sf
 
@@ -259,40 +297,55 @@ def restore_forward(
     elif cond_images is not None and statics.use_shared_attention:
         if valid_indices is None:
             valid_indices = torch.full((b,), cond_images.shape[1], device=image.device)
-        ref_kv, decoded_conds, *rest = get_conditioning_kv(
-            params, cond_images, valid_indices, statics=statics, alphas_cumprod=abar,
-            generator=generator, noise=_cond_noise(noise), sample_posterior=sample_posterior,
-            decode_conditions=decode_conditions, use_fused_attention=use_fused_attention,
-            debug_taps=debug_taps,
-        )
+        # the reference noise is drawn here, outside the checkpointed stage
+        like = mean.new_empty((b * cond_images.shape[1], *mean.shape[1:]))
+        given = _cond_noise(noise)
+        cond_noise = {k: _noise(given, k, like, generator)
+                      for k in (("latent",) if sample_posterior else ()) + ("diffusion",)}
+        ref_kv, decoded_conds, *rest = stage(
+            lambda p, conds, valid: get_conditioning_kv(
+                p, conds, valid, statics=statics, alphas_cumprod=abar, noise=cond_noise,
+                sample_posterior=sample_posterior, decode_conditions=decode_conditions,
+                use_fused_attention=use_fused_attention, debug_taps=debug_taps),
+            params, cond_images, valid_indices)
         if debug_taps:
             cond_taps = rest[0]
 
+    if timestep is None:
+        if generator is None:
+            raise ValueError("timestep=None draws the timestep: pass a torch.Generator")
+        idx = torch.randint(len(statics.noise_timesteps), (), generator=generator,
+                            device=generator.device)
+        timestep = statics.noise_timesteps[int(idx)]
     tb = torch.full((b,), timestep, dtype=torch.long, device=z.device)
     zt = sched.add_noise(abar, z, _noise(noise, "diffusion", z, generator), tb)
     caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
     if not statics.use_shared_attention:
         ref_kv = None
-    eps_pred, aux = unet_apply(
-        params["unet"], zt, tb, caption, cfg=statics.unet_cfg, ref_kv=ref_kv,
-        use_adain=statics.use_adain, train_input=statics.train_input,
-        save_attn_probs=save_attn_probs, probs_layers=probs_layers,
-        use_fused_attention=use_fused_attention, capture_taps=debug_taps,
-        lora_scaling=statics.unet_lora_scaling, compute_dtype=statics.compute_dtype,
-    )
+    eps_pred, aux = stage(
+        lambda p, zt_, ref_kv_: unet_apply(
+            p, zt_, tb, caption, cfg=statics.unet_cfg, ref_kv=ref_kv_,
+            use_adain=statics.use_adain, train_input=statics.train_input,
+            save_attn_probs=save_attn_probs, probs_layers=probs_layers,
+            save_seg_sums=save_seg_sums, use_fused_attention=use_fused_attention,
+            capture_taps=debug_taps, lora_scaling=statics.unet_lora_scaling,
+            compute_dtype=statics.compute_dtype),
+        params["unet"], zt, ref_kv)
     x0 = sched.pred_original_sample(abar, eps_pred, zt, tb)
-    out = vae_decode(
-        params["vae"], x0 / sf, cfg=statics.vae_cfg,
-        skip_acts=skip_acts if statics.use_shortcuts else None,
-        lora_scaling=statics.vae_lora_scaling, compute_dtype=statics.compute_dtype,
-        use_fused_attention=use_fused_attention,
-    )
+    out = stage(
+        lambda p, z_, skips: vae_decode(
+            p, z_, cfg=statics.vae_cfg, skip_acts=skips,
+            lora_scaling=statics.vae_lora_scaling, compute_dtype=statics.compute_dtype,
+            use_fused_attention=use_fused_attention),
+        params["vae"], x0 / sf, skip_acts if statics.use_shortcuts else None)
     result = {"output_image": torch.clamp(out, -1.0, 1.0), "timestep": timestep,
               "latent_pred": x0}
     if decoded_conds is not None:
         result["output_image_conditions"] = decoded_conds
     if save_attn_probs:
         result["attn_probs"] = aux.get("attn_probs")
+    if save_seg_sums:
+        result["attn_seg_sums"] = aux.get("seg_sums")
     if debug_taps:
         taps = {"vae_enc_mean": mean, "vae_enc_logvar": logvar, "latent": z,
                 "latent_noised": zt, "unet_eps": eps_pred, "x0": x0, "decoded": out}

@@ -4,7 +4,8 @@
 ``capture_kv=True`` returns the K/V of the 9 up-block self-attentions (the
 frozen capture pass); ``ref_kv=[...]`` injects one entry per shared layer, in
 traversal order (the reference's self_attn_idx 0..8); ``save_attn_probs``
-returns those layers' attention probabilities. FreeU is always on
+returns those layers' attention probabilities and ``save_seg_sums`` their
+streamed per-segment softmax masses. FreeU is always on
 (DEFAULT_FREEU) and LoRA rides in the param tree with a caller-given scaling.
 """
 
@@ -204,7 +205,7 @@ def _transformer(p, x, ctx, *, cfg: UNetConfig, heads: int, lora_scaling: float,
                  shared: dict):
     """Transformer2DModel with linear projections; ``shared`` carries the
     self-attention's options (ref_kv, use_adain, train_input, capture_kv,
-    save_probs, use_fused). Returns (out, aux)."""
+    save_probs, save_seg_sums, use_fused). Returns (out, aux)."""
     b, hh, ww, c = x.shape
     h = group_norm(p["norm"], x, num_groups=cfg.norm_num_groups, eps=cfg.transformer_norm_eps)
     h = dense(p["proj_in"], h.reshape(b, hh * ww, c), lora_scaling=lora_scaling)
@@ -217,6 +218,7 @@ def _transformer(p, x, ctx, *, cfg: UNetConfig, heads: int, lora_scaling: float,
             train_input=shared.get("train_input", True),
             capture_kv=shared.get("capture_kv", False),
             save_probs=shared.get("save_probs", False),
+            save_seg_sums=shared.get("save_seg_sums", False),
             use_fused=shared.get("use_fused", False),
             lora_scaling=lora_scaling,
         )
@@ -242,6 +244,7 @@ def unet_apply(
     capture_kv: bool = False,
     save_attn_probs: bool = False,
     probs_layers: Optional[Sequence[int]] = None,
+    save_seg_sums: bool = False,
     use_adain: bool = False,
     train_input: bool = True,
     freeu: Optional[FreeUParams] = DEFAULT_FREEU,
@@ -254,7 +257,8 @@ def unet_apply(
     encoder_hidden_states [B, 77, ctx] -> (epsilon [B, H, W, 4] in the sample
     dtype, aux = {'kv': [(k, v) x 9] when capture_kv, 'attn_probs': [p x 9]
     when save_attn_probs (fp32 [B, h, Sq, Skv]; None at layers outside
-    ``probs_layers`` when given), 'taps': {...} when capture_taps}). Tap
+    ``probs_layers`` when given), 'seg_sums': [s x 9] when save_seg_sums
+    (fp32 [B, h, Sq, n_seg]), 'taps': {...} when capture_taps}). Tap
     names match the JAX package: conv_in, down_block_i, mid_block,
     shared_attn_i, up_block_i."""
     if timesteps.ndim == 0:
@@ -300,6 +304,7 @@ def unet_apply(
 
     kv_list: List[Tuple[torch.Tensor, torch.Tensor]] = []
     probs_list: List[Optional[torch.Tensor]] = []
+    seg_sums_list: List[torch.Tensor] = []
     shared_idx = 0
     n_blocks = len(cfg.block_out_channels)
     for i, (btype, bp) in enumerate(zip(cfg.up_block_types, params["up_blocks"])):
@@ -316,6 +321,7 @@ def unet_apply(
                     "capture_kv": capture_kv,
                     "save_probs": save_attn_probs and (probs_layers is None
                                                        or shared_idx in probs_layers),
+                    "save_seg_sums": save_seg_sums,
                     "use_fused": use_fused_attention,
                 }
                 x, aux = _transformer(bp["attentions"][j], x, ctx, cfg=cfg, heads=heads,
@@ -324,6 +330,8 @@ def unet_apply(
                     kv_list.append(aux["kv"])
                 if save_attn_probs:
                     probs_list.append(aux.get("probs"))
+                if save_seg_sums and "seg_sums" in aux:
+                    seg_sums_list.append(aux["seg_sums"])
                 if capture_taps:
                     taps[f"shared_attn_{shared_idx}"] = x
                 shared_idx += 1
@@ -339,6 +347,8 @@ def unet_apply(
         aux_out["kv"] = kv_list
     if save_attn_probs:
         aux_out["attn_probs"] = probs_list
+    if save_seg_sums:
+        aux_out["seg_sums"] = seg_sums_list
     if capture_taps:
         aux_out["taps"] = taps
     return x.to(sample.dtype), aux_out

@@ -2,7 +2,9 @@
 ``instantrestore_tpu/models/vae.py``): ``vae_encode`` returns the moments and
 the pre-down-block activations, ``vae_decode`` optionally adds them back
 through the four 1x1 skip convs. The mid-block attention (one head over all
-channels) runs through the flash kernel when ``use_fused_attention``."""
+channels) runs through the flash kernel when ``use_fused_attention``: the
+inference kernel, or the differentiable one of ``ops/flash_vjp.py`` where an
+input wants a gradient."""
 
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from instantrestore_tpu_torch.ops.primitives import (
     silu,
     upsample2x_conv,
 )
-from instantrestore_tpu_torch.ops.shared_attention import flash_attention
+from instantrestore_tpu_torch.ops.flash_vjp import flash_attention
 
 SD_VAE_SCALING_FACTOR = 0.18215
 

@@ -28,7 +28,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_bound", "shared_identity", "shared_flash_bound", "flash_online",
-           "shared_online", "shared_online_pair")
+           "shared_online", "shared_online_pair", "flash_fwd_lse", "flash_bwd_dq",
+           "flash_bwd_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +55,15 @@ SIGNATURES = {
     },
     "shared_online_pair": {
         "irt_shared_online_pair_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
+    },
+    "flash_fwd_lse": {
+        "irt_flash_fwd_lse_bf16": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
+    },
+    "flash_bwd_dq": {
+        "irt_flash_bwd_dq_bf16": ([_P] * 7 + [_I] * 5 + [_F, _F, _P], _I),
+    },
+    "flash_bwd_dkv": {
+        "irt_flash_bwd_dkv_bf16": ([_P] * 8 + [_I] * 5 + [_F, _F, _P], _I),
     },
 }
 

@@ -123,13 +123,15 @@ def _bound_softmax_av(qs, keys, vals, bound, out_dtype, *, sum_rounded: bool):
     return out
 
 
-def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: bool):
+def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: bool,
+                       return_lse: bool = False):
     """sum_j p_ij v_j / sum_j p_ij with a running max over key chunks of
     ``block_k``: m_new = max(m, rowmax(s)), alpha = exp2(m - m_new), row sum
     and fp32 accumulator rescaled by alpha. ``arg_rounded``: p =
     exp2((s - m_new) rounded to the value dtype), summed as rounded;
     otherwise p = exp2(s - m_new) in fp32, summed in fp32, and only the
-    product's operand is rounded."""
+    product's operand is rounded. ``return_lse`` also returns m + log2(row
+    sum), fp32 [B, H, Sq]."""
     b, h, sq, _ = qs.shape
     skv = keys.shape[2]
     if block_k <= 0 or skv % block_k:
@@ -150,7 +152,8 @@ def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: 
         l = alpha * l + psum.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p @ vals[:, :, j : j + block_k].float()
         m = m_new
-    return (acc / l).to(out_dtype)
+    out = (acc / l).to(out_dtype)
+    return (out, (m + torch.log2(l)).squeeze(-1)) if return_lse else out
 
 
 # ---------------------------------------------------------------------------

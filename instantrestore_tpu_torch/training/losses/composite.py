@@ -1,0 +1,219 @@
+"""The generator's composite loss (counterpart of
+``instantrestore_tpu/training/losses/composite.py``; weights are
+``OptimConfig.lambda_*``):
+
+  reconstruction (L1, else L2) | LPIPS (when its params are given) | MS-SSIM
+  | attention-entropy regulariser (from streamed segment sums, else from
+  probabilities) | landmark attention | positive / negative reference-usage
+  regularisers (per sample) | facial-component L2 + LPIPS.
+
+Not ported yet, and refused rather than skipped when their inputs are
+passed: the ArcFace ID term (``arcface_params``), the cycle term
+(``degrade_fn``) and the adversarial terms (``disc_backbone`` /
+``disc_heads``); each raises ``NotImplementedError`` naming its ROADMAP item.
+
+The one random choice, the layer the reference-usage regularisers read, is
+drawn from ``generator`` or given as ``layer_idx``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from instantrestore_tpu_torch.configs.config import OptimConfig
+from instantrestore_tpu_torch.training.losses.lpips import lpips as lpips_fn
+from instantrestore_tpu_torch.training.losses.ssim import ms_ssim
+
+
+def _minmax(x: torch.Tensor) -> torch.Tensor:
+    lo, hi = x.amin(dim=(1, 2, 3), keepdim=True), x.amax(dim=(1, 2, 3), keepdim=True)
+    return (x - lo) / (hi - lo + 1e-12)
+
+
+def landmark_attention_loss(pred_probs, gt_probs, mask, chosen_cond) -> torch.Tensor:
+    """pred_probs [B, heads, q, K] (widened), gt_probs [1|B, heads, q, q]
+    gaussian-splatted targets, mask [1|B, q] bool landmark rows, chosen_cond
+    [] or [B] int KV segment: both maps min-max normalised per sample, the
+    chosen segment sliced per sample, MSE over the masked rows (mean over
+    the selected elements)."""
+    b, h, q, k = pred_probs.shape
+    pf = _minmax(pred_probs.float())
+    gf = _minmax(gt_probs.float().expand(b, h, q, q))
+    cond = torch.as_tensor(chosen_cond, device=pf.device).long().expand(b)
+    seg = pf.reshape(b, h, q, k // q, q)[torch.arange(b, device=pf.device), :, :, cond]
+    w = torch.as_tensor(mask, device=pf.device).expand(b, q)[:, None, :, None].float()
+    return ((seg - gf).square() * w).sum() / (w.sum() * h * q).clamp_min(1.0)
+
+
+def _entropy_from_mean_act(mean_act: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """Cross-entropy between the per-query argmax-segment histogram and the
+    uniform distribution (no gradient passes the argmax)."""
+    one_hot = F.one_hot(mean_act.argmax(dim=-1), n_segments).float()
+    avg = one_hot.mean(dim=2)  # [B, h, n]
+    return -(torch.log(avg + 1e-8) * (1.0 / n_segments)).sum() / mean_act.shape[0]
+
+
+def attention_entropy_reg(attn_probs: List[torch.Tensor], n_segments: int = 5,
+                          train_input: bool = True) -> torch.Tensor:
+    """Mean over the layers of the entropy term on probabilities
+    [B, h, q, n_segments * S]. With ``train_input`` the input segment is
+    dropped from the argmax but keeps its (never selected) histogram column,
+    as in the reference."""
+    regs = []
+    for probs in attn_probs:
+        b, h, q, k = probs.shape
+        seg = probs.reshape(b, h, q, n_segments, k // n_segments)
+        if train_input:
+            seg = seg[:, :, :, 1:, :]
+        regs.append(_entropy_from_mean_act(seg.mean(dim=-1), n_segments))
+    return sum(regs) / len(regs)
+
+
+def attention_entropy_reg_from_sums(seg_sums: List[torch.Tensor], n_segments: int = 5,
+                                    train_input: bool = True) -> torch.Tensor:
+    """``attention_entropy_reg`` from streamed per-segment masses
+    [B, h, q, n_seg] (``models/attention.py::segment_softmax_sums``): the
+    argmax over segment means equals the argmax over segment masses."""
+    regs = [_entropy_from_mean_act(s[:, :, :, 1:] if train_input else s, n_segments)
+            for s in seg_sums]
+    return sum(regs) / len(regs)
+
+
+def reference_usage_means_per_sample(attn_probs: List[torch.Tensor], layer_idx: int) -> torch.Tensor:
+    """Per-sample per-segment attention mass of layer ``layer_idx``,
+    [B, n_segments], from probabilities [B, h, q, n_segments * q]."""
+    probs = attn_probs[layer_idx]
+    q = probs.shape[2]
+    seg = probs.reshape(*probs.shape[:-1], probs.shape[-1] // q, q)
+    return seg.sum(dim=(1, 2, 4)).float()
+
+
+def pos_neg_reg_loss_per_sample(means: torch.Tensor, target_idx: torch.Tensor, *,
+                                negative: bool) -> torch.Tensor:
+    """means [B, n_segments]; target_idx [B] int, -1 = no swap for the sample
+    (masked out of the mean): normalise by the row max, softmax over the
+    segments, NLL toward (pos) or away from (neg) the target segment."""
+    m = means / means.amax(dim=1, keepdim=True).clamp_min(1e-12)
+    probs = torch.softmax(m, dim=1)
+    log_p = torch.log((1.0 - probs if negative else probs).clamp_min(1e-12))
+    nll = -log_p.gather(1, target_idx.clamp_min(0).long()[:, None])[:, 0]
+    valid = (target_idx >= 0).float()
+    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def crop_with_boxes(images: torch.Tensor, origins: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Fixed-size per-sample crops: images [B, H, W, C], origins [B, 2]
+    (y0, x0) -> [B, h, w, C]; an origin too near the edge is clamped inside."""
+    hh, ww = images.shape[1:3]
+    o = origins.long()
+    y0 = o[:, 0].clamp(0, hh - h)[:, None] + torch.arange(h, device=images.device)
+    x0 = o[:, 1].clamp(0, ww - w)[:, None] + torch.arange(w, device=images.device)
+    rows = torch.arange(images.shape[0], device=images.device)[:, None, None]
+    return images[rows, y0[:, :, None], x0[:, None, :]]
+
+
+def compute_generator_loss(
+    out: Dict[str, Any],
+    batch: Dict[str, Any],
+    cfg: OptimConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+    layer_idx: Optional[int] = None,
+    lpips_params: Optional[Dict] = None,
+    arcface_params: Optional[Dict] = None,
+    disc_backbone: Optional[Dict] = None,
+    disc_heads: Optional[Dict] = None,
+    train_input: bool = True,
+    degrade_fn=None,
+    landmark_layer: Optional[int] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, {term: value}) of a restore forward's ``out`` against
+    ``batch`` (``gt`` [B, H, W, 3]; optional ``gt_attn_probs``,
+    ``gt_attn_mask``, ``gt_attn_cond``, ``pos_reg_idx``, ``neg_reg_idx``,
+    ``facial_comps``)."""
+    if cfg.lambda_id_loss > 0 and arcface_params is not None:
+        raise NotImplementedError("the ArcFace ID term is not ported (ROADMAP Queue 1: id_loss)")
+    if cfg.lambda_cycle > 0 and degrade_fn is not None:
+        raise NotImplementedError("the cycle term is not ported (ROADMAP Queue 1: the on-device "
+                                  "degradations of ops/image_ops.py and ops/dct_jpeg.py)")
+    if cfg.lambda_gan > 0 and disc_backbone is not None and disc_heads is not None:
+        raise NotImplementedError("the adversarial terms are not ported (ROADMAP Queue 1: the "
+                                  "Coach's discriminator step, gan.py and its backbones)")
+    pred = out["output_image"].float()
+    gts = batch["gt"].float()
+    losses: Dict[str, torch.Tensor] = {}
+    total = pred.new_zeros(())
+
+    # reconstruction: l1 takes precedence over l2
+    if cfg.lambda_l1 > 0:
+        losses["loss_l1"] = (pred - gts).abs().mean()
+        total = total + losses["loss_l1"] * cfg.lambda_l1
+    else:
+        losses["loss_l2"] = (pred - gts).square().mean()
+        total = total + losses["loss_l2"] * cfg.lambda_l2
+
+    if lpips_params is not None:
+        losses["loss_lpips"] = lpips_fn(lpips_params, pred, gts).mean()
+        total = total + losses["loss_lpips"] * cfg.lambda_lpips
+
+    if cfg.lambda_ssim > 0:
+        losses["loss_ssim"] = 1.0 - ms_ssim((pred + 1) / 2, (gts + 1) / 2, data_range=1.0)
+        total = total + losses["loss_ssim"] * cfg.lambda_ssim
+
+    attn_probs = out.get("attn_probs")
+    seg_sums = out.get("attn_seg_sums")
+    n_segments = 5 if train_input else 4
+
+    if cfg.lambda_attn_reg > 0 and (seg_sums or attn_probs):
+        if seg_sums:
+            reg = attention_entropy_reg_from_sums(seg_sums, n_segments, train_input=train_input)
+        else:
+            reg = attention_entropy_reg(attn_probs, n_segments, train_input=train_input)
+        losses["loss_attn_reg"] = reg
+        total = total + reg * cfg.lambda_attn_reg
+
+    if (cfg.lambda_landmark > 0 and attn_probs and landmark_layer is not None
+            and batch.get("gt_attn_probs") is not None):
+        losses["loss_landmark"] = landmark_attention_loss(
+            attn_probs[landmark_layer], batch["gt_attn_probs"], batch["gt_attn_mask"],
+            batch["gt_attn_cond"])
+        total = total + losses["loss_landmark"] * cfg.lambda_landmark
+
+    if (cfg.lambda_pos_reg > 0 or cfg.lambda_neg_reg > 0) and (seg_sums or attn_probs):
+        # per-sample segment masses [B, n_segments] of one layer drawn at random
+        n_layers = len(seg_sums or attn_probs)
+        if layer_idx is None:
+            if generator is None:
+                raise ValueError("the reference-usage regularisers draw a layer: pass "
+                                 "layer_idx or a torch.Generator")
+            layer_idx = int(torch.randint(n_layers, (), generator=generator,
+                                          device=generator.device))
+        if seg_sums:
+            means = seg_sums[layer_idx].float().sum(dim=(1, 2))
+        else:
+            means = reference_usage_means_per_sample(attn_probs, layer_idx)
+        for name, lam, key, negative in (("pos", cfg.lambda_pos_reg, "pos_reg_idx", False),
+                                         ("neg", cfg.lambda_neg_reg, "neg_reg_idx", True)):
+            if lam > 0 and key in batch:
+                idx = torch.as_tensor(batch[key], device=means.device).expand(means.shape[0])
+                losses[f"loss_attn_{name}_reg"] = pos_neg_reg_loss_per_sample(
+                    means, idx, negative=negative)
+                total = total + losses[f"loss_attn_{name}_reg"] * lam
+
+    if cfg.lambda_facial_comp > 0 and batch.get("facial_comps") is not None:
+        fc_total, fc_lpips = pred.new_zeros(()), pred.new_zeros(())
+        for m in batch["facial_comps"]:
+            mask = m[..., None].float()
+            fc_total = fc_total + (pred * mask - gts * mask).square().mean()
+            if lpips_params is not None:
+                fc_lpips = fc_lpips + lpips_fn(lpips_params, pred * mask, gts * mask).mean()
+        losses["loss_facial_comp_l2"] = fc_total
+        losses["loss_facial_comp_lpips"] = fc_lpips
+        total = total + cfg.lambda_facial_comp * (
+            fc_total * cfg.lambda_l2 + fc_lpips * cfg.lambda_lpips)
+
+    losses["loss"] = total
+    return total, losses

@@ -1,0 +1,139 @@
+"""The generator's optimizer and learning-rate schedules (counterpart of
+``instantrestore_tpu/training/optim.py``): AdamW over the trainable leaves
+only, after a clip by the global norm of those leaves' gradients, under the
+diffusers-style schedules the reference uses.
+
+The update is optax's, written out: the clip scales every gradient by
+``max_norm / max(norm, max_norm)`` (not ``clip_grad_norm_``'s ``max_norm /
+(norm + 1e-6)``); AdamW has decoupled weight decay and ``eps`` outside the
+root. The schedules are evaluated at the step count before the update, from
+0, so every schedule with a warm-up gives a learning rate of 0 on the first
+step. Moments are fp32 and exist for the trainable leaves only; frozen leaves
+are never touched.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, List, Optional
+
+import torch
+
+from instantrestore_tpu_torch.configs.config import OptimConfig, SchedulerType
+
+
+def make_lr_schedule(cfg: OptimConfig, max_steps: int) -> Callable[[int], float]:
+    """step -> learning rate, for the scheduler types the reference uses. A
+    warm-up is linear from 0 to the base rate over ``lr_warmup_steps``; the
+    schedule after it is evaluated at ``step - warmup`` and, as in the JAX
+    package, subtracts the warm-up once more inside its own formula."""
+    warmup, base, st = cfg.lr_warmup_steps, cfg.learning_rate, cfg.scheduler_type
+    span = max(max_steps - warmup, 1)
+
+    def progress(step):  # of a step counted from the end of the warm-up
+        return min(max((step - warmup) / span, 0.0), 1.0)
+
+    def linear(step, start, end, steps):
+        return start if steps <= 0 else start + (end - start) * min(max(step / steps, 0.0), 1.0)
+
+    if st == SchedulerType.CONSTANT:
+        return lambda step: base
+    if st == SchedulerType.CONSTANT_WITH_WARMUP:
+        after = lambda step: base
+    elif st == SchedulerType.LINEAR:
+        after = lambda step: linear(step, base, 0.0, span)
+    elif st == SchedulerType.COSINE:
+        after = lambda step: base * 0.5 * (
+            1.0 + math.cos(math.pi * progress(step) * cfg.lr_num_cycles * 2 * 0.5))
+    elif st == SchedulerType.COSINE_WITH_RESTARTS:
+        after = lambda step: base * 0.5 * (
+            1.0 + math.cos(math.pi * ((cfg.lr_num_cycles * progress(step)) % 1.0)))
+    elif st == SchedulerType.POLYNOMIAL:
+        after = lambda step: base * (1.0 - progress(step)) ** cfg.lr_power
+    else:
+        raise ValueError(f"unsupported scheduler type {st}")
+    return lambda step: linear(step, 0.0, base, warmup) if step < warmup else after(step - warmup)
+
+
+def trainable_leaves(params: Any, mask: Any) -> List[torch.Tensor]:
+    """The leaves of ``params`` whose ``mask`` entry is True, in tree order."""
+    if isinstance(mask, dict):
+        return [t for k in mask for t in trainable_leaves(params[k], mask[k])]
+    if isinstance(mask, (list, tuple)):
+        return [t for p, m in zip(params, mask) for t in trainable_leaves(p, m)]
+    return [params] if mask else []
+
+
+def freeze_non_trainable(params: Any, mask: Any) -> Any:
+    """``requires_grad_`` on every leaf of ``params`` by its ``mask`` entry,
+    so that the backward pass skips the frozen ones; returns ``params``."""
+    if isinstance(mask, dict):
+        for k in mask:
+            freeze_non_trainable(params[k], mask[k])
+    elif isinstance(mask, (list, tuple)):
+        for p, m in zip(params, mask):
+            freeze_non_trainable(p, m)
+    else:
+        params.requires_grad_(bool(mask))
+    return params
+
+
+class MaskedAdamW:
+    """AdamW with global-norm clipping over the trainable leaves of one
+    param tree. ``update`` binds to the leaves at its first call and keeps
+    their moments; ``count`` is the number of updates taken."""
+
+    def __init__(self, cfg: OptimConfig, max_steps: int, trainable_mask: Any):
+        self.cfg, self.mask = cfg, trainable_mask
+        self.schedule = make_lr_schedule(cfg, max_steps)
+        self.count = 0
+        self.leaves: Optional[List[torch.Tensor]] = None
+        self.exp_avg: List[torch.Tensor] = []
+        self.exp_avg_sq: List[torch.Tensor] = []
+        self.last_grad_norm: Optional[torch.Tensor] = None
+
+    def _bind(self, params: Any) -> List[torch.Tensor]:
+        leaves = trainable_leaves(params, self.mask)
+        if self.leaves is None:
+            if any(t.dtype != torch.float32 for t in leaves):
+                raise TypeError("trainable leaves must be fp32 (the compute dtype is cast inside "
+                                "the ops)")
+            self.leaves = leaves
+            self.exp_avg = [torch.zeros_like(t) for t in leaves]
+            self.exp_avg_sq = [torch.zeros_like(t) for t in leaves]
+        elif len(leaves) != len(self.leaves) or any(a is not b for a, b in
+                                                    zip(leaves, self.leaves)):
+            raise ValueError("the optimizer is bound to another param tree")
+        return leaves
+
+    @torch.no_grad()
+    def update(self, params: Any, grads: List[torch.Tensor]) -> None:
+        """One step on the trainable leaves of ``params``, in place, from
+        their gradients ``grads`` (tree order, fp32), which are left as given."""
+        leaves, cfg = self._bind(params), self.cfg
+        if len(grads) != len(leaves):
+            raise ValueError(f"{len(grads)} gradients for {len(leaves)} trainable leaves")
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self.last_grad_norm = norm
+        if cfg.use_clip_grad:
+            max_norm = cfg.clip_grad_max_norm
+            grads = torch._foreach_mul(grads, max_norm / norm.clamp_min(max_norm))
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2 = cfg.adam_beta1, cfg.adam_beta2
+        torch._foreach_lerp_(self.exp_avg, grads, 1.0 - b1)
+        torch._foreach_mul_(self.exp_avg_sq, b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, 1.0 - b2)
+        denom = torch._foreach_div(self.exp_avg_sq, 1.0 - b2 ** self.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.adam_epsilon)
+        step = torch._foreach_div(self.exp_avg, denom)
+        torch._foreach_div_(step, 1.0 - b1 ** self.count)
+        torch._foreach_add_(step, leaves, alpha=cfg.adam_weight_decay)
+        torch._foreach_add_(leaves, step, alpha=-lr)
+
+
+def make_optimizer(cfg: OptimConfig, max_steps: int, trainable_mask: Any) -> MaskedAdamW:
+    """AdamW over the masked (trainable) leaves with gradient clipping; frozen
+    leaves get no update and hold no optimizer state."""
+    return MaskedAdamW(cfg, max_steps, trainable_mask)

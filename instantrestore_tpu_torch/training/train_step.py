@@ -1,0 +1,105 @@
+"""The generator training step (counterpart of
+``instantrestore_tpu/training/train_step.py``): forward the restorer, compose
+the weighted losses, backpropagate into the trainable subset (LoRA leaves and
+``unet.conv_in``), clip by the global norm and take an AdamW step.
+
+Where the JAX step returns new params and optimizer state, this one updates
+the trainable leaves of ``params`` in place and the optimizer's moments with
+them; frozen leaves are never written. The raw (unclipped) gradients of the
+last step stay on the trainable leaves' ``.grad``. The whole composite loss
+plugs in through ``loss_fn``; the reconstruction terms live here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from instantrestore_tpu_torch import resolve_device
+from instantrestore_tpu_torch.configs.config import OptimConfig
+from instantrestore_tpu_torch.models.restorer import RestorerStatics, restore_forward
+from instantrestore_tpu_torch.training.optim import (
+    MaskedAdamW,
+    freeze_non_trainable,
+    trainable_leaves,
+)
+
+
+def reconstruction_losses(pred: torch.Tensor, target: torch.Tensor, cfg: OptimConfig):
+    """The weighted l2 / l1 reconstruction terms."""
+    losses = {}
+    pf, tf = pred.float(), target.float()
+    if cfg.lambda_l2 > 0:
+        losses["l2"] = (pf - tf).square().mean() * cfg.lambda_l2
+    if cfg.lambda_l1 > 0:
+        losses["l1"] = (pf - tf).abs().mean() * cfg.lambda_l1
+    return losses
+
+
+def default_loss_fn(out: Dict[str, Any], batch: Dict[str, Any],
+                    cfg: OptimConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    losses = reconstruction_losses(out["output_image"], batch["gt"], cfg)
+    total = sum(losses.values()) if losses else out["output_image"].new_zeros(())
+    return total, losses
+
+
+def make_train_step(
+    statics: RestorerStatics,
+    optim_cfg: OptimConfig,
+    optimizer: MaskedAdamW,
+    trainable_mask: Any,
+    loss_fn: Callable = default_loss_fn,
+    save_attn_probs: bool = False,
+    use_fused_attention: bool = False,
+    remat: bool = False,
+    save_seg_sums: bool = False,
+    device=None,
+):
+    """Build the generator train step ``step(params, batch, *, generator=None,
+    noise=None, timestep=None) -> (metrics, out)``.
+
+    ``params``: an unmerged bundle (``init_restorer_params`` or a converted
+    one) of fp32 leaves on ``device`` (CUDA unless ``device="cpu"`` is asked);
+    the leaves ``trainable_mask`` marks are updated in place. ``batch``:
+    {"image": degraded [B, H, W, 3], "gt": clean [B, H, W, 3],
+    "conditioning_images": [B, N, H, W, 3], "valid_indices": [B]} plus what
+    ``loss_fn(out, batch, optim_cfg)`` reads; its tensors are moved to the
+    device. ``generator`` / ``noise`` / ``timestep`` as ``restore_forward``
+    (``timestep=None`` draws one per batch). ``metrics``: the loss terms,
+    ``loss`` and ``grad_norm`` (before clipping), detached; ``out``: the
+    forward's result."""
+    dev = resolve_device(device)
+
+    def train_step(params, batch, *, generator: Optional[torch.Generator] = None,
+                   noise: Optional[Dict[str, torch.Tensor]] = None,
+                   timestep: Optional[int] = None):
+        freeze_non_trainable(params, trainable_mask)
+        leaves = trainable_leaves(params, trainable_mask)
+        frozen = {id(t) for t in leaves}
+        if any(t.device.type != dev.type for t in leaves):
+            raise ValueError(f"the params are not on {dev}")
+        orig = params.get("unet_orig_conv_in", {})
+        if any(id(t) in frozen for t in orig.values()):
+            raise ValueError("unet_orig_conv_in shares tensors with a trainable leaf; the "
+                             "frozen capture view needs its own copy")
+        batch = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+        out = restore_forward(
+            params, batch["image"], batch.get("conditioning_images"), batch.get("valid_indices"),
+            statics=statics, timestep=timestep, generator=generator, noise=noise,
+            save_attn_probs=save_attn_probs, save_seg_sums=save_seg_sums,
+            use_fused_attention=use_fused_attention, remat=remat,
+        )
+        total, losses = loss_fn(out, batch, optim_cfg)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        # a leaf the loss does not reach (to_k of a refs-only shared layer) has a zero gradient
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        for t, g in zip(leaves, grads):
+            t.grad = g
+        optimizer.update(params, grads)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        metrics["grad_norm"] = optimizer.last_grad_norm
+        return metrics, out
+
+    return train_step

@@ -51,20 +51,54 @@ def test_cold_slice_modules_are_covered():
 
 def test_every_kernel_source_is_in_the_checkout():
     """The list of ops/_build.py, its ctypes signatures and csrc/*.cu name the same
-    six kernels, the online-max family among them, and each source includes
-    nothing but the shared tile and the CUDA toolkit's headers."""
+    nine kernels, the online-max family and the three flash-VJP kernels among
+    them, and each source includes nothing but the shared tiles and the CUDA
+    toolkit's headers."""
     from instantrestore_tpu_torch.ops import _build
 
     on_disk = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == set(_build.SIGNATURES) == on_disk
     assert {"flash_online", "shared_online", "shared_online_pair"} <= on_disk
-    assert len(_build.SOURCES) == 6
+    assert {"flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"} <= on_disk
+    assert len(_build.SOURCES) == 9
     for path in sorted(_build.CSRC.glob("*.cu*")):
         includes = [ln.split()[1] for ln in path.read_text().splitlines()
                     if ln.startswith("#include")]
         assert includes and all(
-            inc in ('"attn_tile.cuh"', "<cuda_bf16.h>", "<cuda_runtime.h>", "<mma.h>", "<stdint.h>")
+            inc in ('"attn_tile.cuh"', '"flash_bwd_tile.cuh"', "<cuda_bf16.h>", "<cuda_runtime.h>",
+                    "<mma.h>", "<stdint.h>")
             for inc in includes), (path.name, includes)
+
+
+TRAINING_MODULES = (
+    "instantrestore_tpu_torch/ops/flash_vjp.py",
+    "instantrestore_tpu_torch/configs/config.py",
+    "instantrestore_tpu_torch/training/optim.py",
+    "instantrestore_tpu_torch/training/train_step.py",
+    "instantrestore_tpu_torch/training/losses/lpips.py",
+    "instantrestore_tpu_torch/training/losses/ssim.py",
+    "instantrestore_tpu_torch/training/losses/composite.py",
+)
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_slice_modules_are_covered(module):
+    """Each module of the training slice is among the files checked above and
+    imports on a machine without a GPU, a CUDA compiler or Triton."""
+    assert module in {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    name = module[:-3].replace("/", ".")
+    code = (f"import sys; sys.modules['triton'] = None; import {name}; "
+            "assert 'instantrestore_tpu' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+def test_kernel_sources_call_no_library():
+    """The hand-written kernels contain no call into cuBLAS, cuDNN, CUTLASS
+    device kernels or a fused attention operator."""
+    for path in sorted((ROOT / "instantrestore_tpu_torch" / "csrc").glob("*.cu*")):
+        text = path.read_text().lower()
+        for word in ("cublas", "cudnn", "cutlass", "scaled_dot_product", "torch/"):
+            assert word not in text, (path.name, word)
 
 
 def test_port_imports_without_pillow():
