@@ -1,8 +1,9 @@
 // Attention tile shared by the serving kernels: the bound-softmax ones
 // (flash_bound.cu, shared_identity.cu, shared_flash_bound.cu) and the
-// online-max ones (flash_online.cu, shared_online.cu, shared_online_pair.cu),
-// and by the training forward (flash_fwd_lse.cu: the online policy plus the
-// log-sum-exp of each row).
+// online-max plain attention (flash_online.cu), and by the training forward
+// (flash_fwd_lse.cu: the online policy plus the log-sum-exp of each row). The
+// online shared kernels (shared_online.cu, shared_online_pair.cu) run on the
+// wgmma + TMA tile of attn_wgmma.cuh.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
@@ -18,8 +19,7 @@
 // exponent range), never fp16 (overflows at 65504). A row whose largest
 // score lies more than ~190 log2 units under its bound flushes to 0 / 0.
 //
-// Online: the running max of the JAX package's _flash_kernel and
-// _shared_kvouter_kernel. Each query row keeps m (log2 units, started at the
+// Online: the running max of the JAX package's _flash_kernel. Each query row keeps m (log2 units, started at the
 // finite -1e30, so that the first alpha is exp2(-1e30 - m) = 0 and never
 // inf - inf); per key tile m_new = max(m, rowmax(s)), alpha = exp2(m - m_new),
 // p = exp2(s - m_new) <= 1, and the row sum and the output accumulator are
@@ -42,8 +42,7 @@
 // key loop. The epilogue divides by the row sums and writes bf16.
 //
 // Tiles that fit: d=64 keeps a 64x64 block in 4 warps (each warp owns 16
-// query rows x 64 channels); with HP=2 a block of 8 warps owns a pair of
-// heads, each half working on its own tiles (shared_online_pair.cu). d=512 (the VAE mid attention) cannot hold a
+// query rows x 64 channels). d=512 (the VAE mid attention) cannot hold a
 // 64x512 fp32 accumulator in one block's registers; it takes 32 query rows
 // in 8 warps, and the 32x512 accumulator is split by channel slabs across
 // the warps (64 registers each). Its K and V tiles need 176 KB of shared
@@ -72,19 +71,17 @@ constexpr float kBoundExpShift = 64.0f;
 // row sum, AdaIN affine with bf16 scale and shift on the reference segments
 // only (JAX _shared_kvouter_bound_kernel).
 // kFlashOnline: plain attention with the running max (JAX _flash_kernel).
-// kSharedOnline: kShared's keys, values and affine with the running max (JAX
-// _shared_kvouter_kernel, _shared_kernel, _shared_kvouter_packed_kernel).
 // kFlashLse: kFlashOnline that also writes lse2 = m + log2(row sum), the
 // residual of the backward kernels (JAX ops/flash_vjp.py, _fwd_lse_kernel).
-enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kSharedOnline, kFlashLse };
+enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kFlashLse };
 
 __host__ __device__ constexpr bool is_online(Mode m) {
-  return m == Mode::kFlashOnline || m == Mode::kSharedOnline || m == Mode::kFlashLse;
+  return m == Mode::kFlashOnline || m == Mode::kFlashLse;
 }
 __host__ __device__ constexpr bool has_affine(Mode m) {
   return m != Mode::kFlash && m != Mode::kFlashOnline && m != Mode::kFlashLse;
 }
-__host__ __device__ constexpr bool bf16_affine(Mode m) { return m == Mode::kShared || m == Mode::kSharedOnline; }
+__host__ __device__ constexpr bool bf16_affine(Mode m) { return m == Mode::kShared; }
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' finite sentinel
 constexpr int kAlphaCols = 16;     // width of the alpha tile: one fp32 WMMA fragment
@@ -160,11 +157,9 @@ __device__ __forceinline__ void load8f(const float* p, float* f) {
 // norm, [I, H] read at row (identity) or [B, H] read at b (flash, kShared).
 // The online modes read no kmax. aff (every mode but the flash ones):
 // [B, H, N, 2, D] fp32 scale and shift of the reference V. qscale = scale *
-// log2(e). A block holds HP groups of NW warps, group g working on head
-// blockIdx.y * HP + g with its own tiles. lse (kFlashLse only): [B, H, Sq]
-// fp32, log2 units.
-template <Mode M, int D, int BQ, int BK, int NW, int HP = 1>
-__global__ void __launch_bounds__(NW * 32 * HP)
+// log2(e). lse (kFlashLse only): [B, H, Sq] fp32, log2 units.
+template <Mode M, int D, int BQ, int BK, int NW>
+__global__ void __launch_bounds__(NW * 32)
 attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k_in,
                  const __nv_bfloat16* __restrict__ v_in,
@@ -179,12 +174,8 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   using Cfg = TileCfg<D, BQ, BK, NW>;
   constexpr bool kOnline = is_online(M);
   constexpr bool kArgBf16 = D < 128;  // online: round s - m to bf16 before exp2
-  extern __shared__ __align__(128) unsigned char smem_block[];
-  // thread within its head's group, and the group
-  const int tid = HP == 1 ? threadIdx.x : threadIdx.x % Cfg::kThreads;
-  const int grp = HP == 1 ? 0 : threadIdx.x / Cfg::kThreads;
-  unsigned char* smem =
-      smem_block + grp * (kOnline ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kQOff);
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kKOff);
   __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kVOff);
@@ -193,7 +184,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   float* Al = reinterpret_cast<float*>(smem + Cfg::kAOff);
 
   const int warp = tid / 32;
-  const int h = blockIdx.y * HP + grp;
+  const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t q_base = ((size_t)(b * H + h) * Sq + (size_t)blockIdx.x * BQ) * D;
 
@@ -263,7 +254,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     const int j0 = (t % tiles_per_seg) * BK;
 
     // (1) K and V tiles -> shared memory, with the AdaIN affine on reference
-    // V. kIdentity: fp32 scale and shift. kShared, kSharedOnline: rounded to
+    // V. kIdentity: fp32 scale and shift. kShared: rounded to
     // bf16, as the JAX kernel casts them, then one bf16 rounding of v * a + c
     // computed in fp32; the JAX kernel rounds the product and the sum to bf16
     // each, which differs by at most 1 bf16 ulp of the value.
@@ -419,26 +410,26 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <Mode M, int D, int BQ, int BK, int NW, int HP = 1>
+template <Mode M, int D, int BQ, int BK, int NW>
 cudaError_t launch_attn(const void* q, const void* k_in, const void* v_in, const void* k,
                         const void* v, const void* kmax, const void* aff, const void* ids,
                         void* out, int B, int H, int Sq, int S, int N, int I, int n_in,
                         float qscale, void* stream, void* lse = nullptr) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   if (B <= 0 || H <= 0 || N <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 ||
-      B > 65535 || H > 65535 || H % HP != 0 || n_in < 0 || n_in > 1 ||
+      B > 65535 || H > 65535 || n_in < 0 || n_in > 1 ||
       (n_in == 1 && (k_in == nullptr || v_in == nullptr)) ||
       (M == Mode::kIdentity && ids == nullptr) || (has_affine(M) && aff == nullptr) ||
       (!is_online(M) && kmax == nullptr) || (M == Mode::kFlashLse && lse == nullptr))
     return cudaErrorInvalidValue;
-  constexpr int kBytes = HP * (is_online(M) ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes);
+  constexpr int kBytes = is_online(M) ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes;
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
-  auto kern = attn_tile_kernel<M, D, BQ, BK, NW, HP>;
+  auto kern = attn_tile_kernel<M, D, BQ, BK, NW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Sq / BQ, H / HP, B);
-  kern<<<grid, Cfg::kThreads * HP, kBytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(Sq / BQ, H, B);
+  kern<<<grid, Cfg::kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_in),
       static_cast<const __nv_bfloat16*>(v_in), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmax),

@@ -48,10 +48,13 @@ its bound slack exceeds ~190 log2 units. The online kernels keep a running
 max per row (from the finite ``NEG_INF``), rescale the row sum and the
 accumulator by ``exp2(m - m_new)`` per key chunk, and cannot: they are the
 way out for such weights. Their result depends on the key chunk at bf16
-rounding level (the running max differs per chunk); the kernels' chunk is
-``ONLINE_BLOCK_K`` keys and the plain versions take it as ``block_k``. The
-TPU tile knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are
-not read.
+rounding level (the running max differs per chunk). ``flash_online``'s chunk
+is ``ONLINE_BLOCK_K`` keys (the tile of ``csrc/attn_tile.cuh``); the shared
+online kernels run on the wgmma + TMA tile of ``csrc/attn_wgmma.cuh``, whose
+chunk is ``SHARED_ONLINE_BLOCK_K`` keys where that divides the segment length
+and ``ONLINE_BLOCK_K`` otherwise (``shared_online_tile``). The plain versions
+take the chunk as ``block_k`` and default to their kernel's. The TPU tile
+knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are not read.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ from instantrestore_tpu_torch.ops import _build
 LOG2E = 1.4426950408889634
 BOUND_EXP_SHIFT = 64.0
 NEG_INF = -1e30  # the online kernels' starting max: finite, so exp2(m - m_new) is never NaN
-ONLINE_BLOCK_K = 64  # key chunk of the online CUDA kernels (BK of csrc/attn_tile.cuh)
+ONLINE_BLOCK_K = 64  # key chunk of flash_online and the flash-VJP kernels (csrc/attn_tile.cuh)
+SHARED_ONLINE_BLOCK_K = 128  # key chunk of the shared online kernels (csrc/attn_wgmma.cuh)
 # plain versions materialise fp32 score blocks of at most this many elements
 _PLAIN_BLOCK_ELEMS = 1 << 28
 
@@ -482,8 +486,38 @@ shared_flash_bound.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def shared_online_chunk(s: int, block_k: Optional[int] = None) -> int:
+    """Key chunk of the running max over segments of ``s`` keys. ``block_k``
+    None is the kernels' own choice: ``SHARED_ONLINE_BLOCK_K`` where it
+    divides ``s``, else ``ONLINE_BLOCK_K``, else (segments shorter than any
+    kernel takes) the whole segment. A given ``block_k`` stands for
+    ``min(block_k, s)``. The chunk must divide ``s``: chunks never straddle a
+    segment."""
+    if block_k is None:
+        bk = next((c for c in (SHARED_ONLINE_BLOCK_K, ONLINE_BLOCK_K) if s % c == 0),
+                  s if s < ONLINE_BLOCK_K else 0)
+    else:
+        bk = min(block_k, s)
+    if bk <= 0 or s % bk:
+        raise ValueError(f"key chunk {bk} does not divide the segment length {s}")
+    return bk
+
+
+def shared_online_tile(sq: int, s: int, h: int, *, pair: bool = False) -> Tuple[int, int]:
+    """(query rows a thread block takes, key chunk) of ``csrc/shared_online.cu``
+    (``pair``: ``csrc/shared_online_pair.cu``) for Sq queries, segments of S
+    keys and H heads, as ``launch_shared_online`` of ``csrc/attn_wgmma.cuh``
+    chooses them: two consumer warpgroups of 64 rows on one head where 128
+    divides Sq, else one; a head pair always takes 64 rows, one warpgroup a
+    head. Raises on what the kernels refuse."""
+    if min(sq, s, h) <= 0 or sq % 64 or s % 64 or (pair and h % 2):
+        raise ValueError(f"online shared kernel: unsupported Sq {sq}, S {s}, H {h}"
+                         f"{' for a head pair' if pair else ''}")
+    return (64 if pair or sq % 128 else 128), shared_online_chunk(s)
+
+
 def shared_online_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_input: bool,
-                        block_k: int = ONLINE_BLOCK_K) -> torch.Tensor:
+                        block_k: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/shared_online.cu``.
 
     q [B, H, Sq, d]; k_in/v_in [B, H, S, d] (read only when
@@ -491,18 +525,15 @@ def shared_online_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_inp
     rounded to the value dtype before use, the affine one rounding of
     ``v * a + c`` computed in fp32, as in the kernel. Segments in the order
     input, ref 1 .. N; the running max is taken over key chunks of
-    ``min(block_k, S)``, which never straddle a segment."""
+    ``shared_online_chunk(S, block_k)``: by default the kernel's."""
     keys, vals = _widen_rounded_affine(k_in, v_in, rk, rv, aff, include_input)
-    s = rk.shape[3]
-    bk = min(block_k, s)
-    if s % bk:
-        raise ValueError(f"key chunk {bk} does not divide the segment length {s}")
-    return _online_softmax_av(_q_scaled(q, scale), keys, vals, q.dtype, block_k=bk,
+    return _online_softmax_av(_q_scaled(q, scale), keys, vals, q.dtype,
+                              block_k=shared_online_chunk(rk.shape[3], block_k),
                               arg_rounded=True)
 
 
 def shared_online_pair_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_input: bool,
-                             block_k: int = ONLINE_BLOCK_K) -> torch.Tensor:
+                             block_k: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/shared_online_pair.cu``: per head the
     pair kernel computes ``shared_online``'s function (the TPU's packed kernel
     sums the rounded p in fp32 on the VPU, the same number as the ones
@@ -527,11 +558,12 @@ def _launch_shared_online(wrapper, source: str, q, k_in, v_in, rk, rv, aff, *, s
         typed += [(k_in, bf), (v_in, bf)]
     _check_cuda(source, *typed)
     if (d != 64 or rk.shape != (b, n, h, s, d) or rv.shape != rk.shape
-            or aff.shape != (b, h, n, 2, d) or sq % 64 or s % 64 or h % heads_per_block
+            or aff.shape != (b, h, n, 2, d)
             or (include_input and (k_in.shape != (b, h, s, d) or v_in.shape != k_in.shape))):
         raise ValueError(
             f"{source}: unsupported shapes q {tuple(q.shape)} refs {tuple(rk.shape)}"
             f" input {tuple(k_in.shape) if include_input else None}")
+    shared_online_tile(sq, s, h, pair=heads_per_block == 2)  # raises on a refused shape
     out = torch.empty_like(q)
     rc = getattr(_build.load(source), f"irt_{source}_bf16")(
         q.data_ptr(), k_in.data_ptr() if include_input else None,
@@ -551,7 +583,8 @@ def shared_online(q, k_in, v_in, rk, rv, aff, *, scale: float,
     the numerics of the TPU's ``_shared_kvouter_kernel`` and
     ``_shared_kernel`` (running max, no bound: no row can flush; bf16 affine;
     row sum over bf16-rounded p). Shapes as in ``shared_online_plain``. The
-    CUDA kernel takes bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0."""
+    CUDA kernel takes bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0; its
+    tile follows the shape (``shared_online_tile``)."""
     if q.device.type == "cpu":
         return shared_online_plain(q, k_in, v_in, rk, rv, aff, scale=scale,
                                    include_input=include_input)

@@ -65,9 +65,41 @@ def test_every_kernel_source_is_in_the_checkout():
         includes = [ln.split()[1] for ln in path.read_text().splitlines()
                     if ln.startswith("#include")]
         assert includes and all(
-            inc in ('"attn_tile.cuh"', '"flash_bwd_tile.cuh"', "<cuda_bf16.h>", "<cuda_runtime.h>",
-                    "<mma.h>", "<stdint.h>")
+            inc in ('"attn_tile.cuh"', '"attn_wgmma.cuh"', '"flash_bwd_tile.cuh"', "<cuda.h>",
+                    "<cuda_bf16.h>", "<cuda_runtime.h>", "<mma.h>", "<stdint.h>")
             for inc in includes), (path.name, includes)
+
+
+WGMMA_SOURCES = ("shared_online.cu", "shared_online_pair.cu", "attn_wgmma.cuh")
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+def test_online_shared_kernels_are_on_the_wgmma_tile(name):
+    """The two online shared kernels and their tile compute with
+    wgmma.mma_async on tiles brought by TMA, and hold nothing of the mma.sync
+    tile: no <mma.h>, no wmma fragment, no include of attn_tile.cuh."""
+    from instantrestore_tpu_torch.ops import _build
+
+    text = (_build.CSRC / name).read_text()
+    assert "wgmma.mma_async" in text and "cp.async.bulk" in text, name
+    for word in ("<mma.h>", "wmma::", '"attn_tile.cuh"'):
+        assert word not in text, (name, word)
+    if name.endswith(".cu"):
+        assert '#include "attn_wgmma.cuh"' in text
+    else:
+        for word in ("mbarrier.try_wait.parity", "cp.async.bulk.tensor.2d", "__grid_constant__",
+                     "CU_TENSOR_MAP_SWIZZLE_128B", "fence.proxy.async"):
+            assert word in text, word
+
+
+def test_the_mma_sync_tile_keeps_five_modes():
+    """attn_tile.cuh serves the kernels that were not redesigned: its online
+    shared mode and the head-pair parameter went with their only users."""
+    from instantrestore_tpu_torch.ops import _build
+
+    text = (_build.CSRC / "attn_tile.cuh").read_text()
+    assert "enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kFlashLse };" in text
+    assert "kSharedOnline" not in text and "int HP" not in text
 
 
 TRAINING_MODULES = (

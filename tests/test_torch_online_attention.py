@@ -247,6 +247,80 @@ def test_online_rows_of_equal_scores_are_finite():
     torch.testing.assert_close(out, torch.full_like(out, 15.5 / 3))
 
 
+@pytest.mark.parametrize("sq,s,h,pair,tile", [
+    (4096, 4096, 5, False, (128, 128)), (1024, 1024, 10, False, (128, 128)),
+    (256, 256, 20, False, (128, 128)), (1024, 1024, 10, True, (64, 128)),
+    (256, 256, 20, True, (64, 128)), (64, 256, 4, False, (64, 128)),
+    (192, 256, 4, False, (64, 128)), (256, 64, 4, False, (128, 64)),
+    (256, 192, 4, True, (64, 64)), (64, 64, 2, True, (64, 64)),
+])
+def test_shared_online_tile_follows_the_shape(sq, s, h, pair, tile):
+    """The thread block of the online shared kernels (128 query rows on one
+    head where 128 divides Sq, else 64; a head pair 64 rows a head) and the key
+    chunk (128 where it divides the segment, else 64) at the full-size shapes
+    of a 512 px restore, at Sq = 64 and at S = 64."""
+    assert tsa.shared_online_tile(sq, s, h, pair=pair) == tile
+    assert tsa.shared_online_chunk(s) == tile[1]
+
+
+@pytest.mark.parametrize("sq,s,h,pair", [
+    (96, 128, 4, False), (128, 96, 4, False), (128, 128, 5, True), (0, 128, 4, False),
+    (128, 160, 4, True),
+])
+def test_shared_online_tile_refuses(sq, s, h, pair):
+    with pytest.raises(ValueError, match="unsupported"):
+        tsa.shared_online_tile(sq, s, h, pair=pair)
+
+
+def test_shared_online_wrapper_refuses_what_the_kernel_refuses(monkeypatch):
+    """The shape rule of the launch path, on meta tensors: a refused shape
+    raises before any kernel is loaded (the fixture fails a load)."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    for wrapper, source, hpb, (h, sq, s) in [
+            (tsa.shared_online, "shared_online", 1, (2, 96, 64)),
+            (tsa.shared_online, "shared_online", 1, (2, 64, 96)),
+            (tsa.shared_online_pair, "shared_online_pair", 2, (3, 64, 64))]:
+        with pytest.raises(ValueError, match="unsupported"):
+            tsa._launch_shared_online(
+                wrapper, source, meta(1, h, sq, 64), None, None, meta(1, 2, h, s, 64),
+                meta(1, 2, h, s, 64), meta(1, h, 2, 2, 64, dtype=torch.float32), scale=0.125,
+                include_input=False, heads_per_block=hpb)
+
+
+@pytest.mark.parametrize("chunk", [tsa.ONLINE_BLOCK_K, tsa.SHARED_ONLINE_BLOCK_K])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("include_input", [True, False])
+def test_shared_online_plain_at_the_kernel_chunks_matches_pallas(rng, chunk, dtype, include_input):
+    """``shared_online_plain`` on the two key chunks the CUDA kernels take (64
+    and 128 keys; segments of 128 keys, d = 64, AdaIN affine, one zeroed
+    reference) against ``_shared_kvouter_kernel`` in interpret mode on the
+    same chunk: fp32 to 2e-5, bf16 to BF16_AFFINE (the chunk is JAX's, so
+    what remains is XLA-CPU's bf16 exp2 and the affine's one rounding). The
+    default chunk is the larger one where it divides the segment."""
+    q, k_in, v_in, rk, rv = _shared_inputs(rng, 2, b=2, h=2, s=128, d=64)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j = _j(q, k_in, v_in, rk, rv, dtype=jdt)
+    t = [_t(x).to(tdt) for x in (q, k_in, v_in, rk, rv)]
+    ref = jsa.shared_flash_attention(*j, scale=0.125, v_affine=jsa.adain_affine(j[2], j[4]),
+                                     include_input=include_input, algo="kv_outer", block_q=64,
+                                     block_k=chunk, interpret=True)
+    aff = tsa._affine(tsa.adain_affine(t[2], t[4]), 2, 2, 2, 64, "cpu")
+    kw = dict(scale=0.125, include_input=include_input)
+    out = tsa.shared_online_plain(*t, aff, block_k=chunk, **kw)
+    assert out.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    else:
+        _assert_bf16(out, ref, BF16_AFFINE)
+    if chunk == tsa.SHARED_ONLINE_BLOCK_K:  # the default follows the kernel's choice
+        assert torch.equal(tsa.shared_online_plain(*t, aff, **kw), out)
+        assert torch.equal(tsa.shared_online_pair_plain(*t, aff, **kw), out)
+        assert torch.equal(tsa.shared_online(*t, aff, **kw), out)
+
+
 # ---------------------------------------------------------------------------
 # the slice end to end: cold restore and the Predictor under the online
 # algorithms, fused attention on both sides (JAX: Pallas in interpret mode)
