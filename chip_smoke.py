@@ -24,12 +24,17 @@ Without arguments every phase runs and the last two lines are the result;
    shared_online bit for bit on the same inputs, two launches of
    shared_online agree bit for bit, and the other tiles of the wgmma kernel
    (one consumer warpgroup at Sq % 128 == 64, the 64-key chunk at S = 64)
-   are held against the plain version too. Each shared row also carries
+   are held against the plain versions too, for the online kernels and the
+   two bound ones (shared_flash_bound, and shared_identity through the
+   paired route). Each shared row also carries
    exp2_ms: its scores over 16 exp2 per clock per SM on 132 SMs at the
    card's maximum SM clock (nvidia-smi clocks.max.sm), the other unit that
    bounds a d=64 attention. The escape hatch: on a call whose bound slack
-   passes 190 log2 units the bound kernel returns no finite row, the online
-   kernel finite rows equal to its plain version, twice the same bits;
+   passes 190 log2 units the two bound shared kernels (shared_flash_bound and,
+   through the paired route, shared_identity) return no finite row, the
+   online kernel finite rows equal to its plain version, twice the same bits.
+   An identity id outside the cache makes exactly its sample's outputs NaN in
+   both bound kernels that read the cache by id;
 3b. flash-VJP kernel phase ("vjp"): flash_fwd_lse, flash_bwd_dq and
    flash_bwd_dkv at the shapes a batch-2 train step gives them (the 9 shared
    layers on K/V widened over 4 references, the UNet's down/mid
@@ -346,7 +351,8 @@ def kernel_phase(card: str):
         del q, k_in, v_in, rk, rv, aff
         torch.cuda.empty_cache()
 
-    # rows 7 and 10 on their other tiles, refs-only and with the input segment
+    # rows 7, 10, 3 and 1b on the wgmma tile's other tiles, refs-only and with
+    # the input segment
     for h, sq, s in ONLINE_VARIANT_SHAPES:
         q, k_in, v_in = rnd(BATCH, h, sq, d), rnd(BATCH, h, s, d), rnd(BATCH, h, s, d)
         rk, rv = rnd(BATCH, N_REFS, h, s, d), rnd(BATCH, N_REFS, h, s, d)
@@ -376,6 +382,21 @@ def kernel_phase(card: str):
             if not torch.equal(variant("kv_outer"), variant("kv_outer_packed")):
                 raise AssertionError(f"shared_online_pair H={h} Sq={sq} S={s} input={inc}: not "
                                      "shared_online's bits")
+            kmax = sa.key_norm_max(rk, (1, 3))
+            if inc:
+                kmax = torch.maximum(kmax, sa.key_norm_max(k_in, 2))
+            bound_rows.append(row(
+                f"shared_flash_bound H={h} Sq={sq} S={s} input={inc}",
+                lambda: variant("kv_outer_bound"),
+                lambda: sa.shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, scale=scale,
+                                                    include_input=inc),
+                *args[1:], **meta))
+            if not inc:
+                rows_b = torch.arange(BATCH, device=dev)
+                ident_rows.append(row(
+                    f"paired route H={h} Sq={sq} S={s}", lambda: variant("kv_outer_bound_paired"),
+                    lambda: sa.shared_identity_plain(q, rk, rv, aff, kmax, rows_b, scale=scale),
+                    *args[1:], **meta))
             del keys, vals
         del q, k_in, v_in, rk, rv, aff
         torch.cuda.empty_cache()
@@ -417,6 +438,7 @@ def kernel_phase(card: str):
         for r in rows:
             print(f"kernel {name} {json.dumps(r)} [{card}]")
     escape_hatch(card)
+    out_of_cache_id(card)
     return results
 
 
@@ -545,6 +567,8 @@ def escape_hatch(card: str):
     slack = _slack(q, rk.permute(0, 2, 1, 3, 4).reshape(b, h, n * s, d), scale)
     kw = dict(scale=scale, include_input=False)
     bound_out = sa.shared_flash_attention(q, None, None, rk, rv, algo="kv_outer_bound", **kw)
+    paired_out = sa.shared_flash_attention(q, None, None, rk, rv, algo="kv_outer_bound_paired",
+                                           **kw)
     online_out = sa.shared_flash_attention(q, None, None, rk, rv, algo="kv_outer", **kw)
     torch.cuda.synchronize()
     if not (torch.equal(online_out, sa.shared_flash_attention(q, None, None, rk, rv,
@@ -556,12 +580,51 @@ def escape_hatch(card: str):
     plain = sa.shared_online_plain(q, None, None, rk, rv, sa._affine(None, b, h, n, d, dev), **kw)
     err, tol, rel_rms = compare("escape hatch, shared_online", online_out, plain)
     bad_rows = int((~torch.isfinite(bound_out).all(dim=-1)).sum())
+    bad_paired = int((~torch.isfinite(paired_out).all(dim=-1)).sum())
     print(f"escape hatch [{card}]: slack {slack:.0f} log2 units; shared_flash_bound non-finite "
-          f"rows {bad_rows} of {b * h * s}; shared_online finite, max-abs {err:.5f} (tol "
-          f"{tol:.4f}), relative RMS {rel_rms:.2e} against its plain version, a second launch "
-          f"and shared_online_pair bit-identical")
-    if slack <= 190 or bad_rows != b * h * s:
-        raise AssertionError("escape hatch: the bound kernel did not lose every row")
+          f"rows {bad_rows} of {b * h * s}, shared_identity (paired route) {bad_paired}; "
+          f"shared_online finite, max-abs {err:.5f} (tol {tol:.4f}), relative RMS {rel_rms:.2e} "
+          f"against its plain version, a second launch and shared_online_pair bit-identical")
+    if slack <= 190 or bad_rows != b * h * s or bad_paired != b * h * s:
+        raise AssertionError("escape hatch: a bound kernel did not lose every row")
+
+
+def out_of_cache_id(card: str):
+    """An identity id outside the cache, given to the bound kernels that
+    read the cache by id, makes exactly its sample's outputs NaN: the
+    kernels check ids[b] themselves (the wrappers are called straight, as
+    the engine's own gathers of the AdaIN statistics would index outside the
+    cache first)."""
+    import torch
+
+    from instantrestore_tpu_torch.ops import shared_attention as sa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(98)
+    b, h, s, d, scale = 4, 10, 1024, 64, 64 ** -0.5
+    q = torch.randn((b, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+    for n in (N_REFS, N_REFS - 1):  # shared_identity, shared_flash_bound by id
+        rk, rv = (torch.randn((3, n, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        (cache,) = sa.build_identity_kv_cache([(rk, rv)])
+        aff = sa._affine(None, b, h, n, d, dev)
+
+        def launch(ids):
+            ids = torch.tensor(ids, device=dev)
+            if n % 2 == 0:
+                return sa.shared_identity(q, cache.rk, cache.rv, aff, cache.kmax, ids, scale=scale)
+            return sa.shared_flash_bound(q, None, None, cache.rk, cache.rv, aff,
+                                         cache.kmax[ids.clamp(max=2)], ids, scale=scale,
+                                         include_input=False)
+
+        good, out = launch([2, 2, 1, 0]), launch([2, 3, 1, 0])
+        poisoned = bool(torch.isnan(out[1]).all())
+        others = bool(torch.equal(out[[0, 2, 3]], good[[0, 2, 3]]))
+        name = "shared_identity" if n % 2 == 0 else "shared_flash_bound"
+        print(f"out-of-cache id [{card}]: {name} (N={n}) sample with id 3 of a 3-identity cache "
+              f"all NaN {poisoned}; the other samples bit-identical to a valid call {others}")
+        if not (poisoned and others and bool(torch.isfinite(good).all())):
+            raise AssertionError(f"{name}: an out-of-cache id did not poison exactly its sample")
 
 
 def _slack(q, keys, scale: float) -> float:
@@ -1286,7 +1349,7 @@ def training_phase(card: str):
 
     profile_run(lambda: step(params, batch, generator=gen), "one train step", card,
                 shares={"rows 4-6 (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)":
-                        ("(irt::Mode)4", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")})
+                        ("(irt::Mode)2", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")})
     if failures:
         raise AssertionError("training phase failed: " + "; ".join(failures))
     return counts

@@ -1,18 +1,16 @@
-// Attention tile shared by the serving kernels: the bound-softmax ones
-// (flash_bound.cu, shared_identity.cu, shared_flash_bound.cu) and the
-// online-max plain attention (flash_online.cu), and by the training forward
-// (flash_fwd_lse.cu: the online policy plus the log-sum-exp of each row). The
-// online shared kernels (shared_online.cu, shared_online_pair.cu) run on the
-// wgmma + TMA tile of attn_wgmma.cuh.
+// Attention tile of the plain flash kernels: the bound-softmax one
+// (flash_bound.cu), the online-max one (flash_online.cu) and the training
+// forward (flash_fwd_lse.cu: the online policy plus the log-sum-exp of each
+// row). The shared kernels run on the wgmma + TMA tile of attn_wgmma.cuh.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
-// One block computes BQ query rows of one (batch, head) against every key
-// that (batch, head) sees, streamed through shared memory in tiles of BK
-// keys. Scores and the output accumulator are fp32. Two softmax policies:
+// One block computes BQ query rows of one (batch, head) against the keys of
+// that (batch, head), streamed through shared memory in tiles of BK keys.
+// Scores and the output accumulator are fp32. Two softmax policies:
 //
 // Bound: no running max. Each query row carries the Cauchy-Schwarz bound of
-// the JAX package (ops/shared_attention.py, _shared_kvouter_bound_kernel),
+// the JAX package (ops/shared_attention.py, _flash_bound_kernel),
 //     bound_i = ||q_i|| * scale * log2(e) * max_j ||k_j|| - 64,
 // so p_ij = exp2(s_ij - bound_i) <= 2^64 and out_i = sum_j p_ij v_j / sum_j p_ij.
 // p reaches 2^64, so it enters the tensor-core product as bf16 (fp32's
@@ -33,11 +31,10 @@
 // in element by element (every channel slab of the d=512 tile included).
 //
 // Per key tile: (1) all threads copy K and V tiles to shared memory with
-// 16-byte loads (the shared kernels apply their per-(sample, head, ref,
-// channel) AdaIN affine to reference V here); (2) each warp computes its 16x16 score
-// fragments S = Qs K^T with bf16 WMMA (mma.sync) and stores them as fp32;
-// (3) every thread turns kColsPerThread scores of one query row into bf16
-// probabilities and adds them to its row sum; (4) each warp adds P V into
+// 16-byte loads; (2) each warp computes its 16x16 score fragments S = Qs K^T
+// with bf16 WMMA (mma.sync) and stores them as fp32; (3) every thread turns
+// kColsPerThread scores of one query row into bf16 probabilities and adds
+// them to its row sum; (4) each warp adds P V into
 // the output fragments it owns, which stay in registers across the whole
 // key loop. The epilogue divides by the row sums and writes bf16.
 //
@@ -63,25 +60,14 @@ constexpr float kBoundExpShift = 64.0f;
 
 // kFlash: plain attention, row sum over bf16-rounded p, bound from the
 // unscaled fp32 q norm (JAX _flash_bound_kernel).
-// kIdentity: refs-only shared attention reading an identity cache by id,
-// row sum over fp32 p, bound from the scaled bf16 q norm, AdaIN affine on V
-// in fp32 (JAX _shared_kvouter_bound_paired_kernel).
-// kShared: shared attention over [input |] N references, read per call
-// (row = b) or from an identity cache by id (row = ids[b]); kFlash's bound and
-// row sum, AdaIN affine with bf16 scale and shift on the reference segments
-// only (JAX _shared_kvouter_bound_kernel).
 // kFlashOnline: plain attention with the running max (JAX _flash_kernel).
 // kFlashLse: kFlashOnline that also writes lse2 = m + log2(row sum), the
 // residual of the backward kernels (JAX ops/flash_vjp.py, _fwd_lse_kernel).
-enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kFlashLse };
+enum class Mode { kFlash, kFlashOnline, kFlashLse };
 
 __host__ __device__ constexpr bool is_online(Mode m) {
   return m == Mode::kFlashOnline || m == Mode::kFlashLse;
 }
-__host__ __device__ constexpr bool has_affine(Mode m) {
-  return m != Mode::kFlash && m != Mode::kFlashOnline && m != Mode::kFlashLse;
-}
-__host__ __device__ constexpr bool bf16_affine(Mode m) { return m == Mode::kShared; }
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' finite sentinel
 constexpr int kAlphaCols = 16;     // width of the alpha tile: one fp32 WMMA fragment
@@ -148,28 +134,17 @@ __device__ __forceinline__ void load8f(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// q, out: [B, H, Sq, D]. Keys and values of (b, h) are n_in input segments
-// (kShared with the input: k_in/v_in [B, H, S, D], first) followed by N
-// reference segments of S rows: reference n starts at
-// ((row * N + n) * H + h) * S * D in k/v, with row = b (flash, N = 1: k/v
-// [B, H, S, D]; kShared without ids: [B, N, H, S, D]) or row = ids[b]
-// (identity, and kShared with ids: cache [I, N, H, S, D]). kmax: max key
-// norm, [I, H] read at row (identity) or [B, H] read at b (flash, kShared).
-// The online modes read no kmax. aff (every mode but the flash ones):
-// [B, H, N, 2, D] fp32 scale and shift of the reference V. qscale = scale *
-// log2(e). lse (kFlashLse only): [B, H, Sq] fp32, log2 units.
+// q, out: [B, H, Sq, D]; k, v: [B, H, S, D]. kmax (kFlash only): max key
+// norm, [B, H]. qscale = scale * log2(e). lse (kFlashLse only): [B, H, Sq]
+// fp32, log2 units.
 template <Mode M, int D, int BQ, int BK, int NW>
 __global__ void __launch_bounds__(NW * 32)
 attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k_in,
-                 const __nv_bfloat16* __restrict__ v_in,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const float* __restrict__ kmax,
-                 const float* __restrict__ aff,
-                 const int* __restrict__ ids,
                  __nv_bfloat16* __restrict__ out,
-                 int H, int Sq, int S, int N, int I, int n_in, float qscale,
+                 int H, int Sq, int S, float qscale,
                  float* __restrict__ lse) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   constexpr bool kOnline = is_online(M);
@@ -188,23 +163,14 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z;
   const size_t q_base = ((size_t)(b * H + h) * Sq + (size_t)blockIdx.x * BQ) * D;
 
-  int row = b;
-  if (has_affine(M) && ids != nullptr) {
-    row = ids[b];
-    if (row < 0 || row >= I) {  // an id outside the cache poisons its outputs
-      for (int c = tid; c < BQ * D; c += Cfg::kThreads)
-        out[q_base + c] = __float2bfloat16(__int_as_float(0x7fc00000));
-      return;
-    }
-  }
-  const float kmax_bh = kOnline ? 0.f : kmax[(M == Mode::kIdentity ? row : b) * H + h];
+  const float kmax_bh = kOnline ? 0.f : kmax[b * H + h];
 
   // Q tile, pre-scaled in bf16 as the JAX kernels do (q * bf16(scale*log2e)),
   // and the per-row bound, from the thread group that owns the row.
   const int r = tid / Cfg::kTpr;
   const int part = tid % Cfg::kTpr;
   const float qs_bf = __bfloat162float(__float2bfloat16(qscale));
-  float ss_raw = 0.f, ss_scaled = 0.f;
+  float ss_raw = 0.f;
   {
     const __nv_bfloat16* src = q + q_base + (size_t)r * D + part * Cfg::kDimsPerThread;
     __nv_bfloat16* dst = Qs + r * Cfg::kLdh + part * Cfg::kDimsPerThread;
@@ -217,21 +183,13 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
         ss_raw += f[e] * f[e];
         g[e] = f[e] * qs_bf;
       }
-      const uint4 packed = pack8(g);
-      unpack8(packed, g);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ss_scaled += g[e] * g[e];
-      *reinterpret_cast<uint4*>(dst + c) = packed;
+      *reinterpret_cast<uint4*>(dst + c) = pack8(g);
     }
   }
 #pragma unroll
-  for (int off = Cfg::kTpr / 2; off > 0; off >>= 1) {
+  for (int off = Cfg::kTpr / 2; off > 0; off >>= 1)
     ss_raw += __shfl_xor_sync(0xffffffffu, ss_raw, off);
-    ss_scaled += __shfl_xor_sync(0xffffffffu, ss_scaled, off);
-  }
-  const float bound = (M == Mode::kIdentity)
-                          ? sqrtf(ss_scaled) * kmax_bh - kBoundExpShift
-                          : sqrtf(ss_raw) * qscale * kmax_bh - kBoundExpShift;
+  const float bound = sqrtf(ss_raw) * qscale * kmax_bh - kBoundExpShift;
 
   // fragments owned by this warp
   const int s_first = warp * Cfg::kSFrags;
@@ -247,47 +205,15 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   float lsum = 0.f;
   float m_run = kNegInf;
 
-  const int tiles_per_seg = S / BK;
-  const int n_tiles = (n_in + N) * tiles_per_seg;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int n = t / tiles_per_seg - n_in;  // reference index; -1 is the input
-    const int j0 = (t % tiles_per_seg) * BK;
-
-    // (1) K and V tiles -> shared memory, with the AdaIN affine on reference
-    // V. kIdentity: fp32 scale and shift. kShared: rounded to
-    // bf16, as the JAX kernel casts them, then one bf16 rounding of v * a + c
-    // computed in fp32; the JAX kernel rounds the product and the sum to bf16
-    // each, which differs by at most 1 bf16 ulp of the value.
-    const __nv_bfloat16* kt = k_in;
-    const __nv_bfloat16* vt = v_in;
-    size_t kv_base = (((size_t)b * H + h) * S + j0) * D;
-    const float* a_vec = nullptr;
-    if (n >= 0) {
-      kt = k;
-      vt = v;
-      kv_base = ((((size_t)row * N + n) * H + h) * S + j0) * D;
-      if constexpr (has_affine(M)) a_vec = aff + (((size_t)b * H + h) * N + n) * 2 * D;
-    }
+  for (int j0 = 0; j0 < S; j0 += BK) {
+    // (1) K and V tiles -> shared memory
+    const size_t kv_base = (((size_t)b * H + h) * S + j0) * D;
     for (int c = tid; c < BK * D / 8; c += Cfg::kThreads) {
       const int kr = c / (D / 8);
       const int kc = (c % (D / 8)) * 8;
       const size_t g = kv_base + (size_t)kr * D + kc;
-      *reinterpret_cast<uint4*>(Ks + kr * Cfg::kLdh + kc) = *reinterpret_cast<const uint4*>(kt + g);
-      uint4 vraw = *reinterpret_cast<const uint4*>(vt + g);
-      if (has_affine(M) && a_vec != nullptr) {
-        float f[8], sc[8], sh[8];
-        unpack8(vraw, f);
-        load8f(a_vec + kc, sc);
-        load8f(a_vec + D + kc, sh);
-        if constexpr (bf16_affine(M)) {
-          unpack8(pack8(sc), sc);
-          unpack8(pack8(sh), sh);
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = f[e] * sc[e] + sh[e];
-        vraw = pack8(f);
-      }
-      *reinterpret_cast<uint4*>(Vs + kr * Cfg::kLdh + kc) = vraw;
+      *reinterpret_cast<uint4*>(Ks + kr * Cfg::kLdh + kc) = *reinterpret_cast<const uint4*>(k + g);
+      *reinterpret_cast<uint4*>(Vs + kr * Cfg::kLdh + kc) = *reinterpret_cast<const uint4*>(v + g);
     }
     __syncthreads();
 
@@ -349,7 +275,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
         }
         const uint4 packed = pack8(p);
         // sum what the product sees, except where the JAX kernel sums fp32 p
-        if constexpr (kOnline ? kArgBf16 : M != Mode::kIdentity) unpack8(packed, p);
+        if constexpr (!kOnline || kArgBf16) unpack8(packed, p);
 #pragma unroll
         for (int e = 0; e < 8; ++e) lsum += p[e];
         *reinterpret_cast<uint4*>(prow + c) = packed;
@@ -411,16 +337,12 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <Mode M, int D, int BQ, int BK, int NW>
-cudaError_t launch_attn(const void* q, const void* k_in, const void* v_in, const void* k,
-                        const void* v, const void* kmax, const void* aff, const void* ids,
-                        void* out, int B, int H, int Sq, int S, int N, int I, int n_in,
-                        float qscale, void* stream, void* lse = nullptr) {
+cudaError_t launch_attn(const void* q, const void* k, const void* v, const void* kmax, void* out,
+                        int B, int H, int Sq, int S, float qscale, void* stream,
+                        void* lse = nullptr) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
-  if (B <= 0 || H <= 0 || N <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 ||
-      B > 65535 || H > 65535 || n_in < 0 || n_in > 1 ||
-      (n_in == 1 && (k_in == nullptr || v_in == nullptr)) ||
-      (M == Mode::kIdentity && ids == nullptr) || (has_affine(M) && aff == nullptr) ||
-      (!is_online(M) && kmax == nullptr) || (M == Mode::kFlashLse && lse == nullptr))
+  if (B <= 0 || H <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 || B > 65535 ||
+      H > 65535 || (!is_online(M) && kmax == nullptr) || (M == Mode::kFlashLse && lse == nullptr))
     return cudaErrorInvalidValue;
   constexpr int kBytes = is_online(M) ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes;
   static_assert(kBytes <= 232448, "over the 227 KB a block may use");
@@ -430,12 +352,9 @@ cudaError_t launch_attn(const void* q, const void* k_in, const void* v_in, const
   if (err != cudaSuccess) return err;
   const dim3 grid(Sq / BQ, H, B);
   kern<<<grid, Cfg::kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_in),
-      static_cast<const __nv_bfloat16*>(v_in), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmax),
-      static_cast<const float*>(aff), static_cast<const int*>(ids),
-      static_cast<__nv_bfloat16*>(out), H, Sq, S, N, I, n_in, qscale,
-      static_cast<float*>(lse));
+      static_cast<__nv_bfloat16*>(out), H, Sq, S, qscale, static_cast<float*>(lse));
   return cudaGetLastError();
 }
 

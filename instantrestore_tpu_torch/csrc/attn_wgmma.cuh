@@ -1,23 +1,39 @@
-// Attention tile of the online shared kernels (shared_online.cu,
-// shared_online_pair.cu) at head dim 64, designed for Hopper: wgmma.mma_async
-// for both products with every accumulator in registers, K and V tiles brought
-// by TMA (cp.async.bulk.tensor) into a ring of shared-memory stages behind
+// Attention tile of the shared kernels (shared_online.cu,
+// shared_online_pair.cu, shared_flash_bound.cu, shared_identity.cu) at head
+// dim 64, designed for Hopper: wgmma.mma_async for both products with every
+// accumulator in registers, K and V tiles brought by TMA
+// (cp.async.bulk.tensor) into a ring of shared-memory stages behind
 // mbarriers, the softmax on the register fragments. attn_tile.cuh (mma.sync,
-// scores staged through shared memory) stays for the other kernels.
+// scores staged through shared memory) stays for the plain flash kernels.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
-// The function (JAX: _shared_kvouter_kernel, _shared_kernel,
-// _shared_kvouter_packed_kernel of instantrestore_tpu/ops/shared_attention.py):
+// The function (JAX: the shared-attention kernels of
+// instantrestore_tpu/ops/shared_attention.py):
 //     out = softmax(q [K_in | K_1 .. K_N]^T * scale) [V_in | V_1 a_1 + c_1 ..]
-// with a running row max. q is pre-scaled in bf16 by bf16(scale * log2 e); m
-// starts at the finite -1e30; per key chunk of BK keys m_new = max(m,
-// rowmax(s)), alpha = exp2(m - m_new), p = exp2(bf16(s - m_new)) rounded to
-// bf16, the row sum adds the rounded p, the fp32 accumulator and the row sum
-// take alpha; out = acc / l in bf16. Segments in the order input, reference
-// 1 .. N; chunks never straddle a segment. Reference V takes the AdaIN affine
-// bf16(v * bf16(a) + bf16(c)), rounded once from fp32, before the product;
-// the input segment takes raw v_in.
+// q is pre-scaled in bf16 by bf16(scale * log2 e). Segments in the order
+// input, reference 1 .. N; chunks of BK keys never straddle a segment. The
+// input segment takes raw v_in. Three softmax policies, one per family of
+// TPU kernels:
+//   * kOnline (_shared_kvouter_kernel, _shared_kernel,
+//     _shared_kvouter_packed_kernel): a running row max. m starts at the
+//     finite -1e30; per key chunk m_new = max(m, rowmax(s)), alpha = exp2(m -
+//     m_new), p = exp2(bf16(s - m_new)) rounded to bf16, the row sum adds the
+//     rounded p, the fp32 accumulator and the row sum take alpha. Reference V
+//     takes bf16(v * bf16(a) + bf16(c)), rounded once from fp32.
+//   * kBound (_shared_kvouter_bound_kernel): no running max but the
+//     Cauchy-Schwarz bound of each row, bound = ||q|| (unscaled, fp32) *
+//     scale * log2 e * kmax[b, h] - 64, kmax the largest key norm the row
+//     sees; p = exp2(s - bound) rounded to bf16 (the result, not the
+//     argument), the row sum over the rounded p; kOnline's affine. K/V rows
+//     of sample b, or of ids[b] in an identity cache.
+//   * kIdentity (_shared_kvouter_bound_paired_kernel): refs only, K/V of
+//     ids[b]; bound = ||q_scaled|| (the bf16 pre-scaled q) * kmax[ids[b], h]
+//     - 64; the row sum over the fp32 p; the affine bf16(v * a + c) with a and
+//     c in fp32.
+// out = acc / l in bf16. A bound row whose largest score lies more than ~190
+// log2 units under its bound sums to l = 0 and comes out non-finite; an id
+// outside [0, I) makes its sample's outputs NaN.
 //
 // Roles in a block of (NCONS + 1) * 128 threads:
 //   * consumer warpgroups 0 .. NCONS-1, 64 query rows each. Q lives in
@@ -33,15 +49,20 @@
 //     rounded P ride the tensor cores as the TPU kernels' ride the MXU: one
 //     more product of the same P with a block of ones (m64n8k16), which
 //     leaves the whole row's sum in every lane and takes the packing, the
-//     unpacking and the adds out of the softmax's instruction stream.
-//     S, P, alpha, l and O never touch shared memory. Within a warpgroup the
-//     tiles are pipelined: S(t + 1) = Qs K(t + 1)^T and O += P(t) V(t) are
-//     started back to back, the softmax of S(t + 1) runs while the tensor
-//     cores work on P(t) V(t), and O is waited for, rescaled and P(t + 1)
-//     packed only after it.
+//     unpacking and the adds out of the softmax's instruction stream. The
+//     bound policies take each row's bound from the same Q fragments (a
+//     thread holds 16 of a row's 64 channels: partial sums of squares, two
+//     shuffles over the quad) and keep no max, alpha or rescale; kIdentity's
+//     fp32 row sum is a register sum in the softmax pass, reduced over the
+//     quad at the end. S, P, alpha, l and O never touch shared memory. Within
+//     a warpgroup the tiles are pipelined: S(t + 1) = Qs K(t + 1)^T and O +=
+//     P(t) V(t) are started back to back, the softmax of S(t + 1) runs while
+//     the tensor cores work on P(t) V(t), and O is waited for, rescaled and
+//     P(t + 1) packed only after it.
 //   * producer warp (warp 0 of the last warpgroup): one lane keeps TMA loads
 //     of [BK, 64] K and V boxes in flight, STAGES deep, each stage announced
-//     on its `full` mbarrier by the copy's byte count.
+//     on its `full` mbarrier by the copy's byte count. A block that reads an
+//     identity cache reads ids[b] once at its start: no gather copy.
 //   * affine warps (the last warpgroup's other three): wait for `full`,
 //     rewrite the V tile of a reference segment in place with the AdaIN
 //     affine (the 128-byte swizzle XORs the 16-byte chunk index with row % 8;
@@ -54,10 +75,11 @@
 //   from the producer warpgroup (72 a thread) to the consumers (216).
 // Work assignment: !PAIR: the NCONS consumer warpgroups take NCONS * 64
 // query rows of one (b, h) and share one ring (each K/V byte is read once for
-// 128 rows); PAIR: warpgroup w takes head 2 g + w, the same 64 query rows,
-// on a ring of its own. The two warpgroups start their wgmma batches in
-// turns (a pair of named barriers), so one's softmax (exp2 on the MUFU, as
-// scarce as the tensor cores at d = 64) runs while the other's products queue.
+// 128 rows); PAIR (kOnline only): warpgroup w takes head 2 g + w, the same 64
+// query rows, on a ring of its own. The two warpgroups start their wgmma
+// batches in turns (a pair of named barriers), so one's softmax (exp2 on the
+// MUFU, as scarce as the tensor cores at d = 64) runs while the other's
+// products queue.
 
 #pragma once
 
@@ -70,9 +92,38 @@ namespace irt {
 namespace wg {
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' finite sentinel
+constexpr float kBoundExpShift = 64.0f;
 constexpr int kD = 64;             // head dim: one 128-byte swizzle row
 constexpr int kRowBytes = kD * 2;
 constexpr int kAffineWarps = 3;
+
+enum class Policy { kOnline, kBound, kIdentity };
+
+// What a launch computes on, besides the four tensor maps. q, out [B, H, Sq,
+// 64]; k_in/v_in [B, H, S, 64] (read only when n_in == 1); rk/rv [rows, N, H,
+// S, 64] with rows = I and reference rows ids[b] when ids is given, else rows
+// = B and row b; aff [B, H, N, 2, 64] fp32 (scale, shift of reference V);
+// kmax fp32, kBound [B, H] read at b, kIdentity [I, H] read at ids[b];
+// qscale = scale * log2 e.
+struct Problem {
+  const __nv_bfloat16 *q, *k_in, *v_in, *rk, *rv;
+  const float *aff, *kmax;
+  const int* ids;
+  __nv_bfloat16* out;
+  int B, H, Sq, S, N, I, n_in;
+  float qscale;
+};
+
+inline Problem make_problem(const void* q, const void* k_in, const void* v_in, const void* rk,
+                            const void* rv, const void* aff, const void* kmax, const void* ids,
+                            void* out, int B, int H, int Sq, int S, int N, int I, int n_in,
+                            float qscale) {
+  return Problem{static_cast<const __nv_bfloat16*>(q),  static_cast<const __nv_bfloat16*>(k_in),
+                 static_cast<const __nv_bfloat16*>(v_in), static_cast<const __nv_bfloat16*>(rk),
+                 static_cast<const __nv_bfloat16*>(rv), static_cast<const float*>(aff),
+                 static_cast<const float*>(kmax),        static_cast<const int*>(ids),
+                 static_cast<__nv_bfloat16*>(out),       B, H, Sq, S, N, I, n_in, qscale};
+}
 
 // ---------------------------------------------------------------------------
 // PTX wrappers
@@ -303,11 +354,17 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return u;
 }
 
-// Eight fp32 values rounded to bf16, as fp32.
-__device__ __forceinline__ void load8_rounded(const float* p, float* f) {
+__device__ __forceinline__ void load8(const float* p, float* f) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  const float raw[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Eight fp32 values rounded to bf16, as fp32.
+__device__ __forceinline__ void load8_rounded(const float* p, float* f) {
+  float raw[8];
+  load8(p, raw);
   unpack8(pack8(raw), f);
 }
 
@@ -340,6 +397,24 @@ __device__ __forceinline__ void online_softmax(float (&s)[NS], float (&m)[2], fl
           s[4 * j + 2 * i] - m_new[i], s[4 * j + 2 * i + 1] - m_new[i]));
       s[4 * j + 2 * i] = ex2(arg.x);
       s[4 * j + 2 * i + 1] = ex2(arg.y);
+    }
+  }
+}
+
+// One key chunk of the bound softmax, in place: s <- exp2(s - bound) in fp32,
+// bound per row (g, g + 8); pack_p rounds the result. FP32_SUM adds the fp32
+// p to the thread's share of its rows' sums (kIdentity); otherwise the row
+// sums of the rounded p come from the product with the block of ones.
+template <bool FP32_SUM, int NS>
+__device__ __forceinline__ void bound_softmax(float (&s)[NS], const float (&bnd)[2],
+                                              float (&l)[2]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s[4 * j + 2 * i] = ex2(s[4 * j + 2 * i] - bnd[i]);
+      s[4 * j + 2 * i + 1] = ex2(s[4 * j + 2 * i + 1] - bnd[i]);
+      if constexpr (FP32_SUM) l[i] += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
     }
   }
 }
@@ -377,22 +452,40 @@ struct Cfg {
   static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
 };
 
-// q, out: [B, H, Sq, 64]. map_kin/map_vin: the input's K/V as [B * H * S, 64];
-// map_rk/map_rv: the references' as [B * N * H * S, 64] (reference n of
-// (b, h) starts at row ((b * N + n) * H + h) * S); each with a [BK, 64] box.
-// aff [B, H, N, 2, 64] fp32. Grid (Sq / kBlockRows, H or H / 2, B).
-template <int BK, int NCONS, bool PAIR, int STAGES>
+// map_kin/map_vin: the input's K/V as [B * H * S, 64]; map_rk/map_rv: the
+// references' as [rows * N * H * S, 64] (reference n of row r, head h starts
+// at row ((r * N + n) * H + h) * S); each with a [BK, 64] box. Grid
+// (Sq / kBlockRows, H or H / 2, B).
+template <Policy P, int BK, int NCONS, bool PAIR, int STAGES>
 __global__ void __launch_bounds__((NCONS + 1) * 128, 1)
-shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
-                           const __grid_constant__ CUtensorMap map_vin,
-                           const __grid_constant__ CUtensorMap map_rk,
-                           const __grid_constant__ CUtensorMap map_rv,
-                           const __nv_bfloat16* __restrict__ q, const float* __restrict__ aff,
-                           __nv_bfloat16* __restrict__ out, int H, int Sq, int S, int N, int n_in,
-                           float qscale) {
+shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
+                         const __grid_constant__ CUtensorMap map_vin,
+                         const __grid_constant__ CUtensorMap map_rk,
+                         const __grid_constant__ CUtensorMap map_rv, const Problem pr) {
   using C = Cfg<BK, NCONS, PAIR, STAGES>;
+  static_assert(P == Policy::kOnline || !PAIR, "the bound policies take one head a block");
+  constexpr bool kOnes = P != Policy::kIdentity;  // row sums of the rounded p on the tensor cores
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3 * C::kRings * STAGES];
+
+  const int H = pr.H, Sq = pr.Sq, S = pr.S, N = pr.N, n_in = pr.n_in;
+  const int b = blockIdx.z;
+  // the references' row of sample b: ids[b] in an identity cache
+  int ref_row = b;
+  if constexpr (P != Policy::kOnline) {
+    if (pr.ids != nullptr) {
+      ref_row = pr.ids[b];
+      if (ref_row < 0 || ref_row >= pr.I) {
+        // an id outside the cache poisons its sample's outputs; the block
+        // leaves before any barrier or copy
+        const size_t base =
+            (static_cast<size_t>(b * H + blockIdx.y) * Sq + blockIdx.x * C::kBlockRows) * kD;
+        for (int c = threadIdx.x; c < C::kBlockRows * kD; c += C::kThreads)
+          pr.out[base + c] = __float2bfloat16(__int_as_float(0x7fc00000));
+        return;
+      }
+    }
+  }
 
   const uint32_t raw_addr = smem_u32(smem_raw);
   const uint32_t tiles = (raw_addr + 1023u) & ~1023u;  // first stage, shared-window address
@@ -408,7 +501,7 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
     return tiles + static_cast<uint32_t>((ring * STAGES + stage) * C::kStageBytes);
   };
 
-  if (threadIdx.x < kOnesBytes / 16) {
+  if (kOnes && threadIdx.x < kOnesBytes / 16) {
     const uint32_t one2 = 0x3F803F80u;  // two bf16 ones
     *reinterpret_cast<uint4*>(smem_raw + (tiles - raw_addr) + C::kOnesOff + threadIdx.x * 16) =
         make_uint4(one2, one2, one2, one2);
@@ -429,7 +522,6 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   const int tw = threadIdx.x % 128;  // thread within its warpgroup
   const int warp = tw / 32;
   const int lane = tw % 32;
-  const int b = blockIdx.z;
   const int tiles_per_seg = S / BK;
   const int n_tiles = (n_in + N) * tiles_per_seg;
 
@@ -446,7 +538,8 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
 #pragma unroll
           for (int ring = 0; ring < C::kRings; ++ring) {
             const int h = PAIR ? 2 * blockIdx.y + ring : blockIdx.y;
-            const int row = seg < 0 ? (b * H + h) * S + j0 : ((b * N + seg) * H + h) * S + j0;
+            const int row =
+                seg < 0 ? (b * H + h) * S + j0 : ((ref_row * N + seg) * H + h) * S + j0;
             mbar_wait(empty_bar(ring, stage), parity ^ 1u);
             mbar_expect_tx(full_bar(ring, stage), C::kStageBytes);
             const uint32_t kt = k_tile(ring, stage);
@@ -457,7 +550,8 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
         }
       }
     } else {
-      // ---- affine warps: reference V <- bf16(v * bf16(a) + bf16(c)), in place ----
+      // ---- affine warps: reference V <- bf16(v * a + c), in place; a and c
+      // rounded to bf16 first but under kIdentity ----
       // a thread keeps one 8-channel chunk (16 bytes of a row) and every
       // 12th row; four rows are in flight at a time
       const int at = tw - 32;  // 0 .. 95
@@ -474,10 +568,15 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
           mbar_wait(full_bar(ring, stage), parity);
           if (seg >= 0) {
             const int h = PAIR ? 2 * blockIdx.y + ring : blockIdx.y;
-            const float* a_vec = aff + (static_cast<size_t>(b * H + h) * N + seg) * 2 * kD;
+            const float* a_vec = pr.aff + (static_cast<size_t>(b * H + h) * N + seg) * 2 * kD;
             float sc[8], sh[8];
-            load8_rounded(a_vec + chunk * 8, sc);
-            load8_rounded(a_vec + kD + chunk * 8, sh);
+            if constexpr (P == Policy::kIdentity) {
+              load8(a_vec + chunk * 8, sc);
+              load8(a_vec + kD + chunk * 8, sh);
+            } else {
+              load8_rounded(a_vec + chunk * 8, sc);
+              load8_rounded(a_vec + kD + chunk * 8, sh);
+            }
             unsigned char* vt = smem_raw + (k_tile(ring, stage) + C::kTileBytes - raw_addr);
             // the swizzle stores 16-byte chunk c of row r at chunk c ^ (r % 8)
             auto at_row = [&](int kr) {
@@ -523,10 +622,14 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   const size_t row_base = (static_cast<size_t>(b * H + h) * Sq + q0 + warp * 16) * kD;
 
   // Q as the A fragments of S = Qs K^T, pre-scaled in bf16: per k16 slice
-  // (row g, cols 2t..), (row g + 8, cols 2t..), (row g, cols 2t + 8..), (row g + 8, ..)
+  // (row g, cols 2t..), (row g + 8, cols 2t..), (row g, cols 2t + 8..), (row g + 8, ..).
+  // The bound policies take each row's norm from the same values: the thread's
+  // 16 channels of rows g and g + 8, then the quad's other three threads'.
   uint32_t qa[kD / 16][4];
+  float bnd[2] = {0.f, 0.f};
   {
-    const float qs_bf = __bfloat162float(__float2bfloat16(qscale));
+    const float qs_bf = __bfloat162float(__float2bfloat16(pr.qscale));
+    float ss[2] = {0.f, 0.f};
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
 #pragma unroll
@@ -534,8 +637,24 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
         const int r = g + (i & 1) * 8;
         const int c = kk * 16 + tq * 2 + (i >> 1) * 8;
         const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(q + row_base + r * kD + c));
-        qa[kk][i] = as_u32(__floats2bfloat162_rn(f.x * qs_bf, f.y * qs_bf));
+            *reinterpret_cast<const __nv_bfloat162*>(pr.q + row_base + r * kD + c));
+        const __nv_bfloat162 qs2 = __floats2bfloat162_rn(f.x * qs_bf, f.y * qs_bf);
+        qa[kk][i] = as_u32(qs2);
+        if constexpr (P == Policy::kBound) ss[i & 1] += f.x * f.x + f.y * f.y;
+        if constexpr (P == Policy::kIdentity) {
+          const float2 fs = __bfloat1622float2(qs2);
+          ss[i & 1] += fs.x * fs.x + fs.y * fs.y;
+        }
+      }
+    }
+    if constexpr (P != Policy::kOnline) {
+      const float kmax = pr.kmax[(P == Policy::kIdentity ? ref_row : b) * H + h];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], 1);
+        ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], 2);
+        bnd[i] = P == Policy::kIdentity ? sqrtf(ss[i]) * kmax - kBoundExpShift
+                                        : sqrtf(ss[i]) * pr.qscale * kmax - kBoundExpShift;
       }
     }
   }
@@ -546,10 +665,17 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   float m_run[2] = {kNegInf, kNegInf};  // rows g and g + 8
   // row sums of the rounded P, every column the same: [0], [1] row g, [2], [3] row g + 8
   float l_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float l_part[2] = {0.f, 0.f};  // kIdentity: the thread's share of rows g and g + 8
   float s[BK / 2];     // S = Qs K^T of one tile, fp32
   uint32_t p[BK / 4];  // bf16 P of the tile whose P V is next
   float alpha[2];
   const uint64_t ones = ones_desc(tiles + C::kOnesOff);
+  auto softmax = [&]() {
+    if constexpr (P == Policy::kOnline)
+      online_softmax(s, m_run, alpha);
+    else
+      bound_softmax<P == Policy::kIdentity>(s, bnd, l_part);
+  };
 
   // The descriptors of a stage's K tile (one per k16 slice of the channels)
   // and V tile (one per 16 keys: 2048 bytes), in registers before a batch's
@@ -581,9 +707,15 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n64k16<1, 1>(o, &p[4 * kk], vd[kk]);
+    if constexpr (P != Policy::kIdentity) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n8k16(l_acc, &p[4 * kk], ones);
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_m64n8k16(l_acc, &p[4 * kk], ones);
+    }
     wgmma_commit();
+  };
+  auto pin_acc = [&]() {
+    pin_regs(o);
+    if constexpr (P != Policy::kIdentity) pin_regs(l_acc);
   };
   // The two consumer warpgroups of a block start their batches in turns
   // (named barriers 1 and 2: warpgroup w waits on 1 + w and passes the turn
@@ -609,7 +741,7 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   turn_pass();
   wgmma_wait<0>();
   pin_regs(s);
-  online_softmax(s, m_run, alpha);
+  softmax();
   pack_p(s, p);
 
   // Per tile t but the last: S(t + 1) = Qs K(t + 1)^T and O += P(t) V(t) are
@@ -617,9 +749,10 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   // are still on P(t) V(t), in place and in fp32: P(t)'s registers are read
   // by the tensor cores until the wait, and ptxas serialises the batches if
   // it can fold a later definition into them. Only then does the warpgroup
-  // wait for O, rescale it and pack P(t + 1). Nothing but the second fence
-  // lies between the two batches, and the loop body has no branch: ptxas also
-  // serialises wgmma batches whose start or wait sits on a conditional path.
+  // wait for O, rescale it (kOnline) and pack P(t + 1). Nothing but the
+  // second fence lies between the two batches, and the loop body has no
+  // branch: ptxas also serialises wgmma batches whose start or wait sits on a
+  // conditional path.
   for (int t = 0; t + 1 < n_tiles; ++t) {
     const int stage = t % STAGES;
     const int next = (t + 1) % STAGES;
@@ -633,24 +766,24 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
     turn_pass();
     wgmma_wait<1>();  // S(t + 1) has landed; P(t) V(t) may still run
     pin_regs(s);
-    online_softmax(s, m_run, alpha);
+    softmax();
     wgmma_wait<0>();
-    pin_regs(o);
-    pin_regs(l_acc);
+    pin_acc();
     release(stage);
+    if constexpr (P == Policy::kOnline) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) l_acc[i] *= alpha[i >> 1];
+      for (int i = 0; i < 4; ++i) l_acc[i] *= alpha[i >> 1];
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      o[4 * j] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
+      for (int j = 0; j < kD / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
     }
     pack_p(s, p);
     // the rescaled O and l and the new P are in place before the next batch's fence
-    pin_regs(o);
-    pin_regs(l_acc);
+    pin_acc();
     pin_regs(p);
   }
   {
@@ -661,18 +794,25 @@ shared_online_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
     start_pv();
     turn_pass();
     wgmma_wait<0>();
-    pin_regs(o);
-    pin_regs(l_acc);
+    pin_acc();
     release(last % STAGES);
   }
 
-  // epilogue: out = O / l in bf16, straight from the accumulator registers
-  const float l_run[2] = {l_acc[0], l_acc[2]};  // the whole row's sum, in every lane of the quad
+  // epilogue: out = O / l in bf16, straight from the accumulator registers;
+  // the whole row's sum in every lane of the quad
+  float l_run[2] = {l_acc[0], l_acc[2]};
+  if constexpr (!kOnes) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l_run[i] = l_part[i] + __shfl_xor_sync(0xffffffffu, l_part[i], 1);
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    }
+  }
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      __nv_bfloat16* dst = out + row_base + (g + 8 * i) * kD + 8 * j + 2 * tq;
+      __nv_bfloat16* dst = pr.out + row_base + (g + 8 * i) * kD + 8 * j + 2 * tq;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
           __floats2bfloat162_rn(o[4 * j + 2 * i] / l_run[i], o[4 * j + 2 * i + 1] / l_run[i]);
     }
@@ -716,51 +856,57 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, uint64_t rows, u
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BK, int NCONS, bool PAIR>
-cudaError_t run_shared_online(const void* q, const void* k_in, const void* v_in, const void* rk,
-                              const void* rv, const void* aff, void* out, int B, int H, int Sq,
-                              int S, int N, int n_in, float qscale, void* stream) {
+template <Policy P, int BK, int NCONS, bool PAIR>
+cudaError_t run_shared(const Problem& pr, void* stream) {
   constexpr int STAGES = (PAIR && BK == 128) ? 3 : 4;
   using C = Cfg<BK, NCONS, PAIR, STAGES>;
-  const uint64_t ref_rows = static_cast<uint64_t>(B) * N * H * S;
-  const uint64_t in_rows = static_cast<uint64_t>(B) * H * S;
+  const uint64_t ref_rows =
+      static_cast<uint64_t>(pr.ids != nullptr ? pr.I : pr.B) * pr.N * pr.H * pr.S;
+  const uint64_t in_rows = static_cast<uint64_t>(pr.B) * pr.H * pr.S;
   CUtensorMap map_kin, map_vin, map_rk, map_rv;
   // without an input segment its two maps are never read: they alias the references
-  if (!encode_rows_map(&map_rk, rk, ref_rows, BK) || !encode_rows_map(&map_rv, rv, ref_rows, BK) ||
-      !encode_rows_map(&map_kin, n_in ? k_in : rk, n_in ? in_rows : ref_rows, BK) ||
-      !encode_rows_map(&map_vin, n_in ? v_in : rv, n_in ? in_rows : ref_rows, BK))
+  const bool inp = pr.n_in != 0;
+  if (!encode_rows_map(&map_rk, pr.rk, ref_rows, BK) ||
+      !encode_rows_map(&map_rv, pr.rv, ref_rows, BK) ||
+      !encode_rows_map(&map_kin, inp ? pr.k_in : pr.rk, inp ? in_rows : ref_rows, BK) ||
+      !encode_rows_map(&map_vin, inp ? pr.v_in : pr.rv, inp ? in_rows : ref_rows, BK))
     return cudaErrorNotSupported;
-  auto kern = shared_online_wgmma_kernel<BK, NCONS, PAIR, STAGES>;
+  auto kern = shared_attn_wgmma_kernel<P, BK, NCONS, PAIR, STAGES>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(Sq / C::kBlockRows, PAIR ? H / 2 : H, B);
+  const dim3 grid(pr.Sq / C::kBlockRows, PAIR ? pr.H / 2 : pr.H, pr.B);
   kern<<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      map_kin, map_vin, map_rk, map_rv, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const float*>(aff), static_cast<__nv_bfloat16*>(out), H, Sq, S, N, n_in, qscale);
+      map_kin, map_vin, map_rk, map_rv, pr);
   return cudaGetLastError();
 }
 
 // The tile a call gets: the key chunk is 128 where it divides the segment
 // length and 64 otherwise; !PAIR takes 128 query rows a block where they
 // divide Sq and 64 otherwise (ops/shared_attention.py: shared_online_tile).
-template <bool PAIR>
-cudaError_t launch_shared_online(const void* q, const void* k_in, const void* v_in, const void* rk,
-                                 const void* rv, const void* aff, void* out, int B, int H, int Sq,
-                                 int S, int N, int n_in, float qscale, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || Sq <= 0 || S <= 0 || Sq % 64 != 0 || S % 64 != 0 ||
-      B > 65535 || H > 65535 || (PAIR && H % 2 != 0) || n_in < 0 || n_in > 1 ||
-      (n_in == 1 && (k_in == nullptr || v_in == nullptr)) || aff == nullptr ||
-      static_cast<uint64_t>(B) * N * H * S > 0x7fffffffull)
+// Refuses what the tile does not take: Sq or S not a multiple of 64, more
+// than 65535 samples or heads, a head pair of odd H, an input segment under
+// kIdentity, a bound policy without kmax, kIdentity without ids, and
+// reference or input rows past the tensor maps' 2^31 row coordinates.
+template <Policy P, bool PAIR>
+cudaError_t launch_shared(const Problem& pr, void* stream) {
+  const bool has_ids = pr.ids != nullptr;
+  const uint64_t rows = has_ids ? pr.I : pr.B;
+  if (pr.B <= 0 || pr.H <= 0 || pr.N <= 0 || pr.Sq <= 0 || pr.S <= 0 || pr.Sq % 64 != 0 ||
+      pr.S % 64 != 0 || pr.B > 65535 || pr.H > 65535 || (PAIR && pr.H % 2 != 0) ||
+      pr.n_in < 0 || pr.n_in > 1 || (pr.n_in == 1 && (pr.k_in == nullptr || pr.v_in == nullptr)) ||
+      pr.q == nullptr || pr.rk == nullptr || pr.rv == nullptr || pr.aff == nullptr ||
+      pr.out == nullptr || (P != Policy::kOnline && pr.kmax == nullptr) ||
+      (P == Policy::kOnline && has_ids) || (P == Policy::kIdentity && (!has_ids || pr.n_in)) ||
+      (has_ids && pr.I <= 0) || rows * pr.N * pr.H * pr.S > 0x7fffffffull ||
+      (pr.n_in && static_cast<uint64_t>(pr.B) * pr.H * pr.S > 0x7fffffffull))
     return cudaErrorInvalidValue;
-#define IRT_RUN(BK, NCONS) \
-  run_shared_online<BK, NCONS, PAIR>(q, k_in, v_in, rk, rv, aff, out, B, H, Sq, S, N, n_in, \
-                                     qscale, stream)
+#define IRT_RUN(BK, NCONS) run_shared<P, BK, NCONS, PAIR>(pr, stream)
   if constexpr (PAIR) {
-    return S % 128 == 0 ? IRT_RUN(128, 2) : IRT_RUN(64, 2);
+    return pr.S % 128 == 0 ? IRT_RUN(128, 2) : IRT_RUN(64, 2);
   } else {
-    const bool wide = Sq % 128 == 0;
-    if (S % 128 == 0) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
+    const bool wide = pr.Sq % 128 == 0;
+    if (pr.S % 128 == 0) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
     return wide ? IRT_RUN(64, 2) : IRT_RUN(64, 1);
   }
 #undef IRT_RUN

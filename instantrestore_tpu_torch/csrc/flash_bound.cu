@@ -27,11 +27,9 @@ extern "C" int irt_flash_bound_bf16(const void* q, const void* k, const void* v,
   using irt::Mode;
   if (D == 64)
     return (int)irt::launch_attn<Mode::kFlash, 64, 64, 64, 4>(
-        q, nullptr, nullptr, k, v, kmax, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0, qscale,
-        stream);
+        q, k, v, kmax, out, B, H, Sq, Skv, qscale, stream);
   if (D == 512)
     return (int)irt::launch_attn<Mode::kFlash, 512, 32, 64, 8>(
-        q, nullptr, nullptr, k, v, kmax, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0, qscale,
-        stream);
+        q, k, v, kmax, out, B, H, Sq, Skv, qscale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,11 +27,9 @@ extern "C" int irt_flash_fwd_lse_bf16(const void* q, const void* k, const void* 
   using irt::Mode;
   if (D == 64)
     return (int)irt::launch_attn<Mode::kFlashLse, 64, 64, 64, 4>(
-        q, nullptr, nullptr, k, v, nullptr, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0,
-        qscale, stream, lse);
+        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream, lse);
   if (D == 512)
     return (int)irt::launch_attn<Mode::kFlashLse, 512, 32, 64, 8>(
-        q, nullptr, nullptr, k, v, nullptr, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0,
-        qscale, stream, lse);
+        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream, lse);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,11 +32,9 @@ extern "C" int irt_flash_online_bf16(const void* q, const void* k, const void* v
   using irt::Mode;
   if (D == 64)
     return (int)irt::launch_attn<Mode::kFlashOnline, 64, 64, 64, 4>(
-        q, nullptr, nullptr, k, v, nullptr, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0,
-        qscale, stream);
+        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream);
   if (D == 512)
     return (int)irt::launch_attn<Mode::kFlashOnline, 512, 32, 64, 8>(
-        q, nullptr, nullptr, k, v, nullptr, nullptr, nullptr, out, B, H, Sq, Skv, 1, B, 0,
-        qscale, stream);
+        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,7 +36,9 @@ extern "C" int irt_shared_online_pair_bf16(const void* q, const void* k_in, cons
                                            void* out, int B, int H, int Sq, int S, int N,
                                            int n_in, int D, float qscale, void* stream) {
   if (D == 64)
-    return (int)irt::wg::launch_shared_online<true>(q, k_in, v_in, rk, rv, aff, out, B, H, Sq, S,
-                                                    N, n_in, qscale, stream);
+    return (int)irt::wg::launch_shared<irt::wg::Policy::kOnline, true>(
+        irt::wg::make_problem(q, k_in, v_in, rk, rv, aff, nullptr, nullptr, out, B, H, Sq, S, N,
+                              B, n_in, qscale),
+        stream);
   return (int)cudaErrorInvalidValue;
 }

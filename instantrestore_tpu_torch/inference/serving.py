@@ -4,14 +4,16 @@
 Warm path: identities are onboarded once; their reference images go through
 the frozen VAE and UNet, and the 9 shared layers' reference K/V land in a
 cache. A restore then runs one VAE encode, one UNet whose shared attentions
-read that cache, and one VAE decode. Refs-only models (``train_input=False``,
-the shipped configuration) keep an identity cache with its AdaIN statistics
-and key-norm bounds, read by identity id (the ``shared_identity`` kernel, no
-gather copy). ``train_input`` models attend to the input image's own K/V as
-well, which the identity cache does not model: as in the JAX engine they keep
-a plain ``[(k, v) x 9]`` cache of ``[I, N, H, S, d]`` leaves, gather each
-restore's rows and take the per-call shared attention (``shared_flash_bound``
-with its input segment).
+read that cache, and one VAE decode. With ``identity_cache`` (by default on
+for the fused attention of a refs-only model, ``train_input=False``, unless
+``INSTANTRESTORE_IDENT_CACHE`` is set to anything but ``1``, as in the JAX
+engine) the cache holds each layer's AdaIN statistics and key-norm bounds
+too and is read by identity id (the ``shared_identity`` kernel, no gather
+copy). Otherwise it is a plain ``[(k, v) x 9]`` list of ``[I, N, H, S, d]``
+leaves: each restore gathers its rows and takes the per-call shared
+attention (``shared_flash_bound``, with its input segment for
+``train_input`` models, which attend to the input image's own K/V as well,
+what the identity cache does not model).
 
 Cold path: ``restore_cold`` re-encodes each request's references in the call
 (the reference implementation's own flow).
@@ -24,6 +26,7 @@ per-row PRNG keys.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -59,7 +62,12 @@ class ServingEngine:
         out = eng.restore_cold(images, cond_images)      # refs [B, N, H, W, 3]
 
     ``params`` is a bundle (``serving_bundle`` output or a training bundle);
-    it is moved to ``device`` in ``statics.compute_dtype``.
+    it is moved to ``device`` in ``statics.compute_dtype``. ``timestep`` is
+    the diffusion step of every restore; ``resolution`` the pixel size
+    inputs are resized and cropped to (default: the model's, the latent grid
+    times the VAE's downsampling). ``identity_cache`` None takes the JAX
+    engine's default: ``use_fused_attention and not statics.train_input``
+    and ``INSTANTRESTORE_IDENT_CACHE`` unset or ``1``.
     """
 
     def __init__(
@@ -69,17 +77,25 @@ class ServingEngine:
         *,
         device=None,
         use_fused_attention: bool = True,
+        timestep: int = 249,
+        resolution: Optional[int] = None,
+        identity_cache: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.statics = statics
         self.params = tree_to(params, self.device, statics.compute_dtype)
         self.use_fused_attention = use_fused_attention
-        # model pixel resolution: latent grid x the VAE's downsampling
-        self.resolution = statics.unet_cfg.sample_size * 2 ** (
-            len(statics.vae_cfg.block_out_channels) - 1)
+        self.timestep = timestep
+        if resolution is None:
+            resolution = statics.unet_cfg.sample_size * 2 ** (
+                len(statics.vae_cfg.block_out_channels) - 1)
+        self.resolution = resolution
         self.abar = sched.make_alphas_cumprod(device=self.device)
-        # the identity cache is refs-only; train_input models keep (k, v) rows
-        self.identity_cache = not statics.train_input
+        if identity_cache is None:
+            # the identity cache is refs-only: train_input models keep (k, v) rows
+            identity_cache = (use_fused_attention and not statics.train_input
+                              and os.environ.get("INSTANTRESTORE_IDENT_CACHE", "1") == "1")
+        self.identity_cache = identity_cache
         self.kv_cache: Optional[List[Any]] = None
 
     def _refs_kv(self, refs: torch.Tensor, generator, noise):
@@ -98,7 +114,7 @@ class ServingEngine:
                 noise: Optional[Dict[str, torch.Tensor]] = None) -> List[Any]:
         """identity_refs [I, N, H, W, 3] (uint8, or float in [-1, 1]) -> the
         warm cache: 9 ``IdentityKVCache`` layers, or (k, v) [I, N, H, S, d]
-        pairs for a train_input model. I fixes the capacity; ``onboard_one``
+        pairs without ``identity_cache``. I fixes the capacity; ``onboard_one``
         replaces rows. ``noise`` may give ``latent``/``diffusion``
         [I, N, h, w, 4]."""
         n_ident = identity_refs.shape[0]
@@ -162,8 +178,8 @@ class ServingEngine:
         else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
             ref_kv = [(k[ids], v[ids]) for k, v in self.kv_cache]
         out = restore_forward(
-            self.params, images, statics=self.statics, precomputed_ref_kv=ref_kv,
-            generator=generator, noise=noise,
+            self.params, images, statics=self.statics, timestep=self.timestep,
+            precomputed_ref_kv=ref_kv, generator=generator, noise=noise,
             use_fused_attention=self.use_fused_attention,
         )
         return out["output_image"]
@@ -183,7 +199,7 @@ class ServingEngine:
         conds = _maybe_preprocess(cond_images.to(self.device).reshape(b * n, *cond_images.shape[2:]),
                                   res).reshape(b, n, res, res, 3)
         out = restore_forward(
-            self.params, images, conds, statics=self.statics, generator=generator,
-            noise=noise, use_fused_attention=self.use_fused_attention,
+            self.params, images, conds, statics=self.statics, timestep=self.timestep,
+            generator=generator, noise=noise, use_fused_attention=self.use_fused_attention,
         )
         return out["output_image"]

@@ -49,12 +49,15 @@ max per row (from the finite ``NEG_INF``), rescale the row sum and the
 accumulator by ``exp2(m - m_new)`` per key chunk, and cannot: they are the
 way out for such weights. Their result depends on the key chunk at bf16
 rounding level (the running max differs per chunk). ``flash_online``'s chunk
-is ``ONLINE_BLOCK_K`` keys (the tile of ``csrc/attn_tile.cuh``); the shared
-online kernels run on the wgmma + TMA tile of ``csrc/attn_wgmma.cuh``, whose
-chunk is ``SHARED_ONLINE_BLOCK_K`` keys where that divides the segment length
-and ``ONLINE_BLOCK_K`` otherwise (``shared_online_tile``). The plain versions
-take the chunk as ``block_k`` and default to their kernel's. The TPU tile
-knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are not read.
+is ``ONLINE_BLOCK_K`` keys (the tile of ``csrc/attn_tile.cuh``, which also
+serves ``flash_attention``); the four shared kernels, bound and online, run
+on the wgmma + TMA tile of ``csrc/attn_wgmma.cuh``, whose chunk is
+``SHARED_ONLINE_BLOCK_K`` keys where that divides the segment length and
+``ONLINE_BLOCK_K`` otherwise (``shared_online_tile``; the bound kernels'
+result depends on it through the order of fp32 sums only). The online plain
+versions take the chunk as ``block_k`` and default to their kernel's. The
+TPU tile knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are
+not read.
 """
 
 from __future__ import annotations
@@ -108,6 +111,14 @@ def _row_norm(x: torch.Tensor) -> torch.Tensor:
 def key_norm_max(k: torch.Tensor, dims) -> torch.Tensor:
     """max ||k_j|| over ``dims`` in fp32."""
     return k.float().square().sum(-1).sqrt().amax(dim=dims)
+
+
+def _key_norm_max_one_pass(k: torch.Tensor, dims) -> torch.Tensor:
+    """``key_norm_max`` in one pass over the keys, for the per-call shared
+    kernels: the same norms up to fp32 summation order, without the three
+    fp32 copies of the keys that ``key_norm_max`` makes. ``flash_attention``
+    keeps ``key_norm_max``, so its outputs stay what they were."""
+    return torch.linalg.vector_norm(k, dim=-1, dtype=torch.float32).amax(dim=dims)
 
 
 def _bound_softmax_av(qs, keys, vals, bound, out_dtype, *, sum_rounded: bool):
@@ -362,7 +373,9 @@ def shared_identity(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
     row ``ids[b]`` of rk/rv [I, N, H, S, d], with the numerics of the TPU's
     paired kernel: bound from the pre-scaled q's norm, fp32 affine, fp32 row
     sum. aff [B, H, N, 2, d] fp32; kmax [I, H] fp32. The CUDA kernel takes
-    bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0."""
+    bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0; its tile follows the
+    shape (``shared_online_tile``). An id outside [0, I) makes its sample's
+    outputs NaN on the card."""
     if q.device.type == "cpu":
         return shared_identity_plain(q, rk, rv, aff, kmax, ids, scale=scale)
     if not q.is_cuda:
@@ -439,7 +452,8 @@ def shared_flash_bound(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: flo
     the numerics of the TPU's ``_shared_kvouter_bound_kernel`` (bound from the
     unscaled q norm, bf16 affine, row sum over bf16-rounded p). Shapes as in
     ``shared_flash_bound_plain``. The CUDA kernel takes bf16 at d = 64 with
-    Sq % 64 == 0 and S % 64 == 0."""
+    Sq % 64 == 0 and S % 64 == 0; its tile follows the shape
+    (``shared_online_tile``)."""
     if q.device.type == "cpu":
         return shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, ids, scale=scale,
                                         include_input=include_input)
@@ -504,12 +518,13 @@ def shared_online_chunk(s: int, block_k: Optional[int] = None) -> int:
 
 
 def shared_online_tile(sq: int, s: int, h: int, *, pair: bool = False) -> Tuple[int, int]:
-    """(query rows a thread block takes, key chunk) of ``csrc/shared_online.cu``
-    (``pair``: ``csrc/shared_online_pair.cu``) for Sq queries, segments of S
-    keys and H heads, as ``launch_shared_online`` of ``csrc/attn_wgmma.cuh``
-    chooses them: two consumer warpgroups of 64 rows on one head where 128
-    divides Sq, else one; a head pair always takes 64 rows, one warpgroup a
-    head. Raises on what the kernels refuse."""
+    """(query rows a thread block takes, key chunk) of the shared kernels on
+    the wgmma tile (``csrc/shared_online.cu``, ``shared_flash_bound.cu``,
+    ``shared_identity.cu``; ``pair``: ``csrc/shared_online_pair.cu``) for Sq
+    queries, segments of S keys and H heads, as ``launch_shared`` of
+    ``csrc/attn_wgmma.cuh`` chooses them: two consumer warpgroups of 64 rows
+    on one head where 128 divides Sq, else one; a head pair always takes 64
+    rows, one warpgroup a head. Raises on what the kernels refuse."""
     if min(sq, s, h) <= 0 or sq % 64 or s % 64 or (pair and h % 2):
         raise ValueError(f"online shared kernel: unsupported Sq {sq}, S {s}, H {h}"
                          f"{' for a head pair' if pair else ''}")
@@ -642,13 +657,13 @@ def shared_flash_attention(q, k_in, v_in, ref_k, ref_v, *, scale: float,
         algo = os.environ.get("INSTANTRESTORE_ATTN_ALGO", "kv_outer_bound")
     if algo == "kv_outer_bound_paired":
         if not include_input and n % 2 == 0 and d <= 64:
-            return shared_identity(q, ref_k, ref_v, aff, key_norm_max(ref_k, (1, 3)),
+            return shared_identity(q, ref_k, ref_v, aff, _key_norm_max_one_pass(ref_k, (1, 3)),
                                    torch.arange(b, device=q.device), scale=scale)
         algo = "kv_outer_bound"  # pairing needs refs-only and even N
     if algo == "kv_outer_bound":
-        kmax = key_norm_max(ref_k, (1, 3))
+        kmax = _key_norm_max_one_pass(ref_k, (1, 3))
         if include_input:
-            kmax = torch.maximum(kmax, key_norm_max(k_in, 2))
+            kmax = torch.maximum(kmax, _key_norm_max_one_pass(k_in, 2))
         return shared_flash_bound(q, k_in, v_in, ref_k, ref_v, aff, kmax, scale=scale,
                                   include_input=include_input)
     if algo == "kv_outer_packed" and d <= 64 and h % 2 == 0:

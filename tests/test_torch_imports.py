@@ -70,12 +70,13 @@ def test_every_kernel_source_is_in_the_checkout():
             for inc in includes), (path.name, includes)
 
 
-WGMMA_SOURCES = ("shared_online.cu", "shared_online_pair.cu", "attn_wgmma.cuh")
+WGMMA_SOURCES = ("shared_online.cu", "shared_online_pair.cu", "attn_wgmma.cuh",
+                 "shared_identity.cu", "shared_flash_bound.cu")
 
 
 @pytest.mark.parametrize("name", WGMMA_SOURCES)
 def test_online_shared_kernels_are_on_the_wgmma_tile(name):
-    """The two online shared kernels and their tile compute with
+    """The four shared kernels (online and bound) and their tile compute with
     wgmma.mma_async on tiles brought by TMA, and hold nothing of the mma.sync
     tile: no <mma.h>, no wmma fragment, no include of attn_tile.cuh."""
     from instantrestore_tpu_torch.ops import _build
@@ -93,13 +94,17 @@ def test_online_shared_kernels_are_on_the_wgmma_tile(name):
 
 
 def test_the_mma_sync_tile_keeps_five_modes():
-    """attn_tile.cuh serves the kernels that were not redesigned: its online
-    shared mode and the head-pair parameter went with their only users."""
+    """attn_tile.cuh serves the plain flash kernels that were not redesigned,
+    in three modes: its shared modes (online, identity, bound), the head-pair
+    parameter and the AdaIN affine went with their only users."""
     from instantrestore_tpu_torch.ops import _build
 
     text = (_build.CSRC / "attn_tile.cuh").read_text()
-    assert "enum class Mode { kFlash, kIdentity, kShared, kFlashOnline, kFlashLse };" in text
-    assert "kSharedOnline" not in text and "int HP" not in text
+    assert "enum class Mode { kFlash, kFlashOnline, kFlashLse };" in text
+    for word in ("kSharedOnline", "int HP", "kIdentity", "kShared", "ids", "aff"):
+        assert word not in text, word
+    for name in ("flash_bound.cu", "flash_online.cu", "flash_fwd_lse.cu", "flash_bwd_tile.cuh"):
+        assert '"attn_tile.cuh"' in (_build.CSRC / name).read_text(), name
 
 
 TRAINING_MODULES = (
