@@ -26,7 +26,11 @@ Without arguments every phase runs and the last two lines are the result;
    (one consumer warpgroup at Sq % 128 == 64, the 64-key chunk at S = 64)
    are held against the plain versions too, for the online kernels and the
    two bound ones (shared_flash_bound, and shared_identity through the
-   paired route). Each shared row also carries
+   paired route). flash_online at d=64 runs on the same wgmma tile in its
+   plain layout: two launches agree bit for bit at every shape, and its other
+   tiles (FLASH_VARIANT_SHAPES: Sq % 128 == 64, a 64-key chunk, Sq != Skv)
+   are held against the plain version on the kernel's chunk. Each shared row
+   also carries
    exp2_ms: its scores over 16 exp2 per clock per SM on 132 SMs at the
    card's maximum SM clock (nvidia-smi clocks.max.sm), the other unit that
    bounds a d=64 attention. The escape hatch: on a call whose bound slack
@@ -38,9 +42,10 @@ Without arguments every phase runs and the last two lines are the result;
 3b. flash-VJP kernel phase ("vjp"): flash_fwd_lse, flash_bwd_dq and
    flash_bwd_dkv at the shapes a batch-2 train step gives them (the 9 shared
    layers on K/V widened over 4 references, the UNet's down/mid
-   self-attention, the d=512 VAE attention): out, LSE, dQ, dK, dV against the
-   plain versions on the same inputs, two launches of the backward kernels
-   bit-identical, one mid shape against fp32 autograd through the unfused
+   self-attention, the d=512 VAE attention) and at FLASH_VARIANT_SHAPES: out,
+   LSE (max-abs within 1e-3 log2 units), dQ, dK, dV against the plain
+   versions on the same inputs, two launches of each kernel bit-identical,
+   one mid shape against fp32 autograd through the unfused
    attention; timed beside the plain versions, scaled_dot_product_attention
    forward and its autograd backward (dQ, dK, dV together), and the bounds;
 4. warm phase: random full-width SD-Turbo weights (seeded), LoRA rank 32
@@ -131,6 +136,11 @@ VJP_SHAPES = [(20, 256, 1024, 64, 3), (10, 1024, 4096, 64, 3), (5, 4096, 16384, 
               (20, 64, 64, 64, 1), (1, 4096, 4096, 512, 2)]
 VJP_AUTOGRAD_SHAPE = (10, 1024, 4096, 64)  # held against fp32 autograd too
 VJP_AUTOGRAD_REL_RMS = 3e-2  # bf16 P, dS and outputs against an fp32 reference
+# (batch, heads, Sq, Skv) at d=64 that take the other tiles of flash_online and
+# flash_fwd_lse on the wgmma tile: one consumer warpgroup a block (Sq % 128 ==
+# 64) on 128-key chunks; the 64-key chunk (128 does not divide Skv)
+FLASH_VARIANT_SHAPES = [(2, 4, 192, 256), (2, 4, 256, 320)]
+LSE_TOL = 1e-3  # flash_fwd_lse's LSE against its plain version, max-abs in log2 units
 
 
 def card_line() -> str:
@@ -275,12 +285,32 @@ def kernel_phase(card: str):
                               lambda: sa.flash_attention(q, k, v, scale=fscale, algo="bound"),
                               lambda: sa.flash_attention_plain(q, k, v, scale=fscale),
                               lib, flops, nbytes + BATCH * h * 4, **meta))
-        fonline_rows.append(row(f"flash_online H={h} S={s} d={fd}",
-                                lambda: sa.flash_attention(q, k, v, scale=fscale, algo="online"),
+        online = lambda: sa.flash_attention(q, k, v, scale=fscale, algo="online")
+        fonline_rows.append(row(f"flash_online H={h} S={s} d={fd}", online,
                                 lambda: sa.flash_online_plain(q, k, v, scale=fscale),
-                                lib, flops, nbytes, **meta))
+                                lib, flops, nbytes,
+                                **dict(meta, chunk=sa.flash_online_chunk(s, fd))))
+        if not torch.equal(online(), online()):
+            raise AssertionError(f"flash_online H={h} S={s} d={fd}: two launches differ")
         del q, k, v
         torch.cuda.empty_cache()
+
+    # row 8 on the wgmma tile's other tiles, against the plain version on the
+    # kernel's chunk
+    for b, h, sq, skv in FLASH_VARIANT_SHAPES:
+        q, k, v = rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, d)
+        chunk = sa.flash_online_chunk(skv, d)
+        online = lambda: sa.flash_attention(q, k, v, scale=scale, algo="online")
+        fonline_rows.append(row(
+            f"flash_online B={b} H={h} Sq={sq} Skv={skv}", online,
+            lambda: sa.flash_online_plain(q, k, v, scale=scale, block_k=chunk),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+            4.0 * b * h * sq * skv * d, (2 * b * h * sq * d + 2 * b * h * skv * d) * 2,
+            batch=b, heads=h, queries=sq, keys=skv, head_dim=d, per_pass=0, chunk=chunk,
+            route=f"{128 if sq % 128 == 0 else 64} query rows a block, key chunk {chunk}"))
+        if not torch.equal(online(), online()):
+            raise AssertionError(f"flash_online Sq={sq} Skv={skv}: two launches differ")
+        del q, k, v
 
     # kernels 3, 7 and 10: shared attention over [input |] per-call references,
     # bound and online, on the same inputs; a cold restore launches the
@@ -451,11 +481,40 @@ def vjp_kernel_phase(card: str):
 
     from instantrestore_tpu_torch.models.attention import softmax_attention
     from instantrestore_tpu_torch.ops import flash_vjp as fv
+    from instantrestore_tpu_torch.ops import shared_attention as sa
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
     bsz = TRAIN_BATCH
     fwd_rows, dq_rows, dkv_rows = [], [], []
+
+    def fwd_row(q, k, v, scale, meta, label, got, block_k=None):
+        """flash_fwd_lse's launch ``got`` = (out, lse) against its plain
+        version on the kernel's chunk (``block_k``, default the rule's): out
+        within the kernels' tolerance, the LSE within LSE_TOL, a second launch
+        bit-identical; then the times and the bound."""
+        out, lse = got
+        b, h, sq, d = q.shape
+        skv = k.shape[2]
+        chunk = block_k or sa.flash_online_chunk(skv, d)
+        ref_out, ref_lse = fv.flash_fwd_lse_plain(q, k, v, scale=scale, block_k=chunk)
+        err, tol, rel = compare(f"flash_fwd_lse {label}", out, ref_out)
+        lse_err = float((lse - ref_lse).abs().max())
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash_fwd_lse {label}: LSE max-abs {lse_err} (tol {LSE_TOL})")
+        out2, lse2 = fv.flash_fwd_lse(q, k, v, scale=scale)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"flash_fwd_lse {label}: two launches differ")
+        del ref_out, ref_lse, out2, lse2
+        b_ms, b_by = bound(4.0 * b * h * sq * skv * d,
+                           (2 * b * h * sq * d + 2 * b * h * skv * d) * 2 + b * h * sq * 4)
+        return dict(
+            **meta, chunk=chunk, max_abs_err=err, tol=tol, rel_rms=rel, lse_max_abs_err=lse_err,
+            ms=cuda_ms(lambda: fv.flash_fwd_lse(q, k, v, scale=scale), 5),
+            plain_ms=cuda_ms(lambda: fv.flash_fwd_lse_plain(q, k, v, scale=scale), 1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5),
+            bound_ms=b_ms, bound_by=b_by)
+
     for h, sq, skv, d, per_pass in VJP_SHAPES:
         q, k, v, do = (torch.randn((bsz, h, n, d), generator=g, device=dev).to(torch.bfloat16)
                        for n in (sq, skv, skv, sq))
@@ -469,21 +528,12 @@ def vjp_kernel_phase(card: str):
         meta = dict(heads=h, queries=sq, keys=skv, head_dim=d, per_pass=per_pass)
         label = f"H={h} Sq={sq} Skv={skv} d={d}"
 
-        ref_out, ref_lse = fv.flash_fwd_lse_plain(q, k, v, scale=scale)
-        err, tol, rel = compare(f"flash_fwd_lse {label}", out, ref_out)
-        lse_err, _, _ = compare(f"flash_fwd_lse lse {label}", lse, ref_lse)
+        fwd_rows.append(fwd_row(q, k, v, scale, meta, label, (out, lse)))
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
                                                       retain_graph=True), 5)
-        b_ms, b_by = bound(4 * work, 2 * qb + 2 * kb + rb)
-        fwd_rows.append(dict(
-            **meta, max_abs_err=err, tol=tol, rel_rms=rel, lse_max_abs_err=lse_err,
-            ms=cuda_ms(lambda: fv.flash_fwd_lse(q, k, v, scale=scale), 5),
-            plain_ms=cuda_ms(lambda: fv.flash_fwd_lse_plain(q, k, v, scale=scale), 1),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5),
-            bound_ms=b_ms, bound_by=b_by))
-        del lib_out, qg, kg, vg, ref_out, ref_lse
+        del lib_out, qg, kg, vg
 
         dq = fv.flash_bwd_dq(*args, scale=scale)
         torch.cuda.synchronize()
@@ -531,6 +581,18 @@ def vjp_kernel_phase(card: str):
             del qf, kf, vf, ref
         del q, k, v, do, out, lse, delta, args, dq, dk, dv
         torch.cuda.empty_cache()
+
+    # row 4 on the wgmma tile's other tiles
+    for b, h, sq, skv in FLASH_VARIANT_SHAPES:
+        q, k, v = (torch.randn((b, h, n, 64), generator=g, device=dev).to(torch.bfloat16)
+                   for n in (sq, skv, skv))
+        chunk = sa.flash_online_chunk(skv, 64)
+        fwd_rows.append(fwd_row(
+            q, k, v, 0.125,
+            dict(batch=b, heads=h, queries=sq, keys=skv, head_dim=64, per_pass=0,
+                 route=f"{128 if sq % 128 == 0 else 64} query rows a block, key chunk {chunk}"),
+            f"B={b} H={h} Sq={sq} Skv={skv}", fv.flash_fwd_lse(q, k, v, scale=0.125), chunk))
+        del q, k, v
 
     src, jax_src = "instantrestore_tpu_torch/csrc/", "instantrestore_tpu/ops/flash_vjp.py:"
     results = [
@@ -1349,7 +1411,8 @@ def training_phase(card: str):
 
     profile_run(lambda: step(params, batch, generator=gen), "one train step", card,
                 shares={"rows 4-6 (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)":
-                        ("(irt::Mode)2", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")})
+                        ("(irt::Mode)2", "(irt::wg::Layout)1", "flash_bwd_dq_kernel",
+                         "flash_bwd_dkv_kernel")})
     if failures:
         raise AssertionError("training phase failed: " + "; ".join(failures))
     return counts

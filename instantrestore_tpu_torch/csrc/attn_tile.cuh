@@ -1,7 +1,9 @@
-// Attention tile of the plain flash kernels: the bound-softmax one
-// (flash_bound.cu), the online-max one (flash_online.cu) and the training
+// Attention tile of the plain flash kernels where the wgmma tile does not
+// serve them: the bound-softmax one (flash_bound.cu) at d = 64 and d = 512,
+// and at d = 512 only the online-max one (flash_online.cu) and the training
 // forward (flash_fwd_lse.cu: the online policy plus the log-sum-exp of each
-// row). The shared kernels run on the wgmma + TMA tile of attn_wgmma.cuh.
+// row). The shared kernels, and flash_online and flash_fwd_lse at d = 64, run
+// on the wgmma + TMA tile of attn_wgmma.cuh.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //

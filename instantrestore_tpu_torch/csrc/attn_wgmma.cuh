@@ -1,12 +1,24 @@
 // Attention tile of the shared kernels (shared_online.cu,
-// shared_online_pair.cu, shared_flash_bound.cu, shared_identity.cu) at head
-// dim 64, designed for Hopper: wgmma.mma_async for both products with every
-// accumulator in registers, K and V tiles brought by TMA
+// shared_online_pair.cu, shared_flash_bound.cu, shared_identity.cu) and of
+// the online plain kernels at d = 64 (flash_online.cu, flash_fwd_lse.cu) at
+// head dim 64, designed for Hopper: wgmma.mma_async for both products with
+// every accumulator in registers, K and V tiles brought by TMA
 // (cp.async.bulk.tensor) into a ring of shared-memory stages behind
 // mbarriers, the softmax on the register fragments. attn_tile.cuh (mma.sync,
-// scores staged through shared memory) stays for the plain flash kernels.
+// scores staged through shared memory) stays for flash_bound.cu and for the
+// plain kernels at d = 512.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
+//
+// Two layouts of the keys (a template parameter, so that neither costs the
+// other anything):
+//   * Layout::kShared: segments [input |] reference 1 .. N, as below.
+//   * Layout::kPlain (launch_flash): plain attention over the Skv keys of
+//     q's own (b, h), the input segment alone (n_in = 1, N = 0, S = Skv, two
+//     tensor maps). The affine warps leave at once and the second product
+//     waits for nothing but the `full` its first product already waited for.
+//     With Problem::lse it also writes lse2 = m + log2(l) per row, fp32
+//     [B, H, Sq] (kOnline: the training forward, JAX _fwd_lse_kernel).
 //
 // The function (JAX: the shared-attention kernels of
 // instantrestore_tpu/ops/shared_attention.py):
@@ -98,13 +110,15 @@ constexpr int kRowBytes = kD * 2;
 constexpr int kAffineWarps = 3;
 
 enum class Policy { kOnline, kBound, kIdentity };
+enum class Layout { kShared, kPlain };
 
 // What a launch computes on, besides the four tensor maps. q, out [B, H, Sq,
 // 64]; k_in/v_in [B, H, S, 64] (read only when n_in == 1); rk/rv [rows, N, H,
 // S, 64] with rows = I and reference rows ids[b] when ids is given, else rows
 // = B and row b; aff [B, H, N, 2, 64] fp32 (scale, shift of reference V);
 // kmax fp32, kBound [B, H] read at b, kIdentity [I, H] read at ids[b];
-// qscale = scale * log2 e.
+// qscale = scale * log2 e; lse (Layout::kPlain only, may be null) [B, H, Sq]
+// fp32.
 struct Problem {
   const __nv_bfloat16 *q, *k_in, *v_in, *rk, *rv;
   const float *aff, *kmax;
@@ -112,6 +126,7 @@ struct Problem {
   __nv_bfloat16* out;
   int B, H, Sq, S, N, I, n_in;
   float qscale;
+  float* lse;
 };
 
 inline Problem make_problem(const void* q, const void* k_in, const void* v_in, const void* rk,
@@ -122,7 +137,18 @@ inline Problem make_problem(const void* q, const void* k_in, const void* v_in, c
                  static_cast<const __nv_bfloat16*>(v_in), static_cast<const __nv_bfloat16*>(rk),
                  static_cast<const __nv_bfloat16*>(rv), static_cast<const float*>(aff),
                  static_cast<const float*>(kmax),        static_cast<const int*>(ids),
-                 static_cast<__nv_bfloat16*>(out),       B, H, Sq, S, N, I, n_in, qscale};
+                 static_cast<__nv_bfloat16*>(out),       B, H, Sq, S, N, I, n_in, qscale,
+                 nullptr};
+}
+
+// The plain layout's problem: q, out [B, H, Sq, 64], k/v [B, H, Skv, 64],
+// lse [B, H, Sq] fp32 or null.
+inline Problem make_flash_problem(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int B, int H, int Sq, int Skv, float qscale) {
+  Problem pr = make_problem(q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, out, B, H, Sq,
+                            Skv, 0, B, 1, qscale);
+  pr.lse = static_cast<float*>(lse);
+  return pr;
 }
 
 // ---------------------------------------------------------------------------
@@ -455,8 +481,9 @@ struct Cfg {
 // map_kin/map_vin: the input's K/V as [B * H * S, 64]; map_rk/map_rv: the
 // references' as [rows * N * H * S, 64] (reference n of row r, head h starts
 // at row ((r * N + n) * H + h) * S); each with a [BK, 64] box. Grid
-// (Sq / kBlockRows, H or H / 2, B).
-template <Policy P, int BK, int NCONS, bool PAIR, int STAGES>
+// (Sq / kBlockRows, H or H / 2, B). Layout::kPlain reads map_kin and map_vin
+// only.
+template <Policy P, int BK, int NCONS, bool PAIR, int STAGES, Layout L = Layout::kShared>
 __global__ void __launch_bounds__((NCONS + 1) * 128, 1)
 shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
                          const __grid_constant__ CUtensorMap map_vin,
@@ -464,6 +491,9 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
                          const __grid_constant__ CUtensorMap map_rv, const Problem pr) {
   using C = Cfg<BK, NCONS, PAIR, STAGES>;
   static_assert(P == Policy::kOnline || !PAIR, "the bound policies take one head a block");
+  static_assert(L == Layout::kShared || (P == Policy::kOnline && !PAIR),
+                "the plain layout serves the online policy, one head a block");
+  constexpr bool kPlain = L == Layout::kPlain;
   constexpr bool kOnes = P != Policy::kIdentity;  // row sums of the rounded p on the tensor cores
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3 * C::kRings * STAGES];
@@ -549,9 +579,10 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
           }
         }
       }
-    } else {
+    } else if constexpr (!kPlain) {
       // ---- affine warps: reference V <- bf16(v * a + c), in place; a and c
-      // rounded to bf16 first but under kIdentity ----
+      // rounded to bf16 first but under kIdentity (the plain layout has no
+      // reference, and no consumer waits on `ready`) ----
       // a thread keeps one 8-channel chunk (16 bytes of a row) and every
       // 12th row; four rows are in flight at a time
       const int at = tw - 32;  // 0 .. 95
@@ -759,7 +790,8 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
     k_descs(next);
     v_descs(stage);
     mbar_wait(full_bar(ring, next), ((t + 1) / STAGES) & 1);
-    mbar_wait(ready_bar(ring, stage), (t / STAGES) & 1);  // the affine warps have passed over V
+    // the affine warps have passed over V (the plain layout: V came with K)
+    if constexpr (!kPlain) mbar_wait(ready_bar(ring, stage), (t / STAGES) & 1);
     turn_wait();
     start_qk();
     start_pv();
@@ -789,7 +821,7 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   {
     const int last = n_tiles - 1;
     v_descs(last % STAGES);
-    mbar_wait(ready_bar(ring, last % STAGES), (last / STAGES) & 1);
+    if constexpr (!kPlain) mbar_wait(ready_bar(ring, last % STAGES), (last / STAGES) & 1);
     turn_wait();
     start_pv();
     turn_pass();
@@ -815,6 +847,14 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
       __nv_bfloat16* dst = pr.out + row_base + (g + 8 * i) * kD + 8 * j + 2 * tq;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
           __floats2bfloat162_rn(o[4 * j + 2 * i] / l_run[i], o[4 * j + 2 * i + 1] / l_run[i]);
+    }
+  }
+  // lse2 = m + log2(l) of rows g and g + 8: the quad shares both, one lane writes
+  if constexpr (kPlain) {
+    if (pr.lse != nullptr && tq == 0) {
+      const size_t row0 = static_cast<size_t>(b * H + h) * Sq + q0 + warp * 16 + g;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) pr.lse[row0 + 8 * i] = m_run[i] + log2f(l_run[i]);
     }
   }
 }
@@ -856,22 +896,31 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, uint64_t rows, u
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <Policy P, int BK, int NCONS, bool PAIR>
+template <Policy P, int BK, int NCONS, bool PAIR, Layout L = Layout::kShared>
 cudaError_t run_shared(const Problem& pr, void* stream) {
   constexpr int STAGES = (PAIR && BK == 128) ? 3 : 4;
   using C = Cfg<BK, NCONS, PAIR, STAGES>;
-  const uint64_t ref_rows =
-      static_cast<uint64_t>(pr.ids != nullptr ? pr.I : pr.B) * pr.N * pr.H * pr.S;
   const uint64_t in_rows = static_cast<uint64_t>(pr.B) * pr.H * pr.S;
   CUtensorMap map_kin, map_vin, map_rk, map_rv;
-  // without an input segment its two maps are never read: they alias the references
-  const bool inp = pr.n_in != 0;
-  if (!encode_rows_map(&map_rk, pr.rk, ref_rows, BK) ||
-      !encode_rows_map(&map_rv, pr.rv, ref_rows, BK) ||
-      !encode_rows_map(&map_kin, inp ? pr.k_in : pr.rk, inp ? in_rows : ref_rows, BK) ||
-      !encode_rows_map(&map_vin, inp ? pr.v_in : pr.rv, inp ? in_rows : ref_rows, BK))
-    return cudaErrorNotSupported;
-  auto kern = shared_attn_wgmma_kernel<P, BK, NCONS, PAIR, STAGES>;
+  if constexpr (L == Layout::kPlain) {
+    // two maps; the reference maps are never read
+    if (!encode_rows_map(&map_kin, pr.k_in, in_rows, BK) ||
+        !encode_rows_map(&map_vin, pr.v_in, in_rows, BK))
+      return cudaErrorNotSupported;
+    map_rk = map_kin;
+    map_rv = map_vin;
+  } else {
+    const uint64_t ref_rows =
+        static_cast<uint64_t>(pr.ids != nullptr ? pr.I : pr.B) * pr.N * pr.H * pr.S;
+    // without an input segment its two maps are never read: they alias the references
+    const bool inp = pr.n_in != 0;
+    if (!encode_rows_map(&map_rk, pr.rk, ref_rows, BK) ||
+        !encode_rows_map(&map_rv, pr.rv, ref_rows, BK) ||
+        !encode_rows_map(&map_kin, inp ? pr.k_in : pr.rk, inp ? in_rows : ref_rows, BK) ||
+        !encode_rows_map(&map_vin, inp ? pr.v_in : pr.rv, inp ? in_rows : ref_rows, BK))
+      return cudaErrorNotSupported;
+  }
+  auto kern = shared_attn_wgmma_kernel<P, BK, NCONS, PAIR, STAGES, L>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -909,6 +958,27 @@ cudaError_t launch_shared(const Problem& pr, void* stream) {
     if (pr.S % 128 == 0) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
     return wide ? IRT_RUN(64, 2) : IRT_RUN(64, 1);
   }
+#undef IRT_RUN
+}
+
+// The plain layout (flash_online.cu, flash_fwd_lse.cu: Policy::kOnline):
+// q [B, H, Sq, 64] against the Skv = pr.S keys of k_in/v_in [B, H, Skv, 64].
+// The key chunk is the caller's, bk = 128 or 64 dividing Skv (the result
+// depends on it at bf16 rounding level: ops/shared_attention.py,
+// flash_online_chunk); 128 query rows a block where they divide Sq, else 64.
+// Refuses Sq not a multiple of 64, another chunk, more than 65535 samples or
+// heads, and key rows past the tensor maps' 2^31 row coordinates.
+template <Policy P>
+cudaError_t launch_flash(const Problem& pr, int bk, void* stream) {
+  if (pr.B <= 0 || pr.H <= 0 || pr.Sq <= 0 || pr.S <= 0 || pr.Sq % 64 != 0 ||
+      (bk != 64 && bk != 128) || pr.S % bk != 0 || pr.B > 65535 || pr.H > 65535 || pr.N != 0 ||
+      pr.n_in != 1 || pr.q == nullptr || pr.k_in == nullptr || pr.v_in == nullptr ||
+      pr.out == nullptr || static_cast<uint64_t>(pr.B) * pr.H * pr.S > 0x7fffffffull)
+    return cudaErrorInvalidValue;
+#define IRT_RUN(BK, NCONS) run_shared<P, BK, NCONS, false, Layout::kPlain>(pr, stream)
+  const bool wide = pr.Sq % 128 == 0;
+  if (bk == 128) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
+  return wide ? IRT_RUN(64, 2) : IRT_RUN(64, 1);
 #undef IRT_RUN
 }
 

@@ -14,22 +14,29 @@
 // d >= 128: fp32 p for the sum, bf16 for the product), and one more output,
 // lse2 = m + log2(row sum), fp32 [B, H, Sq]. The TPU kernel stores it
 // broadcast over 128 lanes; that is its tiling, not part of the function.
+// The key chunk is the caller's: 128 or 64 at d=64 (a shared attention's
+// chunk divides its segment length, so that none straddles two segments),
+// 64 at d=512.
 //
-// What bounds it on the H100: tensor-core operations, as flash_online.cu
-// (the LSE adds 4 bytes per query row). This is the simple correct tile of
-// attn_tile.cuh (Mode::kFlashLse).
+// What bounds it on the H100: tensor-core operations and exp2 alike at d=64,
+// as flash_online.cu (the LSE adds 4 bytes per query row), and it runs on the
+// same tile: at d=64 the plain layout of attn_wgmma.cuh (wgmma + TMA, the
+// softmax in registers under the previous chunk's P V), whose epilogue writes
+// the LSE from the running max and the row sum already in registers; at
+// d=512 Mode::kFlashLse of attn_tile.cuh.
 
 #include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
 
 extern "C" int irt_flash_fwd_lse_bf16(const void* q, const void* k, const void* v, void* out,
                                       void* lse, int B, int H, int Sq, int Skv, int D,
-                                      float qscale, void* stream) {
-  using irt::Mode;
+                                      int block_k, float qscale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return (int)irt::launch_attn<Mode::kFlashLse, 64, 64, 64, 4>(
-        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream, lse);
-  if (D == 512)
-    return (int)irt::launch_attn<Mode::kFlashLse, 512, 32, 64, 8>(
+    return (int)irt::wg::launch_flash<irt::wg::Policy::kOnline>(
+        irt::wg::make_flash_problem(q, k, v, out, lse, B, H, Sq, Skv, qscale), block_k, stream);
+  if (D == 512 && block_k == 64)
+    return (int)irt::launch_attn<irt::Mode::kFlashLse, 512, 32, 64, 8>(
         q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream, lse);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,34 +7,41 @@
 // Replaces the TPU kernel instantrestore_tpu/ops/shared_attention.py:
 // _flash_kernel (launched by flash_attention under algo != "bound"). Same
 // numerics: q pre-scaled in bf16 by bf16(scale * log2 e), scores in fp32
-// log2 units, per key tile m_new = max(m, rowmax(s)) from m = -1e30,
+// log2 units, per key chunk m_new = max(m, rowmax(s)) from m = -1e30,
 // alpha = exp2(m - m_new) on the row sum and the fp32 accumulator. d < 128:
 // p = exp2(bf16(s - m_new)) rounded to bf16, row sum over the rounded p (the
 // TPU kernel's ones column). d >= 128: p = exp2(s - m_new) in fp32, row sum
 // over the fp32 p, only the product's operand rounded. out = acc / l in bf16.
-// The key tile is 64 wide where the TPU kernel's is 1024 or 512; the running
-// maxima differ per tile, which shows at bf16 rounding level only.
+// The key chunk is the caller's (ops/shared_attention.py,
+// flash_online_chunk: 128 at d=64 where it divides Skv, else 64) where the
+// TPU kernel's is 1024 or 512; the running maxima differ per chunk, which
+// shows at bf16 rounding level only.
 //
-// What bounds it on the H100: tensor-core operations, as flash_bound.cu (the
-// same products on the same bytes, no kmax): a 64^2 UNet layer at batch 16 is
-// 0.34 TFLOP for 0.08 GB, the VAE mid attention 0.55 TFLOP for 0.27 GB. On
-// top of the bound kernel's work each tile takes a row max over the scores
-// and one multiply of every accumulator element by its row's alpha. This is
-// the simple correct tile of attn_tile.cuh (WMMA mma.sync, scores staged
-// through shared memory, no copy/compute overlap); at d=512 the alpha
-// fragment reaches each of the 8 warps' channel slabs.
+// What bounds it on the H100: tensor-core operations and exp2 alike at d=64
+// (a 64^2 UNet layer at batch 16 is 0.34 TFLOP, 0.35 ms at 989 TFLOP/s, and
+// 1.3 G exp2, 0.32 ms at 16 per clock per SM, for 0.08 GB), tensor-core
+// operations at d=512 (0.55 TFLOP for 0.27 GB). At d=64 it runs on the
+// wgmma + TMA tile of attn_wgmma.cuh in its plain layout (Layout::kPlain,
+// Policy::kOnline: both products on wgmma with S, P, alpha, l and O in
+// registers, K/V by TMA into a 4-stage ring, the softmax of one chunk under
+// the previous chunk's P V, 128 query rows a block on one ring), so that the
+// two overlap. At d=512 it keeps the tile of attn_tile.cuh (WMMA mma.sync,
+// scores staged through shared memory, no copy/compute overlap; the alpha
+// fragment reaches each of the 8 warps' channel slabs): a 64 x 512 fp32
+// accumulator does not fit one warpgroup's registers.
 
 #include "attn_tile.cuh"
+#include "attn_wgmma.cuh"
 
 extern "C" int irt_flash_online_bf16(const void* q, const void* k, const void* v, void* out,
-                                     int B, int H, int Sq, int Skv, int D, float qscale,
-                                     void* stream) {
-  using irt::Mode;
+                                     int B, int H, int Sq, int Skv, int D, int block_k,
+                                     float qscale, void* stream) {
   if (D == 64)
-    return (int)irt::launch_attn<Mode::kFlashOnline, 64, 64, 64, 4>(
-        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream);
-  if (D == 512)
-    return (int)irt::launch_attn<Mode::kFlashOnline, 512, 32, 64, 8>(
+    return (int)irt::wg::launch_flash<irt::wg::Policy::kOnline>(
+        irt::wg::make_flash_problem(q, k, v, out, nullptr, B, H, Sq, Skv, qscale), block_k,
+        stream);
+  if (D == 512 && block_k == 64)
+    return (int)irt::launch_attn<irt::Mode::kFlashOnline, 512, 32, 64, 8>(
         q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream);
   return (int)cudaErrorInvalidValue;
 }

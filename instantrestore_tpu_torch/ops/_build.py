@@ -48,7 +48,7 @@ SIGNATURES = {
         "irt_shared_flash_bound_bf16": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
     },
     "flash_online": {
-        "irt_flash_online_bf16": ([_P] * 4 + [_I] * 5 + [_F, _P], _I),
+        "irt_flash_online_bf16": ([_P] * 4 + [_I] * 6 + [_F, _P], _I),
     },
     "shared_online": {
         "irt_shared_online_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
@@ -57,7 +57,7 @@ SIGNATURES = {
         "irt_shared_online_pair_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     },
     "flash_fwd_lse": {
-        "irt_flash_fwd_lse_bf16": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
+        "irt_flash_fwd_lse_bf16": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
     },
     "flash_bwd_dq": {
         "irt_flash_bwd_dq_bf16": ([_P] * 7 + [_I] * 5 + [_F, _F, _P], _I),

@@ -58,32 +58,37 @@ from instantrestore_tpu_torch.ops.shared_attention import (  # re-exported
 # ---------------------------------------------------------------------------
 
 
-def flash_fwd_lse_plain(q, k, v, *, scale: float, block_k: int = ONLINE_BLOCK_K):
+def flash_fwd_lse_plain(q, k, v, *, scale: float, block_k: Optional[int] = None):
     """Plain PyTorch version of ``csrc/flash_fwd_lse.cu``: q [B, H, Sq, d],
     k/v [B, H, Skv, d] -> (out [B, H, Sq, d], lse2 [B, H, Sq] fp32), the
-    running max taken over key chunks of ``min(block_k, Skv)``."""
-    return sa._online_softmax_av(sa._q_scaled(q, scale), k, v, q.dtype,
-                                 block_k=min(block_k, k.shape[2]),
-                                 arg_rounded=q.shape[-1] < 128, return_lse=True)
+    running max taken over key chunks of ``min(block_k, Skv)``, by default
+    the kernel's (``flash_online_chunk``)."""
+    skv, d = k.shape[2], q.shape[-1]
+    bk = sa.flash_online_chunk(skv, d) if block_k is None else min(block_k, skv)
+    return sa._online_softmax_av(sa._q_scaled(q, scale), k, v, q.dtype, block_k=bk,
+                                 arg_rounded=d < 128, return_lse=True)
 
 
 def flash_fwd_lse(q, k, v, *, scale: float,
-                  block_k: int = ONLINE_BLOCK_K) -> Tuple[torch.Tensor, torch.Tensor]:
+                  block_k: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T * scale) v and each row's log-sum-exp in log2 units.
     Shapes and the CUDA kernel's limits as ``ops.shared_attention
-    .flash_attention``. ``block_k`` is the plain version's key chunk; the
-    kernel's is ``ONLINE_BLOCK_K`` and it takes no other."""
+    .flash_attention``. ``block_k`` is the key chunk of the running max
+    (default ``flash_online_chunk``'s); the kernel takes 64 or 128 dividing
+    Skv at d = 64 and 64 at d = 512, and raises on any other."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale=scale, block_k=block_k)
     sa._check_flash("flash_fwd_lse", q, k, v)
-    if block_k != ONLINE_BLOCK_K:
-        raise ValueError(f"flash_fwd_lse: the kernel's key chunk is {ONLINE_BLOCK_K}, not {block_k}")
     b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if block_k is None:
+        block_k = sa.flash_online_chunk(skv, d)
+    sa.check_flash_chunk("flash_fwd_lse", skv, d, block_k)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     rc = _build.load("flash_fwd_lse").irt_flash_fwd_lse_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, h, sq, k.shape[2], d, ctypes.c_float(scale * LOG2E), sa._stream_ptr(q),
+        b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E), sa._stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"flash_fwd_lse kernel launch failed: CUDA error {rc}")
@@ -271,9 +276,11 @@ class _Shared(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k_in, v_in, ref_k, ref_v, vs, vh, scale, include_input):
         wide_k, wide_v = _widen(k_in, v_in, ref_k, ref_v, vs, vh, include_input)
-        # chunks of the running max never straddle a segment
-        out, lse = flash_fwd_lse(q, wide_k, wide_v, scale=scale,
-                                 block_k=min(ONLINE_BLOCK_K, ref_k.shape[3]))
+        # the shared kernels' chunk at d = 64, ONLINE_BLOCK_K at other widths:
+        # it divides the segment length, so no chunk straddles two segments
+        chunk = sa.shared_online_chunk(ref_k.shape[3],
+                                       None if q.shape[-1] == 64 else ONLINE_BLOCK_K)
+        out, lse = flash_fwd_lse(q, wide_k, wide_v, scale=scale, block_k=chunk)
         # the wide K/V are rebuilt in the backward, not kept
         ctx.save_for_backward(q, k_in, v_in, ref_k, ref_v, vs, vh, out, lse)
         ctx.scale, ctx.include_input = scale, include_input

@@ -48,13 +48,14 @@ its bound slack exceeds ~190 log2 units. The online kernels keep a running
 max per row (from the finite ``NEG_INF``), rescale the row sum and the
 accumulator by ``exp2(m - m_new)`` per key chunk, and cannot: they are the
 way out for such weights. Their result depends on the key chunk at bf16
-rounding level (the running max differs per chunk). ``flash_online``'s chunk
-is ``ONLINE_BLOCK_K`` keys (the tile of ``csrc/attn_tile.cuh``, which also
-serves ``flash_attention``); the four shared kernels, bound and online, run
-on the wgmma + TMA tile of ``csrc/attn_wgmma.cuh``, whose chunk is
-``SHARED_ONLINE_BLOCK_K`` keys where that divides the segment length and
-``ONLINE_BLOCK_K`` otherwise (``shared_online_tile``; the bound kernels'
-result depends on it through the order of fp32 sums only). The online plain
+rounding level (the running max differs per chunk). The four shared kernels,
+bound and online, and ``flash_online`` at d = 64 run on the wgmma + TMA tile
+of ``csrc/attn_wgmma.cuh``, whose chunk is ``SHARED_ONLINE_BLOCK_K`` keys
+where that divides the segment length (``flash_online``: Skv) and
+``ONLINE_BLOCK_K`` otherwise (``shared_online_tile``, ``flash_online_chunk``;
+the bound kernels' result depends on it through the order of fp32 sums
+only); ``flash_online`` at d = 512 and ``flash_attention`` run on the tile of
+``csrc/attn_tile.cuh``, whose chunk is ``ONLINE_BLOCK_K``. The online plain
 versions take the chunk as ``block_k`` and default to their kernel's. The
 TPU tile knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are
 not read.
@@ -74,8 +75,8 @@ from instantrestore_tpu_torch.ops import _build
 LOG2E = 1.4426950408889634
 BOUND_EXP_SHIFT = 64.0
 NEG_INF = -1e30  # the online kernels' starting max: finite, so exp2(m - m_new) is never NaN
-ONLINE_BLOCK_K = 64  # key chunk of flash_online and the flash-VJP kernels (csrc/attn_tile.cuh)
-SHARED_ONLINE_BLOCK_K = 128  # key chunk of the shared online kernels (csrc/attn_wgmma.cuh)
+ONLINE_BLOCK_K = 64  # key chunk of the online kernels at d=512 (csrc/attn_tile.cuh), fallback
+SHARED_ONLINE_BLOCK_K = 128  # key chunk of the online kernels on csrc/attn_wgmma.cuh (d=64)
 # plain versions materialise fp32 score blocks of at most this many elements
 _PLAIN_BLOCK_ELEMS = 1 << 28
 
@@ -233,28 +234,54 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def flash_online_plain(q, k, v, *, scale: float, block_k: int = ONLINE_BLOCK_K) -> torch.Tensor:
+def flash_online_chunk(skv: int, d: int) -> int:
+    """Key chunk of the running max of ``flash_online`` and ``flash_fwd_lse``
+    over Skv keys at head dim d: the wgmma tile's at d = 64,
+    ``SHARED_ONLINE_BLOCK_K`` where it divides Skv, else ``ONLINE_BLOCK_K``;
+    ``ONLINE_BLOCK_K`` at any other width (d = 512: the tile of
+    ``csrc/attn_tile.cuh``). Skv where that is shorter (no kernel takes it)."""
+    if d == 64 and skv % SHARED_ONLINE_BLOCK_K == 0:
+        return SHARED_ONLINE_BLOCK_K
+    return min(ONLINE_BLOCK_K, skv)
+
+
+def check_flash_chunk(name: str, skv: int, d: int, block_k: int) -> None:
+    """Raises unless the online flash kernels take a key chunk of ``block_k``
+    over Skv keys at head dim d: 64 or 128 dividing Skv at d = 64 (the wgmma
+    tile), 64 at d = 512."""
+    takes = (ONLINE_BLOCK_K, SHARED_ONLINE_BLOCK_K) if d == 64 else (ONLINE_BLOCK_K,)
+    if block_k not in takes or skv % block_k:
+        raise ValueError(f"{name}: the kernel takes a key chunk of {takes} dividing Skv {skv} "
+                         f"at d={d}, not {block_k}")
+
+
+def flash_online_plain(q, k, v, *, scale: float, block_k: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/flash_online.cu``: q [B, H, Sq, d],
     k/v [B, H, Skv, d] -> [B, H, Sq, d], the running max taken over key chunks
-    of ``min(block_k, Skv)``. d < 128 rounds the exponent's argument to the
-    value dtype, d >= 128 keeps p in fp32 for the row sum, as the TPU kernel's
-    two branches do."""
-    return _online_softmax_av(_q_scaled(q, scale), k, v, q.dtype,
-                              block_k=min(block_k, k.shape[2]), arg_rounded=q.shape[-1] < 128)
+    of ``min(block_k, Skv)``, by default the kernel's (``flash_online_chunk``).
+    d < 128 rounds the exponent's argument to the value dtype, d >= 128 keeps
+    p in fp32 for the row sum, as the TPU kernel's two branches do."""
+    skv, d = k.shape[2], q.shape[-1]
+    bk = flash_online_chunk(skv, d) if block_k is None else min(block_k, skv)
+    return _online_softmax_av(_q_scaled(q, scale), k, v, q.dtype, block_k=bk,
+                              arg_rounded=d < 128)
 
 
 def flash_online(q, k, v, *, scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v with the numerics of the TPU's
     ``_flash_kernel`` (running max, no bound: no row can flush). Shapes and
-    the CUDA kernel's limits as ``flash_attention``."""
+    the CUDA kernel's limits as ``flash_attention``; the key chunk is
+    ``flash_online_chunk``'s."""
     if q.device.type == "cpu":
         return flash_online_plain(q, k, v, scale=scale)
     _check_flash("flash_online", q, k, v)
     b, h, sq, d = q.shape
+    skv = k.shape[2]
     out = torch.empty_like(q)
     rc = _build.load("flash_online").irt_flash_online_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, sq, k.shape[2], d, ctypes.c_float(scale * LOG2E), _stream_ptr(q),
+        b, h, sq, skv, d, flash_online_chunk(skv, d), ctypes.c_float(scale * LOG2E),
+        _stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"flash_online kernel launch failed: CUDA error {rc}")

@@ -16,7 +16,8 @@ instantiation, then launches each named kernel through its wrapper at the
 shapes of a batch-16 restore at 512 px and at small shapes that take its
 other tiles, and prints for each the max-abs and relative RMS error against
 its plain version, whether two launches agree bit for bit, and the time per
-launch. For the bound shared kernels it also checks that an id outside the
+launch; for flash_fwd_lse also the LSE's max-abs error (at most 1e-3 log2
+units). For the bound shared kernels it also checks that an id outside the
 identity cache makes exactly its sample's outputs NaN, and that a call whose
 bound slack passes 190 log2 units comes out non-finite. It exits 1 if a
 shape is outside max-abs 1e-3 + 1e-2 max|ref|, relative RMS 1e-2, or a
@@ -26,11 +27,14 @@ check fails.
 lies in), runs the named kernels at the 512 px shapes, writes their outputs
 to DIR and prints their times (CUDA events over 10 calls, and the device
 time alone from torch.profiler: the smallest shapes are paced by the host)
-and what one tiny call costs the host, and
+and what one tiny call of each costs the host, and
 prints a SHA-256 over the outputs of every other kernel on fixed seeded
-inputs. ``--compare`` reads two such directories and prints, per output,
-max-abs, relative RMS and max-abs in bf16 ulps at max |A| of B against A,
-the times side by side, and whether the hashes agree (exit 1 if not).
+inputs (the backward kernels take their residuals from the plain forward on
+a fixed chunk, so the hash does not see the forward kernel). ``--compare``
+reads two such directories and prints, per output, max-abs, relative RMS and
+max-abs in bf16 ulps at max |A| of B against A (and whether the two are
+bit-identical), the times side by side, and whether the hashes agree (exit 1
+if not).
 Run the old tree and the new one in turns on one card (old, new, new, old)
 to compare times.
 """
@@ -54,6 +58,12 @@ SMALL_SHAPES = [(2, 4, 192, 256), (2, 4, 256, 64), (2, 2, 64, 192), (3, 2, 64, 6
 FLASH_SHAPES = [(5, 4096, 64), (10, 1024, 64), (20, 256, 64), (20, 64, 64), (1, 4096, 512)]
 # (heads, queries, keys, head dim) of the flash-VJP kernels at batch 2
 VJP_SHAPES = [(5, 4096, 16384, 64), (10, 1024, 4096, 64), (20, 64, 64, 64), (1, 4096, 4096, 512)]
+# (batch, heads, Sq, Skv, head dim) of the plain kernels' other tiles: the
+# smallest call; one consumer warpgroup a block (Sq % 128 == 64) on 128-key
+# chunks; the 64-key chunk (128 does not divide Skv); d = 512
+FLASH_SMALL_SHAPES = [(2, 2, 64, 128, 64), (2, 4, 192, 256, 64), (2, 4, 256, 320, 64),
+                      (2, 1, 64, 64, 512)]
+LSE_TOL = 1e-3  # max-abs of the LSE against the plain version, log2 units
 IDS = [3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3]
 SOURCES = ("shared_identity", "flash_bound", "shared_flash_bound", "flash_fwd_lse",
            "flash_bwd_dq", "flash_bwd_dkv", "shared_online", "flash_online", "shared_online_pair")
@@ -115,6 +125,11 @@ def host_us(fn, reps: int = 300) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / reps * 1e6
+
+
+def outputs(result) -> tuple:
+    """A kernel's outputs as a tuple: (out,), or flash_fwd_lse's (out, lse)."""
+    return result if isinstance(result, tuple) else (result,)
 
 
 def errors(out, ref):
@@ -209,25 +224,30 @@ def cases(source: str, g, small: bool = False):
     elif source in ("flash_bound", "flash_online"):
         algo = source.split("_")[1]
         plain = sa.flash_attention_plain if algo == "bound" else sa.flash_online_plain
-        for h, s, d in ([(2, 64, 64), (1, 256, 512)] if small else FLASH_SHAPES):
-            b = 2 if small else (4 if d == 512 else BATCH)
-            q, k, v = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d)
-            yield (f"{source} B={b} H={h} S={s} d={d}",
+        shapes = FLASH_SMALL_SHAPES if small else [
+            (4 if d == 512 else BATCH, h, s, s, d) for h, s, d in FLASH_SHAPES]
+        for b, h, sq, skv, d in shapes:
+            q, k, v = rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, d)
+            tag = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"
+            yield (f"{source} B={b} H={h} {tag} d={d}",
                    lambda q=q, k=k, v=v, d=d: sa.flash_attention(q, k, v, scale=d ** -0.5,
                                                                  algo=algo),
                    lambda q=q, k=k, v=v, d=d: plain(q, k, v, scale=d ** -0.5))
     else:  # the flash-VJP kernels, batch 2
-        for h, sq, skv, d in ([(2, 64, 128, 64), (1, 64, 64, 512)] if small else VJP_SHAPES):
-            q, k, v, do = (rnd(2, h, n, d) for n in (sq, skv, skv, sq))
+        shapes = FLASH_SMALL_SHAPES if small else [(2, *shape) for shape in VJP_SHAPES]
+        for b, h, sq, skv, d in shapes:
+            q, k, v, do = (rnd(b, h, n, d) for n in (sq, skv, skv, sq))
             sc = d ** -0.5
-            out, lse = fv.flash_fwd_lse(q, k, v, scale=sc)
+            # the backward kernels' residuals from the plain forward on a fixed
+            # chunk: the same in every tree, whatever its forward kernel does
+            out, lse = fv.flash_fwd_lse_plain(q, k, v, scale=sc, block_k=64)
             delta = (do.float() * out.float()).sum(dim=-1)
             args = (q, k, v, do, lse, delta)
-            tag = f"B=2 H={h} Sq={sq} Skv={skv} d={d}"
-            if source == "flash_fwd_lse":
-                yield (f"{source} {tag}", lambda q=q, k=k, v=v, sc=sc: fv.flash_fwd_lse(
-                           q, k, v, scale=sc)[0],
-                       lambda q=q, k=k, v=v, sc=sc: fv.flash_fwd_lse_plain(q, k, v, scale=sc)[0])
+            tag = f"B={b} H={h} Sq={sq} Skv={skv} d={d}"
+            if source == "flash_fwd_lse":  # out and LSE
+                yield (f"{source} {tag}",
+                       lambda q=q, k=k, v=v, sc=sc: fv.flash_fwd_lse(q, k, v, scale=sc),
+                       lambda q=q, k=k, v=v, sc=sc: fv.flash_fwd_lse_plain(q, k, v, scale=sc))
             elif source == "flash_bwd_dq":
                 yield (f"{source} {tag}", lambda args=args, sc=sc: fv.flash_bwd_dq(*args, scale=sc),
                        lambda args=args, sc=sc: fv.flash_bwd_dq_plain(*args, scale=sc))
@@ -335,17 +355,21 @@ def check(names) -> int:
     for name in names:
         for small in (True, False):  # the small shapes first
             for label, run, plain in cases(name, g, small):
-                one = run()
+                one = outputs(run())
                 torch.cuda.synchronize()
-                err, tol, rel = errors(one, plain())
-                again = bool(torch.equal(one, run()))
+                ref = outputs(plain())
+                err, tol, rel = errors(one[0], ref[0])
+                again = all(torch.equal(a, b) for a, b in zip(one, outputs(run())))
                 rec = dict(kernel=name, case=label, max_abs=err, tol=tol, rel_rms=rel,
-                           finite=bool(torch.isfinite(one).all()), repeatable=again,
-                           ms=cuda_ms(run))
+                           finite=all(bool(torch.isfinite(t).all()) for t in one),
+                           repeatable=again, ms=cuda_ms(run))
                 rec["ok"] = rec["finite"] and err <= tol and rel <= 1e-2 and again
+                if len(one) == 2:  # flash_fwd_lse: the LSE too
+                    rec["lse_max_abs"] = float((one[1] - ref[1]).abs().max())
+                    rec["ok"] = rec["ok"] and rec["lse_max_abs"] <= LSE_TOL
                 bad += not rec["ok"]
                 print(f"check {json.dumps(rec)} [{card}]")
-                del one
+                del one, ref
             torch.cuda.empty_cache()
     if {"shared_identity", "shared_flash_bound"} & set(names):
         bad += special_checks(card)
@@ -371,20 +395,22 @@ def run_tree(out_dir: str, names) -> int:
     times, digest, hashed = {}, hashlib.sha256(), []
     for name in SOURCES:
         for label, run, _ in cases(name, g):
-            out = run()
+            outs = outputs(run())
             if name in names:
                 key = re.sub(r"[^A-Za-z0-9=_.]+", "_", label)
-                torch.save(out.cpu(), os.path.join(out_dir, f"{key}.pt"))
+                for suffix, out in zip(("", "_lse"), outs):
+                    torch.save(out.cpu(), os.path.join(out_dir, f"{key}{suffix}.pt"))
                 times[label] = cuda_ms(run)
                 times[f"device {label}"] = device_ms(run)
             else:
-                digest.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                for out in outs:
+                    digest.update(out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
                 hashed.append(label)
-            del out
+            del outs
         torch.cuda.empty_cache()
     # what a launch costs the host, on a call too small to keep the device busy
-    small = [c for name in names for c in cases(name, g, small=True)]
-    for label, run, _ in small[-2:]:
+    for name in names:
+        label, run, _ = next(iter(cases(name, g, small=True)))
         times[f"host us per call, {label}"] = host_us(run)
     torch.cuda.synchronize()
     result = dict(times_ms=times, hash=digest.hexdigest(), hashed_outputs=hashed, card=card)
@@ -414,9 +440,10 @@ def compare(dir_a: str, dir_b: str) -> int:
     for name in sorted(f for f in os.listdir(dir_a) if f.endswith(".pt")):
         a = torch.load(os.path.join(dir_a, name)).float()
         b = torch.load(os.path.join(dir_b, name)).float()
+        same_bits = " (bit-identical)" if torch.equal(a, b) else ""
         print(f"{name[:-3]}: B against A max-abs {float((b - a).abs().max()):.5f}, relative RMS "
               f"{float((b - a).norm() / a.norm()):.3e}, {bf16_ulps(a, b):.2f} bf16 ulps at max|A| "
-              f"{float(a.abs().max()):.3f}")
+              f"{float(a.abs().max()):.3f}{same_bits}")
     for key, ms_a in res[0]["times_ms"].items():
         ms_b = res[1]["times_ms"].get(key)
         if ms_b is not None:
