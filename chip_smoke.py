@@ -26,17 +26,22 @@ Without arguments every phase runs and the last two lines are the result;
    (one consumer warpgroup at Sq % 128 == 64, the 64-key chunk at S = 64)
    are held against the plain versions too, for the online kernels and the
    two bound ones (shared_flash_bound, and shared_identity through the
-   paired route). flash_online at d=64 runs on the same wgmma tile in its
-   plain layout: two launches agree bit for bit at every shape, and its other
-   tiles (FLASH_VARIANT_SHAPES: Sq % 128 == 64, a 64-key chunk, Sq != Skv)
-   are held against the plain version on the kernel's chunk. Each shared row
-   also carries
+   paired route). flash_online and flash_bound at d=64 run on the same wgmma
+   tile in its plain layout (flash_bound at d=512 on the d=512 wgmma tile):
+   two launches agree bit for bit at every shape, and their other tiles
+   (FLASH_VARIANT_SHAPES: Sq % 128 == 64, a 64-key chunk, Sq != Skv) are
+   held against the plain versions, flash_online's on the kernel's chunk;
+   flash_bound also at d=512 at the cold capture's batch of 64
+   (FLASH_CAPTURE_D512). Each shared row also carries
    exp2_ms: its scores over 16 exp2 per clock per SM on 132 SMs at the
    card's maximum SM clock (nvidia-smi clocks.max.sm), the other unit that
    bounds a d=64 attention. The escape hatch: on a call whose bound slack
    passes 190 log2 units the two bound shared kernels (shared_flash_bound and,
    through the paired route, shared_identity) return no finite row, the
-   online kernel finite rows equal to its plain version, twice the same bits.
+   online kernel finite rows equal to its plain version, twice the same bits;
+   flash_bound at d=64 and d=512 loses exactly the rows its plain version
+   loses (the rows of large norm, not those of small), and flash_online is
+   finite on the same inputs.
    An identity id outside the cache makes exactly its sample's outputs NaN in
    both bound kernels that read the cache by id;
 3b. flash-VJP kernel phase ("vjp"): flash_fwd_lse, flash_bwd_dq and
@@ -140,6 +145,9 @@ VJP_AUTOGRAD_REL_RMS = 3e-2  # bf16 P, dS and outputs against an fp32 reference
 # flash_fwd_lse on the wgmma tile: one consumer warpgroup a block (Sq % 128 ==
 # 64) on 128-key chunks; the 64-key chunk (128 does not divide Skv)
 FLASH_VARIANT_SHAPES = [(2, 4, 192, 256), (2, 4, 256, 320)]
+# (batch, heads, tokens, head dim) of flash_bound in the cold restore's capture
+# pass: the VAE mid attention of the 64 references' encode
+FLASH_CAPTURE_D512 = (64, 1, 4096, 512)
 LSE_TOL = 1e-3  # flash_fwd_lse's LSE against its plain version, max-abs in log2 units
 
 
@@ -281,10 +289,13 @@ def kernel_phase(card: str):
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=fscale)
         flops, nbytes = 4.0 * BATCH * h * s * s * fd, 4 * BATCH * h * s * fd * 2
         meta = dict(heads=h, tokens=s, head_dim=fd, per_pass=per_pass)
-        flash_rows.append(row(f"flash_bound H={h} S={s} d={fd}",
-                              lambda: sa.flash_attention(q, k, v, scale=fscale, algo="bound"),
+        bound_call = lambda: sa.flash_attention(q, k, v, scale=fscale, algo="bound")
+        flash_rows.append(row(f"flash_bound H={h} S={s} d={fd}", bound_call,
                               lambda: sa.flash_attention_plain(q, k, v, scale=fscale),
-                              lib, flops, nbytes + BATCH * h * 4, **meta))
+                              lib, flops, nbytes + BATCH * h * 4,
+                              **dict(meta, chunk=sa.flash_bound_chunk(s, s, fd))))
+        if not torch.equal(bound_call(), bound_call()):
+            raise AssertionError(f"flash_bound H={h} S={s} d={fd}: two launches differ")
         online = lambda: sa.flash_attention(q, k, v, scale=fscale, algo="online")
         fonline_rows.append(row(f"flash_online H={h} S={s} d={fd}", online,
                                 lambda: sa.flash_online_plain(q, k, v, scale=fscale),
@@ -295,18 +306,45 @@ def kernel_phase(card: str):
         del q, k, v
         torch.cuda.empty_cache()
 
-    # row 8 on the wgmma tile's other tiles, against the plain version on the
-    # kernel's chunk
+    # row 2 at the cold capture's batch of 64 at d=512
+    b, h, s, fd = FLASH_CAPTURE_D512
+    q, k, v = rnd(b, h, s, fd), rnd(b, h, s, fd), rnd(b, h, s, fd)
+    bound_call = lambda: sa.flash_attention(q, k, v, scale=fd ** -0.5, algo="bound")
+    flash_rows.append(row(
+        f"flash_bound B={b} H={h} S={s} d={fd}", bound_call,
+        lambda: sa.flash_attention_plain(q, k, v, scale=fd ** -0.5),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=fd ** -0.5),
+        4.0 * b * h * s * s * fd, 4 * b * h * s * fd * 2 + b * h * 4,
+        batch=b, heads=h, tokens=s, head_dim=fd, per_pass=0,
+        chunk=sa.flash_bound_chunk(s, s, fd), route="the cold capture's VAE encode"))
+    if not torch.equal(bound_call(), bound_call()):
+        raise AssertionError(f"flash_bound B={b} d={fd}: two launches differ")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # rows 2 and 8 on the wgmma tile's other tiles, against the plain versions
+    # (row 8's on the kernel's chunk)
     for b, h, sq, skv in FLASH_VARIANT_SHAPES:
         q, k, v = rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, d)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+        flops = 4.0 * b * h * sq * skv * d
+        nbytes = (2 * b * h * sq * d + 2 * b * h * skv * d) * 2
+        chunk = sa.flash_bound_chunk(sq, skv, d)
+        bound_call = lambda: sa.flash_attention(q, k, v, scale=scale, algo="bound")
+        flash_rows.append(row(
+            f"flash_bound B={b} H={h} Sq={sq} Skv={skv}", bound_call,
+            lambda: sa.flash_attention_plain(q, k, v, scale=scale), lib, flops,
+            nbytes + b * h * 4, batch=b, heads=h, queries=sq, keys=skv, head_dim=d,
+            per_pass=0, chunk=chunk,
+            route=f"{128 if sq % 128 == 0 else 64} query rows a block, key chunk {chunk}"))
+        if not torch.equal(bound_call(), bound_call()):
+            raise AssertionError(f"flash_bound Sq={sq} Skv={skv}: two launches differ")
         chunk = sa.flash_online_chunk(skv, d)
         online = lambda: sa.flash_attention(q, k, v, scale=scale, algo="online")
         fonline_rows.append(row(
             f"flash_online B={b} H={h} Sq={sq} Skv={skv}", online,
-            lambda: sa.flash_online_plain(q, k, v, scale=scale, block_k=chunk),
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
-            4.0 * b * h * sq * skv * d, (2 * b * h * sq * d + 2 * b * h * skv * d) * 2,
-            batch=b, heads=h, queries=sq, keys=skv, head_dim=d, per_pass=0, chunk=chunk,
+            lambda: sa.flash_online_plain(q, k, v, scale=scale, block_k=chunk), lib, flops,
+            nbytes, batch=b, heads=h, queries=sq, keys=skv, head_dim=d, per_pass=0, chunk=chunk,
             route=f"{128 if sq % 128 == 0 else 64} query rows a block, key chunk {chunk}"))
         if not torch.equal(online(), online()):
             raise AssertionError(f"flash_online Sq={sq} Skv={skv}: two launches differ")
@@ -609,8 +647,8 @@ def vjp_kernel_phase(card: str):
 def escape_hatch(card: str):
     """Bound slack beyond ~190 log2 units on the card: one large-norm key
     orthogonal to every query lifts every row's bound far above its scores.
-    The bound kernel flushes each p to 0 and returns 0 / 0; the online kernel
-    stays finite and equals its plain version."""
+    The bound kernels flush each p to 0 and return 0 / 0; the online kernels
+    stay finite and equal their plain versions."""
     import torch
 
     from instantrestore_tpu_torch.ops import shared_attention as sa
@@ -649,6 +687,39 @@ def escape_hatch(card: str):
           f"against its plain version, a second launch and shared_online_pair bit-identical")
     if slack <= 190 or bad_rows != b * h * s or bad_paired != b * h * s:
         raise AssertionError("escape hatch: a bound kernel did not lose every row")
+
+    # flash_bound at both widths: every odd query row scaled to a thousandth
+    # keeps its bound within reach, the others lose it; the kernel loses
+    # exactly the rows its plain version loses, agrees with it on the rest,
+    # and flash_online is finite on the same inputs
+    for fb, fh, fs, fd in ((2, 10, 1024, 64), (2, 1, 256, 512)):
+        q = torch.randn((fb, fh, fs, fd), generator=g, device=dev)
+        q[..., fd // 2:] = 0
+        q[:, :, 1::2] *= 1e-3
+        q = q.to(torch.bfloat16)
+        k = torch.randn((fb, fh, fs, fd), generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn((fb, fh, fs, fd), generator=g, device=dev).to(torch.bfloat16)
+        k[:, :, 5, :] = 0
+        k[:, :, 5, fd - 1] = 4096.0
+        fscale = fd ** -0.5
+        slack = _slack(q, k, fscale)
+        out = sa.flash_attention(q, k, v, scale=fscale, algo="bound")
+        ref = sa.flash_attention_plain(q, k, v, scale=fscale)
+        online = sa.flash_attention(q, k, v, scale=fscale, algo="online")
+        torch.cuda.synchronize()
+        lost, lost_ref = (~torch.isfinite(x).all(dim=-1) for x in (out, ref))
+        n_lost = int(lost.sum())
+        err, tol, _ = compare(f"escape hatch, flash_bound d={fd}, rows kept", out[~lost],
+                              ref[~lost])
+        o_err, o_tol, _ = compare(f"escape hatch, flash_online d={fd}", online,
+                                  sa.flash_online_plain(q, k, v, scale=fscale))
+        print(f"escape hatch [{card}]: flash_bound d={fd} slack {slack:.0f} log2 units; "
+              f"non-finite rows {n_lost} of {fb * fh * fs}, the same rows as its plain "
+              f"version: {torch.equal(lost, lost_ref)}; rows kept max-abs {err:.5f} (tol "
+              f"{tol:.4f}); flash_online finite, max-abs {o_err:.5f} (tol {o_tol:.4f})")
+        if slack <= 190 or n_lost != fb * fh * fs // 2 or not torch.equal(lost, lost_ref):
+            raise AssertionError(f"escape hatch: flash_bound d={fd} did not lose exactly the "
+                                 f"rows its plain version loses")
 
 
 def out_of_cache_id(card: str):

@@ -1,29 +1,23 @@
-// Attention tile of the plain flash kernels where the wgmma tile does not
-// serve them: the bound-softmax one (flash_bound.cu) at d = 64 and d = 512,
-// and at d = 512 only the online-max one (flash_online.cu) and the training
-// forward (flash_fwd_lse.cu: the online policy plus the log-sum-exp of each
-// row). The shared kernels, and flash_online and flash_fwd_lse at d = 64, run
-// on the wgmma + TMA tile of attn_wgmma.cuh.
+// Attention tile of the plain online flash kernels where the wgmma tile does
+// not serve them: at d = 512 the online-max one (flash_online.cu) and the
+// training forward (flash_fwd_lse.cu: the online policy plus the log-sum-exp
+// of each row). The shared kernels, the plain kernels at d = 64 and the bound
+// one (flash_bound.cu) at d = 512 run on the wgmma + TMA tiles of
+// attn_wgmma.cuh and attn_wgmma_d512.cuh; flash_bwd_tile.cuh takes the
+// bf16 packing helpers from here.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
 // One block computes BQ query rows of one (batch, head) against the keys of
 // that (batch, head), streamed through shared memory in tiles of BK keys.
-// Scores and the output accumulator are fp32. Two softmax policies:
+// Scores and the output accumulator are fp32.
 //
-// Bound: no running max. Each query row carries the Cauchy-Schwarz bound of
-// the JAX package (ops/shared_attention.py, _flash_bound_kernel),
-//     bound_i = ||q_i|| * scale * log2(e) * max_j ||k_j|| - 64,
-// so p_ij = exp2(s_ij - bound_i) <= 2^64 and out_i = sum_j p_ij v_j / sum_j p_ij.
-// p reaches 2^64, so it enters the tensor-core product as bf16 (fp32's
-// exponent range), never fp16 (overflows at 65504). A row whose largest
-// score lies more than ~190 log2 units under its bound flushes to 0 / 0.
-//
-// Online: the running max of the JAX package's _flash_kernel. Each query row keeps m (log2 units, started at the
-// finite -1e30, so that the first alpha is exp2(-1e30 - m) = 0 and never
-// inf - inf); per key tile m_new = max(m, rowmax(s)), alpha = exp2(m - m_new),
-// p = exp2(s - m_new) <= 1, and the row sum and the output accumulator are
-// rescaled by alpha before the tile's P V is added. No row can flush. At
+// The running max of the JAX package's _flash_kernel. Each query row keeps m
+// (log2 units, started at the finite -1e30, so that the first alpha is
+// exp2(-1e30 - m) = 0 and never inf - inf); per key tile m_new = max(m,
+// rowmax(s)), alpha = exp2(m - m_new), p = exp2(s - m_new) <= 1, and the row
+// sum and the output accumulator are rescaled by alpha before the tile's P V
+// is added. No row can flush. At
 // d < 128 the argument s - m_new is rounded to bf16 before exp2 and the row
 // sum adds the bf16-rounded p; at d >= 128 p stays fp32 for the sum and only
 // the product's operand is rounded (as _flash_kernel's two branches do).
@@ -40,12 +34,11 @@
 // the output fragments it owns, which stay in registers across the whole
 // key loop. The epilogue divides by the row sums and writes bf16.
 //
-// Tiles that fit: d=64 keeps a 64x64 block in 4 warps (each warp owns 16
-// query rows x 64 channels). d=512 (the VAE mid attention) cannot hold a
-// 64x512 fp32 accumulator in one block's registers; it takes 32 query rows
-// in 8 warps, and the 32x512 accumulator is split by channel slabs across
-// the warps (64 registers each). Its K and V tiles need 176 KB of shared
-// memory, opted in with cudaFuncSetAttribute.
+// The tile that fits: d=512 (the VAE mid attention) cannot hold a 64x512
+// fp32 accumulator in one block's registers; it takes 32 query rows in 8
+// warps, and the 32x512 accumulator is split by channel slabs across the
+// warps (64 registers each). Its K and V tiles need 176 KB of shared memory,
+// opted in with cudaFuncSetAttribute.
 
 #pragma once
 
@@ -58,18 +51,10 @@ namespace irt {
 
 using namespace nvcuda;
 
-constexpr float kBoundExpShift = 64.0f;
-
-// kFlash: plain attention, row sum over bf16-rounded p, bound from the
-// unscaled fp32 q norm (JAX _flash_bound_kernel).
 // kFlashOnline: plain attention with the running max (JAX _flash_kernel).
 // kFlashLse: kFlashOnline that also writes lse2 = m + log2(row sum), the
 // residual of the backward kernels (JAX ops/flash_vjp.py, _fwd_lse_kernel).
-enum class Mode { kFlash, kFlashOnline, kFlashLse };
-
-__host__ __device__ constexpr bool is_online(Mode m) {
-  return m == Mode::kFlashOnline || m == Mode::kFlashLse;
-}
+enum class Mode { kFlashOnline, kFlashLse };
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' finite sentinel
 constexpr int kAlphaCols = 16;     // width of the alpha tile: one fp32 WMMA fragment
@@ -86,12 +71,11 @@ struct TileCfg {
   static constexpr int kVOff = kKOff + BK * kLdh * 2;
   static constexpr int kPOff = kVOff + BK * kLdh * 2;
   static constexpr int kSOff = kPOff + BQ * kLdp * 2;
-  static constexpr int kSmemBytes = kSOff + BQ * kLds * 4;
-  static constexpr int kAOff = kSmemBytes;  // the online policy's alpha tile
-  static constexpr int kOnlineSmemBytes = kAOff + BQ * kAlphaCols * 4;
+  static constexpr int kAOff = kSOff + BQ * kLds * 4;  // the alpha tile
+  static constexpr int kSmemBytes = kAOff + BQ * kAlphaCols * 4;
   static constexpr int kTpr = kThreads / BQ;          // threads per query row
   static constexpr int kColsPerThread = BK / kTpr;    // scores per thread per tile
-  static constexpr int kDimsPerThread = D / kTpr;     // q channels per thread
+  static constexpr int kDimsPerThread = D / kTpr;     // q channels per thread of the Q copy
   static constexpr int kSFrags = (BQ / 16) * (BK / 16) / NW;  // score fragments per warp
   static constexpr int kOFrags = (BQ / 16) * (D / 16) / NW;   // output fragments per warp
 
@@ -105,9 +89,9 @@ struct TileCfg {
                 "per-thread spans are whole 16-byte vectors");
   static_assert(BQ * kLdo * 4 <= 2 * BK * kLdh * 2,
                 "the output staging tile reuses the K and V tiles");
-  static_assert(kOnlineSmemBytes <= 232448, "over the 227 KB a block may use");
+  static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
   static_assert(kKOff % 32 == 0 && kVOff % 32 == 0 && kPOff % 32 == 0 && kSOff % 32 == 0 &&
-                    kAOff % 32 == 0 && kOnlineSmemBytes % 128 == 0 && kSmemBytes % 128 == 0,
+                    kAOff % 32 == 0 && kSmemBytes % 128 == 0,
                 "WMMA needs 256-bit aligned tiles");
 };
 
@@ -136,21 +120,18 @@ __device__ __forceinline__ void load8f(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// q, out: [B, H, Sq, D]; k, v: [B, H, S, D]. kmax (kFlash only): max key
-// norm, [B, H]. qscale = scale * log2(e). lse (kFlashLse only): [B, H, Sq]
-// fp32, log2 units.
+// q, out: [B, H, Sq, D]; k, v: [B, H, S, D]. qscale = scale * log2(e). lse
+// (kFlashLse only): [B, H, Sq] fp32, log2 units.
 template <Mode M, int D, int BQ, int BK, int NW>
 __global__ void __launch_bounds__(NW * 32)
 attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 const float* __restrict__ kmax,
                  __nv_bfloat16* __restrict__ out,
                  int H, int Sq, int S, float qscale,
                  float* __restrict__ lse) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
-  constexpr bool kOnline = is_online(M);
-  constexpr bool kArgBf16 = D < 128;  // online: round s - m to bf16 before exp2
+  constexpr bool kArgBf16 = D < 128;  // round s - m to bf16 before exp2
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::kQOff);
@@ -165,14 +146,11 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z;
   const size_t q_base = ((size_t)(b * H + h) * Sq + (size_t)blockIdx.x * BQ) * D;
 
-  const float kmax_bh = kOnline ? 0.f : kmax[b * H + h];
-
   // Q tile, pre-scaled in bf16 as the JAX kernels do (q * bf16(scale*log2e)),
-  // and the per-row bound, from the thread group that owns the row.
+  // copied by the thread group that owns the row.
   const int r = tid / Cfg::kTpr;
   const int part = tid % Cfg::kTpr;
   const float qs_bf = __bfloat162float(__float2bfloat16(qscale));
-  float ss_raw = 0.f;
   {
     const __nv_bfloat16* src = q + q_base + (size_t)r * D + part * Cfg::kDimsPerThread;
     __nv_bfloat16* dst = Qs + r * Cfg::kLdh + part * Cfg::kDimsPerThread;
@@ -181,17 +159,10 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
       float f[8], g[8];
       unpack8(*reinterpret_cast<const uint4*>(src + c), f);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        ss_raw += f[e] * f[e];
-        g[e] = f[e] * qs_bf;
-      }
+      for (int e = 0; e < 8; ++e) g[e] = f[e] * qs_bf;
       *reinterpret_cast<uint4*>(dst + c) = pack8(g);
     }
   }
-#pragma unroll
-  for (int off = Cfg::kTpr / 2; off > 0; off >>= 1)
-    ss_raw += __shfl_xor_sync(0xffffffffu, ss_raw, off);
-  const float bound = sqrtf(ss_raw) * qscale * kmax_bh - kBoundExpShift;
 
   // fragments owned by this warp
   const int s_first = warp * Cfg::kSFrags;
@@ -242,42 +213,38 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // (3) p = exp2(s - bound), or exp2(s - running max) -> bf16 P tile, row sums
+    // (3) p = exp2(s - running max) -> bf16 P tile, row sums
     {
       const float* srow = Ss + r * Cfg::kLds + part * Cfg::kColsPerThread;
       __nv_bfloat16* prow = Ps + r * Cfg::kLdp + part * Cfg::kColsPerThread;
-      float shift = bound;
-      if constexpr (kOnline) {
-        float m_new = m_run;
+      float m_new = m_run;
 #pragma unroll
-        for (int c = 0; c < Cfg::kColsPerThread; c += 8) {
-          float sc[8];
-          load8f(srow + c, sc);
+      for (int c = 0; c < Cfg::kColsPerThread; c += 8) {
+        float sc[8];
+        load8f(srow + c, sc);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) m_new = fmaxf(m_new, sc[e]);
-        }
-#pragma unroll
-        for (int off = Cfg::kTpr / 2; off > 0; off >>= 1)
-          m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, off));
-        const float alpha = exp2f(m_run - m_new);
-        m_run = m_new;
-        shift = m_new;
-        lsum *= alpha;  // each thread's share of the row sum takes the row's alpha
-        for (int c = part; c < kAlphaCols; c += Cfg::kTpr) Al[r * kAlphaCols + c] = alpha;
+        for (int e = 0; e < 8; ++e) m_new = fmaxf(m_new, sc[e]);
       }
+#pragma unroll
+      for (int off = Cfg::kTpr / 2; off > 0; off >>= 1)
+        m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, off));
+      const float alpha = exp2f(m_run - m_new);
+      m_run = m_new;
+      lsum *= alpha;  // each thread's share of the row sum takes the row's alpha
+      for (int c = part; c < kAlphaCols; c += Cfg::kTpr) Al[r * kAlphaCols + c] = alpha;
 #pragma unroll
       for (int c = 0; c < Cfg::kColsPerThread; c += 8) {
         float p[8];
         load8f(srow + c, p);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          float arg = p[e] - shift;
-          if constexpr (kOnline && kArgBf16) arg = __bfloat162float(__float2bfloat16(arg));
+          float arg = p[e] - m_new;
+          if constexpr (kArgBf16) arg = __bfloat162float(__float2bfloat16(arg));
           p[e] = exp2f(arg);
         }
         const uint4 packed = pack8(p);
         // sum what the product sees, except where the JAX kernel sums fp32 p
-        if constexpr (!kOnline || kArgBf16) unpack8(packed, p);
+        if constexpr (kArgBf16) unpack8(packed, p);
 #pragma unroll
         for (int e = 0; e < 8; ++e) lsum += p[e];
         *reinterpret_cast<uint4*>(prow + c) = packed;
@@ -286,7 +253,7 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     // (4) O = O * alpha + P V
-    if constexpr (kOnline) {
+    {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> a_frag;
       wmma::load_matrix_sync(a_frag, Al + o_rt * 16 * kAlphaCols, kAlphaCols,
                              wmma::mem_row_major);
@@ -339,15 +306,13 @@ attn_tile_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <Mode M, int D, int BQ, int BK, int NW>
-cudaError_t launch_attn(const void* q, const void* k, const void* v, const void* kmax, void* out,
-                        int B, int H, int Sq, int S, float qscale, void* stream,
-                        void* lse = nullptr) {
+cudaError_t launch_attn(const void* q, const void* k, const void* v, void* out, int B, int H,
+                        int Sq, int S, float qscale, void* stream, void* lse = nullptr) {
   using Cfg = TileCfg<D, BQ, BK, NW>;
   if (B <= 0 || H <= 0 || Sq <= 0 || S <= 0 || Sq % BQ != 0 || S % BK != 0 || B > 65535 ||
-      H > 65535 || (!is_online(M) && kmax == nullptr) || (M == Mode::kFlashLse && lse == nullptr))
+      H > 65535 || (M == Mode::kFlashLse && lse == nullptr))
     return cudaErrorInvalidValue;
-  constexpr int kBytes = is_online(M) ? Cfg::kOnlineSmemBytes : Cfg::kSmemBytes;
-  static_assert(kBytes <= 232448, "over the 227 KB a block may use");
+  constexpr int kBytes = Cfg::kSmemBytes;
   auto kern = attn_tile_kernel<M, D, BQ, BK, NW>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -355,8 +320,8 @@ cudaError_t launch_attn(const void* q, const void* k, const void* v, const void*
   const dim3 grid(Sq / BQ, H, B);
   kern<<<grid, Cfg::kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kmax),
-      static_cast<__nv_bfloat16*>(out), H, Sq, S, qscale, static_cast<float*>(lse));
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Sq, S, qscale,
+      static_cast<float*>(lse));
   return cudaGetLastError();
 }
 

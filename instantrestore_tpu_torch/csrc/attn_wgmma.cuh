@@ -1,12 +1,13 @@
 // Attention tile of the shared kernels (shared_online.cu,
 // shared_online_pair.cu, shared_flash_bound.cu, shared_identity.cu) and of
-// the online plain kernels at d = 64 (flash_online.cu, flash_fwd_lse.cu) at
-// head dim 64, designed for Hopper: wgmma.mma_async for both products with
-// every accumulator in registers, K and V tiles brought by TMA
-// (cp.async.bulk.tensor) into a ring of shared-memory stages behind
-// mbarriers, the softmax on the register fragments. attn_tile.cuh (mma.sync,
-// scores staged through shared memory) stays for flash_bound.cu and for the
-// plain kernels at d = 512.
+// the plain kernels at d = 64 (flash_bound.cu, flash_online.cu,
+// flash_fwd_lse.cu) at head dim 64, designed for Hopper: wgmma.mma_async for
+// both products with every accumulator in registers, K and V tiles brought by
+// TMA (cp.async.bulk.tensor) into a ring of shared-memory stages behind
+// mbarriers, the softmax on the register fragments. flash_bound.cu at d = 512
+// runs on attn_wgmma_d512.cuh (built from this file's PTX wrappers);
+// attn_tile.cuh (mma.sync, scores staged through shared memory) stays for the
+// online plain kernels at d = 512.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
@@ -17,8 +18,10 @@
 //     q's own (b, h), the input segment alone (n_in = 1, N = 0, S = Skv, two
 //     tensor maps). The affine warps leave at once and the second product
 //     waits for nothing but the `full` its first product already waited for.
-//     With Problem::lse it also writes lse2 = m + log2(l) per row, fp32
-//     [B, H, Sq] (kOnline: the training forward, JAX _fwd_lse_kernel).
+//     kOnline (flash_online.cu) and kBound with kmax [B, H] (flash_bound.cu,
+//     JAX _flash_bound_kernel). With Problem::lse kOnline also writes lse2 =
+//     m + log2(l) per row, fp32 [B, H, Sq] (the training forward, JAX
+//     _fwd_lse_kernel).
 //
 // The function (JAX: the shared-attention kernels of
 // instantrestore_tpu/ops/shared_attention.py):
@@ -142,10 +145,11 @@ inline Problem make_problem(const void* q, const void* k_in, const void* v_in, c
 }
 
 // The plain layout's problem: q, out [B, H, Sq, 64], k/v [B, H, Skv, 64],
-// lse [B, H, Sq] fp32 or null.
+// lse [B, H, Sq] fp32 or null, kmax [B, H] fp32 (kBound) or null.
 inline Problem make_flash_problem(const void* q, const void* k, const void* v, void* out,
-                                  void* lse, int B, int H, int Sq, int Skv, float qscale) {
-  Problem pr = make_problem(q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, out, B, H, Sq,
+                                  void* lse, int B, int H, int Sq, int Skv, float qscale,
+                                  const void* kmax = nullptr) {
+  Problem pr = make_problem(q, k, v, nullptr, nullptr, nullptr, kmax, nullptr, out, B, H, Sq,
                             Skv, 0, B, 1, qscale);
   pr.lse = static_cast<float*>(lse);
   return pr;
@@ -491,8 +495,8 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
                          const __grid_constant__ CUtensorMap map_rv, const Problem pr) {
   using C = Cfg<BK, NCONS, PAIR, STAGES>;
   static_assert(P == Policy::kOnline || !PAIR, "the bound policies take one head a block");
-  static_assert(L == Layout::kShared || (P == Policy::kOnline && !PAIR),
-                "the plain layout serves the online policy, one head a block");
+  static_assert(L == Layout::kShared || (P != Policy::kIdentity && !PAIR),
+                "the plain layout serves the online and bound policies, one head a block");
   constexpr bool kPlain = L == Layout::kPlain;
   constexpr bool kOnes = P != Policy::kIdentity;  // row sums of the rounded p on the tensor cores
   extern __shared__ unsigned char smem_raw[];
@@ -850,7 +854,7 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
     }
   }
   // lse2 = m + log2(l) of rows g and g + 8: the quad shares both, one lane writes
-  if constexpr (kPlain) {
+  if constexpr (kPlain && P == Policy::kOnline) {
     if (pr.lse != nullptr && tq == 0) {
       const size_t row0 = static_cast<size_t>(b * H + h) * Sq + q0 + warp * 16 + g;
 #pragma unroll
@@ -882,13 +886,15 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Tensor map over a contiguous [rows, 64] bf16 array with a [box_rows, 64]
-// box in the 128-byte swizzle.
-inline bool encode_rows_map(CUtensorMap* map, const void* base, uint64_t rows, uint32_t box_rows) {
+// Tensor map over a contiguous [rows, cols] bf16 array with a [box_rows, 64]
+// box in the 128-byte swizzle (cols > 64: the box is one 64-channel slab of a
+// row, addressed by its first column).
+inline bool encode_rows_map(CUtensorMap* map, const void* base, uint64_t rows, uint32_t box_rows,
+                            uint64_t cols = kD) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {kD, rows};
-  const cuuint64_t strides[1] = {kRowBytes};
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
   const cuuint32_t box[2] = {kD, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
@@ -961,19 +967,23 @@ cudaError_t launch_shared(const Problem& pr, void* stream) {
 #undef IRT_RUN
 }
 
-// The plain layout (flash_online.cu, flash_fwd_lse.cu: Policy::kOnline):
-// q [B, H, Sq, 64] against the Skv = pr.S keys of k_in/v_in [B, H, Skv, 64].
-// The key chunk is the caller's, bk = 128 or 64 dividing Skv (the result
-// depends on it at bf16 rounding level: ops/shared_attention.py,
-// flash_online_chunk); 128 query rows a block where they divide Sq, else 64.
-// Refuses Sq not a multiple of 64, another chunk, more than 65535 samples or
-// heads, and key rows past the tensor maps' 2^31 row coordinates.
+// The plain layout (flash_online.cu, flash_fwd_lse.cu: Policy::kOnline;
+// flash_bound.cu: Policy::kBound with pr.kmax [B, H]): q [B, H, Sq, 64]
+// against the Skv = pr.S keys of k_in/v_in [B, H, Skv, 64]. The key chunk is
+// the caller's, bk = 128 or 64 dividing Skv (kOnline's result depends on it at
+// bf16 rounding level, kBound's through fp32 summation order only:
+// ops/shared_attention.py, flash_online_chunk and flash_bound_chunk); 128
+// query rows a block where they divide Sq, else 64. Refuses Sq not a multiple
+// of 64, another chunk, more than 65535 samples or heads, a bound policy
+// without kmax, and key rows past the tensor maps' 2^31 row coordinates.
 template <Policy P>
 cudaError_t launch_flash(const Problem& pr, int bk, void* stream) {
+  static_assert(P != Policy::kIdentity, "the identity policy reads an identity cache");
   if (pr.B <= 0 || pr.H <= 0 || pr.Sq <= 0 || pr.S <= 0 || pr.Sq % 64 != 0 ||
       (bk != 64 && bk != 128) || pr.S % bk != 0 || pr.B > 65535 || pr.H > 65535 || pr.N != 0 ||
       pr.n_in != 1 || pr.q == nullptr || pr.k_in == nullptr || pr.v_in == nullptr ||
-      pr.out == nullptr || static_cast<uint64_t>(pr.B) * pr.H * pr.S > 0x7fffffffull)
+      pr.out == nullptr || (P == Policy::kBound && pr.kmax == nullptr) || pr.ids != nullptr ||
+      static_cast<uint64_t>(pr.B) * pr.H * pr.S > 0x7fffffffull)
     return cudaErrorInvalidValue;
 #define IRT_RUN(BK, NCONS) run_shared<P, BK, NCONS, false, Layout::kPlain>(pr, stream)
   const bool wide = pr.Sq % 128 == 0;

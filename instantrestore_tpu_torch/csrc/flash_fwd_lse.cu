@@ -37,6 +37,6 @@ extern "C" int irt_flash_fwd_lse_bf16(const void* q, const void* k, const void* 
         irt::wg::make_flash_problem(q, k, v, out, lse, B, H, Sq, Skv, qscale), block_k, stream);
   if (D == 512 && block_k == 64)
     return (int)irt::launch_attn<irt::Mode::kFlashLse, 512, 32, 64, 8>(
-        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream, lse);
+        q, k, v, out, B, H, Sq, Skv, qscale, stream, lse);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,6 +42,6 @@ extern "C" int irt_flash_online_bf16(const void* q, const void* k, const void* v
         stream);
   if (D == 512 && block_k == 64)
     return (int)irt::launch_attn<irt::Mode::kFlashOnline, 512, 32, 64, 8>(
-        q, k, v, nullptr, out, B, H, Sq, Skv, qscale, stream);
+        q, k, v, out, B, H, Sq, Skv, qscale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_bound": {
-        "irt_flash_bound_bf16": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
+        "irt_flash_bound_bf16": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
     },
     "shared_identity": {
         "irt_shared_identity_bf16": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),

@@ -73,12 +73,12 @@ def flash_fwd_lse(q, k, v, *, scale: float,
                   block_k: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """softmax(q k^T * scale) v and each row's log-sum-exp in log2 units.
     Shapes and the CUDA kernel's limits as ``ops.shared_attention
-    .flash_attention``. ``block_k`` is the key chunk of the running max
+    .flash_online``. ``block_k`` is the key chunk of the running max
     (default ``flash_online_chunk``'s); the kernel takes 64 or 128 dividing
     Skv at d = 64 and 64 at d = 512, and raises on any other."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale=scale, block_k=block_k)
-    sa._check_flash("flash_fwd_lse", q, k, v)
+    sa._check_flash("flash_fwd_lse", q, k, v, sa._online_tiles_fit)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if block_k is None:
@@ -157,7 +157,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 
 
 def _check_backward(name: str, q, k, v, do, lse, delta) -> None:
-    sa._check_flash(name, q, k, v)
+    sa._check_flash(name, q, k, v, sa._online_tiles_fit)
     f32 = torch.float32
     sa._check_cuda(name, (q, torch.bfloat16), (do, torch.bfloat16), (lse, f32), (delta, f32))
     if do.shape != q.shape or lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:

@@ -49,16 +49,19 @@ max per row (from the finite ``NEG_INF``), rescale the row sum and the
 accumulator by ``exp2(m - m_new)`` per key chunk, and cannot: they are the
 way out for such weights. Their result depends on the key chunk at bf16
 rounding level (the running max differs per chunk). The four shared kernels,
-bound and online, and ``flash_online`` at d = 64 run on the wgmma + TMA tile
-of ``csrc/attn_wgmma.cuh``, whose chunk is ``SHARED_ONLINE_BLOCK_K`` keys
-where that divides the segment length (``flash_online``: Skv) and
-``ONLINE_BLOCK_K`` otherwise (``shared_online_tile``, ``flash_online_chunk``;
-the bound kernels' result depends on it through the order of fp32 sums
-only); ``flash_online`` at d = 512 and ``flash_attention`` run on the tile of
-``csrc/attn_tile.cuh``, whose chunk is ``ONLINE_BLOCK_K``. The online plain
-versions take the chunk as ``block_k`` and default to their kernel's. The
-TPU tile knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are
-not read.
+bound and online, and ``flash_online`` and ``flash_attention`` at d = 64 run
+on the wgmma + TMA tile of ``csrc/attn_wgmma.cuh``, whose chunk is
+``SHARED_ONLINE_BLOCK_K`` keys where that divides the segment length
+(``flash_online``, ``flash_attention``: Skv) and ``ONLINE_BLOCK_K``
+otherwise (``shared_online_tile``, ``flash_online_chunk``,
+``flash_bound_chunk``; the bound kernels' result depends on it through the
+order of fp32 sums only); ``flash_attention`` at d = 512 runs on the wgmma +
+TMA tile of ``csrc/attn_wgmma_d512.cuh`` (``D512_BLOCK_K`` keys a chunk),
+``flash_online`` at d = 512 on the tile of ``csrc/attn_tile.cuh``, whose
+chunk is ``ONLINE_BLOCK_K``. The online plain versions take the chunk as
+``block_k`` and default to their kernel's; the bound plain versions take
+the keys in one product. The TPU tile knobs ``INSTANTRESTORE_BLOCK_K`` /
+``INSTANTRESTORE_BLOCK_Q`` are not read.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ BOUND_EXP_SHIFT = 64.0
 NEG_INF = -1e30  # the online kernels' starting max: finite, so exp2(m - m_new) is never NaN
 ONLINE_BLOCK_K = 64  # key chunk of the online kernels at d=512 (csrc/attn_tile.cuh), fallback
 SHARED_ONLINE_BLOCK_K = 128  # key chunk of the online kernels on csrc/attn_wgmma.cuh (d=64)
+D512_BLOCK_K = 32  # key chunk of flash_attention at d=512 (csrc/attn_wgmma_d512.cuh)
 # plain versions materialise fp32 score blocks of at most this many elements
 _PLAIN_BLOCK_ELEMS = 1 << 28
 
@@ -116,9 +120,10 @@ def key_norm_max(k: torch.Tensor, dims) -> torch.Tensor:
 
 def _key_norm_max_one_pass(k: torch.Tensor, dims) -> torch.Tensor:
     """``key_norm_max`` in one pass over the keys, for the per-call shared
-    kernels: the same norms up to fp32 summation order, without the three
-    fp32 copies of the keys that ``key_norm_max`` makes. ``flash_attention``
-    keeps ``key_norm_max``, so its outputs stay what they were."""
+    kernels and ``flash_attention`` (kernel and plain version alike): the
+    same norms up to fp32 summation order, without the three fp32 copies of
+    the keys that ``key_norm_max`` makes (1.5 GB for the batch-64 VAE
+    encode's 64 x 4096 x 512 keys)."""
     return torch.linalg.vector_norm(k, dim=-1, dtype=torch.float32).amax(dim=dims)
 
 
@@ -177,48 +182,83 @@ def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: 
 # ---------------------------------------------------------------------------
 
 
+def _bound_tiles_fit(sq: int, skv: int, d: int) -> bool:
+    """Whether ``flash_attention``'s bound kernel takes Sq queries against
+    Skv keys at head dim d: d in {64, 512}, Sq a multiple of 64 and Skv of
+    the smaller key chunk (``ONLINE_BLOCK_K`` at d = 64, ``D512_BLOCK_K`` at
+    d = 512)."""
+    smallest = {64: ONLINE_BLOCK_K, 512: D512_BLOCK_K}.get(d)
+    return smallest is not None and min(sq, skv) > 0 and sq % 64 == 0 and skv % smallest == 0
+
+
+def _online_tiles_fit(sq: int, skv: int, d: int) -> bool:
+    """Whether the online flash kernels (``flash_online``, ``flash_fwd_lse``
+    and the flash-VJP backward) take Sq queries against Skv keys at head dim
+    d: d in {64, 512}, Sq % (64 if d == 64 else 32) == 0, Skv % 64 == 0."""
+    return d in (64, 512) and sq % (64 if d == 64 else 32) == 0 and skv % 64 == 0
+
+
+def flash_bound_chunk(sq: int, skv: int, d: int) -> int:
+    """Key chunk of ``flash_attention``'s bound kernel for Sq queries against
+    Skv keys at head dim d: at d = 64 ``flash_online_chunk``'s (the plain
+    layout of ``csrc/attn_wgmma.cuh``, whose launcher takes 128 query rows a
+    block where they divide Sq, else 64), at d = 512 ``D512_BLOCK_K``
+    (``csrc/attn_wgmma_d512.cuh``, 64 rows a block). Raises on what the
+    kernel refuses (``_bound_tiles_fit``)."""
+    if not _bound_tiles_fit(sq, skv, d):
+        raise ValueError(f"flash_attention: the bound kernel takes d in (64, 512), Sq % 64 == 0 "
+                         f"and Skv % {ONLINE_BLOCK_K if d == 64 else D512_BLOCK_K} == 0, not "
+                         f"Sq {sq}, Skv {skv}, d {d}")
+    return flash_online_chunk(skv, d) if d == 64 else D512_BLOCK_K
+
+
 def flash_attention_plain(q, k, v, *, scale: float) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/flash_bound.cu``: q [B, H, Sq, d],
     k/v [B, H, Skv, d] -> [B, H, Sq, d]."""
-    kmax = key_norm_max(k, 2)[:, :, None, None]
+    kmax = _key_norm_max_one_pass(k, 2)[:, :, None, None]
     bound = _row_norm(q) * (scale * LOG2E) * kmax - BOUND_EXP_SHIFT
     return _bound_softmax_av(_q_scaled(q, scale), k, v, bound, q.dtype, sum_rounded=True)
 
 
-def _check_flash(name: str, q, k, v) -> None:
-    """The flash kernels' inputs: CUDA bf16, d in {64, 512}, whole tiles."""
+def _check_flash(name: str, q, k, v, fits) -> None:
+    """The flash kernels' inputs: CUDA bf16, k and v of one shape [B, H,
+    Skv, d] beside q [B, H, Sq, d], and ``fits(Sq, Skv, d)``, the kernel's
+    own rule for its tiles (``_bound_tiles_fit``, ``_online_tiles_fit``)."""
     if not q.is_cuda:
         raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, sq, d = q.shape
     skv = k.shape[2]
     bf = torch.bfloat16
     _check_cuda(name, (q, bf), (k, bf), (v, bf))
-    bq = 64 if d == 64 else 32
-    if (d not in (64, 512) or k.shape != (b, h, skv, d) or v.shape != k.shape
-            or sq % bq or skv % 64):
+    if k.shape != (b, h, skv, d) or v.shape != k.shape or not fits(sq, skv, d):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
 def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v for q [B, H, Sq, d], k/v [B, H, Skv, d];
-    the CUDA kernels take bf16, d in {64, 512}, Sq % (64 if d == 64 else 32)
-    == 0 and Skv % 64 == 0. ``algo`` (default: ``INSTANTRESTORE_FLASH_ALGO``,
-    else ``bound``) selects the algorithm as in the JAX package: ``bound``
-    runs this wrapper's kernel, any other value ``flash_online``."""
+    """softmax(q k^T * scale) v for q [B, H, Sq, d], k/v [B, H, Skv, d].
+    ``algo`` (default: ``INSTANTRESTORE_FLASH_ALGO``, else ``bound``) selects
+    the algorithm as in the JAX package: ``bound`` runs this wrapper's
+    kernel, any other value ``flash_online``. The bound kernel takes bf16, d
+    in {64, 512}, Sq % 64 == 0 and Skv a multiple of its smaller key chunk
+    (``flash_bound_chunk``: 64 at d = 64, 32 at d = 512); it raises on any
+    other shape before a launch. No shape that serving produces is lost: its
+    inputs are square latents, and n^2 tokens are a multiple of 32 only when
+    8 divides n, which makes n^2 a multiple of 64 too."""
     if algo is None:
         algo = os.environ.get("INSTANTRESTORE_FLASH_ALGO", "bound")
     if algo != "bound":
         return flash_online(q, k, v, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
-    _check_flash("flash_attention", q, k, v)
+    _check_flash("flash_attention", q, k, v, _bound_tiles_fit)
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    kmax = key_norm_max(k, 2).contiguous()
+    block_k = flash_bound_chunk(sq, skv, d)
+    kmax = _key_norm_max_one_pass(k, 2).contiguous()
     out = torch.empty_like(q)
     rc = _build.load("flash_bound").irt_flash_bound_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(), out.data_ptr(),
-        b, h, sq, skv, d, ctypes.c_float(scale * LOG2E), _stream_ptr(q),
+        b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E), _stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"flash_bound kernel launch failed: CUDA error {rc}")
@@ -269,12 +309,12 @@ def flash_online_plain(q, k, v, *, scale: float, block_k: Optional[int] = None) 
 
 def flash_online(q, k, v, *, scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v with the numerics of the TPU's
-    ``_flash_kernel`` (running max, no bound: no row can flush). Shapes and
-    the CUDA kernel's limits as ``flash_attention``; the key chunk is
-    ``flash_online_chunk``'s."""
+    ``_flash_kernel`` (running max, no bound: no row can flush). Shapes as
+    ``flash_attention``; the CUDA kernel takes bf16 and the shapes of
+    ``_online_tiles_fit``; the key chunk is ``flash_online_chunk``'s."""
     if q.device.type == "cpu":
         return flash_online_plain(q, k, v, scale=scale)
-    _check_flash("flash_online", q, k, v)
+    _check_flash("flash_online", q, k, v, _online_tiles_fit)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     out = torch.empty_like(q)

@@ -56,6 +56,9 @@ SHARED_SHAPES = [(20, 256), (10, 1024), (5, 4096)]  # (heads, tokens) of the 9 s
 # warpgroup a block; a 64-key chunk; both; the smallest call
 SMALL_SHAPES = [(2, 4, 192, 256), (2, 4, 256, 64), (2, 2, 64, 192), (3, 2, 64, 64)]
 FLASH_SHAPES = [(5, 4096, 64), (10, 1024, 64), (20, 256, 64), (20, 64, 64), (1, 4096, 512)]
+# flash_bound at d=512 also at the cold capture's batch of 64 (the VAE mid
+# attention of 64 references' encode); (batch, heads, tokens, head dim)
+FLASH_CAPTURE_D512 = (64, 1, 4096, 512)
 # (heads, queries, keys, head dim) of the flash-VJP kernels at batch 2
 VJP_SHAPES = [(5, 4096, 16384, 64), (10, 1024, 4096, 64), (20, 64, 64, 64), (1, 4096, 4096, 512)]
 # (batch, heads, Sq, Skv, head dim) of the plain kernels' other tiles: the
@@ -226,6 +229,9 @@ def cases(source: str, g, small: bool = False):
         plain = sa.flash_attention_plain if algo == "bound" else sa.flash_online_plain
         shapes = FLASH_SMALL_SHAPES if small else [
             (4 if d == 512 else BATCH, h, s, s, d) for h, s, d in FLASH_SHAPES]
+        if algo == "bound" and not small:
+            b, h, s, d = FLASH_CAPTURE_D512
+            shapes = shapes + [(b, h, s, s, d)]
         for b, h, sq, skv, d in shapes:
             q, k, v = rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, d)
             tag = f"S={sq}" if sq == skv else f"Sq={sq} Skv={skv}"

@@ -36,7 +36,7 @@ def no_kernel_build(monkeypatch):
 
 
 @pytest.mark.parametrize("b,h,s,skv,d", [
-    (2, 3, 64, 64, 16), (2, 2, 64, 128, 64), (1, 1, 32, 32, 512),
+    (2, 3, 64, 64, 16), (2, 2, 64, 128, 64), (1, 1, 32, 32, 512), (2, 1, 128, 128, 512),
 ])
 def test_flash_bound_matches_pallas(rng, b, h, s, skv, d):
     q = rng.normal(size=(b, h, s, d)).astype(np.float32)

@@ -65,7 +65,8 @@ def test_every_kernel_source_is_in_the_checkout():
         includes = [ln.split()[1] for ln in path.read_text().splitlines()
                     if ln.startswith("#include")]
         assert includes and all(
-            inc in ('"attn_tile.cuh"', '"attn_wgmma.cuh"', '"flash_bwd_tile.cuh"', "<cuda.h>",
+            inc in ('"attn_tile.cuh"', '"attn_wgmma.cuh"', '"attn_wgmma_d512.cuh"',
+                    '"flash_bwd_tile.cuh"', "<cuda.h>",
                     "<cuda_bf16.h>", "<cuda_runtime.h>", "<mma.h>", "<stdint.h>")
             for inc in includes), (path.name, includes)
 
@@ -94,17 +95,39 @@ def test_online_shared_kernels_are_on_the_wgmma_tile(name):
 
 
 def test_the_mma_sync_tile_keeps_five_modes():
-    """attn_tile.cuh serves the plain flash kernels that were not redesigned,
-    in three modes: its shared modes (online, identity, bound), the head-pair
-    parameter and the AdaIN affine went with their only users."""
+    """attn_tile.cuh serves the plain online flash kernels at d = 512 that
+    were not redesigned, in two modes: its shared modes (online, identity,
+    bound), the head-pair parameter, the AdaIN affine and the bound mode
+    with its kmax went with their only users."""
     from instantrestore_tpu_torch.ops import _build
 
     text = (_build.CSRC / "attn_tile.cuh").read_text()
-    assert "enum class Mode { kFlash, kFlashOnline, kFlashLse };" in text
-    for word in ("kSharedOnline", "int HP", "kIdentity", "kShared", "ids", "aff"):
+    assert "enum class Mode { kFlashOnline, kFlashLse };" in text
+    for word in ("kSharedOnline", "int HP", "kIdentity", "kShared", "ids", "aff", "kFlash,",
+                 "kmax", "kBoundExpShift", "is_online"):
         assert word not in text, word
-    for name in ("flash_bound.cu", "flash_online.cu", "flash_fwd_lse.cu", "flash_bwd_tile.cuh"):
+    for name in ("flash_online.cu", "flash_fwd_lse.cu", "flash_bwd_tile.cuh"):
         assert '"attn_tile.cuh"' in (_build.CSRC / name).read_text(), name
+    assert '"attn_tile.cuh"' not in (_build.CSRC / "flash_bound.cu").read_text()
+
+
+def test_flash_bound_is_on_the_wgmma_tiles():
+    """flash_bound.cu runs the bound policy on the wgmma + TMA tiles: the
+    plain layout of attn_wgmma.cuh at d = 64, attn_wgmma_d512.cuh at d = 512
+    (its own products on the first header's PTX wrappers, its K/V tiles by
+    TMA); nothing of the mma.sync tile."""
+    from instantrestore_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_bound.cu").read_text()
+    assert '#include "attn_wgmma.cuh"' in src and '#include "attn_wgmma_d512.cuh"' in src
+    assert "launch_flash<Policy::kBound>" in src and "launch_flash_d512<Policy::kBound" in src
+    tile = (_build.CSRC / "attn_wgmma_d512.cuh").read_text()
+    assert '#include "attn_wgmma.cuh"' in tile
+    for word in ("wgmma.mma_async", "tma_load_2d", "reg_inc", "__grid_constant__", "mbar_wait"):
+        assert word in tile, word
+    for text in (src, tile):
+        for word in ("<mma.h>", "wmma::", '"attn_tile.cuh"'):
+            assert word not in text, word
 
 
 TRAINING_MODULES = (
