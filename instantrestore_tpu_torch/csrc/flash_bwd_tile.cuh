@@ -1,5 +1,7 @@
-// Tiles of the two backward kernels of the differentiable attention
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu). Plain C interface, no PyTorch headers.
+// The d = 512 tile of the two backward kernels of the differentiable
+// attention (flash_bwd_dq.cu, flash_bwd_dkv.cu: the VAE mid attention, one
+// head, 4096 tokens). d = 64 runs on the wgmma + TMA tile of
+// attn_wgmma_bwd.cuh. Plain C interface, no PyTorch headers.
 //
 // Both recompute the probabilities from the forward's residual instead of
 // reading them from device memory: with qs = bf16(q * bf16(scale * log2 e)),
@@ -23,11 +25,11 @@
 // directly (WMMA column-major loads of the query tile), so no tile is
 // transposed in memory.
 //
-// d=64 runs 64x64 tiles in 4 warps. d=512 (the VAE mid attention) cannot keep
-// [64, 512] fp32 accumulators in a block's registers: it takes 32 rows in 8
-// warps with the accumulator split by channel slabs (64 registers each; the
-// dK/dV kernel holds two, 128 registers), the two score products reduced
-// over all 512 channels cooperatively into shared memory first.
+// A block cannot keep [64, 512] fp32 accumulators in its registers: it takes
+// 32 rows in 8 warps with the accumulator split by channel slabs (64
+// registers each; the dK/dV kernel holds two, 128 registers), the two score
+// products reduced over all 512 channels cooperatively into shared memory
+// first. dQ streams 64-key tiles, dK/dV 32-query tiles.
 
 #pragma once
 
@@ -106,7 +108,9 @@ __device__ __forceinline__ void accumulate(AccFrag* acc, const bf16* a, const bf
   constexpr int lda = INNER + 8, ldh = D + 8;
   const int first = warp * kFrags;
   const int rt = first / (D / 16), ct0 = first % (D / 16);
-#pragma unroll
+  // one k-step's operands at a time beside the accumulators (the dK/dV
+  // kernel's two take 128 registers a thread); the sum's order is unchanged
+#pragma unroll 1
   for (int kk = 0; kk < INNER / 16; ++kk) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
     wmma::load_matrix_sync(af, a + rt * 16 * lda + kk * 16, lda);

@@ -12,6 +12,11 @@ and a launch count:
 * ``flash_bwd_dkv`` -> ``csrc/flash_bwd_dkv.cu`` (replaces
   ``_bwd_dkv_kernel``); plain ``flash_bwd_dkv_plain``.
 
+At d = 64 the two backward kernels run on the wgmma + TMA tile of
+``csrc/attn_wgmma_bwd.cuh``, at d = 512 on the mma.sync tile of
+``csrc/flash_bwd_tile.cuh``; ``flash_bwd_tiles`` gives both kernels their
+block and chunk and refuses, before any launch, a shape the tiles do not take.
+
 A wrapper given CUDA tensors launches its kernel (bf16 only) or raises; given
 CPU tensors it runs the plain version. ``<wrapper>.launches`` counts kernel
 launches and nothing else.
@@ -41,7 +46,8 @@ backward kernels and no atomics: gradients repeat bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -104,6 +110,42 @@ flash_fwd_lse.launches = 0
 # ---------------------------------------------------------------------------
 
 
+class BwdTiles(NamedTuple):
+    """The backward kernels' tiles: ``flash_bwd_dq``'s query rows a block and
+    the key chunk it streams, ``flash_bwd_dkv``'s keys a block and the query
+    chunk it streams."""
+
+    dq_rows: int
+    dq_chunk: int
+    dkv_rows: int
+    dkv_chunk: int
+
+
+def _bwd_tiles_fit(sq: int, skv: int, d: int) -> bool:
+    """Whether the backward kernels take Sq queries against Skv keys at head
+    dim d: Sq and Skv multiples of 64 at d = 64; at d = 512 Sq of 32 and Skv
+    of 64."""
+    rows = {64: 64, 512: 32}.get(d)
+    return rows is not None and min(sq, skv) > 0 and sq % rows == 0 and skv % 64 == 0
+
+
+def flash_bwd_tiles(sq: int, skv: int, d: int) -> BwdTiles:
+    """The tiles of ``flash_bwd_dq`` and ``flash_bwd_dkv`` for Sq queries
+    against Skv keys at head dim d. d = 64 (``csrc/attn_wgmma_bwd.cuh``):
+    128 rows a block (two consumer warpgroups) where they divide the block's
+    side, else 64, and chunks of 64. d = 512 (``csrc/flash_bwd_tile.cuh``):
+    32 rows a block, 64 keys and 32 queries a chunk. Raises on what the tiles
+    do not take (``_bwd_tiles_fit``); the C entry points refuse any other
+    tile."""
+    if not _bwd_tiles_fit(sq, skv, d):
+        raise ValueError(f"flash_bwd: the backward kernels take d = 64 with Sq and Skv multiples "
+                         f"of 64, or d = 512 with Sq % 32 == 0 and Skv % 64 == 0, not Sq {sq}, "
+                         f"Skv {skv}, d {d}")
+    if d == 512:
+        return BwdTiles(32, 64, 32, 32)
+    return BwdTiles(128 if sq % 128 == 0 else 64, 64, 128 if skv % 128 == 0 else 64, 64)
+
+
 def _chunk(other: int) -> int:
     """Rows per block so that a [rows, other] fp32 score block stays within
     the plain versions' budget."""
@@ -112,10 +154,12 @@ def _chunk(other: int) -> int:
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale: float,
                        block_k: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/flash_bwd_dq.cu``: dQ [B, H, Sq, d]
-    from q/do [B, H, Sq, d], k/v [B, H, Skv, d], lse2/delta [B, H, Sq] fp32,
-    summed over key chunks of ``block_k`` (default: what bounds the fp32
-    score block; the chunk only orders the fp32 sum)."""
+    """Plain PyTorch version of ``csrc/flash_bwd_dq.cu`` (its tiles
+    ``csrc/attn_wgmma_bwd.cuh`` at d = 64, ``csrc/flash_bwd_tile.cuh`` at
+    d = 512): dQ [B, H, Sq, d] from q/do [B, H, Sq, d], k/v [B, H, Skv, d],
+    lse2/delta [B, H, Sq] fp32, summed over key chunks of ``block_k``
+    (default: what bounds the fp32 score block; the chunk only orders the
+    fp32 sum)."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if block_k is None:
@@ -134,9 +178,10 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale: float,
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
                         block_q: Optional[int] = None):
-    """Plain PyTorch version of ``csrc/flash_bwd_dkv.cu``: (dK, dV)
-    [B, H, Skv, d], summed over query chunks of ``block_q`` (default as
-    ``flash_bwd_dq_plain``'s ``block_k``). Shapes as there."""
+    """Plain PyTorch version of ``csrc/flash_bwd_dkv.cu`` (its tiles as
+    ``flash_bwd_dq_plain``'s): (dK, dV) [B, H, Skv, d], summed over query
+    chunks of ``block_q`` (default as ``flash_bwd_dq_plain``'s
+    ``block_k``). Shapes as there."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if block_q is None:
@@ -156,28 +201,60 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
     return acc_k.to(k.dtype), acc_v.to(v.dtype)
 
 
-def _check_backward(name: str, q, k, v, do, lse, delta) -> None:
-    sa._check_flash(name, q, k, v, sa._online_tiles_fit)
+def _check_backward(name: str, q, k, v, do, lse, delta, qs) -> BwdTiles:
+    """The backward kernels' inputs (``_bwd_tiles_fit``, bf16 q and dO, fp32
+    lse and delta of [B, H, Sq], and a given qs bf16 of q's shape) and their
+    tiles; raises before any launch."""
+    sa._check_flash(name, q, k, v, _bwd_tiles_fit)
     f32 = torch.float32
     sa._check_cuda(name, (q, torch.bfloat16), (do, torch.bfloat16), (lse, f32), (delta, f32))
     if do.shape != q.shape or lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
         raise ValueError(f"{name}: dO {tuple(do.shape)}, lse {tuple(lse.shape)}, delta "
                          f"{tuple(delta.shape)} do not fit q {tuple(q.shape)}")
+    if qs is not None:
+        sa._check_cuda(name, (q, torch.bfloat16), (qs, torch.bfloat16))
+        if qs.shape != q.shape:
+            raise ValueError(f"{name}: qs {tuple(qs.shape)} does not fit q {tuple(q.shape)}")
+    return flash_bwd_tiles(q.shape[2], k.shape[2], q.shape[-1])
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _backward_qs(q, scale: float) -> Optional[torch.Tensor]:
+    """The scaled q that the d = 64 tile reads: ``sa._q_scaled``'s bits (the
+    forward's), with the constant rounded on the host instead of copied to
+    the device; the d = 512 tile scales q itself."""
+    if q.shape[-1] != 64:
+        return None
+    return q * _rounded(scale * LOG2E, q.dtype)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
+                 qs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dQ of softmax(q k^T * scale) v given the output gradient ``do``, the
     forward's ``lse`` and ``delta = rowsum(do * out)``. Shapes as
-    ``flash_bwd_dq_plain``; the CUDA kernel's limits as ``flash_fwd_lse``."""
+    ``flash_bwd_dq_plain``; the CUDA kernel (``csrc/flash_bwd_dq.cu``: the
+    wgmma + TMA tile of ``csrc/attn_wgmma_bwd.cuh`` at d = 64,
+    ``csrc/flash_bwd_tile.cuh`` at d = 512) takes the tiles of
+    ``flash_bwd_tiles``. ``qs``, ``q * (scale * log2 e)`` in bf16, may be
+    given where the caller has it (``_flash_backward`` shares it with
+    ``flash_bwd_dkv``); else the wrapper computes it at d = 64."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale)
-    _check_backward("flash_bwd_dq", q, k, v, do, lse, delta)
+    tiles = _check_backward("flash_bwd_dq", q, k, v, do, lse, delta, qs)
+    if qs is None:
+        qs = _backward_qs(q, scale)
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
     rc = _build.load("flash_bwd_dq").irt_flash_bwd_dq_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d,
-        ctypes.c_float(scale * LOG2E), ctypes.c_float(scale), sa._stream_ptr(q),
+        q.data_ptr(), None if qs is None else qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d,
+        tiles.dq_rows, tiles.dq_chunk, ctypes.c_float(scale * LOG2E), ctypes.c_float(scale),
+        sa._stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {rc}")
@@ -188,17 +265,22 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float) -> torch.Tensor:
 flash_bwd_dq.launches = 0
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float):
-    """(dK, dV) of softmax(q k^T * scale) v; arguments as ``flash_bwd_dq``."""
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
+                  qs: Optional[torch.Tensor] = None):
+    """(dK, dV) of softmax(q k^T * scale) v; arguments as ``flash_bwd_dq``.
+    The CUDA kernel is ``csrc/flash_bwd_dkv.cu`` on the same two tiles."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale)
-    _check_backward("flash_bwd_dkv", q, k, v, do, lse, delta)
+    tiles = _check_backward("flash_bwd_dkv", q, k, v, do, lse, delta, qs)
+    if qs is None:
+        qs = _backward_qs(q, scale)
     b, h, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _build.load("flash_bwd_dkv").irt_flash_bwd_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d,
-        ctypes.c_float(scale * LOG2E), ctypes.c_float(scale), sa._stream_ptr(q),
+        q.data_ptr(), None if qs is None else qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+        k.shape[2], d, tiles.dkv_rows, tiles.dkv_chunk, ctypes.c_float(scale * LOG2E),
+        ctypes.c_float(scale), sa._stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {rc}")
@@ -214,8 +296,11 @@ def _flash_backward(q, k, v, out, lse, do, scale: float, want_q: bool, want_kv: 
     None and its kernel is not launched. ``do`` may be any view."""
     do = do.contiguous()
     delta = (do.float() * out.float()).sum(dim=-1)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale) if want_q else None
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale) if want_kv else (None, None)
+    # the scaled q, once for both kernels (the plain versions scale their own)
+    qs = None if q.device.type == "cpu" else _backward_qs(q, scale)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, qs=qs) if want_q else None
+    dk, dv = (flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale, qs=qs) if want_kv
+              else (None, None))
     return dq, dk, dv
 
 

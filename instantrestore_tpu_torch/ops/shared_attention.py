@@ -192,9 +192,9 @@ def _bound_tiles_fit(sq: int, skv: int, d: int) -> bool:
 
 
 def _online_tiles_fit(sq: int, skv: int, d: int) -> bool:
-    """Whether the online flash kernels (``flash_online``, ``flash_fwd_lse``
-    and the flash-VJP backward) take Sq queries against Skv keys at head dim
-    d: d in {64, 512}, Sq % (64 if d == 64 else 32) == 0, Skv % 64 == 0."""
+    """Whether the online flash kernels (``flash_online``, ``flash_fwd_lse``)
+    take Sq queries against Skv keys at head dim d: d in {64, 512}, Sq % (64
+    if d == 64 else 32) == 0, Skv % 64 == 0."""
     return d in (64, 512) and sq % (64 if d == 64 else 32) == 0 and skv % 64 == 0
 
 

@@ -63,7 +63,10 @@ FLASH_CAPTURE_D512 = (64, 1, 4096, 512)
 VJP_SHAPES = [(5, 4096, 16384, 64), (10, 1024, 4096, 64), (20, 64, 64, 64), (1, 4096, 4096, 512)]
 # (batch, heads, Sq, Skv, head dim) of the plain kernels' other tiles: the
 # smallest call; one consumer warpgroup a block (Sq % 128 == 64) on 128-key
-# chunks; the 64-key chunk (128 does not divide Skv); d = 512
+# chunks; the 64-key chunk (128 does not divide Skv); d = 512. The backward
+# tile (ops/flash_vjp.py: flash_bwd_tiles) takes 64 query rows a block of
+# flash_bwd_dq in the second and 64 keys a block of flash_bwd_dkv in the third
+# (chip_smoke.py's FLASH_VARIANT_SHAPES).
 FLASH_SMALL_SHAPES = [(2, 2, 64, 128, 64), (2, 4, 192, 256, 64), (2, 4, 256, 320, 64),
                       (2, 1, 64, 64, 512)]
 LSE_TOL = 1e-3  # max-abs of the LSE against the plain version, log2 units

@@ -66,7 +66,7 @@ def test_every_kernel_source_is_in_the_checkout():
                     if ln.startswith("#include")]
         assert includes and all(
             inc in ('"attn_tile.cuh"', '"attn_wgmma.cuh"', '"attn_wgmma_d512.cuh"',
-                    '"flash_bwd_tile.cuh"', "<cuda.h>",
+                    '"attn_wgmma_bwd.cuh"', '"flash_bwd_tile.cuh"', "<cuda.h>",
                     "<cuda_bf16.h>", "<cuda_runtime.h>", "<mma.h>", "<stdint.h>")
             for inc in includes), (path.name, includes)
 
@@ -128,6 +128,31 @@ def test_flash_bound_is_on_the_wgmma_tiles():
     for text in (src, tile):
         for word in ("<mma.h>", "wmma::", '"attn_tile.cuh"'):
             assert word not in text, word
+
+
+@pytest.mark.parametrize("name,launcher", [("flash_bwd_dq.cu", "launch_dq"),
+                                           ("flash_bwd_dkv.cu", "launch_dkv")])
+def test_backward_d64_is_on_the_wgmma_tile(name, launcher):
+    """At d = 64 the two backward kernels launch the wgmma + TMA tile of
+    attn_wgmma_bwd.cuh (built on attn_wgmma.cuh's PTX wrappers: wgmma, TMA,
+    mbarriers, setmaxnreg), which holds nothing of the mma.sync tile; d = 512
+    keeps flash_bwd_tile.cuh."""
+    from instantrestore_tpu_torch.ops import _build
+
+    src = (_build.CSRC / name).read_text()
+    assert '#include "attn_wgmma_bwd.cuh"' in src and '#include "flash_bwd_tile.cuh"' in src
+    d64 = src[src.index("if (D == 64)"):src.index("if (D == 512")]
+    assert f"irt::wgb::{launcher}(" in d64 and "launch_bwd_" not in d64
+    assert "launch_bwd_" in src[src.index("if (D == 512"):]
+    tile = (_build.CSRC / "attn_wgmma_bwd.cuh").read_text()
+    assert '#include "attn_wgmma.cuh"' in tile
+    for word in ("wgmma_m64n64k16<1, 1>", "tma_load_2d", "mbar_wait", "reg_inc",
+                 "__grid_constant__", "cp.async.bulk.shared"):
+        assert word in tile, word
+    for word in ("<mma.h>", "wmma::", '"attn_tile.cuh"', '"flash_bwd_tile.cuh"'):
+        assert word not in tile, word
+    old = (_build.CSRC / "flash_bwd_tile.cuh").read_text()
+    assert "<64, 64, 64, 4>" not in src and "d=64 runs" not in old
 
 
 TRAINING_MODULES = (
