@@ -27,12 +27,13 @@ Without arguments every phase runs and the last two lines are the result;
    are held against the plain versions too, for the online kernels and the
    two bound ones (shared_flash_bound, and shared_identity through the
    paired route). flash_online and flash_bound at d=64 run on the same wgmma
-   tile in its plain layout (flash_bound at d=512 on the d=512 wgmma tile):
-   two launches agree bit for bit at every shape, and their other tiles
-   (FLASH_VARIANT_SHAPES: Sq % 128 == 64, a 64-key chunk, Sq != Skv) are
-   held against the plain versions, flash_online's on the kernel's chunk;
-   flash_bound also at d=512 at the cold capture's batch of 64
-   (FLASH_CAPTURE_D512). Each shared row also carries
+   tile in its plain layout, and at d=512 on the d=512 wgmma tile (the
+   online and the bound policy): two launches agree bit for bit at every
+   shape, and their other tiles (FLASH_VARIANT_SHAPES: Sq % 128 == 64, a
+   64-key chunk, Sq != Skv; FLASH_VARIANT_D512: Sq != Skv at d=512) are held
+   against the plain versions, flash_online's on the kernel's chunk; both
+   also at d=512 at the cold capture's batch of 64 (FLASH_CAPTURE_D512).
+   Each shared row also carries
    exp2_ms: its scores over 16 exp2 per clock per SM on 132 SMs at the
    card's maximum SM clock (nvidia-smi clocks.max.sm), the other unit that
    bounds a d=64 attention. The escape hatch: on a call whose bound slack
@@ -49,7 +50,8 @@ Without arguments every phase runs and the last two lines are the result;
    layers on K/V widened over 4 references, the UNet's down/mid
    self-attention, the d=512 VAE attention) and at FLASH_VARIANT_SHAPES (the
    other tiles: 64 query rows a block of the forward and of flash_bwd_dq, a
-   64-key chunk of the forward, 64 keys a block of flash_bwd_dkv): out, LSE
+   64-key chunk of the forward, 64 keys a block of flash_bwd_dkv; the
+   forward also at FLASH_VARIANT_D512, Sq != Skv at d=512): out, LSE
    (max-abs within 1e-3 log2 units), dQ, dK, dV against the plain versions
    on the same inputs, two launches of each kernel bit-identical, one mid
    shape against fp32 autograd through the unfused attention; timed beside
@@ -75,7 +77,8 @@ Without arguments every phase runs and the last two lines are the result;
    checks launches per restore (9 shared_online, 26 flash_online, 0 of any
    bound kernel), output shape and finiteness, agreement with the default
    algorithms' cold restore; prints latency, faces/sec, peak memory and a
-   profile;
+   profile, and a profile of one batch-16 warm restore under
+   FLASH_ALGO=online (each with the d=512 flash kernels' share);
 7. other paths at reduced batch: a train_input engine (warm restore through
    shared_flash_bound with its input segment), restore_forward_multistep
    (749, 499, 249), a cold restore under kv_outer_bound_paired (the identity
@@ -102,8 +105,9 @@ Without arguments every phase runs and the last two lines are the result;
    faces/sec, peak memory with and without remat and a profile with the
    share of the three flash-VJP kernels;
 10. prints each kernel's factor over its library call per pass of its path,
-   largest first (flash_bwd_dq and flash_bwd_dkv ranked as one pair against
-   SDPA's joint backward, with its d=64 and d=512 parts), then
+   largest first, with its d=64 and d=512 parts where it runs at both
+   (flash_bwd_dq and flash_bwd_dkv ranked as one pair against SDPA's joint
+   backward), then
    {"kernels": [...]} (launches summed over the paths of 4-9) and, last,
    {"ok": true, "device": {...}}.
 
@@ -152,8 +156,12 @@ VJP_AUTOGRAD_REL_RMS = 3e-2  # bf16 P, dS and outputs against an fp32 reference
 # backward tile takes 64 query rows a block of flash_bwd_dq in the first and 64
 # keys a block of flash_bwd_dkv in the second (flash_bwd_tiles).
 FLASH_VARIANT_SHAPES = [(2, 4, 192, 256), (2, 4, 256, 320)]
-# (batch, heads, tokens, head dim) of flash_bound in the cold restore's capture
-# pass: the VAE mid attention of the 64 references' encode
+# (batch, heads, Sq, Skv) at d=512 with Sq != Skv: flash_online and
+# flash_fwd_lse on the d=512 wgmma tile (three 64-row blocks, three 32-key tiles)
+FLASH_VARIANT_D512 = (2, 2, 192, 96)
+# (batch, heads, tokens, head dim) of flash_bound (flash_online under
+# INSTANTRESTORE_FLASH_ALGO=online) in the cold restore's capture pass: the VAE
+# mid attention of the 64 references' encode
 FLASH_CAPTURE_D512 = (64, 1, 4096, 512)
 LSE_TOL = 1e-3  # flash_fwd_lse's LSE against its plain version, max-abs in log2 units
 
@@ -313,19 +321,27 @@ def kernel_phase(card: str):
         del q, k, v
         torch.cuda.empty_cache()
 
-    # row 2 at the cold capture's batch of 64 at d=512
+    # rows 2 and 8 at the cold capture's batch of 64 at d=512
     b, h, s, fd = FLASH_CAPTURE_D512
     q, k, v = rnd(b, h, s, fd), rnd(b, h, s, fd), rnd(b, h, s, fd)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=fd ** -0.5)
+    flops, nbytes = 4.0 * b * h * s * s * fd, 4 * b * h * s * fd * 2
+    meta = dict(batch=b, heads=h, tokens=s, head_dim=fd, per_pass=0,
+                route="the cold capture's VAE encode")
     bound_call = lambda: sa.flash_attention(q, k, v, scale=fd ** -0.5, algo="bound")
     flash_rows.append(row(
         f"flash_bound B={b} H={h} S={s} d={fd}", bound_call,
-        lambda: sa.flash_attention_plain(q, k, v, scale=fd ** -0.5),
-        lambda: F.scaled_dot_product_attention(q, k, v, scale=fd ** -0.5),
-        4.0 * b * h * s * s * fd, 4 * b * h * s * fd * 2 + b * h * 4,
-        batch=b, heads=h, tokens=s, head_dim=fd, per_pass=0,
-        chunk=sa.flash_bound_chunk(s, s, fd), route="the cold capture's VAE encode"))
+        lambda: sa.flash_attention_plain(q, k, v, scale=fd ** -0.5), lib, flops,
+        nbytes + b * h * 4, **dict(meta, chunk=sa.flash_bound_chunk(s, s, fd))))
     if not torch.equal(bound_call(), bound_call()):
         raise AssertionError(f"flash_bound B={b} d={fd}: two launches differ")
+    online = lambda: sa.flash_attention(q, k, v, scale=fd ** -0.5, algo="online")
+    fonline_rows.append(row(
+        f"flash_online B={b} H={h} S={s} d={fd}", online,
+        lambda: sa.flash_online_plain(q, k, v, scale=fd ** -0.5), lib, flops, nbytes,
+        **dict(meta, chunk=sa.flash_online_chunk(s, fd))))
+    if not torch.equal(online(), online()):
+        raise AssertionError(f"flash_online B={b} d={fd}: two launches differ")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -356,6 +372,23 @@ def kernel_phase(card: str):
         if not torch.equal(online(), online()):
             raise AssertionError(f"flash_online Sq={sq} Skv={skv}: two launches differ")
         del q, k, v
+
+    # row 8 at d=512 with Sq != Skv, against its plain version on the kernel's chunk
+    b, h, sq, skv = FLASH_VARIANT_D512
+    fd = 512
+    q, k, v = rnd(b, h, sq, fd), rnd(b, h, skv, fd), rnd(b, h, skv, fd)
+    chunk = sa.flash_online_chunk(skv, fd)
+    online = lambda: sa.flash_attention(q, k, v, scale=fd ** -0.5, algo="online")
+    fonline_rows.append(row(
+        f"flash_online B={b} H={h} Sq={sq} Skv={skv} d={fd}", online,
+        lambda: sa.flash_online_plain(q, k, v, scale=fd ** -0.5, block_k=chunk),
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=fd ** -0.5),
+        4.0 * b * h * sq * skv * fd, (2 * b * h * sq * fd + 2 * b * h * skv * fd) * 2,
+        batch=b, heads=h, queries=sq, keys=skv, head_dim=fd, per_pass=0, chunk=chunk,
+        route=f"64 query rows a block, key chunk {chunk}"))
+    if not torch.equal(online(), online()):
+        raise AssertionError(f"flash_online Sq={sq} Skv={skv} d={fd}: two launches differ")
+    del q, k, v
 
     # kernels 3, 7 and 10: shared attention over [input |] per-call references,
     # bound and online, on the same inputs; a cold restore launches the
@@ -639,6 +672,19 @@ def vjp_kernel_phase(card: str):
             del qf, kf, vf, ref
         del q, k, v, do, out, lse, dq, dk, dv
         torch.cuda.empty_cache()
+
+    # row 4 at d=512 with Sq != Skv (the backward's d=512 tile takes no Skv of 96)
+    b, h, sq, skv = FLASH_VARIANT_D512
+    q, k, v = (torch.randn((b, h, n, 512), generator=g, device=dev).to(torch.bfloat16)
+               for n in (sq, skv, skv))
+    chunk = sa.flash_online_chunk(skv, 512)
+    fwd_rows.append(fwd_row(
+        q, k, v, 512 ** -0.5,
+        dict(batch=b, heads=h, queries=sq, keys=skv, head_dim=512, per_pass=0,
+             route=f"64 query rows a block, key chunk {chunk}"),
+        f"B={b} H={h} Sq={sq} Skv={skv} d=512", fv.flash_fwd_lse(q, k, v, scale=512 ** -0.5),
+        chunk))
+    del q, k, v
 
     # rows 4-6 on their tiles' other tiles: row 4 on the wgmma tile's 64 query
     # rows a block or 64-key chunk, rows 5 and 6 on the backward tile's 64 rows
@@ -1132,10 +1178,16 @@ def cold_phase(card: str, w):
     return dict(cond=cond, noise=noise, out=out), counts
 
 
+# the profiles' share of the d=512 flash kernels (the VAE mid attention)
+D512_SHARE = {"flash kernels at d=512": ("flash_d512_kernel",)}
+
+
 def online_phase(card: str, w, cold):
     """The online-max path at full width: the cold phase's batch-16
     restore_cold under INSTANTRESTORE_ATTN_ALGO=kv_outer and
-    INSTANTRESTORE_FLASH_ALGO=online; returns its launch counts."""
+    INSTANTRESTORE_FLASH_ALGO=online, then a profile of one batch-16 warm
+    restore under INSTANTRESTORE_FLASH_ALGO=online; returns the cold
+    restores' launch counts."""
     import torch
 
 
@@ -1154,7 +1206,10 @@ def online_phase(card: str, w, cold):
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         profile_run(lambda: engine.restore_cold(images, cold["cond"], noise=cold["noise"]),
-                    "one cold restore under kv_outer + online", card)
+                    "one cold restore under kv_outer + online", card, shares=D512_SHARE)
+    with algo_env(flash="online"):  # the identity cache takes no algorithm
+        profile_run(lambda: engine.restore(images, w["ids"], noise=w["noise"]),
+                    "one warm restore under FLASH_ALGO=online", card, shares=D512_SHARE)
     failures = []
     check_launches(failures, f"{RESTORE_RUNS + 1} cold restores under kv_outer + online", counts,
                    RESTORE_RUNS + 1, shared_online=9, flash_attention_online=26)
@@ -1528,15 +1583,29 @@ BACKWARD_PAIR = ("flash_bwd_dq", "flash_bwd_dkv")
 
 def ranking(kernels) -> list:
     """The order in which to redesign the kernels: the factor over the library
-    call per pass of the kernel's path, largest first. The two backward
-    kernels are ranked as one pair against SDPA's joint backward (dQ, dK and
-    dV in one call, each half's library_ms), with its d = 64 and d = 512
-    parts; each half's own line follows the pair's, not ranked."""
+    call per pass of the kernel's path, largest first, with the d = 64 and
+    d = 512 parts of each kernel its path runs at both widths. The two
+    backward kernels are ranked as one pair against SDPA's joint backward
+    (dQ, dK and dV in one call, each half's library_ms); each half's own
+    line follows the pair's, not ranked."""
+    def width_parts(k):
+        """'; d=64 a vs b ms (x), d=512 ...' where the kernel's path runs it at
+        both widths: each width's time and library time per pass."""
+        widths = sorted({r["head_dim"] for r in k["shapes"] if r["per_pass"] and "head_dim" in r})
+        if len(widths) < 2:
+            return ""
+
+        def part(key, w):
+            return sum(r[key] * r["per_pass"] for r in k["shapes"] if r.get("head_dim") == w)
+
+        return "; " + ", ".join(f"d={w} {part('ms', w):.2f} vs {part('library_ms', w):.2f} ms "
+                                f"({part('ms', w) / part('library_ms', w):.2f}x)" for w in widths)
+
     def line(k):
         exp2 = "" if k.get("exp2_ms") is None else f", exp2 alone {k['exp2_ms']:.2f} ms"
         return (f"kernel {k['name']}: {k['ms'] / k['library_ms']:.2f}x its library call per pass "
-                f"({k['ms']:.2f} vs {k['library_ms']:.2f} ms), {k['ms'] - k['bound_ms']:.2f} ms "
-                f"above its bound of {k['bound_ms']:.2f} ms{exp2}")
+                f"({k['ms']:.2f} vs {k['library_ms']:.2f} ms{width_parts(k)}), "
+                f"{k['ms'] - k['bound_ms']:.2f} ms above its bound of {k['bound_ms']:.2f} ms{exp2}")
 
     entries = [(k["ms"] / k["library_ms"], [line(k)]) for k in kernels
                if k["name"] not in BACKWARD_PAIR]

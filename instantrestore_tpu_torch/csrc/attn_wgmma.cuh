@@ -4,10 +4,9 @@
 // flash_fwd_lse.cu) at head dim 64, designed for Hopper: wgmma.mma_async for
 // both products with every accumulator in registers, K and V tiles brought by
 // TMA (cp.async.bulk.tensor) into a ring of shared-memory stages behind
-// mbarriers, the softmax on the register fragments. flash_bound.cu at d = 512
-// runs on attn_wgmma_d512.cuh (built from this file's PTX wrappers);
-// attn_tile.cuh (mma.sync, scores staged through shared memory) stays for the
-// online plain kernels at d = 512.
+// mbarriers, the softmax on the register fragments. The plain kernels at
+// d = 512 (flash_bound.cu, flash_online.cu, flash_fwd_lse.cu) run on
+// attn_wgmma_d512.cuh, built from this file's PTX wrappers.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //

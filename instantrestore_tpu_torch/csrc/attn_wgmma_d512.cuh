@@ -1,22 +1,31 @@
-// Attention tile of the plain flash kernel at head dim 512 (flash_bound.cu:
-// the VAE mid-block attention, one head, 4096 tokens), designed for Hopper on
-// the PTX wrappers of attn_wgmma.cuh: wgmma.mma_async for both products, K
-// and V tiles brought by TMA into rings of shared-memory stages behind
-// mbarriers, the softmax on the register fragments.
+// Attention tile of the plain flash kernels at head dim 512 (flash_bound.cu,
+// flash_online.cu, flash_fwd_lse.cu: the VAE mid-block attention, one head,
+// 4096 tokens), designed for Hopper on the PTX wrappers of attn_wgmma.cuh:
+// wgmma.mma_async for both products, K and V tiles brought by TMA into rings
+// of shared-memory stages behind mbarriers, the softmax on the register
+// fragments.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
-// The function (JAX: _flash_bound_kernel of
-// instantrestore_tpu/ops/shared_attention.py at d >= 128): out =
-// softmax(q k^T * scale) v over the Skv keys of q's own (b, h), with q
-// pre-scaled in bf16 by bf16(scale * log2 e), no running max but the
-// Cauchy-Schwarz bound of each row, bound = ||q|| (the 512 unscaled channels,
-// fp32) * scale * log2 e * kmax[b, h] - 64, p = exp2(s - bound) rounded to
-// bf16 (the result, not the argument), the row sum over the rounded p (the
-// JAX kernel's jnp.sum(p.astype(f32)) of the bf16 p), an fp32 accumulator and
-// out = acc / l in bf16. A row whose largest score lies more than ~190 log2
-// units under its bound sums to l = 0 and comes out non-finite. The softmax
-// policy is a template parameter; only Policy::kBound is instantiated.
+// The function: out = softmax(q k^T * scale) v over the Skv keys of q's own
+// (b, h), with q pre-scaled in bf16 by bf16(scale * log2 e), scores s in fp32
+// log2 units, an fp32 accumulator and out = acc / l in bf16. Two softmax
+// policies, a template parameter:
+//   * Policy::kBound (flash_bound.cu; JAX: _flash_bound_kernel of
+//     instantrestore_tpu/ops/shared_attention.py at d >= 128): no running
+//     max but the Cauchy-Schwarz bound of each row, bound = ||q|| (the 512
+//     unscaled channels, fp32) * scale * log2 e * kmax[b, h] - 64, p =
+//     exp2(s - bound) rounded to bf16 (the result, not the argument), the
+//     row sum over the rounded p (the JAX kernel's jnp.sum(p.astype(f32)) of
+//     the bf16 p). A row whose largest score lies more than ~190 log2 units
+//     under its bound sums to l = 0 and comes out non-finite.
+//   * Policy::kOnline (flash_online.cu, flash_fwd_lse.cu; JAX: _flash_kernel
+//     and _fwd_lse_kernel at d >= 128): a running max per row from the finite
+//     -1e30, taken once per 32-key tile (the key chunk): m_new = max(m,
+//     rowmax(s)), alpha = exp2(m - m_new), p = exp2(s - m_new) in fp32 (the
+//     argument not rounded), l = alpha l + the sum of the fp32 p, acc = alpha
+//     acc + bf16(p) v. With Problem::lse it also writes lse2 = m + log2(l),
+//     fp32 [B, H, Sq]. No row can flush.
 //
 // What bounds it on the H100: tensor-core operations. A batch-16 launch is
 // 4 * 16 * 4096^2 * 512 = 0.55 TFLOP (0.556 ms at 989 TFLOP/s) for 0.27 GB.
@@ -29,8 +38,8 @@
 //   * Q (64 x 512 bf16, 64 KB) lives in shared memory as eight [64, 64]
 //     slabs in the 128-byte swizzle, the A operand of S = Qs K^T by
 //     descriptor (in registers it would take 128 more a thread). The
-//     consumers write it themselves, pre-scaled, and take the row norms from
-//     the same loads.
+//     consumers write it themselves, pre-scaled, and (kBound) take the row
+//     norms from the same loads.
 //   * A TMA box in the 128-byte swizzle is 64 bf16 wide, so a [BK, 512] K or
 //     V tile arrives as eight [BK, 64] slabs, one box each. At BK = 32 keys
 //     a tile is 32 KB; K and V have rings of their own, two stages each
@@ -40,16 +49,23 @@
 //     over its own 256 channels (16 k16 steps of m64n32k16 over its four
 //     K-major slabs) and the two add their partial S through shared memory
 //     (64 x 32 fp32 a warpgroup, double-buffered by tile parity, one named
-//     barrier a tile); S0 + S1 is the same sum in both. Computing the whole
-//     S in each warpgroup instead (1.5x the tensor work, no exchange) ran
-//     about 10% slower at batch 4, 16 and 64 on an H100 SXM (PERF.md).
+//     barrier a tile); S0 + S1 and S1 + S0 are the same fp32 bits, so both
+//     warpgroups reach the same running max, alpha and p without a second
+//     exchange. Computing the whole S in each warpgroup instead (1.5x the
+//     tensor work, no exchange) ran about 10% slower at batch 4, 16 and 64
+//     on an H100 SXM (PERF.md).
 //   * O += P V: P, packed pairwise to bf16, is the A fragment from registers;
 //     each warpgroup's four MN-major V slabs are four m64n64k16 per 16 keys
-//     (attn_wgmma.cuh's descriptors), and the row sums of the rounded P ride
-//     the tensor cores as a product with a block of ones (m64n8k16).
+//     (attn_wgmma.cuh's descriptors). kBound's row sums of the rounded P ride
+//     the tensor cores as a product with a block of ones (m64n8k16); kOnline
+//     sums its fp32 p in registers (each thread its share, the quad adds
+//     them in the epilogue).
 //   Within a warpgroup S(t + 1) and P(t) V(t) are started back to back, the
 //   softmax of S(t + 1) runs under P(t) V(t), and P(t + 1) is packed after the
-//   wait, as in attn_wgmma.cuh; no wgmma batch sits on a runtime branch.
+//   wait, as in attn_wgmma.cuh; kOnline rescales its O by alpha(t + 1) only
+//   after that wait, before the next product starts (the first tile's alpha
+//   is exp2(-1e30 - m) = 0 on a zero O). No wgmma batch sits on a runtime
+//   branch.
 
 #pragma once
 
@@ -105,13 +121,48 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t ades
       : "l"(adesc), "l"(bdesc), "n"(SCALE_D));
 }
 
+// One 32-key tile of kOnline's softmax on a thread's fragment of the
+// exchanged S (rows g and g + 8, 8 scores each), in place: m_new = max(m,
+// rowmax(s)) over the quad, alpha = exp2(m - m_new), s <- exp2(s - m_new) in
+// fp32 (the d >= 128 rule: the argument is not rounded, unlike
+// wg::online_softmax), and the thread's share of each row sum l <- alpha l +
+// its fp32 p. m is updated in place; pack_p rounds p for the product only.
+__device__ __forceinline__ void online_softmax_fp32(float (&s)[kBK / 2], float (&m)[2],
+                                                    float (&alpha)[2], float (&l)[2]) {
+  float m_new[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    m_new[0] = fmaxf(m_new[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    m_new[1] = fmaxf(m_new[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 1));
+    m_new[i] = fmaxf(m_new[i], __shfl_xor_sync(0xffffffffu, m_new[i], 2));
+    alpha[i] = wg::ex2(m[i] - m_new[i]);
+    m[i] = m_new[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      s[4 * j + 2 * i] = wg::ex2(s[4 * j + 2 * i] - m_new[i]);
+      s[4 * j + 2 * i + 1] = wg::ex2(s[4 * j + 2 * i + 1] - m_new[i]);
+      l[i] += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
+    }
+  }
+}
+
 // map_k/map_v: k, v as [B * H * Skv, 512] with a [kBK, 64] box. Grid
 // (Sq / 64, H, B).
 template <Policy P>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v, const Problem pr) {
-  static_assert(P == Policy::kBound, "only the bound policy is built at d = 512");
+  static_assert(P == Policy::kBound || P == Policy::kOnline,
+                "the bound and the online policy are built at d = 512");
+  constexpr bool kOnes = P == Policy::kBound;  // row sums by the product with a block of ones
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[4 * kStages];
 
@@ -131,7 +182,7 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
   auto k_tile = [&](int st) { return base + static_cast<uint32_t>(kKOff + st * kTileBytes); };
   auto v_tile = [&](int st) { return base + static_cast<uint32_t>(kVOff + st * kTileBytes); };
 
-  if (threadIdx.x < wg::kOnesBytes / 16) {
+  if (kOnes && threadIdx.x < wg::kOnesBytes / 16) {
     const uint32_t one2 = 0x3F803F80u;  // two bf16 ones
     *reinterpret_cast<uint4*>(base_ptr + kOnesOff + threadIdx.x * 16) =
         make_uint4(one2, one2, one2, one2);
@@ -183,8 +234,8 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
   const size_t q_base = (static_cast<size_t>(b * H + h) * Sq + q0) * kD;
 
   // Q -> shared memory, pre-scaled in bf16, into the 128-byte swizzle (16-byte
-  // chunk j of row r of a slab at chunk j ^ (r % 8)); each row's bound from the
-  // same unscaled values: four threads a row, 16 chunks each.
+  // chunk j of row r of a slab at chunk j ^ (r % 8)); kBound: each row's bound
+  // from the same unscaled values. Four threads a row, 16 chunks each.
   {
     const int ct = threadIdx.x;  // 0 .. 255
     const int r = ct >> 2;
@@ -207,26 +258,41 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
       *reinterpret_cast<uint4*>(base_ptr + slab * kQSlabBytes + r * 128 + ((j ^ (r & 7)) << 4)) =
           wg::pack8(f);
     }
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-    if (part == 0)
-      bound_s[r] = sqrtf(ss) * pr.qscale * pr.kmax[b * H + h] - wg::kBoundExpShift;
+    if constexpr (P == Policy::kBound) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+      if (part == 0)
+        bound_s[r] = sqrtf(ss) * pr.qscale * pr.kmax[b * H + h] - wg::kBoundExpShift;
+    }
     wg::fence_proxy_async();  // the Q tile is read by wgmma (async proxy)
     asm volatile("bar.sync %0, 256;\n" ::"n"(kQReadyBar) : "memory");
   }
-  const float bnd[2] = {bound_s[warp * 16 + g], bound_s[warp * 16 + g + 8]};
+  float bnd[2] = {0.f, 0.f};
+  if constexpr (P == Policy::kBound) {
+    bnd[0] = bound_s[warp * 16 + g];
+    bnd[1] = bound_s[warp * 16 + g + 8];
+  }
 
   float o[kOwnSlabs][32];
 #pragma unroll
   for (int c = 0; c < kOwnSlabs; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
-  // row sums of the rounded P, every column the same: [0], [1] row g, [2], [3] row g + 8
+  // kBound: row sums of the rounded P, every column the same: [0], [1] row g,
+  // [2], [3] row g + 8
   float l_acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float l_unused[2] = {0.f, 0.f};
+  float l_part[2] = {0.f, 0.f};  // kOnline: the thread's share of rows g and g + 8
+  float m_run[2] = {wg::kNegInf, wg::kNegInf};  // kOnline: the running max of rows g, g + 8
+  float alpha[2] = {0.f, 0.f};
   float s[kBK / 2];     // S = Qs K^T of one tile, first this warpgroup's part
   uint32_t p[kBK / 4];  // bf16 P of the tile whose P V is next
   const uint64_t ones = wg::ones_desc(base + kOnesOff);
+  auto softmax = [&]() {
+    if constexpr (P == Policy::kOnline)
+      online_softmax_fp32(s, m_run, alpha, l_part);
+    else
+      wg::bound_softmax<false>(s, bnd, l_part);
+  };
 
   // this warpgroup's part of S = Qs K^T of the tile in stage st, one wgmma
   // batch: k16 step ks reads 32 bytes at (ks % 4) * 32 of its Q slab and K
@@ -244,7 +310,7 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
                             k_desc + (((ks / 4) * kKVSlabBytes + (ks % 4) * 32) >> 4));
     wg::wgmma_commit();
   };
-  // O += P V over this warpgroup's four V slabs, and l += P 1
+  // O += P V over this warpgroup's four V slabs, and (kBound) l += P 1
   auto start_pv = [&](int st) {
     const uint64_t v_desc = wg::smem_desc(v_tile(st) + wgrp * kOwnSlabs * kKVSlabBytes);
     wg::wgmma_fence();
@@ -254,14 +320,16 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
       for (int c = 0; c < kOwnSlabs; ++c)
         wg::wgmma_m64n64k16<1, 1>(o[c], &p[4 * kk],
                                   v_desc + ((c * kKVSlabBytes + kk * 16 * 128) >> 4));
+    if constexpr (kOnes) {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wg::wgmma_m64n8k16(l_acc, &p[4 * kk], ones);
+      for (int kk = 0; kk < kBK / 16; ++kk) wg::wgmma_m64n8k16(l_acc, &p[4 * kk], ones);
+    }
     wg::wgmma_commit();
   };
   auto pin_acc = [&]() {
 #pragma unroll
     for (int c = 0; c < kOwnSlabs; ++c) wg::pin_regs(o[c]);
-    wg::pin_regs(l_acc);
+    if constexpr (kOnes) wg::pin_regs(l_acc);
   };
   // the whole S of tile t in both warpgroups: this one's part plus the other's,
   // through shared memory (float4 i of thread tw at [parity][warpgroup][i][tw])
@@ -286,19 +354,20 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
     __syncwarp();
   };
 
-  // prologue: S and P of tile 0
+  // prologue: S and P of tile 0 (kOnline: alpha = exp2(-1e30 - m) = 0, O is zero)
   wg::mbar_wait(k_full(0), 0);
   start_qk(0);
   wg::wgmma_wait<0>();
   wg::pin_regs(s);
   release(k_empty(0));
   exchange(0);
-  wg::bound_softmax<false>(s, bnd, l_unused);
+  softmax();
   wg::pack_p(s, p);
 
   // Per tile t but the last: S(t + 1) and O += P(t) V(t) back to back; the K
   // stage goes back to the producer as soon as S(t + 1) has landed, the V
-  // stage after P(t) V(t).
+  // stage after P(t) V(t). kOnline rescales O by alpha(t + 1) after the wait
+  // for P(t) V(t): the product still accumulates into O until then.
   for (int t = 0; t + 1 < n_tiles; ++t) {
     const int st = t % kStages;
     const int nx = (t + 1) % kStages;
@@ -310,10 +379,21 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
     wg::pin_regs(s);
     release(k_empty(nx));
     exchange(t + 1);
-    wg::bound_softmax<false>(s, bnd, l_unused);
+    softmax();
     wg::wgmma_wait<0>();
     pin_acc();
     release(v_empty(st));
+    if constexpr (P == Policy::kOnline) {
+#pragma unroll
+      for (int c = 0; c < kOwnSlabs; ++c)
+#pragma unroll
+        for (int j = 0; j < kSlabCols / 8; ++j) {
+          o[c][4 * j] *= alpha[0];
+          o[c][4 * j + 1] *= alpha[0];
+          o[c][4 * j + 2] *= alpha[1];
+          o[c][4 * j + 3] *= alpha[1];
+        }
+    }
     wg::pack_p(s, p);
     pin_acc();
     wg::pin_regs(p);
@@ -327,8 +407,16 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
     release(v_empty(last % kStages));
   }
 
-  // epilogue: out = O / l in bf16 from the registers, this warpgroup's channels
-  const float l_run[2] = {l_acc[0], l_acc[2]};
+  // epilogue: out = O / l in bf16 from the registers, this warpgroup's
+  // channels; kOnline's whole row sum from the quad's shares, in every lane
+  float l_run[2] = {l_acc[0], l_acc[2]};
+  if constexpr (P == Policy::kOnline) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l_run[i] = l_part[i] + __shfl_xor_sync(0xffffffffu, l_part[i], 1);
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    }
+  }
   __nv_bfloat16* const out_rows =
       pr.out + q_base + static_cast<size_t>(warp * 16) * kD + wgrp * kOwnSlabs * kSlabCols;
 #pragma unroll
@@ -341,13 +429,24 @@ flash_d512_kernel(const __grid_constant__ CUtensorMap map_k,
                                            2 * tq) =
             __floats2bfloat162_rn(o[c][4 * j + 2 * i] / l_run[i],
                                   o[c][4 * j + 2 * i + 1] / l_run[i]);
+  // lse2 = m + log2(l) of rows g and g + 8: both warpgroups hold the same
+  // values; one lane of each quad of warpgroup 0 writes them
+  if constexpr (P == Policy::kOnline) {
+    if (pr.lse != nullptr && wgrp == 0 && tq == 0) {
+      const size_t row0 = static_cast<size_t>(b * H + h) * Sq + q0 + warp * 16 + g;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) pr.lse[row0 + 8 * i] = m_run[i] + log2f(l_run[i]);
+    }
+  }
 }
 
 // q, out [B, H, Sq, 512] against the Skv = pr.S keys of k_in/v_in [B, H, Skv,
-// 512]; kmax [B, H] fp32. The key chunk is the tile's, bk = 32
-// (ops/shared_attention.py, flash_bound_chunk). Refuses Sq not a multiple of
-// 64, Skv not a multiple of 32, another chunk, more than 65535 samples or
-// heads, no kmax, and key rows past the tensor maps' 2^31 row coordinates.
+// 512]; kBound: kmax [B, H] fp32; kOnline: lse [B, H, Sq] fp32 or null. The
+// key chunk is the tile's, bk = 32 (ops/shared_attention.py,
+// flash_bound_chunk and flash_online_chunk). Refuses Sq not a multiple of 64,
+// Skv not a multiple of 32, another chunk, more than 65535 samples or heads,
+// kBound without kmax, and key rows past the tensor maps' 2^31 row
+// coordinates.
 template <Policy P>
 cudaError_t launch_flash_d512(const Problem& pr, int bk, void* stream) {
   if (pr.B <= 0 || pr.H <= 0 || pr.Sq <= 0 || pr.S <= 0 || pr.Sq % kRows != 0 || bk != kBK ||

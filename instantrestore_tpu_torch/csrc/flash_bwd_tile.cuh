@@ -33,11 +33,40 @@
 
 #pragma once
 
-#include "attn_tile.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
 
 namespace irt {
 
+using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(h2[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint4 u;
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h2[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+  return u;
+}
+
+__device__ __forceinline__ void load8f(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
 using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // The fragments of two [ROWS, COLS] products over D channels, shared out to

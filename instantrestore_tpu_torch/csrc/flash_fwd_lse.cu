@@ -16,27 +16,26 @@
 // broadcast over 128 lanes; that is its tiling, not part of the function.
 // The key chunk is the caller's: 128 or 64 at d=64 (a shared attention's
 // chunk divides its segment length, so that none straddles two segments),
-// 64 at d=512.
+// the tile's 32 at d=512.
 //
 // What bounds it on the H100: tensor-core operations and exp2 alike at d=64,
-// as flash_online.cu (the LSE adds 4 bytes per query row), and it runs on the
-// same tile: at d=64 the plain layout of attn_wgmma.cuh (wgmma + TMA, the
-// softmax in registers under the previous chunk's P V), whose epilogue writes
-// the LSE from the running max and the row sum already in registers; at
-// d=512 Mode::kFlashLse of attn_tile.cuh.
+// tensor-core operations at d=512, as flash_online.cu (the LSE adds 4 bytes
+// per query row), and it runs on the same tiles with Policy::kOnline: at d=64
+// the plain layout of attn_wgmma.cuh, at d=512 attn_wgmma_d512.cuh; both
+// epilogues write the LSE from the running max and the row sum already in
+// registers.
 
-#include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
+#include "attn_wgmma_d512.cuh"
 
 extern "C" int irt_flash_fwd_lse_bf16(const void* q, const void* k, const void* v, void* out,
                                       void* lse, int B, int H, int Sq, int Skv, int D,
                                       int block_k, float qscale, void* stream) {
+  using irt::wg::Policy;
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return (int)irt::wg::launch_flash<irt::wg::Policy::kOnline>(
-        irt::wg::make_flash_problem(q, k, v, out, lse, B, H, Sq, Skv, qscale), block_k, stream);
-  if (D == 512 && block_k == 64)
-    return (int)irt::launch_attn<irt::Mode::kFlashLse, 512, 32, 64, 8>(
-        q, k, v, out, B, H, Sq, Skv, qscale, stream, lse);
+  const irt::wg::Problem pr =
+      irt::wg::make_flash_problem(q, k, v, out, lse, B, H, Sq, Skv, qscale);
+  if (D == 64) return (int)irt::wg::launch_flash<Policy::kOnline>(pr, block_k, stream);
+  if (D == 512) return (int)irt::wg512::launch_flash_d512<Policy::kOnline>(pr, block_k, stream);
   return (int)cudaErrorInvalidValue;
 }

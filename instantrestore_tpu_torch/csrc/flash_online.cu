@@ -13,35 +13,36 @@
 // TPU kernel's ones column). d >= 128: p = exp2(s - m_new) in fp32, row sum
 // over the fp32 p, only the product's operand rounded. out = acc / l in bf16.
 // The key chunk is the caller's (ops/shared_attention.py,
-// flash_online_chunk: 128 at d=64 where it divides Skv, else 64) where the
-// TPU kernel's is 1024 or 512; the running maxima differ per chunk, which
-// shows at bf16 rounding level only.
+// flash_online_chunk: at d=64 128 where it divides Skv, else 64; at d=512 the
+// tile's 32) where the TPU kernel's is 1024 or 512; the running maxima differ
+// per chunk, which shows at bf16 rounding level only.
 //
 // What bounds it on the H100: tensor-core operations and exp2 alike at d=64
 // (a 64^2 UNet layer at batch 16 is 0.34 TFLOP, 0.35 ms at 989 TFLOP/s, and
 // 1.3 G exp2, 0.32 ms at 16 per clock per SM, for 0.08 GB), tensor-core
-// operations at d=512 (0.55 TFLOP for 0.27 GB). At d=64 it runs on the
-// wgmma + TMA tile of attn_wgmma.cuh in its plain layout (Layout::kPlain,
-// Policy::kOnline: both products on wgmma with S, P, alpha, l and O in
-// registers, K/V by TMA into a 4-stage ring, the softmax of one chunk under
-// the previous chunk's P V, 128 query rows a block on one ring), so that the
-// two overlap. At d=512 it keeps the tile of attn_tile.cuh (WMMA mma.sync,
-// scores staged through shared memory, no copy/compute overlap; the alpha
-// fragment reaches each of the 8 warps' channel slabs): a 64 x 512 fp32
-// accumulator does not fit one warpgroup's registers.
+// operations at d=512 (0.55 TFLOP for 0.27 GB). Both widths run on wgmma +
+// TMA tiles designed for Hopper, with Policy::kOnline:
+//   * d = 64: the plain layout of attn_wgmma.cuh (Layout::kPlain): both
+//     products on wgmma with S, P, alpha, l and O in registers, K/V by TMA
+//     into a 4-stage ring, the softmax of one chunk under the previous
+//     chunk's P V, 128 query rows a block where they divide Sq, else 64.
+//   * d = 512: attn_wgmma_d512.cuh: a 64 x 512 fp32 accumulator does not fit
+//     one warpgroup's registers, so two consumer warpgroups share 64 query
+//     rows, 256 output channels each, and add their partial S through shared
+//     memory; Q in shared memory as the A operand, K and V as eight
+//     64-channel TMA slabs in rings of two 32-key stages; the running max
+//     once per 32-key tile, O rescaled by alpha in registers after each P V.
 
-#include "attn_tile.cuh"
 #include "attn_wgmma.cuh"
+#include "attn_wgmma_d512.cuh"
 
 extern "C" int irt_flash_online_bf16(const void* q, const void* k, const void* v, void* out,
                                      int B, int H, int Sq, int Skv, int D, int block_k,
                                      float qscale, void* stream) {
-  if (D == 64)
-    return (int)irt::wg::launch_flash<irt::wg::Policy::kOnline>(
-        irt::wg::make_flash_problem(q, k, v, out, nullptr, B, H, Sq, Skv, qscale), block_k,
-        stream);
-  if (D == 512 && block_k == 64)
-    return (int)irt::launch_attn<irt::Mode::kFlashOnline, 512, 32, 64, 8>(
-        q, k, v, out, B, H, Sq, Skv, qscale, stream);
+  using irt::wg::Policy;
+  const irt::wg::Problem pr =
+      irt::wg::make_flash_problem(q, k, v, out, nullptr, B, H, Sq, Skv, qscale);
+  if (D == 64) return (int)irt::wg::launch_flash<Policy::kOnline>(pr, block_k, stream);
+  if (D == 512) return (int)irt::wg512::launch_flash_d512<Policy::kOnline>(pr, block_k, stream);
   return (int)cudaErrorInvalidValue;
 }

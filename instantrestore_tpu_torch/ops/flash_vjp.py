@@ -6,7 +6,11 @@ Each kernel comes as a wrapper, a plain PyTorch version of the same function
 and a launch count:
 
 * ``flash_fwd_lse`` -> CUDA kernel ``csrc/flash_fwd_lse.cu`` (replaces the TPU
-  kernel ``_fwd_lse_kernel``); plain version ``flash_fwd_lse_plain``.
+  kernel ``_fwd_lse_kernel``); plain version ``flash_fwd_lse_plain``. It runs
+  on ``flash_online``'s tiles: at d = 64 the wgmma + TMA tile of
+  ``csrc/attn_wgmma.cuh``, at d = 512 that of ``csrc/attn_wgmma_d512.cuh``,
+  on the key chunk of ``ops.shared_attention.flash_online_chunk`` (32 keys at
+  d = 512).
 * ``flash_bwd_dq`` -> ``csrc/flash_bwd_dq.cu`` (replaces ``_bwd_dq_kernel``);
   plain ``flash_bwd_dq_plain``.
 * ``flash_bwd_dkv`` -> ``csrc/flash_bwd_dkv.cu`` (replaces
@@ -55,7 +59,6 @@ from instantrestore_tpu_torch.ops import _build
 from instantrestore_tpu_torch.ops import shared_attention as sa
 from instantrestore_tpu_torch.ops.shared_attention import (  # re-exported
     LOG2E,
-    ONLINE_BLOCK_K,
     adain_affine,
 )
 
@@ -81,10 +84,11 @@ def flash_fwd_lse(q, k, v, *, scale: float,
     Shapes and the CUDA kernel's limits as ``ops.shared_attention
     .flash_online``. ``block_k`` is the key chunk of the running max
     (default ``flash_online_chunk``'s); the kernel takes 64 or 128 dividing
-    Skv at d = 64 and 64 at d = 512, and raises on any other."""
+    Skv at d = 64 and 32 at d = 512 (``check_flash_chunk``), and raises on
+    any other."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale=scale, block_k=block_k)
-    sa._check_flash("flash_fwd_lse", q, k, v, sa._online_tiles_fit)
+    sa._check_flash("flash_fwd_lse", q, k, v, sa._flash_tiles_fit)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if block_k is None:
@@ -361,10 +365,12 @@ class _Shared(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k_in, v_in, ref_k, ref_v, vs, vh, scale, include_input):
         wide_k, wide_v = _widen(k_in, v_in, ref_k, ref_v, vs, vh, include_input)
-        # the shared kernels' chunk at d = 64, ONLINE_BLOCK_K at other widths:
-        # it divides the segment length, so no chunk straddles two segments
-        chunk = sa.shared_online_chunk(ref_k.shape[3],
-                                       None if q.shape[-1] == 64 else ONLINE_BLOCK_K)
+        # the shared kernels' chunk at d = 64, flash_online_chunk's at other
+        # widths (32 keys at d = 512, the kernel's): it must divide the segment
+        # length, so that no chunk straddles two segments; a segment it does
+        # not divide raises
+        s, d = ref_k.shape[3], q.shape[-1]
+        chunk = sa.shared_online_chunk(s, None if d == 64 else sa.flash_online_chunk(s, d))
         out, lse = flash_fwd_lse(q, wide_k, wide_v, scale=scale, block_k=chunk)
         # the wide K/V are rebuilt in the backward, not kept
         ctx.save_for_backward(q, k_in, v_in, ref_k, ref_v, vs, vh, out, lse)

@@ -55,13 +55,13 @@ on the wgmma + TMA tile of ``csrc/attn_wgmma.cuh``, whose chunk is
 (``flash_online``, ``flash_attention``: Skv) and ``ONLINE_BLOCK_K``
 otherwise (``shared_online_tile``, ``flash_online_chunk``,
 ``flash_bound_chunk``; the bound kernels' result depends on it through the
-order of fp32 sums only); ``flash_attention`` at d = 512 runs on the wgmma +
-TMA tile of ``csrc/attn_wgmma_d512.cuh`` (``D512_BLOCK_K`` keys a chunk),
-``flash_online`` at d = 512 on the tile of ``csrc/attn_tile.cuh``, whose
-chunk is ``ONLINE_BLOCK_K``. The online plain versions take the chunk as
-``block_k`` and default to their kernel's; the bound plain versions take
-the keys in one product. The TPU tile knobs ``INSTANTRESTORE_BLOCK_K`` /
-``INSTANTRESTORE_BLOCK_Q`` are not read.
+order of fp32 sums only); ``flash_attention`` and ``flash_online`` at d =
+512 run on the wgmma + TMA tile of ``csrc/attn_wgmma_d512.cuh``, whose chunk
+is its ``D512_BLOCK_K`` keys (the running max once per such tile). The
+online plain versions take the chunk as ``block_k`` and default to their
+kernel's; the bound plain versions take the keys in one product. The TPU
+tile knobs ``INSTANTRESTORE_BLOCK_K`` / ``INSTANTRESTORE_BLOCK_Q`` are not
+read.
 """
 
 from __future__ import annotations
@@ -78,9 +78,9 @@ from instantrestore_tpu_torch.ops import _build
 LOG2E = 1.4426950408889634
 BOUND_EXP_SHIFT = 64.0
 NEG_INF = -1e30  # the online kernels' starting max: finite, so exp2(m - m_new) is never NaN
-ONLINE_BLOCK_K = 64  # key chunk of the online kernels at d=512 (csrc/attn_tile.cuh), fallback
+ONLINE_BLOCK_K = 64  # key chunk at d=64 (csrc/attn_wgmma.cuh) where 128 does not divide
 SHARED_ONLINE_BLOCK_K = 128  # key chunk of the online kernels on csrc/attn_wgmma.cuh (d=64)
-D512_BLOCK_K = 32  # key chunk of flash_attention at d=512 (csrc/attn_wgmma_d512.cuh)
+D512_BLOCK_K = 32  # key chunk of the flash kernels at d=512 (csrc/attn_wgmma_d512.cuh)
 # plain versions materialise fp32 score blocks of at most this many elements
 _PLAIN_BLOCK_ELEMS = 1 << 28
 
@@ -182,20 +182,13 @@ def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: 
 # ---------------------------------------------------------------------------
 
 
-def _bound_tiles_fit(sq: int, skv: int, d: int) -> bool:
-    """Whether ``flash_attention``'s bound kernel takes Sq queries against
-    Skv keys at head dim d: d in {64, 512}, Sq a multiple of 64 and Skv of
-    the smaller key chunk (``ONLINE_BLOCK_K`` at d = 64, ``D512_BLOCK_K`` at
-    d = 512)."""
+def _flash_tiles_fit(sq: int, skv: int, d: int) -> bool:
+    """Whether the plain flash kernels (``flash_attention``'s bound kernel,
+    ``flash_online``, ``flash_fwd_lse``) take Sq queries against Skv keys at
+    head dim d: d in {64, 512}, Sq a multiple of 64 and Skv of the smaller
+    key chunk (``ONLINE_BLOCK_K`` at d = 64, ``D512_BLOCK_K`` at d = 512)."""
     smallest = {64: ONLINE_BLOCK_K, 512: D512_BLOCK_K}.get(d)
     return smallest is not None and min(sq, skv) > 0 and sq % 64 == 0 and skv % smallest == 0
-
-
-def _online_tiles_fit(sq: int, skv: int, d: int) -> bool:
-    """Whether the online flash kernels (``flash_online``, ``flash_fwd_lse``)
-    take Sq queries against Skv keys at head dim d: d in {64, 512}, Sq % (64
-    if d == 64 else 32) == 0, Skv % 64 == 0."""
-    return d in (64, 512) and sq % (64 if d == 64 else 32) == 0 and skv % 64 == 0
 
 
 def flash_bound_chunk(sq: int, skv: int, d: int) -> int:
@@ -204,8 +197,8 @@ def flash_bound_chunk(sq: int, skv: int, d: int) -> int:
     layout of ``csrc/attn_wgmma.cuh``, whose launcher takes 128 query rows a
     block where they divide Sq, else 64), at d = 512 ``D512_BLOCK_K``
     (``csrc/attn_wgmma_d512.cuh``, 64 rows a block). Raises on what the
-    kernel refuses (``_bound_tiles_fit``)."""
-    if not _bound_tiles_fit(sq, skv, d):
+    kernel refuses (``_flash_tiles_fit``)."""
+    if not _flash_tiles_fit(sq, skv, d):
         raise ValueError(f"flash_attention: the bound kernel takes d in (64, 512), Sq % 64 == 0 "
                          f"and Skv % {ONLINE_BLOCK_K if d == 64 else D512_BLOCK_K} == 0, not "
                          f"Sq {sq}, Skv {skv}, d {d}")
@@ -223,7 +216,8 @@ def flash_attention_plain(q, k, v, *, scale: float) -> torch.Tensor:
 def _check_flash(name: str, q, k, v, fits) -> None:
     """The flash kernels' inputs: CUDA bf16, k and v of one shape [B, H,
     Skv, d] beside q [B, H, Sq, d], and ``fits(Sq, Skv, d)``, the kernel's
-    own rule for its tiles (``_bound_tiles_fit``, ``_online_tiles_fit``)."""
+    own rule for its tiles (``_flash_tiles_fit``; the backward kernels'
+    ``ops.flash_vjp._bwd_tiles_fit``)."""
     if not q.is_cuda:
         raise ValueError(f"{name}: no kernel for device {q.device}")
     b, h, sq, d = q.shape
@@ -250,7 +244,7 @@ def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> tor
         return flash_online(q, k, v, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale)
-    _check_flash("flash_attention", q, k, v, _bound_tiles_fit)
+    _check_flash("flash_attention", q, k, v, _flash_tiles_fit)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     block_k = flash_bound_chunk(sq, skv, d)
@@ -276,20 +270,23 @@ flash_attention.launches = 0
 
 def flash_online_chunk(skv: int, d: int) -> int:
     """Key chunk of the running max of ``flash_online`` and ``flash_fwd_lse``
-    over Skv keys at head dim d: the wgmma tile's at d = 64,
-    ``SHARED_ONLINE_BLOCK_K`` where it divides Skv, else ``ONLINE_BLOCK_K``;
-    ``ONLINE_BLOCK_K`` at any other width (d = 512: the tile of
-    ``csrc/attn_tile.cuh``). Skv where that is shorter (no kernel takes it)."""
+    over Skv keys at head dim d: at d = 64 the tile of ``csrc/attn_wgmma.cuh``
+    takes ``SHARED_ONLINE_BLOCK_K`` where it divides Skv, else
+    ``ONLINE_BLOCK_K``; at d = 512 the tile of ``csrc/attn_wgmma_d512.cuh``
+    takes its ``D512_BLOCK_K`` keys; the plain versions take
+    ``ONLINE_BLOCK_K`` at any other width (no kernel does). Skv where that is
+    shorter (no kernel takes it)."""
     if d == 64 and skv % SHARED_ONLINE_BLOCK_K == 0:
         return SHARED_ONLINE_BLOCK_K
-    return min(ONLINE_BLOCK_K, skv)
+    return min(D512_BLOCK_K if d == 512 else ONLINE_BLOCK_K, skv)
 
 
 def check_flash_chunk(name: str, skv: int, d: int, block_k: int) -> None:
     """Raises unless the online flash kernels take a key chunk of ``block_k``
-    over Skv keys at head dim d: 64 or 128 dividing Skv at d = 64 (the wgmma
-    tile), 64 at d = 512."""
-    takes = (ONLINE_BLOCK_K, SHARED_ONLINE_BLOCK_K) if d == 64 else (ONLINE_BLOCK_K,)
+    over Skv keys at head dim d: 64 or 128 dividing Skv at d = 64 (the tile of
+    ``csrc/attn_wgmma.cuh``), 32 dividing Skv at d = 512 (the tile of
+    ``csrc/attn_wgmma_d512.cuh``)."""
+    takes = (ONLINE_BLOCK_K, SHARED_ONLINE_BLOCK_K) if d == 64 else (D512_BLOCK_K,)
     if block_k not in takes or skv % block_k:
         raise ValueError(f"{name}: the kernel takes a key chunk of {takes} dividing Skv {skv} "
                          f"at d={d}, not {block_k}")
@@ -311,10 +308,10 @@ def flash_online(q, k, v, *, scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v with the numerics of the TPU's
     ``_flash_kernel`` (running max, no bound: no row can flush). Shapes as
     ``flash_attention``; the CUDA kernel takes bf16 and the shapes of
-    ``_online_tiles_fit``; the key chunk is ``flash_online_chunk``'s."""
+    ``_flash_tiles_fit``; the key chunk is ``flash_online_chunk``'s."""
     if q.device.type == "cpu":
         return flash_online_plain(q, k, v, scale=scale)
-    _check_flash("flash_online", q, k, v, _online_tiles_fit)
+    _check_flash("flash_online", q, k, v, _flash_tiles_fit)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     out = torch.empty_like(q)

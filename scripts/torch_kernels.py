@@ -56,8 +56,9 @@ SHARED_SHAPES = [(20, 256), (10, 1024), (5, 4096)]  # (heads, tokens) of the 9 s
 # warpgroup a block; a 64-key chunk; both; the smallest call
 SMALL_SHAPES = [(2, 4, 192, 256), (2, 4, 256, 64), (2, 2, 64, 192), (3, 2, 64, 64)]
 FLASH_SHAPES = [(5, 4096, 64), (10, 1024, 64), (20, 256, 64), (20, 64, 64), (1, 4096, 512)]
-# flash_bound at d=512 also at the cold capture's batch of 64 (the VAE mid
-# attention of 64 references' encode); (batch, heads, tokens, head dim)
+# flash_bound and flash_online at d=512 also at the cold capture's batch of 64
+# (the VAE mid attention of 64 references' encode); (batch, heads, tokens,
+# head dim)
 FLASH_CAPTURE_D512 = (64, 1, 4096, 512)
 # (heads, queries, keys, head dim) of the flash-VJP kernels at batch 2
 VJP_SHAPES = [(5, 4096, 16384, 64), (10, 1024, 4096, 64), (20, 64, 64, 64), (1, 4096, 4096, 512)]
@@ -69,6 +70,10 @@ VJP_SHAPES = [(5, 4096, 16384, 64), (10, 1024, 4096, 64), (20, 64, 64, 64), (1, 
 # (chip_smoke.py's FLASH_VARIANT_SHAPES).
 FLASH_SMALL_SHAPES = [(2, 2, 64, 128, 64), (2, 4, 192, 256, 64), (2, 4, 256, 320, 64),
                       (2, 1, 64, 64, 512)]
+# the forward kernels' d = 512 tile also at Sq != Skv with three 32-key tiles
+# (chip_smoke.py's FLASH_VARIANT_D512); the backward's d = 512 tile takes no
+# Skv of 96
+FLASH_SMALL_D512 = [(2, 2, 192, 96, 512)]
 LSE_TOL = 1e-3  # max-abs of the LSE against the plain version, log2 units
 IDS = [3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3]
 SOURCES = ("shared_identity", "flash_bound", "shared_flash_bound", "flash_fwd_lse",
@@ -230,9 +235,9 @@ def cases(source: str, g, small: bool = False):
     elif source in ("flash_bound", "flash_online"):
         algo = source.split("_")[1]
         plain = sa.flash_attention_plain if algo == "bound" else sa.flash_online_plain
-        shapes = FLASH_SMALL_SHAPES if small else [
+        shapes = FLASH_SMALL_SHAPES + FLASH_SMALL_D512 if small else [
             (4 if d == 512 else BATCH, h, s, s, d) for h, s, d in FLASH_SHAPES]
-        if algo == "bound" and not small:
+        if not small:
             b, h, s, d = FLASH_CAPTURE_D512
             shapes = shapes + [(b, h, s, s, d)]
         for b, h, sq, skv, d in shapes:
@@ -244,20 +249,23 @@ def cases(source: str, g, small: bool = False):
                    lambda q=q, k=k, v=v, d=d: plain(q, k, v, scale=d ** -0.5))
     else:  # the flash-VJP kernels, batch 2
         shapes = FLASH_SMALL_SHAPES if small else [(2, *shape) for shape in VJP_SHAPES]
+        if small and source == "flash_fwd_lse":
+            shapes = shapes + FLASH_SMALL_D512
         for b, h, sq, skv, d in shapes:
             q, k, v, do = (rnd(b, h, n, d) for n in (sq, skv, skv, sq))
             sc = d ** -0.5
-            # the backward kernels' residuals from the plain forward on a fixed
-            # chunk: the same in every tree, whatever its forward kernel does
-            out, lse = fv.flash_fwd_lse_plain(q, k, v, scale=sc, block_k=64)
-            delta = (do.float() * out.float()).sum(dim=-1)
-            args = (q, k, v, do, lse, delta)
             tag = f"B={b} H={h} Sq={sq} Skv={skv} d={d}"
             if source == "flash_fwd_lse":  # out and LSE
                 yield (f"{source} {tag}",
                        lambda q=q, k=k, v=v, sc=sc: fv.flash_fwd_lse(q, k, v, scale=sc),
                        lambda q=q, k=k, v=v, sc=sc: fv.flash_fwd_lse_plain(q, k, v, scale=sc))
-            elif source == "flash_bwd_dq":
+                continue
+            # the backward kernels' residuals from the plain forward on a fixed
+            # chunk: the same in every tree, whatever its forward kernel does
+            out, lse = fv.flash_fwd_lse_plain(q, k, v, scale=sc, block_k=64)
+            delta = (do.float() * out.float()).sum(dim=-1)
+            args = (q, k, v, do, lse, delta)
+            if source == "flash_bwd_dq":
                 yield (f"{source} {tag}", lambda args=args, sc=sc: fv.flash_bwd_dq(*args, scale=sc),
                        lambda args=args, sc=sc: fv.flash_bwd_dq_plain(*args, scale=sc))
             else:

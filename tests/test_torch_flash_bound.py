@@ -93,20 +93,22 @@ def test_flash_bound_tile_over_the_chip_shapes():
 def test_square_latents_fit_the_d512_tile():
     """The serving path's d = 512 attention runs over n x n latent tokens:
     wherever n^2 is a multiple of 32 (what the mma.sync tile took) it is a
-    multiple of 64 too, so the tile's 64 query rows lose no shape."""
+    multiple of 64 too, so the tile's 64 query rows lose no shape, for the
+    bound and the online kernels alike."""
     for n in range(1, 513):
         if n * n % 32 == 0:
             assert n * n % 64 == 0 and tsa.flash_bound_chunk(n * n, n * n, 512) == 32, n
+            tsa.check_flash_chunk("flash_online", n * n, 512, tsa.flash_online_chunk(n * n, 512))
 
 
 @pytest.mark.parametrize("sq,skv,d", [(32, 64, 64), (64, 96, 64), (96, 128, 512),
                                       (64, 48, 512), (64, 64, 128)])
 def test_flash_attention_refuses_before_launch(monkeypatch, sq, skv, d):
     """On tensors made to look like the card's: a shape no tile takes raises
-    ValueError before the kernel is loaded, whatever the online kernels take
-    (Sq = 96 at d = 512 fits flash_online's 32-row tile, and flash_online
-    still takes it); one that fits reaches the load (the fixture's
-    refusal)."""
+    ValueError before the kernel is loaded, for the bound and the online
+    kernel alike (at both widths they run on the same tiles: Sq = 96 at d =
+    512 no longer fits flash_online either); one that fits reaches the load
+    (the fixture's refusal)."""
     monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
 
@@ -115,12 +117,14 @@ def test_flash_attention_refuses_before_launch(monkeypatch, sq, skv, d):
 
     with pytest.raises(ValueError, match="flash_attention: unsupported shapes"):
         tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="bound")
-    if (sq, skv, d) == (96, 128, 512):
-        with pytest.raises(AssertionError, match="tried to load kernel flash_online"):
-            tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="online")
+    with pytest.raises(ValueError, match="flash_online: unsupported shapes"):
+        tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="online")
     with pytest.raises(AssertionError, match="tried to load kernel flash_bound"):
         tsa.flash_attention(meta(64, 64), meta(128, 64), meta(128, 64), scale=0.125,
                             algo="bound")
+    with pytest.raises(AssertionError, match="tried to load kernel flash_online"):
+        tsa.flash_attention(meta(64, 512), meta(96, 512), meta(96, 512), scale=0.125,
+                            algo="online")
 
 
 def _bound_plain_chunked(q, k, v, scale, chunk):

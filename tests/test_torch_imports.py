@@ -65,7 +65,7 @@ def test_every_kernel_source_is_in_the_checkout():
         includes = [ln.split()[1] for ln in path.read_text().splitlines()
                     if ln.startswith("#include")]
         assert includes and all(
-            inc in ('"attn_tile.cuh"', '"attn_wgmma.cuh"', '"attn_wgmma_d512.cuh"',
+            inc in ('"attn_wgmma.cuh"', '"attn_wgmma_d512.cuh"',
                     '"attn_wgmma_bwd.cuh"', '"flash_bwd_tile.cuh"', "<cuda.h>",
                     "<cuda_bf16.h>", "<cuda_runtime.h>", "<mma.h>", "<stdint.h>")
             for inc in includes), (path.name, includes)
@@ -94,21 +94,46 @@ def test_online_shared_kernels_are_on_the_wgmma_tile(name):
             assert word in text, word
 
 
-def test_the_mma_sync_tile_keeps_five_modes():
-    """attn_tile.cuh serves the plain online flash kernels at d = 512 that
-    were not redesigned, in two modes: its shared modes (online, identity,
-    bound), the head-pair parameter, the AdaIN affine and the bound mode
-    with its kmax went with their only users."""
+def test_the_mma_sync_forward_tile_is_gone():
+    """attn_tile.cuh, the WMMA tile of the first slices, went with its last
+    users (rows 8 and 4 at d = 512): no source names it, and the bf16 helpers
+    the d = 512 backward took from it live in flash_bwd_tile.cuh."""
     from instantrestore_tpu_torch.ops import _build
 
-    text = (_build.CSRC / "attn_tile.cuh").read_text()
-    assert "enum class Mode { kFlashOnline, kFlashLse };" in text
-    for word in ("kSharedOnline", "int HP", "kIdentity", "kShared", "ids", "aff", "kFlash,",
-                 "kmax", "kBoundExpShift", "is_online"):
-        assert word not in text, word
-    for name in ("flash_online.cu", "flash_fwd_lse.cu", "flash_bwd_tile.cuh"):
-        assert '"attn_tile.cuh"' in (_build.CSRC / name).read_text(), name
-    assert '"attn_tile.cuh"' not in (_build.CSRC / "flash_bound.cu").read_text()
+    assert not (_build.CSRC / "attn_tile.cuh").exists()
+    for path in sorted(_build.CSRC.glob("*.cu*")):
+        assert "attn_tile" not in path.read_text(), path.name
+    bwd = (_build.CSRC / "flash_bwd_tile.cuh").read_text()
+    for word in ("uint4 pack8(", "void unpack8(", "void load8f(", "using namespace nvcuda;"):
+        assert word in bwd, word
+
+
+@pytest.mark.parametrize("name", ["flash_online.cu", "flash_fwd_lse.cu"])
+def test_online_flash_kernels_are_on_the_wgmma_tiles_at_both_widths(name):
+    """Rows 8 and 4 include only the two wgmma + TMA forward tiles and launch
+    the online policy on each: the plain layout of attn_wgmma.cuh at d = 64,
+    attn_wgmma_d512.cuh at d = 512."""
+    from instantrestore_tpu_torch.ops import _build
+
+    src = (_build.CSRC / name).read_text()
+    includes = [ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")]
+    assert includes == ['"attn_wgmma.cuh"', '"attn_wgmma_d512.cuh"']
+    assert "launch_flash<Policy::kOnline>" in src
+    assert "launch_flash_d512<Policy::kOnline>" in src
+    tile = (_build.CSRC / "attn_wgmma_d512.cuh").read_text()
+    assert "P == Policy::kBound || P == Policy::kOnline" in tile
+    assert "only Policy::kBound is instantiated" not in tile
+
+
+@pytest.mark.parametrize("word", ["wmma::", "<mma.h>"])
+def test_only_the_d512_backward_tile_holds_mma_sync(word):
+    """Every forward source and tile is on wgmma: the WMMA API (and its
+    header) appears in no source but flash_bwd_tile.cuh, the d = 512
+    backward's tile."""
+    from instantrestore_tpu_torch.ops import _build
+
+    holders = {p.name for p in _build.CSRC.glob("*.cu*") if word in p.read_text()}
+    assert holders == {"flash_bwd_tile.cuh"}
 
 
 def test_flash_bound_is_on_the_wgmma_tiles():

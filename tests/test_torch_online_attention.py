@@ -162,8 +162,9 @@ def _assert_bf16(out, ref, tol):
 @pytest.mark.parametrize("d,skv", [(64, 128), (512, 64)])
 def test_flash_online_bf16_matches_pallas(rng, d, skv):
     """bf16, both branches of row 8 (the cast before exp2 at d < 128, fp32 p
-    at d >= 128), through the wrapper on the CUDA tile's chunk (64 keys
-    against JAX's 32 here) and, at d = 512, on JAX's chunk to the last bit."""
+    at d >= 128), through the wrapper on the CUDA tile's chunk (128 keys
+    against JAX's 32 here at d = 64; at d = 512 the tile's 32, JAX's own) and,
+    at d = 512, on JAX's chunk to the last bit."""
     q = rng.normal(size=(2, 2, 64, d)).astype(np.float32)
     k = rng.normal(size=(2, 2, skv, d)).astype(np.float32)
     v = rng.normal(size=(2, 2, skv, d)).astype(np.float32)
@@ -177,6 +178,7 @@ def test_flash_online_bf16_matches_pallas(rng, d, skv):
         _assert_bf16(out, ref, dict(mean=1e-4, max=8e-3))
         same = tsa.flash_online_plain(_bf16(q), _bf16(k), _bf16(v), scale=scale, block_k=32)
         _assert_bf16(same, ref, dict(mean=1e-5, max=8e-3))
+        assert torch.equal(out, same)  # the wrapper's chunk at d = 512 is JAX's 32
 
 
 @pytest.mark.parametrize("algo", SHARED_ALGOS)
