@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,training]
+    python3 chip_smoke.py [--only kernels,vjp,serving,training,small]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -44,17 +44,21 @@ Without arguments every phase runs and the last two lines are the result;
    loses (the rows of large norm, not those of small), and flash_online is
    finite on the same inputs.
    An identity id outside the cache makes exactly its sample's outputs NaN in
-   both bound kernels that read the cache by id;
+   both bound kernels that read the cache by id. Every d=64 serving kernel
+   also runs at RAGGED_SHAPES (Sq or S off the tiles' 64 rows, as the JAX
+   kernels take them), against its plain version, two launches bit for bit;
 3b. flash-VJP kernel phase ("vjp"): flash_fwd_lse, flash_bwd_dq and
    flash_bwd_dkv at the shapes a batch-2 train step gives them (the 9 shared
    layers on K/V widened over 4 references, the UNet's down/mid
    self-attention, the d=512 VAE attention) and at FLASH_VARIANT_SHAPES (the
    other tiles: 64 query rows a block of the forward and of flash_bwd_dq, a
    64-key chunk of the forward, 64 keys a block of flash_bwd_dkv; the
-   forward also at FLASH_VARIANT_D512, Sq != Skv at d=512): out, LSE
-   (max-abs within 1e-3 log2 units), dQ, dK, dV against the plain versions
-   on the same inputs, two launches of each kernel bit-identical, one mid
-   shape against fp32 autograd through the unfused attention; timed beside
+   forward and the d=512 backward tile also at FLASH_VARIANT_D512, Sq != Skv
+   at d=512, and all three at RAGGED_SHAPES, d=64): out, LSE (max-abs within
+   1e-3 log2 units), dQ, dK, dV against the plain versions on the same
+   inputs, two launches of each kernel bit-identical, one mid shape and the
+   d=512 train-step shape against fp32 autograd through the unfused
+   attention; timed beside
    the plain versions, scaled_dot_product_attention forward and its autograd
    backward (dQ, dK, dV together), and the bounds;
 4. warm phase: random full-width SD-Turbo weights (seeded), LoRA rank 32
@@ -104,11 +108,19 @@ Without arguments every phase runs and the last two lines are the result;
    save_seg_sums and the attention regularisers runs. Prints ms per step,
    faces/sec, peak memory with and without remat and a profile with the
    share of the three flash-VJP kernels;
+9b. small-model phase ("small"): the same seeded weights at sample_size 32
+   (256 px) and 24 (192 px), whose attention shapes are off the tiles' 64
+   rows (16 and 9 tokens in the UNet mid block; 144 and 36 in the shared
+   layers at 24): onboarding 4 identities and a batch-4 warm restore, a cold
+   restore, a cold restore under kv_outer + online, and one train step at
+   batch 2; each checks its launch counts, finite outputs and agreement
+   with the unfused path (the train step: loss and gradients, fused vs
+   unfused, from one state);
 10. prints each kernel's factor over its library call per pass of its path,
    largest first, with its d=64 and d=512 parts where it runs at both
    (flash_bwd_dq and flash_bwd_dkv ranked as one pair against SDPA's joint
    backward), then
-   {"kernels": [...]} (launches summed over the paths of 4-9) and, last,
+   {"kernels": [...]} (launches summed over the paths of 4-9b) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -149,6 +161,7 @@ VJP_SHAPES = [(20, 256, 1024, 64, 3), (10, 1024, 4096, 64, 3), (5, 4096, 16384, 
               (5, 4096, 4096, 64, 2), (10, 1024, 1024, 64, 2), (20, 256, 256, 64, 2),
               (20, 64, 64, 64, 1), (1, 4096, 4096, 512, 2)]
 VJP_AUTOGRAD_SHAPE = (10, 1024, 4096, 64)  # held against fp32 autograd too
+VJP_AUTOGRAD_D512 = (1, 4096, 4096, 512)  # and the d=512 backward tile at its train-step shape
 VJP_AUTOGRAD_REL_RMS = 3e-2  # bf16 P, dS and outputs against an fp32 reference
 # (batch, heads, Sq, Skv) at d=64 that take the other tiles of flash_online and
 # flash_fwd_lse on the wgmma tile: one consumer warpgroup a block (Sq % 128 ==
@@ -164,6 +177,17 @@ FLASH_VARIANT_D512 = (2, 2, 192, 96)
 # mid attention of the 64 references' encode
 FLASH_CAPTURE_D512 = (64, 1, 4096, 512)
 LSE_TOL = 1e-3  # flash_fwd_lse's LSE against its plain version, max-abs in log2 units
+# (batch, heads, Sq, S or Skv) at d=64 off the tiles' 64 rows, the shapes the
+# JAX kernels take at any length up to their block: every d=64 kernel against
+# its plain version, two launches bit for bit. A 128-key tile cut at 144 and
+# at 100 keys (Sq != S), one masked 64-key tile of 36, 16, 9, 4 and 1 keys.
+RAGGED_SHAPES = [(2, 4, 144, 144), (2, 4, 200, 100), (2, 2, 36, 36), (2, 2, 16, 16),
+                 (2, 2, 9, 9), (2, 4, 4, 4), (2, 2, 1, 1)]
+# the small models of the serving and training paths: the same seeded
+# weights at sample_size 32 (256 px; the UNet mid block has 4 x 4 tokens)
+# and 24 (192 px; 576, 144, 36 and 9 tokens, the shared layers' too)
+SMALL_SAMPLE_SIZES = (32, 24)
+SMALL_BATCH, SMALL_IDENT = 4, 4
 
 
 def card_line() -> str:
@@ -214,12 +238,15 @@ REL_RMS_TOL = 1e-2  # ||out - ref|| / ||ref||: bf16 rounding alone gives ~2e-3
 
 def compare(name: str, out, ref):
     """Max-abs error, its tolerance and the relative RMS error of a kernel's
-    output against its plain version; raises when either is exceeded."""
+    output against its plain version; raises when either is exceeded. A
+    reference that is zero up to rounding (|ref| <= 1e-5 everywhere: dQ over a
+    single key) has no relative error: its relative RMS is 0 and max-abs
+    judges."""
     import torch
 
     o, r = out.float(), ref.float()
     err, tol = float((o - r).abs().max()), tolerance(r)
-    rel_rms = float((o - r).norm() / r.norm())
+    rel_rms = float((o - r).norm() / r.norm()) if float(r.abs().max()) > 1e-5 else 0.0
     if not torch.isfinite(out).all() or err > tol or rel_rms > REL_RMS_TOL:
         raise AssertionError(f"{name}: max-abs {err} (tol {tol}), relative RMS {rel_rms} "
                              f"(tol {REL_RMS_TOL})")
@@ -533,6 +560,108 @@ def kernel_phase(card: str):
     del q, v_in, cache, keys, vals
     torch.cuda.empty_cache()
 
+    # every serving kernel at ragged shapes: Sq or S off the tiles' 64 rows
+    for b, h, sq, s in RAGGED_SHAPES:
+        tag = f"ragged B={b} H={h} Sq={sq} S={s}"
+        meta = dict(batch=b, heads=h, queries=sq, tokens=s, per_pass=0)
+        q, k_in, v_in = rnd(b, h, sq, d), rnd(b, h, s, d), rnd(b, h, s, d)
+        # rows 2 and 8: Sq queries against S keys
+        lib = lambda: F.scaled_dot_product_attention(q, k_in, v_in, scale=scale)
+        flops, nbytes = 4.0 * b * h * sq * s * d, (2 * b * h * sq * d + 2 * b * h * s * d) * 2
+        for name, algo, plain, rows in (
+                ("flash_bound", "bound", lambda: sa.flash_attention_plain(q, k_in, v_in,
+                                                                          scale=scale),
+                 flash_rows),
+                ("flash_online", "online", lambda: sa.flash_online_plain(q, k_in, v_in,
+                                                                         scale=scale),
+                 fonline_rows)):
+            call = lambda: sa.flash_attention(q, k_in, v_in, scale=scale, algo=algo)
+            rows.append(row(f"{name} {tag}", call, plain, lib, flops, nbytes,
+                            **dict(meta, keys=s, head_dim=d,
+                                   chunk=sa.flash_online_chunk(s, d), route="ragged")))
+            if not torch.equal(call(), call()):
+                raise AssertionError(f"{name} {tag}: two launches differ")
+        # rows 1 (the identity cache by id), 1b, 3, 7, 9 and 10 over N references
+        # of S keys, refs-only and with the input segment. AdaIN's unbiased std
+        # over one token is undefined (NaN, in JAX too): a one-token segment
+        # takes a random affine instead
+        rk, rv = rnd(b, N_REFS, h, s, d), rnd(b, N_REFS, h, s, d)
+        if s > 1:
+            vs, vh = sa.adain_affine(v_in, rv)
+        else:
+            vs = 1 + 0.1 * torch.randn((b, h, N_REFS, d), generator=g, device=dev)
+            vh = 0.1 * torch.randn((b, h, N_REFS, d), generator=g, device=dev)
+        aff = torch.stack([vs, vh], dim=3).contiguous()
+        for inc in (False, True):
+            def shared(algo):
+                return sa.shared_flash_attention(q, k_in, v_in, rk, rv, scale=scale,
+                                                 v_affine=(vs, vh), include_input=inc, algo=algo)
+
+            keys, vals = widened(rk, rv, aff, k_in, v_in, inc)
+            n_keys = (N_REFS + inc) * s
+            lib = lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale)
+            flops = 4.0 * b * h * sq * n_keys * d
+            nbytes = (2 * b * h * sq * d * 2 + inc * 2 * b * h * s * d * 2
+                      + 2 * b * N_REFS * h * s * d * 2 + b * h * N_REFS * 2 * d * 4)
+            smeta = dict(meta, keys=n_keys, input=inc, route="ragged")
+            kmax = sa.key_norm_max(rk, (1, 3))
+            if inc:
+                kmax = torch.maximum(kmax, sa.key_norm_max(k_in, 2))
+            bound_rows.append(row(
+                f"shared_flash_bound {tag} input={inc}", lambda: shared("kv_outer_bound"),
+                lambda: sa.shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax,
+                                                    scale=scale, include_input=inc),
+                lib, flops, nbytes + b * h * 4, **smeta))
+            online_plain = lambda: sa.shared_online_plain(q, k_in, v_in, rk, rv, aff,
+                                                          scale=scale, include_input=inc)
+            online_rows.append(row(f"shared_online {tag} input={inc}",
+                                   lambda: shared("kv_outer"), online_plain, lib, flops, nbytes,
+                                   **smeta))
+            one = shared("kv_outer")
+            if not (torch.equal(one, shared("kv_outer")) and torch.equal(one, shared("q_outer"))):
+                raise AssertionError(f"shared_online {tag} input={inc}: two launches differ")
+            pair_rows.append(row(f"shared_online_pair {tag} input={inc}",
+                                 lambda: shared("kv_outer_packed"),
+                                 lambda: sa.shared_online_pair_plain(
+                                     q, k_in, v_in, rk, rv, aff, scale=scale, include_input=inc),
+                                 lib, flops, nbytes, **smeta))
+            if not torch.equal(one, shared("kv_outer_packed")):
+                raise AssertionError(f"shared_online_pair {tag} input={inc}: not shared_online's "
+                                     "bits")
+            for algo in ("kv_outer_bound", "kv_outer_bound_paired"):
+                if not torch.equal(shared(algo), shared(algo)):
+                    raise AssertionError(f"{algo} {tag} input={inc}: two launches differ")
+            if not inc:
+                rows_b = torch.arange(b, device=dev)
+                ident_rows.append(row(
+                    f"paired route {tag}", lambda: shared("kv_outer_bound_paired"),
+                    lambda: sa.shared_identity_plain(q, rk, rv, aff, kmax, rows_b, scale=scale),
+                    lib, flops, nbytes + b * h * 4 + b * 8, **smeta))
+            del keys, vals, one
+        # row 1: the identity cache of 3 identities read by id
+        r_ids = torch.tensor([2, 0][:b], device=dev)
+        crk, crv = rnd(3, N_REFS, h, s, d), rnd(3, N_REFS, h, s, d)
+        (cache,) = sa.build_identity_kv_cache([(crk, crv)])
+        adain = s > 1
+        cs, ch = sa.adain_affine_from_stats(v_in, cache.content_mean[r_ids],
+                                            cache.content_std[r_ids])
+        caff = sa._affine((cs, ch) if adain else None, b, h, N_REFS, d, dev)
+        keys, vals = widened(crk[r_ids], crv[r_ids], caff)
+        ident = lambda: sa.shared_attention_identity(q, None, v_in, cache, r_ids, scale=scale,
+                                                     use_adain=adain)
+        ident_rows.append(row(
+            f"shared_identity {tag}", ident,
+            lambda: sa.shared_identity_plain(q, crk, crv, caff, cache.kmax, r_ids, scale=scale),
+            lambda: F.scaled_dot_product_attention(q, keys, vals, scale=scale),
+            4.0 * b * h * sq * N_REFS * s * d,
+            (2 * b * h * sq * d * 2 + 2 * 2 * N_REFS * h * s * d * 2
+             + b * h * N_REFS * 2 * d * 4 + 2 * h * 4 + b * 8),
+            **dict(meta, keys=N_REFS * s, route="ragged, identity cache")))
+        if not torch.equal(ident(), ident()):
+            raise AssertionError(f"shared_identity {tag}: two launches differ")
+        del q, k_in, v_in, rk, rv, aff, cache, keys, vals
+    torch.cuda.empty_cache()
+
     src, jax_src = "instantrestore_tpu_torch/csrc/", "instantrestore_tpu/ops/shared_attention.py:"
     results = [
         ("shared_identity_attention", src + "shared_identity.cu", jax_src + "803", ident_rows),
@@ -658,7 +787,7 @@ def vjp_kernel_phase(card: str):
         dq_rows.append(dq_row)
         dkv_rows.append(dkv_row)
 
-        if (h, sq, skv, d) == VJP_AUTOGRAD_SHAPE:
+        if (h, sq, skv, d) in (VJP_AUTOGRAD_SHAPE, VJP_AUTOGRAD_D512):
             # the same gradients from fp32 autograd through the unfused attention
             qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
             ref = torch.autograd.grad(softmax_attention(qf, kf, vf, scale), (qf, kf, vf),
@@ -673,18 +802,39 @@ def vjp_kernel_phase(card: str):
         del q, k, v, do, out, lse, dq, dk, dv
         torch.cuda.empty_cache()
 
-    # row 4 at d=512 with Sq != Skv (the backward's d=512 tile takes no Skv of 96)
+    # rows 4-6 at d=512 with Sq != Skv (the backward's keys in a ragged last
+    # block of 64: 96 keys)
     b, h, sq, skv = FLASH_VARIANT_D512
-    q, k, v = (torch.randn((b, h, n, 512), generator=g, device=dev).to(torch.bfloat16)
-               for n in (sq, skv, skv))
+    q, k, v, do = (torch.randn((b, h, n, 512), generator=g, device=dev).to(torch.bfloat16)
+                   for n in (sq, skv, skv, sq))
     chunk = sa.flash_online_chunk(skv, 512)
+    tiles = fv.flash_bwd_tiles(sq, skv, 512)
+    meta = dict(batch=b, heads=h, queries=sq, keys=skv, head_dim=512, per_pass=0)
+    label = f"B={b} H={h} Sq={sq} Skv={skv} d=512"
+    out, lse = fv.flash_fwd_lse(q, k, v, scale=512 ** -0.5)
     fwd_rows.append(fwd_row(
-        q, k, v, 512 ** -0.5,
-        dict(batch=b, heads=h, queries=sq, keys=skv, head_dim=512, per_pass=0,
-             route=f"64 query rows a block, key chunk {chunk}"),
-        f"B={b} H={h} Sq={sq} Skv={skv} d=512", fv.flash_fwd_lse(q, k, v, scale=512 ** -0.5),
-        chunk))
-    del q, k, v
+        q, k, v, 512 ** -0.5, dict(meta, route=f"64 query rows a block, key chunk {chunk}"),
+        label, (out, lse), chunk))
+    dq_row, dkv_row, _ = bwd_rows(q, k, v, do, out, lse, 512 ** -0.5, meta, label)
+    dq_rows.append(dict(dq_row, route=f"{tiles.dq_rows} query rows a block, key chunk "
+                                      f"{tiles.dq_chunk}"))
+    dkv_rows.append(dict(dkv_row, route=f"{tiles.dkv_rows} keys a block, query chunk "
+                                        f"{tiles.dkv_chunk}, dV and dK in two launches"))
+    del q, k, v, do, out, lse
+
+    # rows 4-6 at ragged shapes (d=64): Sq or Skv off the tiles' 64 rows
+    for b, h, sq, skv in RAGGED_SHAPES:
+        q, k, v, do = (torch.randn((b, h, n, 64), generator=g, device=dev).to(torch.bfloat16)
+                       for n in (sq, skv, skv, sq))
+        meta = dict(batch=b, heads=h, queries=sq, keys=skv, head_dim=64, per_pass=0,
+                    route="ragged")
+        label = f"ragged B={b} H={h} Sq={sq} Skv={skv}"
+        out, lse = fv.flash_fwd_lse(q, k, v, scale=0.125)
+        fwd_rows.append(fwd_row(q, k, v, 0.125, meta, label, (out, lse)))
+        dq_row, dkv_row, _ = bwd_rows(q, k, v, do, out, lse, 0.125, meta, label)
+        dq_rows.append(dq_row)
+        dkv_rows.append(dkv_row)
+        del q, k, v, do, out, lse
 
     # rows 4-6 on their tiles' other tiles: row 4 on the wgmma tile's 64 query
     # rows a block or 64-key chunk, rows 5 and 6 on the backward tile's 64 rows
@@ -1569,12 +1719,155 @@ def training_phase(card: str):
     profile_run(lambda: step(params, batch, generator=gen), "one train step", card,
                 shares={"rows 4-6 (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)":
                         ("(irt::Mode)1", "(irt::wg::Policy)0", "bwd_dq_kernel",
-                         "bwd_dkv_kernel"),
+                         "bwd_dkv_kernel", "bwd_d512_kernel"),
                         "rows 5-6 (flash_bwd_dq, flash_bwd_dkv)":
-                        ("bwd_dq_kernel", "bwd_dkv_kernel")})
+                        ("bwd_dq_kernel", "bwd_dkv_kernel", "bwd_d512_kernel")})
     if failures:
         raise AssertionError("training phase failed: " + "; ".join(failures))
     return counts
+
+
+def small_model_phase(card: str, serving_params):
+    """The serving and training paths of the same seeded weights at each of
+    SMALL_SAMPLE_SIZES, whose attention shapes are off the tiles' 64 rows: a
+    warm restore (onboarding SMALL_IDENT identities), a cold restore, a cold
+    restore under kv_outer + online and one train step, each holding its
+    launch counts, finite outputs and the unfused path. ``serving_params``
+    is the warm engine's merged bf16 bundle. Returns the summed launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from instantrestore_tpu_torch.configs.config import OptimConfig, SchedulerType
+    from instantrestore_tpu_torch.convert import tree_to
+    from instantrestore_tpu_torch.inference.serving import ServingEngine
+    from instantrestore_tpu_torch.models.lora import trainable_mask
+    from instantrestore_tpu_torch.models.restorer import RestorerStatics, init_restorer_params
+    from instantrestore_tpu_torch.training.losses.composite import compute_generator_loss
+    from instantrestore_tpu_torch.training.losses.lpips import init_lpips_params
+    from instantrestore_tpu_torch.training.optim import make_optimizer, trainable_leaves
+    from instantrestore_tpu_torch.training.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    base = RestorerStatics(use_adain=True, train_input=False)
+    failures, total = [], {}
+    host = torch.Generator().manual_seed(5)
+    for size in SMALL_SAMPLE_SIZES:
+        statics = dataclasses.replace(base, unet_cfg=dataclasses.replace(base.unet_cfg,
+                                                                         sample_size=size))
+        engine = ServingEngine(serving_params, statics, device=dev)
+        res, lat, b = engine.resolution, size, SMALL_BATCH
+        what = f"sample_size {size} ({res} px)"
+        refs = torch.randint(0, 256, (SMALL_IDENT, N_REFS, res, res, 3), dtype=torch.uint8,
+                             generator=host)
+        images = torch.randint(0, 256, (b, res, res, 3), dtype=torch.uint8, generator=host)
+        ids = torch.tensor([2, 0, 3, 2][:b])
+        noise = {k: torch.randn((b, lat, lat, 4), generator=host).to(dev)
+                 for k in ("latent", "diffusion")}
+        onboard_noise = {k: torch.randn((SMALL_IDENT, N_REFS, lat, lat, 4), generator=host).to(dev)
+                         for k in ("latent", "diffusion")}
+
+        # warm: onboarding, then one restore
+        reset_counts()
+        engine.onboard(refs, noise=onboard_noise)
+        warm = engine.restore(images, ids, noise=noise)
+        counts = launch_counts()
+        check_launches(failures, f"{what}: onboard {SMALL_IDENT} + warm restore", counts, 1,
+                       flash_attention_bound=17 * SMALL_IDENT + 9, shared_identity_attention=9)
+        add_counts(total, counts)
+        # cold: each sample's identity references re-encoded, with its onboarding noise
+        cond = refs[ids]
+        cold_noise = dict(noise)
+        for k, v in onboard_noise.items():
+            cold_noise[f"cond_{k}"] = v[ids.to(dev)].reshape(b * N_REFS, lat, lat, 4)
+        reset_counts()
+        cold = engine.restore_cold(images, cond, noise=cold_noise)
+        counts = launch_counts()
+        check_launches(failures, f"{what}: cold restore", counts, 1, shared_flash_bound=9,
+                       flash_attention_bound=26)
+        add_counts(total, counts)
+        with algo_env(attn="kv_outer", flash="online"):
+            reset_counts()
+            online = engine.restore_cold(images, cond, noise=cold_noise)
+            counts = launch_counts()
+        check_launches(failures, f"{what}: cold restore under kv_outer + online", counts, 1,
+                       shared_online=9, flash_attention_online=26)
+        add_counts(total, counts)
+        engine.use_fused_attention = False
+        unfused_cold = engine.restore_cold(images, cond, noise=cold_noise)
+        unfused_warm = engine.restore(images, ids, noise=noise)
+        for name, out in (("warm", warm), ("cold", cold), ("online cold", online)):
+            if tuple(out.shape) != (b, res, res, 3) or not torch.isfinite(out).all():
+                failures.append(f"{what}: {name} output {tuple(out.shape)} or not finite")
+        diffs = {"warm vs unfused": mean_abs(warm, unfused_warm),
+                 "cold vs unfused": mean_abs(cold, unfused_cold),
+                 "cold vs warm": mean_abs(cold, warm),
+                 "kv_outer + online vs default, cold": mean_abs(online, cold)}
+        print(f"{what}, batch {b}: mean-abs {({k: round(v, 5) for k, v in diffs.items()})} "
+              f"[{card}]")
+        for k, v in diffs.items():
+            if v > 2e-2:
+                failures.append(f"{what}: {k} mean-abs {v}")
+        del engine, warm, cold, online, unfused_cold, unfused_warm
+        torch.cuda.empty_cache()
+
+        # one train step, and the same step unfused from the same state
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = tree_to(init_restorer_params(gen, statics, lora_rank_unet=32, lora_rank_vae=32,
+                                              device=dev), dev)
+        lpips_params = tree_to(init_lpips_params(gen, device=dev), dev)
+        mask = {"unet": trainable_mask(params["unet"], extra_trainable=("conv_in",)),
+                "unet_orig_conv_in": trainable_mask(params["unet_orig_conv_in"]),
+                "vae": trainable_mask(params["vae"]), "caption_enc": False}
+        leaves = trainable_leaves(params, mask)
+        tb = TRAIN_BATCH
+        batch = {"image": torch.rand((tb, res, res, 3), generator=host) * 2 - 1,
+                 "gt": torch.rand((tb, res, res, 3), generator=host) * 2 - 1,
+                 "conditioning_images": torch.rand((tb, N_REFS, res, res, 3),
+                                                   generator=host) * 2 - 1,
+                 "valid_indices": torch.full((tb,), N_REFS),
+                 "pos_reg_idx": torch.zeros(tb, dtype=torch.long),
+                 "neg_reg_idx": torch.ones(tb, dtype=torch.long)}
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        step_noise = {k: torch.randn((n, lat, lat, 4), generator=host).to(dev)
+                      for k, n in (("latent", tb), ("diffusion", tb),
+                                   ("cond_latent", tb * N_REFS), ("cond_diffusion", tb * N_REFS))}
+        still = OptimConfig(lambda_l2=1.0, lambda_lpips=1.0, learning_rate=0.0,
+                            scheduler_type=SchedulerType.CONSTANT)
+
+        def step_once(fused):
+            loss_fn = lambda out, bt, c: compute_generator_loss(
+                out, bt, c, lpips_params=lpips_params, train_input=False, generator=gen)
+            step = make_train_step(statics, still, make_optimizer(still, 1000, mask), mask,
+                                   loss_fn, use_fused_attention=fused, remat=True, device=dev)
+            metrics, _ = step(params, batch, noise=step_noise, timestep=499)
+            return float(metrics["loss"]), [t.grad.clone() for t in leaves]
+
+        with deterministic_cudnn():
+            reset_counts()
+            loss_f, g_f = step_once(True)
+            counts = launch_counts()
+            loss_u, g_u = step_once(False)
+        check_launches(failures, f"{what}: one train step", counts, 1, flash_fwd_lse=2 * 18,
+                       flash_bwd_dq=18, flash_bwd_dkv=18, flash_attention_bound=17)
+        add_counts(total, counts)
+        finite = loss_f == loss_f and abs(loss_f) != float("inf") and all(
+            bool(torch.isfinite(t).all()) for t in g_f)
+        num = sum(float((a - u).square().sum()) for a, u in zip(g_f, g_u))
+        den = sum(float(u.square().sum()) for u in g_u)
+        loss_rel, grad_rel = abs(loss_f - loss_u) / abs(loss_u), (num / den) ** 0.5
+        print(f"{what}: train step batch {tb}, fused vs unfused: loss {loss_f:.6f} vs "
+              f"{loss_u:.6f} (relative {loss_rel:.2e}), gradient relative RMS {grad_rel:.4f} "
+              f"[{card}]")
+        if not finite or loss_rel > TRAIN_LOSS_REL_TOL or grad_rel > TRAIN_GRAD_REL_TOL:
+            failures.append(f"{what}: train step non-finite or fused vs unfused loss {loss_rel}, "
+                            f"gradients {grad_rel}")
+        del params, lpips_params, leaves, g_f, g_u
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("small-model phase failed: " + "; ".join(failures))
+    return total
 
 
 # the two backward kernels compute together what one library call computes
@@ -1637,9 +1930,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
-                    "them (kernels, vjp, serving, training); a partial run prints no result line")
+                    "them (kernels, vjp, serving, training, small); a partial run prints no "
+                    "result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
-    unknown = only - {"kernels", "vjp", "serving", "training"}
+    unknown = only - {"kernels", "vjp", "serving", "training", "small"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -1676,10 +1970,26 @@ def main() -> int:
         add_counts(counts, online_phase(card, warm, cold))
         add_counts(counts, other_paths(card, warm, cold))
         replace_identity(warm)
+        serving_params = warm["engine"].params
         del warm, cold
         torch.cuda.empty_cache()
     if wanted("training"):
         add_counts(counts, training_phase(card))
+    if wanted("small"):
+        if not wanted("serving"):  # the same seeded weights as the warm phase's
+            from instantrestore_tpu_torch.models.restorer import (
+                RestorerStatics,
+                init_restorer_params,
+                serving_bundle,
+            )
+
+            statics = RestorerStatics(use_adain=True, train_input=False)
+            serving_params = serving_bundle(init_restorer_params(
+                torch.Generator(device="cuda").manual_seed(0), statics, lora_rank_unet=32,
+                lora_rank_vae=32, device="cuda"), statics)
+        add_counts(counts, small_model_phase(card, serving_params))
+        del serving_params
+        torch.cuda.empty_cache()
     print(f"launches over the paths: {counts}")
     if only:
         print(f"partial run ({sorted(only)}): no result line")

@@ -210,6 +210,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One [1, box rows, 64] box at (0, row, seg) of a segment map (encode_seg_map):
+// rows past the segment's end arrive as zeros, and still count in bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int row, int seg,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(seg)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -448,6 +459,19 @@ __device__ __forceinline__ void bound_softmax(float (&s)[NS], const float (&bnd)
   }
 }
 
+// Keys at or past `lim` of a tile out of the softmax: their scores become -inf
+// (in place, after the product's wait), so p = exp2(-inf - x) = 0 and they add
+// nothing to the max, the row sum or P V. Column of s[4 j + 2 i + e]: 8 j + 2
+// tq + e.
+template <int NS>
+__device__ __forceinline__ void mask_keys(float (&s)[NS], int lim, int tq) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * j + e] = 8 * j + 2 * tq + (e & 1) < lim ? s[4 * j + e] : -INFINITY;
+}
+
 // p = the softmaxed fragment rounded to bf16 and packed pairwise: the A
 // fragments of O += P V.
 template <int NS>
@@ -481,12 +505,15 @@ struct Cfg {
   static_assert(kSmemBytes <= 232448, "over the 227 KB a block may use");
 };
 
-// map_kin/map_vin: the input's K/V as [B * H * S, 64]; map_rk/map_rv: the
-// references' as [rows * N * H * S, 64] (reference n of row r, head h starts
-// at row ((r * N + n) * H + h) * S); each with a [BK, 64] box. Grid
-// (Sq / kBlockRows, H or H / 2, B). Layout::kPlain reads map_kin and map_vin
-// only.
-template <Policy P, int BK, int NCONS, bool PAIR, int STAGES, Layout L = Layout::kShared>
+// map_kin/map_vin: the input's K/V as B * H segments of [S, 64]; map_rk/map_rv:
+// the references' as rows * N * H segments (reference n of row r, head h is
+// segment (r * N + n) * H + h); each with a [BK, 64] box (encode_seg_map).
+// Grid (ceil(Sq / kBlockRows), H or H / 2, B). Layout::kPlain reads map_kin and
+// map_vin only. RAGGED (BK does not divide S): the last tile of each segment
+// holds S % BK keys, the rest of its box zeros that mask_keys takes out of the
+// softmax. Query rows past Sq are read as zeros and never written.
+template <Policy P, int BK, int NCONS, bool PAIR, int STAGES, Layout L = Layout::kShared,
+          bool RAGGED = false>
 __global__ void __launch_bounds__((NCONS + 1) * 128, 1)
 shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
                          const __grid_constant__ CUtensorMap map_vin,
@@ -511,9 +538,10 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
       if (ref_row < 0 || ref_row >= pr.I) {
         // an id outside the cache poisons its sample's outputs; the block
         // leaves before any barrier or copy
-        const size_t base =
-            (static_cast<size_t>(b * H + blockIdx.y) * Sq + blockIdx.x * C::kBlockRows) * kD;
-        for (int c = threadIdx.x; c < C::kBlockRows * kD; c += C::kThreads)
+        const int r0 = blockIdx.x * C::kBlockRows;
+        const int n_rows = Sq - r0 < C::kBlockRows ? Sq - r0 : C::kBlockRows;
+        const size_t base = (static_cast<size_t>(b * H + blockIdx.y) * Sq + r0) * kD;
+        for (int c = threadIdx.x; c < n_rows * kD; c += C::kThreads)
           pr.out[base + c] = __float2bfloat16(__int_as_float(0x7fc00000));
         return;
       }
@@ -555,7 +583,7 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   const int tw = threadIdx.x % 128;  // thread within its warpgroup
   const int warp = tw / 32;
   const int lane = tw % 32;
-  const int tiles_per_seg = S / BK;
+  const int tiles_per_seg = (S + BK - 1) / BK;
   const int n_tiles = (n_in + N) * tiles_per_seg;
 
   if (wgrp == NCONS) {
@@ -571,13 +599,12 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
 #pragma unroll
           for (int ring = 0; ring < C::kRings; ++ring) {
             const int h = PAIR ? 2 * blockIdx.y + ring : blockIdx.y;
-            const int row =
-                seg < 0 ? (b * H + h) * S + j0 : ((ref_row * N + seg) * H + h) * S + j0;
+            const int sidx = seg < 0 ? b * H + h : (ref_row * N + seg) * H + h;
             mbar_wait(empty_bar(ring, stage), parity ^ 1u);
             mbar_expect_tx(full_bar(ring, stage), C::kStageBytes);
             const uint32_t kt = k_tile(ring, stage);
-            tma_load_2d(kt, seg < 0 ? &map_kin : &map_rk, 0, row, full_bar(ring, stage));
-            tma_load_2d(kt + C::kTileBytes, seg < 0 ? &map_vin : &map_rv, 0, row,
+            tma_load_3d(kt, seg < 0 ? &map_kin : &map_rk, j0, sidx, full_bar(ring, stage));
+            tma_load_3d(kt + C::kTileBytes, seg < 0 ? &map_vin : &map_rv, j0, sidx,
                         full_bar(ring, stage));
           }
         }
@@ -653,7 +680,8 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   const int q0 = PAIR ? blockIdx.x * 64 : (blockIdx.x * NCONS + wgrp) * 64;
   const int g = lane >> 2;   // row of the warp's 16 (and g + 8)
   const int tq = lane & 3;   // column pair within each group of 8
-  const size_t row_base = (static_cast<size_t>(b * H + h) * Sq + q0 + warp * 16) * kD;
+  const int r_warp = q0 + warp * 16;  // the warp's first query row
+  const size_t row_base = (static_cast<size_t>(b * H + h) * Sq + r_warp) * kD;
 
   // Q as the A fragments of S = Qs K^T, pre-scaled in bf16: per k16 slice
   // (row g, cols 2t..), (row g + 8, cols 2t..), (row g, cols 2t + 8..), (row g + 8, ..).
@@ -670,8 +698,11 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
       for (int i = 0; i < 4; ++i) {
         const int r = g + (i & 1) * 8;
         const int c = kk * 16 + tq * 2 + (i >> 1) * 8;
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(pr.q + row_base + r * kD + c));
+        const float2 f =
+            r_warp + r < Sq
+                ? __bfloat1622float2(
+                      *reinterpret_cast<const __nv_bfloat162*>(pr.q + row_base + r * kD + c))
+                : make_float2(0.f, 0.f);
         const __nv_bfloat162 qs2 = __floats2bfloat162_rn(f.x * qs_bf, f.y * qs_bf);
         qa[kk][i] = as_u32(qs2);
         if constexpr (P == Policy::kBound) ss[i & 1] += f.x * f.x + f.y * f.y;
@@ -704,6 +735,10 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   uint32_t p[BK / 4];  // bf16 P of the tile whose P V is next
   float alpha[2];
   const uint64_t ones = ones_desc(tiles + C::kOnesOff);
+  // RAGGED: the keys of tile t still in its segment
+  auto mask = [&](int t) {
+    if constexpr (RAGGED) mask_keys(s, S - (t % tiles_per_seg) * BK, tq);
+  };
   auto softmax = [&]() {
     if constexpr (P == Policy::kOnline)
       online_softmax(s, m_run, alpha);
@@ -775,6 +810,7 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   turn_pass();
   wgmma_wait<0>();
   pin_regs(s);
+  mask(0);
   softmax();
   pack_p(s, p);
 
@@ -801,6 +837,7 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
     turn_pass();
     wgmma_wait<1>();  // S(t + 1) has landed; P(t) V(t) may still run
     pin_regs(s);
+    mask(t + 1);
     softmax();
     wgmma_wait<0>();
     pin_acc();
@@ -847,6 +884,7 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   for (int j = 0; j < kD / 8; ++j) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
+      if (r_warp + g + 8 * i >= Sq) continue;
       __nv_bfloat16* dst = pr.out + row_base + (g + 8 * i) * kD + 8 * j + 2 * tq;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
           __floats2bfloat162_rn(o[4 * j + 2 * i] / l_run[i], o[4 * j + 2 * i + 1] / l_run[i]);
@@ -855,9 +893,10 @@ shared_attn_wgmma_kernel(const __grid_constant__ CUtensorMap map_kin,
   // lse2 = m + log2(l) of rows g and g + 8: the quad shares both, one lane writes
   if constexpr (kPlain && P == Policy::kOnline) {
     if (pr.lse != nullptr && tq == 0) {
-      const size_t row0 = static_cast<size_t>(b * H + h) * Sq + q0 + warp * 16 + g;
+      const size_t row0 = static_cast<size_t>(b * H + h) * Sq + r_warp + g;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) pr.lse[row0 + 8 * i] = m_run[i] + log2f(l_run[i]);
+      for (int i = 0; i < 2; ++i)
+        if (r_warp + g + 8 * i < Sq) pr.lse[row0 + 8 * i] = m_run[i] + log2f(l_run[i]);
     }
   }
 }
@@ -901,53 +940,77 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, uint64_t rows, u
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <Policy P, int BK, int NCONS, bool PAIR, Layout L = Layout::kShared>
+// Tensor map over `segs` contiguous segments of [seg_rows, 64] bf16 with a [1,
+// box_rows, 64] box in the 128-byte swizzle: a box that runs past the end of
+// its segment is filled with zeros, never with the next segment's rows.
+inline bool encode_seg_map(CUtensorMap* map, const void* base, uint64_t segs, uint64_t seg_rows,
+                           uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {kD, seg_rows, segs};
+  const cuuint64_t strides[2] = {kRowBytes, seg_rows * kRowBytes};
+  const cuuint32_t box[3] = {kD, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <Policy P, int BK, int NCONS, bool PAIR, Layout L = Layout::kShared, bool RAGGED = false>
 cudaError_t run_shared(const Problem& pr, void* stream) {
   constexpr int STAGES = (PAIR && BK == 128) ? 3 : 4;
   using C = Cfg<BK, NCONS, PAIR, STAGES>;
-  const uint64_t in_rows = static_cast<uint64_t>(pr.B) * pr.H * pr.S;
+  const uint64_t in_segs = static_cast<uint64_t>(pr.B) * pr.H;
   CUtensorMap map_kin, map_vin, map_rk, map_rv;
   if constexpr (L == Layout::kPlain) {
     // two maps; the reference maps are never read
-    if (!encode_rows_map(&map_kin, pr.k_in, in_rows, BK) ||
-        !encode_rows_map(&map_vin, pr.v_in, in_rows, BK))
+    if (!encode_seg_map(&map_kin, pr.k_in, in_segs, pr.S, BK) ||
+        !encode_seg_map(&map_vin, pr.v_in, in_segs, pr.S, BK))
       return cudaErrorNotSupported;
     map_rk = map_kin;
     map_rv = map_vin;
   } else {
-    const uint64_t ref_rows =
-        static_cast<uint64_t>(pr.ids != nullptr ? pr.I : pr.B) * pr.N * pr.H * pr.S;
+    const uint64_t ref_segs = static_cast<uint64_t>(pr.ids != nullptr ? pr.I : pr.B) * pr.N * pr.H;
     // without an input segment its two maps are never read: they alias the references
     const bool inp = pr.n_in != 0;
-    if (!encode_rows_map(&map_rk, pr.rk, ref_rows, BK) ||
-        !encode_rows_map(&map_rv, pr.rv, ref_rows, BK) ||
-        !encode_rows_map(&map_kin, inp ? pr.k_in : pr.rk, inp ? in_rows : ref_rows, BK) ||
-        !encode_rows_map(&map_vin, inp ? pr.v_in : pr.rv, inp ? in_rows : ref_rows, BK))
+    if (!encode_seg_map(&map_rk, pr.rk, ref_segs, pr.S, BK) ||
+        !encode_seg_map(&map_rv, pr.rv, ref_segs, pr.S, BK) ||
+        !encode_seg_map(&map_kin, inp ? pr.k_in : pr.rk, inp ? in_segs : ref_segs, pr.S, BK) ||
+        !encode_seg_map(&map_vin, inp ? pr.v_in : pr.rv, inp ? in_segs : ref_segs, pr.S, BK))
       return cudaErrorNotSupported;
   }
-  auto kern = shared_attn_wgmma_kernel<P, BK, NCONS, PAIR, STAGES, L>;
+  auto kern = shared_attn_wgmma_kernel<P, BK, NCONS, PAIR, STAGES, L, RAGGED>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(pr.Sq / C::kBlockRows, PAIR ? pr.H / 2 : pr.H, pr.B);
+  const dim3 grid((pr.Sq + C::kBlockRows - 1) / C::kBlockRows, PAIR ? pr.H / 2 : pr.H, pr.B);
   kern<<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       map_kin, map_vin, map_rk, map_rv, pr);
   return cudaGetLastError();
 }
 
-// The tile a call gets: the key chunk is 128 where it divides the segment
-// length and 64 otherwise; !PAIR takes 128 query rows a block where they
-// divide Sq and 64 otherwise (ops/shared_attention.py: shared_online_tile).
-// Refuses what the tile does not take: Sq or S not a multiple of 64, more
-// than 65535 samples or heads, a head pair of odd H, an input segment under
-// kIdentity, a bound policy without kmax, kIdentity without ids, and
-// reference or input rows past the tensor maps' 2^31 row coordinates.
+// The tile of a segment of S keys: 128 keys where 128 divides S, 64 where 64
+// does, else (a ragged last tile) 128 where S > 64 and 64 where it is shorter.
+// The key chunk of the running max is that tile, the last one of a segment
+// cut at its end (ops/shared_attention.py: key_tile, shared_online_chunk).
+inline int key_tile(int S) {
+  if (S % 128 == 0) return 128;
+  if (S % 64 == 0) return 64;
+  return S > 64 ? 128 : 64;
+}
+
+// The tile a call gets: key_tile(S) keys; !PAIR takes 128 query rows a block
+// where they divide Sq and 64 otherwise, and 64 where the key tile is ragged
+// (ops/shared_attention.py: shared_online_tile). Any Sq and S > 0. Refuses
+// more than 65535 samples or heads, a head pair of odd H, an input segment
+// under kIdentity, a bound policy without kmax, kIdentity without ids, and
+// reference or input rows past 2^31.
 template <Policy P, bool PAIR>
 cudaError_t launch_shared(const Problem& pr, void* stream) {
   const bool has_ids = pr.ids != nullptr;
   const uint64_t rows = has_ids ? pr.I : pr.B;
-  if (pr.B <= 0 || pr.H <= 0 || pr.N <= 0 || pr.Sq <= 0 || pr.S <= 0 || pr.Sq % 64 != 0 ||
-      pr.S % 64 != 0 || pr.B > 65535 || pr.H > 65535 || (PAIR && pr.H % 2 != 0) ||
+  if (pr.B <= 0 || pr.H <= 0 || pr.N <= 0 || pr.Sq <= 0 || pr.S <= 0 ||
+      pr.B > 65535 || pr.H > 65535 || (PAIR && pr.H % 2 != 0) ||
       pr.n_in < 0 || pr.n_in > 1 || (pr.n_in == 1 && (pr.k_in == nullptr || pr.v_in == nullptr)) ||
       pr.q == nullptr || pr.rk == nullptr || pr.rv == nullptr || pr.aff == nullptr ||
       pr.out == nullptr || (P != Policy::kOnline && pr.kmax == nullptr) ||
@@ -956,38 +1019,49 @@ cudaError_t launch_shared(const Problem& pr, void* stream) {
       (pr.n_in && static_cast<uint64_t>(pr.B) * pr.H * pr.S > 0x7fffffffull))
     return cudaErrorInvalidValue;
 #define IRT_RUN(BK, NCONS) run_shared<P, BK, NCONS, PAIR>(pr, stream)
+#define IRT_RAGGED(BK) run_shared<P, BK, PAIR ? 2 : 1, PAIR, Layout::kShared, true>(pr, stream)
+  const int bk = key_tile(pr.S);
+  if (pr.S % bk != 0) return bk == 128 ? IRT_RAGGED(128) : IRT_RAGGED(64);
   if constexpr (PAIR) {
-    return pr.S % 128 == 0 ? IRT_RUN(128, 2) : IRT_RUN(64, 2);
+    return bk == 128 ? IRT_RUN(128, 2) : IRT_RUN(64, 2);
   } else {
     const bool wide = pr.Sq % 128 == 0;
-    if (pr.S % 128 == 0) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
+    if (bk == 128) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
     return wide ? IRT_RUN(64, 2) : IRT_RUN(64, 1);
   }
+#undef IRT_RAGGED
 #undef IRT_RUN
 }
 
 // The plain layout (flash_online.cu, flash_fwd_lse.cu: Policy::kOnline;
 // flash_bound.cu: Policy::kBound with pr.kmax [B, H]): q [B, H, Sq, 64]
-// against the Skv = pr.S keys of k_in/v_in [B, H, Skv, 64]. The key chunk is
-// the caller's, bk = 128 or 64 dividing Skv (kOnline's result depends on it at
-// bf16 rounding level, kBound's through fp32 summation order only:
-// ops/shared_attention.py, flash_online_chunk and flash_bound_chunk); 128
-// query rows a block where they divide Sq, else 64. Refuses Sq not a multiple
-// of 64, another chunk, more than 65535 samples or heads, a bound policy
-// without kmax, and key rows past the tensor maps' 2^31 row coordinates.
+// against the Skv = pr.S keys of k_in/v_in [B, H, Skv, 64], any Sq and Skv.
+// The key chunk is the caller's (kOnline's result depends on it at bf16
+// rounding level, kBound's through fp32 summation order only:
+// ops/shared_attention.py, flash_online_chunk and flash_bound_chunk): 128 or
+// 64 keys, the last chunk cut at Skv, or all Skv keys where they are fewer
+// than 128; its tile is 128 keys over 64, else 64. 128 query rows a block where
+// they divide Sq and the tile divides Skv, else 64. Refuses another chunk,
+// more than 65535 samples or heads, a bound policy without kmax, and key rows
+// past 2^31.
 template <Policy P>
 cudaError_t launch_flash(const Problem& pr, int bk, void* stream) {
   static_assert(P != Policy::kIdentity, "the identity policy reads an identity cache");
-  if (pr.B <= 0 || pr.H <= 0 || pr.Sq <= 0 || pr.S <= 0 || pr.Sq % 64 != 0 ||
-      (bk != 64 && bk != 128) || pr.S % bk != 0 || pr.B > 65535 || pr.H > 65535 || pr.N != 0 ||
+  const bool chunk_ok = ((bk == 64 || bk == 128) && bk <= pr.S) || (bk == pr.S && bk < 128);
+  if (pr.B <= 0 || pr.H <= 0 || pr.Sq <= 0 || pr.S <= 0 || bk <= 0 || !chunk_ok ||
+      pr.B > 65535 || pr.H > 65535 || pr.N != 0 ||
       pr.n_in != 1 || pr.q == nullptr || pr.k_in == nullptr || pr.v_in == nullptr ||
       pr.out == nullptr || (P == Policy::kBound && pr.kmax == nullptr) || pr.ids != nullptr ||
       static_cast<uint64_t>(pr.B) * pr.H * pr.S > 0x7fffffffull)
     return cudaErrorInvalidValue;
 #define IRT_RUN(BK, NCONS) run_shared<P, BK, NCONS, false, Layout::kPlain>(pr, stream)
+#define IRT_RAGGED(BK) run_shared<P, BK, 1, false, Layout::kPlain, true>(pr, stream)
+  const int tile = bk > 64 ? 128 : 64;
+  if (pr.S % tile != 0) return tile == 128 ? IRT_RAGGED(128) : IRT_RAGGED(64);
   const bool wide = pr.Sq % 128 == 0;
-  if (bk == 128) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
+  if (tile == 128) return wide ? IRT_RUN(128, 2) : IRT_RUN(128, 1);
   return wide ? IRT_RUN(64, 2) : IRT_RUN(64, 1);
+#undef IRT_RAGGED
 #undef IRT_RUN
 }
 

@@ -2,8 +2,8 @@
 // (flash_bwd_dq.cu, flash_bwd_dkv.cu), designed for Hopper on the PTX
 // wrappers of attn_wgmma.cuh: wgmma.mma_async for every product with every
 // score, probability and accumulator in registers, the streamed tiles brought
-// by TMA into a ring of shared-memory stages behind mbarriers. d = 512 stays
-// on flash_bwd_tile.cuh.
+// by TMA into a ring of shared-memory stages behind mbarriers. d = 512 runs
+// on attn_wgmma_bwd_d512.cuh.
 // Plain C interface, no PyTorch headers: built with nvcc -gencode
 // arch=compute_90a,code=sm_90a and loaded through ctypes (ops/_build.py).
 //
@@ -54,6 +54,15 @@
 // dP^T = V dO^T, P^T = exp2(S^T - lse2) and dS^T with lse2 and delta per
 // column: a thread holds columns 8 j + 2 t and 8 j + 2 t + 1 and reads their
 // pairs from the stage as float2. Then dV += bf16(P^T) dO and dK += dS^T q.
+//
+// Any Sq and Skv (the shapes JAX's kernels take). The streamed tiles come
+// through segment maps (one segment a (b, h)), so rows past the side's end
+// arrive as zeros: in dK/dV a padded query column has qs = q = dO = 0 and,
+// from the caller's zero-padded lse2 and delta (row pitch lse_pitch, a
+// multiple of 64), P^T = 1 and dS^T = 0, which add exact zeros to dV and dK.
+// In dQ the keys past Skv (RAGGED) have their scores masked to -inf, so P =
+// 0 and dS = 0 whatever lse2 is. Owned rows past the side's end are read as
+// zeros and never written.
 
 #pragma once
 
@@ -72,13 +81,15 @@ constexpr int kProducerRegs = 40;  // 128 * 40 + 256 * 232 <= 65536
 constexpr int kConsumerRegs = 232;
 
 // q, qs, dout, dq [B, H, Sq, 64]; k, v, dk, dv [B, H, Skv, 64]; lse, delta
-// [B, H, Sq] fp32.
+// [B, H, lse_pitch] fp32, lse_pitch = Sq or, where 64 does not divide Sq, Sq
+// rounded up to 64 with zeros past Sq.
 struct BwdProblem {
   const __nv_bfloat16 *q, *qs, *k, *v, *dout;
   const float *lse, *delta;
   __nv_bfloat16 *dq, *dk, *dv;
   int B, H, Sq, Skv;
   float scale;
+  int lse_pitch;
 };
 
 // One contiguous run of global memory (16-byte aligned, a multiple of 16
@@ -93,15 +104,19 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 
 // A warp's 16 rows of a [*, 64] bf16 array as the A fragments of a product
 // over the 64 channels: per k16 slice (row g, cols 2t..), (row g + 8, cols
-// 2t..), (row g, cols 2t + 8..), (row g + 8, ..).
+// 2t..), (row g, cols 2t + 8..), (row g + 8, ..). Rows at or past n_rows are
+// zeros.
 __device__ __forceinline__ void load_a(uint32_t (&a)[kD / 16][4], const __nv_bfloat16* rows,
-                                       int g, int tq) {
+                                       int g, int tq, int n_rows) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[kk][i] = *reinterpret_cast<const uint32_t*>(rows + (g + (i & 1) * 8) * kD + kk * 16 +
-                                                    tq * 2 + (i >> 1) * 8);
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + (i & 1) * 8;
+      a[kk][i] = r < n_rows ? *reinterpret_cast<const uint32_t*>(rows + r * kD + kk * 16 +
+                                                                 tq * 2 + (i >> 1) * 8)
+                            : 0u;
+    }
 }
 
 // d = a b^T over the 64 channels: b the [64, 64] tile at desc, K-major.
@@ -123,15 +138,17 @@ __device__ __forceinline__ void product_mn_major(float (&d)[32], const uint32_t 
                               desc + static_cast<uint64_t>(kk * 16 * kRowBytes >> 4));
 }
 
-// acc -> bf16 rows g and g + 8 of the warp's 16 at dst (row stride 64).
+// acc -> bf16 rows g and g + 8 of the warp's 16 at dst (row stride 64), those
+// under n_rows.
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[32], int g,
-                                           int tq) {
+                                           int tq, int n_rows) {
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (g + 8 * i) * kD + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      if (g + 8 * i < n_rows)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (g + 8 * i) * kD + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
 }
 
 // The two consumer warpgroups start their wgmma batches in turns: warpgroup w
@@ -151,9 +168,9 @@ struct Turns {
 // dQ: a consumer warpgroup owns 64 query rows and streams K/V tiles
 // ---------------------------------------------------------------------------
 
-// map_k, map_v: k, v as [B * H * Skv, 64] with a [64, 64] box. Grid
-// (Sq / (64 NCONS), H, B).
-template <int NCONS>
+// map_k, map_v: k, v as B * H segments of [Skv, 64] with a [64, 64] box. Grid
+// (ceil(Sq / (64 NCONS)), H, B).
+template <int NCONS, bool RAGGED>
 __global__ void __launch_bounds__((NCONS + 1) * 128, 1)
 bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
               const BwdProblem pr) {
@@ -182,19 +199,19 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   const int tw = threadIdx.x % 128;
   const int warp = tw / 32;
   const int lane = tw % 32;
-  const int n_tiles = pr.Skv / kChunk;
+  const int n_tiles = (pr.Skv + kChunk - 1) / kChunk;
 
   if (wgrp == NCONS) {
     if constexpr (NCONS == 2) wg::reg_dec<kProducerRegs>();
     // ---- producer: K and V tiles, kStages ahead of the consumers ----
     if (warp == 0 && lane == 0) {
-      const int row0 = (b * H + h) * pr.Skv;
+      const int seg = b * H + h;
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         wg::mbar_wait(empty_bar(st), ((t / kStages) & 1) ^ 1u);
         wg::mbar_expect_tx(full_bar(st), kStageBytes);
-        wg::tma_load_2d(k_tile(st), &map_k, 0, row0 + t * kChunk, full_bar(st));
-        wg::tma_load_2d(k_tile(st) + kTileBytes, &map_v, 0, row0 + t * kChunk, full_bar(st));
+        wg::tma_load_3d(k_tile(st), &map_k, t * kChunk, seg, full_bar(st));
+        wg::tma_load_3d(k_tile(st) + kTileBytes, &map_v, t * kChunk, seg, full_bar(st));
       }
     }
     return;
@@ -204,13 +221,19 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   if constexpr (NCONS == 2) wg::reg_inc<kConsumerRegs>();
   const int g = lane >> 2;  // row of the warp's 16 (and g + 8)
   const int tq = lane & 3;  // column pair within each group of 8
-  const size_t row0 =
-      static_cast<size_t>(b * H + h) * pr.Sq + (blockIdx.x * NCONS + wgrp) * 64 + warp * 16;
+  const int r_warp = (blockIdx.x * NCONS + wgrp) * 64 + warp * 16;  // the warp's first query
+  const int n_rows = pr.Sq - r_warp;  // of the warp's 16 rows, those under n_rows exist
+  const size_t row0 = static_cast<size_t>(b * H + h) * pr.Sq + r_warp;
+  const size_t vec0 = static_cast<size_t>(b * H + h) * pr.lse_pitch + r_warp;
   uint32_t qa[kD / 16][4], ga[kD / 16][4];  // qs and dO as A fragments
-  load_a(qa, pr.qs + row0 * kD, g, tq);
-  load_a(ga, pr.dout + row0 * kD, g, tq);
-  const float lse[2] = {pr.lse[row0 + g], pr.lse[row0 + g + 8]};
-  const float dlt[2] = {pr.delta[row0 + g], pr.delta[row0 + g + 8]};
+  load_a(qa, pr.qs + row0 * kD, g, tq, n_rows);
+  load_a(ga, pr.dout + row0 * kD, g, tq, n_rows);
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse[i] = g + 8 * i < n_rows ? pr.lse[vec0 + g + 8 * i] : 0.f;
+    dlt[i] = g + 8 * i < n_rows ? pr.delta[vec0 + g + 8 * i] : 0.f;
+  }
   const float scale = pr.scale;
 
   float acc[32];
@@ -234,8 +257,10 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
     product_mn_major(acc, ds, k_desc);
     wg::wgmma_commit();
   };
-  // s <- P * (dP - delta) * scale with P = exp2(s - lse2), rows g and g + 8
-  auto grad_scores = [&]() {
+  // s <- P * (dP - delta) * scale with P = exp2(s - lse2), rows g and g + 8;
+  // RAGGED: the keys of tile t past Skv first out (P = 0)
+  auto grad_scores = [&](int t) {
+    if constexpr (RAGGED) wg::mask_keys(s, pr.Skv - t * kChunk, tq);
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
@@ -259,7 +284,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
   wg::wgmma_wait<0>();
   wg::pin_regs(s);
   wg::pin_regs(dp);
-  grad_scores();
+  grad_scores(0);
   wg::pack_p(s, ds);
 
   for (int t = 0; t + 1 < n_tiles; ++t) {
@@ -273,7 +298,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
     wg::wgmma_wait<1>();  // S and dP of tile t + 1 have landed; dS(t) K(t) may still run
     wg::pin_regs(s);
     wg::pin_regs(dp);
-    grad_scores();
+    grad_scores(t + 1);
     wg::wgmma_wait<0>();
     wg::pin_regs(acc);
     release(st);
@@ -290,15 +315,15 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__
     wg::pin_regs(acc);
     release(last);
   }
-  store_rows(pr.dq + row0 * kD, acc, g, tq);
+  store_rows(pr.dq + row0 * kD, acc, g, tq, n_rows);
 }
 
 // ---------------------------------------------------------------------------
 // dK, dV: a consumer warpgroup owns 64 keys and streams query tiles
 // ---------------------------------------------------------------------------
 
-// map_qs, map_q, map_do: qs, q, dout as [B * H * Sq, 64] with a [64, 64] box.
-// Grid (Skv / (64 NCONS), H, B).
+// map_qs, map_q, map_do: qs, q, dout as B * H segments of [Sq, 64] with a
+// [64, 64] box. Grid (ceil(Skv / (64 NCONS)), H, B).
 template <int NCONS>
 __global__ void __launch_bounds__((NCONS + 1) * 128, 1)
 bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_qs,
@@ -333,24 +358,25 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_qs,
   const int tw = threadIdx.x % 128;
   const int warp = tw / 32;
   const int lane = tw % 32;
-  const int n_tiles = pr.Sq / kChunk;
+  const int n_tiles = (pr.Sq + kChunk - 1) / kChunk;
 
   if (wgrp == NCONS) {
     if constexpr (NCONS == 2) wg::reg_dec<kProducerRegs>();
     // ---- producer: qs, q, dO tiles and their lse2, delta, kStages ahead ----
     if (warp == 0 && lane == 0) {
-      const int row0 = (b * H + h) * pr.Sq;
+      const int seg = b * H + h;
+      const size_t vec0 = static_cast<size_t>(seg) * pr.lse_pitch;
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
-        const int row = row0 + t * kChunk;
+        const int row = t * kChunk;
         const uint32_t dst = qs_tile(st);
         wg::mbar_wait(empty_bar(st), ((t / kStages) & 1) ^ 1u);
         wg::mbar_expect_tx(full_bar(st), 3 * kTileBytes + 2 * kVecBytes);
-        wg::tma_load_2d(dst, &map_qs, 0, row, full_bar(st));
-        wg::tma_load_2d(dst + kTileBytes, &map_q, 0, row, full_bar(st));
-        wg::tma_load_2d(dst + 2 * kTileBytes, &map_do, 0, row, full_bar(st));
-        bulk_load(dst + kVecOff, pr.lse + row, kVecBytes, full_bar(st));
-        bulk_load(dst + kVecOff + kVecBytes, pr.delta + row, kVecBytes, full_bar(st));
+        wg::tma_load_3d(dst, &map_qs, row, seg, full_bar(st));
+        wg::tma_load_3d(dst + kTileBytes, &map_q, row, seg, full_bar(st));
+        wg::tma_load_3d(dst + 2 * kTileBytes, &map_do, row, seg, full_bar(st));
+        bulk_load(dst + kVecOff, pr.lse + vec0 + row, kVecBytes, full_bar(st));
+        bulk_load(dst + kVecOff + kVecBytes, pr.delta + vec0 + row, kVecBytes, full_bar(st));
       }
     }
     return;
@@ -360,11 +386,12 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_qs,
   if constexpr (NCONS == 2) wg::reg_inc<kConsumerRegs>();
   const int g = lane >> 2;  // key row of the warp's 16 (and g + 8)
   const int tq = lane & 3;  // query column pair within each group of 8
-  const size_t key0 =
-      static_cast<size_t>(b * H + h) * pr.Skv + (blockIdx.x * NCONS + wgrp) * 64 + warp * 16;
+  const int k_warp = (blockIdx.x * NCONS + wgrp) * 64 + warp * 16;  // the warp's first key
+  const int n_keys = pr.Skv - k_warp;
+  const size_t key0 = static_cast<size_t>(b * H + h) * pr.Skv + k_warp;
   uint32_t ka[kD / 16][4], va[kD / 16][4];  // K and V as A fragments
-  load_a(ka, pr.k + key0 * kD, g, tq);
-  load_a(va, pr.v + key0 * kD, g, tq);
+  load_a(ka, pr.k + key0 * kD, g, tq, n_keys);
+  load_a(va, pr.v + key0 * kD, g, tq, n_keys);
   const float scale = pr.scale;
 
   float dk[32], dv[32];
@@ -460,30 +487,31 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_qs,
     wg::pin_regs(dv);
     release(last);
   }
-  store_rows(pr.dk + key0 * kD, dk, g, tq);
-  store_rows(pr.dv + key0 * kD, dv, g, tq);
+  store_rows(pr.dk + key0 * kD, dk, g, tq, n_keys);
+  store_rows(pr.dv + key0 * kD, dv, g, tq, n_keys);
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-// Opts the kernel into its dynamic shared memory; the grid is (rows / (64
-// NCONS), H, B) over the `rows` of the side a block owns.
+// Opts the kernel into its dynamic shared memory; the grid is (ceil(rows / (64
+// NCONS)), H, B) over the `rows` of the side a block owns.
 template <int NCONS, typename Kernel>
 cudaError_t prepare(Kernel kern, int smem_bytes, int rows, const BwdProblem& pr, dim3* grid) {
-  *grid = dim3(rows / (64 * NCONS), pr.H, pr.B);
+  *grid = dim3((rows + 64 * NCONS - 1) / (64 * NCONS), pr.H, pr.B);
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
-template <int NCONS>
+template <int NCONS, bool RAGGED>
 cudaError_t run_dq(const CUtensorMap (&maps)[2], const BwdProblem& pr, void* stream) {
   constexpr int kSmem = kStages * 2 * kTileBytes + 1024;
   dim3 grid;
-  cudaError_t err = prepare<NCONS>(bwd_dq_kernel<NCONS>, kSmem, pr.Sq, pr, &grid);
+  cudaError_t err = prepare<NCONS>(bwd_dq_kernel<NCONS, RAGGED>, kSmem, pr.Sq, pr, &grid);
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<NCONS><<<grid, (NCONS + 1) * 128, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], pr);
+  bwd_dq_kernel<NCONS, RAGGED>
+      <<<grid, (NCONS + 1) * 128, kSmem, static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1],
+                                                                              pr);
   return cudaGetLastError();
 }
 
@@ -498,15 +526,16 @@ cudaError_t run_dkv(const CUtensorMap (&maps)[3], const BwdProblem& pr, void* st
   return cudaGetLastError();
 }
 
-// What both kernels refuse: Sq or Skv not a multiple of the 64-row chunk,
-// another chunk, a block of other than 64 or 128 rows or one that does not
-// divide its side, more than 65535 samples or heads, a missing array, and
-// rows past the tensor maps' 2^31 row coordinates (ops/flash_vjp.py:
-// flash_bwd_tiles gives rows and chunk).
+// What both kernels refuse: another chunk than 64, a block of other than 64
+// or 128 rows or one of 128 that does not divide its side, an lse pitch that
+// is not Sq rounded up to 64, more than 65535 samples or heads, a missing
+// array, and rows past 2^31 (ops/flash_vjp.py: flash_bwd_tiles gives rows
+// and chunk). Any Sq and Skv.
 inline bool bwd_fits(const BwdProblem& pr, int side, int rows, int chunk) {
-  return pr.B > 0 && pr.H > 0 && pr.Sq > 0 && pr.Skv > 0 && pr.Sq % kChunk == 0 &&
-         pr.Skv % kChunk == 0 && chunk == kChunk && (rows == 64 || rows == 128) &&
-         side % rows == 0 && pr.B <= 65535 && pr.H <= 65535 && pr.q != nullptr &&
+  const int pitch = pr.Sq % kChunk == 0 ? pr.Sq : (pr.Sq / kChunk + 1) * kChunk;
+  return pr.B > 0 && pr.H > 0 && pr.Sq > 0 && pr.Skv > 0 && pr.lse_pitch == pitch &&
+         chunk == kChunk && (rows == 64 || (rows == 128 && side % rows == 0)) &&
+         pr.B <= 65535 && pr.H <= 65535 && pr.q != nullptr &&
          pr.qs != nullptr && pr.k != nullptr && pr.v != nullptr && pr.dout != nullptr &&
          pr.lse != nullptr && pr.delta != nullptr &&
          static_cast<uint64_t>(pr.B) * pr.H * (pr.Sq > pr.Skv ? pr.Sq : pr.Skv) <= 0x7fffffffull;
@@ -516,12 +545,13 @@ inline bool bwd_fits(const BwdProblem& pr, int side, int rows, int chunk) {
 // warpgroups) streaming key chunks of `chunk` = 64.
 inline cudaError_t launch_dq(const BwdProblem& pr, int rows, int chunk, void* stream) {
   if (!bwd_fits(pr, pr.Sq, rows, chunk) || pr.dq == nullptr) return cudaErrorInvalidValue;
-  const uint64_t kv_rows = static_cast<uint64_t>(pr.B) * pr.H * pr.Skv;
+  const uint64_t segs = static_cast<uint64_t>(pr.B) * pr.H;
   CUtensorMap maps[2];
-  if (!wg::encode_rows_map(&maps[0], pr.k, kv_rows, kChunk) ||
-      !wg::encode_rows_map(&maps[1], pr.v, kv_rows, kChunk))
+  if (!wg::encode_seg_map(&maps[0], pr.k, segs, pr.Skv, kChunk) ||
+      !wg::encode_seg_map(&maps[1], pr.v, segs, pr.Skv, kChunk))
     return cudaErrorNotSupported;
-  return rows == 128 ? run_dq<2>(maps, pr, stream) : run_dq<1>(maps, pr, stream);
+  if (pr.Skv % kChunk != 0) return run_dq<1, true>(maps, pr, stream);
+  return rows == 128 ? run_dq<2, false>(maps, pr, stream) : run_dq<1, false>(maps, pr, stream);
 }
 
 // dK, dV: a block of `rows` keys (64 or 128) streaming query chunks of
@@ -529,11 +559,11 @@ inline cudaError_t launch_dq(const BwdProblem& pr, int rows, int chunk, void* st
 inline cudaError_t launch_dkv(const BwdProblem& pr, int rows, int chunk, void* stream) {
   if (!bwd_fits(pr, pr.Skv, rows, chunk) || pr.dk == nullptr || pr.dv == nullptr)
     return cudaErrorInvalidValue;
-  const uint64_t q_rows = static_cast<uint64_t>(pr.B) * pr.H * pr.Sq;
+  const uint64_t segs = static_cast<uint64_t>(pr.B) * pr.H;
   CUtensorMap maps[3];
-  if (!wg::encode_rows_map(&maps[0], pr.qs, q_rows, kChunk) ||
-      !wg::encode_rows_map(&maps[1], pr.q, q_rows, kChunk) ||
-      !wg::encode_rows_map(&maps[2], pr.dout, q_rows, kChunk))
+  if (!wg::encode_seg_map(&maps[0], pr.qs, segs, pr.Sq, kChunk) ||
+      !wg::encode_seg_map(&maps[1], pr.q, segs, pr.Sq, kChunk) ||
+      !wg::encode_seg_map(&maps[2], pr.dout, segs, pr.Sq, kChunk))
     return cudaErrorNotSupported;
   return rows == 128 ? run_dkv<2>(maps, pr, stream) : run_dkv<1>(maps, pr, stream);
 }

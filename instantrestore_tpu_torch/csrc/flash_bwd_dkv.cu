@@ -27,36 +27,38 @@
 //     qs, q and dO arrive by TMA in a 4-stage ring; the next chunk's score
 //     products run under this chunk's gradient products. 128 keys a block (two
 //     consumer warpgroups) where they divide Skv, else 64; 64-query chunks.
-//     qs comes from the caller.
-//   * d = 512 (the VAE mid attention): the mma.sync tile of
-//     flash_bwd_tile.cuh, 32 keys in 8 warps, 32-query chunks; its two
-//     [32, 512] accumulators take 128 registers of each of the 256 threads.
+//     qs comes from the caller. Any Sq and Skv: query rows past Sq arrive as
+//     zeros with the caller's zero-padded lse2 and delta (pitch lse_pitch)
+//     and add exact zeros; keys past Skv are neither read nor written.
+//   * d = 512 (the VAE mid attention): the wgmma + TMA tile of
+//     attn_wgmma_bwd_d512.cuh, in two launches, dV and then dK: a block's dK
+//     and dV at 64 keys would be the SM's whole register file. A block owns
+//     64 keys (K, and for dK also V, in shared memory as the A operands of the
+//     transposed scores) and streams 16-query chunks of qs, dO (and q) by
+//     TMA; each consumer warpgroup accumulates 256 channels. Sq % 64 == 0 and
+//     Skv % 32 == 0, the d = 512 forward's shapes.
 
 #include "attn_wgmma_bwd.cuh"
-#include "flash_bwd_tile.cuh"
+#include "attn_wgmma_bwd_d512.cuh"
 
 extern "C" int irt_flash_bwd_dkv_bf16(const void* q, const void* qs, const void* k,
                                       const void* v, const void* dout, const void* lse,
                                       const void* delta, void* dk, void* dv, int B, int H, int Sq,
-                                      int Skv, int D, int rows, int chunk, float qscale,
+                                      int Skv, int D, int rows, int chunk, int lse_pitch,
                                       float scale, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (D == 64) {
-    irt::wgb::BwdProblem pr{};
-    pr.q = static_cast<const bf16*>(q);
-    pr.qs = static_cast<const bf16*>(qs);
-    pr.k = static_cast<const bf16*>(k);
-    pr.v = static_cast<const bf16*>(v);
-    pr.dout = static_cast<const bf16*>(dout);
-    pr.lse = static_cast<const float*>(lse);
-    pr.delta = static_cast<const float*>(delta);
-    pr.dk = static_cast<bf16*>(dk);
-    pr.dv = static_cast<bf16*>(dv);
-    pr.B = B, pr.H = H, pr.Sq = Sq, pr.Skv = Skv, pr.scale = scale;
-    return (int)irt::wgb::launch_dkv(pr, rows, chunk, stream);
-  }
-  if (D == 512 && rows == 32 && chunk == 32)
-    return (int)irt::launch_bwd_dkv<512, 32, 32, 8>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                                                    Skv, qscale, scale, stream);
+  irt::wgb::BwdProblem pr{};
+  pr.q = static_cast<const bf16*>(q);
+  pr.qs = static_cast<const bf16*>(qs);
+  pr.k = static_cast<const bf16*>(k);
+  pr.v = static_cast<const bf16*>(v);
+  pr.dout = static_cast<const bf16*>(dout);
+  pr.lse = static_cast<const float*>(lse);
+  pr.delta = static_cast<const float*>(delta);
+  pr.dk = static_cast<bf16*>(dk);
+  pr.dv = static_cast<bf16*>(dv);
+  pr.B = B, pr.H = H, pr.Sq = Sq, pr.Skv = Skv, pr.scale = scale, pr.lse_pitch = lse_pitch;
+  if (D == 64) return (int)irt::wgb::launch_dkv(pr, rows, chunk, stream);
+  if (D == 512) return (int)irt::wgb512::launch_dkv(pr, rows, chunk, stream);
   return (int)cudaErrorInvalidValue;
 }

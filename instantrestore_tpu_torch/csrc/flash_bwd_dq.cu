@@ -22,33 +22,36 @@
 //     ring, and the next chunk's score products run under this chunk's dQ
 //     product. 128 query rows a block (two consumer warpgroups) where they
 //     divide Sq, else 64; 64-key chunks. qs comes from the caller.
-//   * d = 512 (the VAE mid attention): the mma.sync tile of
-//     flash_bwd_tile.cuh, 32 query rows in 8 warps, 64-key chunks.
+//     Any Sq and Skv: keys past Skv are masked out of P, query rows past Sq
+//     neither read nor written.
+//   * d = 512 (the VAE mid attention): the wgmma + TMA tile of
+//     attn_wgmma_bwd_d512.cuh. A block owns 64 query rows; qs and dO live in
+//     shared memory as the A operands of S and dP, one consumer warpgroup
+//     each over all 512 channels, the two exchange their results through
+//     shared memory and each accumulates 256 channels of dQ += dS K in
+//     registers; 16-key chunks of K and V by TMA. Sq % 64 == 0 and Skv % 32
+//     == 0, the d = 512 forward's shapes.
 
 #include "attn_wgmma_bwd.cuh"
-#include "flash_bwd_tile.cuh"
+#include "attn_wgmma_bwd_d512.cuh"
 
 extern "C" int irt_flash_bwd_dq_bf16(const void* q, const void* qs, const void* k,
                                      const void* v, const void* dout, const void* lse,
                                      const void* delta, void* dq, int B, int H, int Sq, int Skv,
-                                     int D, int rows, int chunk, float qscale, float scale,
+                                     int D, int rows, int chunk, int lse_pitch, float scale,
                                      void* stream) {
   using bf16 = __nv_bfloat16;
-  if (D == 64) {
-    irt::wgb::BwdProblem pr{};
-    pr.q = static_cast<const bf16*>(q);
-    pr.qs = static_cast<const bf16*>(qs);
-    pr.k = static_cast<const bf16*>(k);
-    pr.v = static_cast<const bf16*>(v);
-    pr.dout = static_cast<const bf16*>(dout);
-    pr.lse = static_cast<const float*>(lse);
-    pr.delta = static_cast<const float*>(delta);
-    pr.dq = static_cast<bf16*>(dq);
-    pr.B = B, pr.H = H, pr.Sq = Sq, pr.Skv = Skv, pr.scale = scale;
-    return (int)irt::wgb::launch_dq(pr, rows, chunk, stream);
-  }
-  if (D == 512 && rows == 32 && chunk == 64)
-    return (int)irt::launch_bwd_dq<512, 32, 64, 8>(q, k, v, dout, lse, delta, dq, B, H, Sq, Skv,
-                                                   qscale, scale, stream);
+  irt::wgb::BwdProblem pr{};
+  pr.q = static_cast<const bf16*>(q);
+  pr.qs = static_cast<const bf16*>(qs);
+  pr.k = static_cast<const bf16*>(k);
+  pr.v = static_cast<const bf16*>(v);
+  pr.dout = static_cast<const bf16*>(dout);
+  pr.lse = static_cast<const float*>(lse);
+  pr.delta = static_cast<const float*>(delta);
+  pr.dq = static_cast<bf16*>(dq);
+  pr.B = B, pr.H = H, pr.Sq = Sq, pr.Skv = Skv, pr.scale = scale, pr.lse_pitch = lse_pitch;
+  if (D == 64) return (int)irt::wgb::launch_dq(pr, rows, chunk, stream);
+  if (D == 512) return (int)irt::wgb512::launch_dq(pr, rows, chunk, stream);
   return (int)cudaErrorInvalidValue;
 }

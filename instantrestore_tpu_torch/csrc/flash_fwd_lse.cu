@@ -14,9 +14,9 @@
 // d >= 128: fp32 p for the sum, bf16 for the product), and one more output,
 // lse2 = m + log2(row sum), fp32 [B, H, Sq]. The TPU kernel stores it
 // broadcast over 128 lanes; that is its tiling, not part of the function.
-// The key chunk is the caller's: 128 or 64 at d=64 (a shared attention's
-// chunk divides its segment length, so that none straddles two segments),
-// the tile's 32 at d=512.
+// The key chunk is the caller's: 128 or 64 at d=64, the last chunk cut at
+// Skv (a shared attention's divides its segment length where 64 does, so
+// that none straddles two segments), the tile's 32 at d=512.
 //
 // What bounds it on the H100: tensor-core operations and exp2 alike at d=64,
 // tensor-core operations at d=512, as flash_online.cu (the LSE adds 4 bytes

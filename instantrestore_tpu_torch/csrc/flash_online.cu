@@ -13,9 +13,10 @@
 // TPU kernel's ones column). d >= 128: p = exp2(s - m_new) in fp32, row sum
 // over the fp32 p, only the product's operand rounded. out = acc / l in bf16.
 // The key chunk is the caller's (ops/shared_attention.py,
-// flash_online_chunk: at d=64 128 where it divides Skv, else 64; at d=512 the
-// tile's 32) where the TPU kernel's is 1024 or 512; the running maxima differ
-// per chunk, which shows at bf16 rounding level only.
+// flash_online_chunk: at d=64 128 where it divides Skv, 64 where that does,
+// else 128 (all Skv where fewer) with a ragged last chunk; at d=512 the tile's
+// 32) where the TPU kernel's is 1024 or 512; the running maxima differ per
+// chunk, which shows at bf16 rounding level only.
 //
 // What bounds it on the H100: tensor-core operations and exp2 alike at d=64
 // (a 64^2 UNet layer at batch 16 is 0.34 TFLOP, 0.35 ms at 989 TFLOP/s, and

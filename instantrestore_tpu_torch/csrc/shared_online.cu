@@ -23,8 +23,9 @@
 // shared_flash_bound.cu (the TPU kernels round the product and the sum, at
 // most 1 bf16 ulp of the value apart); the input segment takes raw v_in.
 // Zeroed references are read and attended with logit 0. The key chunk is 128
-// (64 where 128 does not divide the segment) where the TPU kernels' is 512:
-// bf16 rounding level only.
+// (64 where 128 does not divide the segment but 64 does; a ragged last chunk
+// of each segment where neither does) where the TPU kernels' is 512: bf16
+// rounding level only.
 //
 // What bounds it on the H100: tensor-core operations and exp2 alike. The
 // 64^2 layer of a batch-16 cold restore is 1.37 TFLOP (1.39 ms at 989

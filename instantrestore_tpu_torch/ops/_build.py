@@ -60,10 +60,10 @@ SIGNATURES = {
         "irt_flash_fwd_lse_bf16": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
     },
     "flash_bwd_dq": {
-        "irt_flash_bwd_dq_bf16": ([_P] * 8 + [_I] * 7 + [_F, _F, _P], _I),
+        "irt_flash_bwd_dq_bf16": ([_P] * 8 + [_I] * 8 + [_F, _P], _I),
     },
     "flash_bwd_dkv": {
-        "irt_flash_bwd_dkv_bf16": ([_P] * 9 + [_I] * 7 + [_F, _F, _P], _I),
+        "irt_flash_bwd_dkv_bf16": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
     },
 }
 

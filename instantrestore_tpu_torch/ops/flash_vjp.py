@@ -17,9 +17,10 @@ and a launch count:
   ``_bwd_dkv_kernel``); plain ``flash_bwd_dkv_plain``.
 
 At d = 64 the two backward kernels run on the wgmma + TMA tile of
-``csrc/attn_wgmma_bwd.cuh``, at d = 512 on the mma.sync tile of
-``csrc/flash_bwd_tile.cuh``; ``flash_bwd_tiles`` gives both kernels their
-block and chunk and refuses, before any launch, a shape the tiles do not take.
+``csrc/attn_wgmma_bwd.cuh`` (any Sq and Skv), at d = 512 on that of
+``csrc/attn_wgmma_bwd_d512.cuh`` (the d = 512 forward's shapes);
+``flash_bwd_tiles`` gives both kernels their block and chunk and refuses,
+before any launch, a shape the tiles do not take.
 
 A wrapper given CUDA tensors launches its kernel (bf16 only) or raises; given
 CPU tensors it runs the plain version. ``<wrapper>.launches`` counts kernel
@@ -83,9 +84,8 @@ def flash_fwd_lse(q, k, v, *, scale: float,
     """softmax(q k^T * scale) v and each row's log-sum-exp in log2 units.
     Shapes and the CUDA kernel's limits as ``ops.shared_attention
     .flash_online``. ``block_k`` is the key chunk of the running max
-    (default ``flash_online_chunk``'s); the kernel takes 64 or 128 dividing
-    Skv at d = 64 and 32 at d = 512 (``check_flash_chunk``), and raises on
-    any other."""
+    (default ``flash_online_chunk``'s); the kernel takes the chunks of
+    ``check_flash_chunk``, and raises on any other."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale=scale, block_k=block_k)
     sa._check_flash("flash_fwd_lse", q, k, v, sa._flash_tiles_fit)
@@ -125,29 +125,26 @@ class BwdTiles(NamedTuple):
     dkv_chunk: int
 
 
-def _bwd_tiles_fit(sq: int, skv: int, d: int) -> bool:
-    """Whether the backward kernels take Sq queries against Skv keys at head
-    dim d: Sq and Skv multiples of 64 at d = 64; at d = 512 Sq of 32 and Skv
-    of 64."""
-    rows = {64: 64, 512: 32}.get(d)
-    return rows is not None and min(sq, skv) > 0 and sq % rows == 0 and skv % 64 == 0
+BWD_CHUNK = 64  # streamed rows a stage of csrc/attn_wgmma_bwd.cuh (d = 64)
+D512_BWD_CHUNK = 16  # streamed rows a stage of csrc/attn_wgmma_bwd_d512.cuh
 
 
 def flash_bwd_tiles(sq: int, skv: int, d: int) -> BwdTiles:
     """The tiles of ``flash_bwd_dq`` and ``flash_bwd_dkv`` for Sq queries
-    against Skv keys at head dim d. d = 64 (``csrc/attn_wgmma_bwd.cuh``):
-    128 rows a block (two consumer warpgroups) where they divide the block's
-    side, else 64, and chunks of 64. d = 512 (``csrc/flash_bwd_tile.cuh``):
-    32 rows a block, 64 keys and 32 queries a chunk. Raises on what the tiles
-    do not take (``_bwd_tiles_fit``); the C entry points refuse any other
-    tile."""
-    if not _bwd_tiles_fit(sq, skv, d):
-        raise ValueError(f"flash_bwd: the backward kernels take d = 64 with Sq and Skv multiples "
-                         f"of 64, or d = 512 with Sq % 32 == 0 and Skv % 64 == 0, not Sq {sq}, "
-                         f"Skv {skv}, d {d}")
+    against Skv keys at head dim d: they take the forward's shapes
+    (``ops.shared_attention._flash_tiles_fit``). d = 64
+    (``csrc/attn_wgmma_bwd.cuh``): 128 rows a block (two consumer
+    warpgroups) where they divide the block's side and (dQ) 64 divides Skv,
+    else 64, and chunks of 64. d = 512 (``csrc/attn_wgmma_bwd_d512.cuh``): 64
+    rows a block and chunks of 16. Raises on what the tiles do not take; the
+    C entry points refuse any other tile."""
+    if not sa._flash_tiles_fit(sq, skv, d):
+        raise ValueError(f"flash_bwd: the backward kernels take d = 64, or d = 512 with Sq % 64 "
+                         f"== 0 and Skv % 32 == 0, not Sq {sq}, Skv {skv}, d {d}")
     if d == 512:
-        return BwdTiles(32, 64, 32, 32)
-    return BwdTiles(128 if sq % 128 == 0 else 64, 64, 128 if skv % 128 == 0 else 64, 64)
+        return BwdTiles(64, D512_BWD_CHUNK, 64, D512_BWD_CHUNK)
+    wide_q = sq % 128 == 0 and skv % BWD_CHUNK == 0
+    return BwdTiles(128 if wide_q else 64, BWD_CHUNK, 128 if skv % 128 == 0 else 64, BWD_CHUNK)
 
 
 def _chunk(other: int) -> int:
@@ -159,7 +156,7 @@ def _chunk(other: int) -> int:
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale: float,
                        block_k: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/flash_bwd_dq.cu`` (its tiles
-    ``csrc/attn_wgmma_bwd.cuh`` at d = 64, ``csrc/flash_bwd_tile.cuh`` at
+    ``csrc/attn_wgmma_bwd.cuh`` at d = 64, ``csrc/attn_wgmma_bwd_d512.cuh`` at
     d = 512): dQ [B, H, Sq, d] from q/do [B, H, Sq, d], k/v [B, H, Skv, d],
     lse2/delta [B, H, Sq] fp32, summed over key chunks of ``block_k``
     (default: what bounds the fp32 score block; the chunk only orders the
@@ -206,10 +203,10 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 
 
 def _check_backward(name: str, q, k, v, do, lse, delta, qs) -> BwdTiles:
-    """The backward kernels' inputs (``_bwd_tiles_fit``, bf16 q and dO, fp32
-    lse and delta of [B, H, Sq], and a given qs bf16 of q's shape) and their
-    tiles; raises before any launch."""
-    sa._check_flash(name, q, k, v, _bwd_tiles_fit)
+    """The backward kernels' inputs (``_flash_tiles_fit``, bf16 q and dO,
+    fp32 lse and delta of [B, H, Sq], and a given qs bf16 of q's shape) and
+    their tiles; raises before any launch."""
+    sa._check_flash(name, q, k, v, sa._flash_tiles_fit)
     f32 = torch.float32
     sa._check_cuda(name, (q, torch.bfloat16), (do, torch.bfloat16), (lse, f32), (delta, f32))
     if do.shape != q.shape or lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
@@ -228,13 +225,23 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def _backward_qs(q, scale: float) -> Optional[torch.Tensor]:
-    """The scaled q that the d = 64 tile reads: ``sa._q_scaled``'s bits (the
+def _backward_qs(q, scale: float) -> torch.Tensor:
+    """The scaled q that both tiles read: ``sa._q_scaled``'s bits (the
     forward's), with the constant rounded on the host instead of copied to
-    the device; the d = 512 tile scales q itself."""
-    if q.shape[-1] != 64:
-        return None
+    the device."""
     return q * _rounded(scale * LOG2E, q.dtype)
+
+
+def _lse_rows(lse, delta):
+    """(lse, delta, pitch) as the kernels read them: [B, H, pitch] with
+    pitch = Sq where 64 divides it, else Sq rounded up to 64 with zeros past
+    Sq (the d = 64 dK/dV tile bulk-copies 64 of each a query chunk)."""
+    sq = lse.shape[-1]
+    pitch = -(-sq // BWD_CHUNK) * BWD_CHUNK
+    if pitch == sq:
+        return lse, delta, sq
+    pad = (0, pitch - sq)
+    return (torch.nn.functional.pad(lse, pad), torch.nn.functional.pad(delta, pad), pitch)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
@@ -242,23 +249,23 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
     """dQ of softmax(q k^T * scale) v given the output gradient ``do``, the
     forward's ``lse`` and ``delta = rowsum(do * out)``. Shapes as
     ``flash_bwd_dq_plain``; the CUDA kernel (``csrc/flash_bwd_dq.cu``: the
-    wgmma + TMA tile of ``csrc/attn_wgmma_bwd.cuh`` at d = 64,
-    ``csrc/flash_bwd_tile.cuh`` at d = 512) takes the tiles of
+    wgmma + TMA tiles of ``csrc/attn_wgmma_bwd.cuh`` at d = 64 and
+    ``csrc/attn_wgmma_bwd_d512.cuh`` at d = 512) takes the tiles of
     ``flash_bwd_tiles``. ``qs``, ``q * (scale * log2 e)`` in bf16, may be
     given where the caller has it (``_flash_backward`` shares it with
-    ``flash_bwd_dkv``); else the wrapper computes it at d = 64."""
+    ``flash_bwd_dkv``); else the wrapper computes it."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale)
     tiles = _check_backward("flash_bwd_dq", q, k, v, do, lse, delta, qs)
     if qs is None:
         qs = _backward_qs(q, scale)
     b, h, sq, d = q.shape
+    lse, delta, pitch = _lse_rows(lse, delta)
     dq = torch.empty_like(q)
     rc = _build.load("flash_bwd_dq").irt_flash_bwd_dq_bf16(
-        q.data_ptr(), None if qs is None else qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d,
-        tiles.dq_rows, tiles.dq_chunk, ctypes.c_float(scale * LOG2E), ctypes.c_float(scale),
-        sa._stream_ptr(q),
+        q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d, tiles.dq_rows, tiles.dq_chunk,
+        pitch, ctypes.c_float(scale), sa._stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {rc}")
@@ -272,19 +279,20 @@ flash_bwd_dq.launches = 0
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
                   qs: Optional[torch.Tensor] = None):
     """(dK, dV) of softmax(q k^T * scale) v; arguments as ``flash_bwd_dq``.
-    The CUDA kernel is ``csrc/flash_bwd_dkv.cu`` on the same two tiles."""
+    The CUDA kernel is ``csrc/flash_bwd_dkv.cu`` on the same two tiles (at
+    d = 512 two launches of its tile, dV then dK)."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale)
     tiles = _check_backward("flash_bwd_dkv", q, k, v, do, lse, delta, qs)
     if qs is None:
         qs = _backward_qs(q, scale)
     b, h, sq, d = q.shape
+    lse, delta, pitch = _lse_rows(lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _build.load("flash_bwd_dkv").irt_flash_bwd_dkv_bf16(
-        q.data_ptr(), None if qs is None else qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
-        k.shape[2], d, tiles.dkv_rows, tiles.dkv_chunk, ctypes.c_float(scale * LOG2E),
-        ctypes.c_float(scale), sa._stream_ptr(q),
+        q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d, tiles.dkv_rows,
+        tiles.dkv_chunk, pitch, ctypes.c_float(scale), sa._stream_ptr(q),
     )
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {rc}")
@@ -366,11 +374,15 @@ class _Shared(torch.autograd.Function):
     def forward(ctx, q, k_in, v_in, ref_k, ref_v, vs, vh, scale, include_input):
         wide_k, wide_v = _widen(k_in, v_in, ref_k, ref_v, vs, vh, include_input)
         # the shared kernels' chunk at d = 64, flash_online_chunk's at other
-        # widths (32 keys at d = 512, the kernel's): it must divide the segment
-        # length, so that no chunk straddles two segments; a segment it does
-        # not divide raises
+        # widths (32 keys at d = 512, the kernel's), so that no chunk
+        # straddles two segments; where 64 does not divide a segment at
+        # d = 64 (no kernel chunk does), the plain layout's chunk over the
+        # wide keys
         s, d = ref_k.shape[3], q.shape[-1]
-        chunk = sa.shared_online_chunk(s, None if d == 64 else sa.flash_online_chunk(s, d))
+        if d == 64 and s % sa.ONLINE_BLOCK_K:
+            chunk = sa.flash_online_chunk(wide_k.shape[2], d)
+        else:
+            chunk = sa.shared_online_chunk(s, None if d == 64 else sa.flash_online_chunk(s, d))
         out, lse = flash_fwd_lse(q, wide_k, wide_v, scale=scale, block_k=chunk)
         # the wide K/V are rebuilt in the backward, not kept
         ctx.save_for_backward(q, k_in, v_in, ref_k, ref_v, vs, vh, out, lse)

@@ -51,11 +51,14 @@ way out for such weights. Their result depends on the key chunk at bf16
 rounding level (the running max differs per chunk). The four shared kernels,
 bound and online, and ``flash_online`` and ``flash_attention`` at d = 64 run
 on the wgmma + TMA tile of ``csrc/attn_wgmma.cuh``, whose chunk is
-``SHARED_ONLINE_BLOCK_K`` keys where that divides the segment length
-(``flash_online``, ``flash_attention``: Skv) and ``ONLINE_BLOCK_K``
-otherwise (``shared_online_tile``, ``flash_online_chunk``,
-``flash_bound_chunk``; the bound kernels' result depends on it through the
-order of fp32 sums only); ``flash_attention`` and ``flash_online`` at d =
+``key_tile`` of the segment length (``flash_online``, ``flash_attention``:
+Skv): ``SHARED_ONLINE_BLOCK_K`` keys where that divides it,
+``ONLINE_BLOCK_K`` where that does, else a ragged last chunk of the segment
+(``shared_online_tile``, ``flash_online_chunk``, ``flash_bound_chunk``; the
+bound kernels' result depends on it through the order of fp32 sums only).
+They take every Sq and segment length, as the JAX kernels do: keys past a
+segment's end are masked out of the softmax and query rows past Sq are
+neither read nor written. ``flash_attention`` and ``flash_online`` at d =
 512 run on the wgmma + TMA tile of ``csrc/attn_wgmma_d512.cuh``, whose chunk
 is its ``D512_BLOCK_K`` keys (the running max once per such tile). The
 online plain versions take the chunk as ``block_k`` and default to their
@@ -144,25 +147,34 @@ def _bound_softmax_av(qs, keys, vals, bound, out_dtype, *, sum_rounded: bool):
     return out
 
 
+def _chunk_starts(skv: int, block_k: int, seg: int):
+    """(start, end) of the key chunks over Skv keys in segments of ``seg``:
+    ``block_k`` keys from each segment's start, the last chunk of a segment
+    cut at its end, so that no chunk straddles two segments."""
+    if block_k <= 0 or seg <= 0 or skv % seg:
+        raise ValueError(f"key chunk {block_k} over {skv} keys in segments of {seg}")
+    return [(j, min(j + block_k, s0 + seg)) for s0 in range(0, skv, seg)
+            for j in range(s0, s0 + seg, block_k)]
+
+
 def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: bool,
-                       return_lse: bool = False):
+                       return_lse: bool = False, seg: Optional[int] = None):
     """sum_j p_ij v_j / sum_j p_ij with a running max over key chunks of
-    ``block_k``: m_new = max(m, rowmax(s)), alpha = exp2(m - m_new), row sum
-    and fp32 accumulator rescaled by alpha. ``arg_rounded``: p =
-    exp2((s - m_new) rounded to the value dtype), summed as rounded;
-    otherwise p = exp2(s - m_new) in fp32, summed in fp32, and only the
-    product's operand is rounded. ``return_lse`` also returns m + log2(row
-    sum), fp32 [B, H, Sq]."""
+    ``block_k`` in each segment of ``seg`` keys (default: the keys are one
+    segment), the last chunk of a segment cut at its end: m_new = max(m,
+    rowmax(s)), alpha = exp2(m - m_new), row sum and fp32 accumulator
+    rescaled by alpha. ``arg_rounded``: p = exp2((s - m_new) rounded to the
+    value dtype), summed as rounded; otherwise p = exp2(s - m_new) in fp32,
+    summed in fp32, and only the product's operand is rounded.
+    ``return_lse`` also returns m + log2(row sum), fp32 [B, H, Sq]."""
     b, h, sq, _ = qs.shape
     skv = keys.shape[2]
-    if block_k <= 0 or skv % block_k:
-        raise ValueError(f"key chunk {block_k} does not divide {skv} keys")
     qf = qs.float()
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=qs.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, h, sq, vals.shape[-1]), dtype=torch.float32, device=qs.device)
-    for j in range(0, skv, block_k):
-        s = qf @ keys[:, :, j : j + block_k].float().transpose(-1, -2)
+    for j, end in _chunk_starts(skv, block_k, skv if seg is None else seg):
+        s = qf @ keys[:, :, j:end].float().transpose(-1, -2)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         if arg_rounded:
@@ -171,7 +183,7 @@ def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: 
             psum = torch.exp2(s - m_new)
             p = psum.to(vals.dtype).float()
         l = alpha * l + psum.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p @ vals[:, :, j : j + block_k].float()
+        acc = acc * alpha + p @ vals[:, :, j:end].float()
         m = m_new
     out = (acc / l).to(out_dtype)
     return (out, (m + torch.log2(l)).squeeze(-1)) if return_lse else out
@@ -182,26 +194,45 @@ def _online_softmax_av(qs, keys, vals, out_dtype, *, block_k: int, arg_rounded: 
 # ---------------------------------------------------------------------------
 
 
+def key_tile(s: int) -> int:
+    """Keys a tile of ``csrc/attn_wgmma.cuh`` (d = 64) takes from a segment
+    of ``s`` keys, as its launchers choose it (``key_tile`` there):
+    ``SHARED_ONLINE_BLOCK_K`` where it divides ``s``, ``ONLINE_BLOCK_K``
+    where that does, else 128 where ``s`` is longer than 64 and 64 where it
+    is not; the last tile of a ragged segment holds its last ``s`` % tile
+    keys, the rest masked."""
+    if s % SHARED_ONLINE_BLOCK_K == 0:
+        return SHARED_ONLINE_BLOCK_K
+    if s % ONLINE_BLOCK_K == 0:
+        return ONLINE_BLOCK_K
+    return SHARED_ONLINE_BLOCK_K if s > ONLINE_BLOCK_K else ONLINE_BLOCK_K
+
+
 def _flash_tiles_fit(sq: int, skv: int, d: int) -> bool:
     """Whether the plain flash kernels (``flash_attention``'s bound kernel,
-    ``flash_online``, ``flash_fwd_lse``) take Sq queries against Skv keys at
-    head dim d: d in {64, 512}, Sq a multiple of 64 and Skv of the smaller
-    key chunk (``ONLINE_BLOCK_K`` at d = 64, ``D512_BLOCK_K`` at d = 512)."""
-    smallest = {64: ONLINE_BLOCK_K, 512: D512_BLOCK_K}.get(d)
-    return smallest is not None and min(sq, skv) > 0 and sq % 64 == 0 and skv % smallest == 0
+    ``flash_online``, ``flash_fwd_lse``) and the backward kernels take Sq
+    queries against Skv keys at head dim d: at d = 64 any (the tile masks
+    the ragged ends, as the JAX kernels take any length up to their block),
+    at d = 512 Sq a multiple of 64 and Skv of ``D512_BLOCK_K`` (the VAE mid
+    attention's n^2 tokens are, wherever the latent side n is a multiple of
+    8)."""
+    if min(sq, skv) <= 0:
+        return False
+    if d == 64:
+        return True
+    return d == 512 and sq % 64 == 0 and skv % D512_BLOCK_K == 0
 
 
 def flash_bound_chunk(sq: int, skv: int, d: int) -> int:
     """Key chunk of ``flash_attention``'s bound kernel for Sq queries against
     Skv keys at head dim d: at d = 64 ``flash_online_chunk``'s (the plain
     layout of ``csrc/attn_wgmma.cuh``, whose launcher takes 128 query rows a
-    block where they divide Sq, else 64), at d = 512 ``D512_BLOCK_K``
-    (``csrc/attn_wgmma_d512.cuh``, 64 rows a block). Raises on what the
-    kernel refuses (``_flash_tiles_fit``)."""
+    block where they divide Sq and the key tile divides Skv, else 64), at
+    d = 512 ``D512_BLOCK_K`` (``csrc/attn_wgmma_d512.cuh``, 64 rows a
+    block). Raises on what the kernel refuses (``_flash_tiles_fit``)."""
     if not _flash_tiles_fit(sq, skv, d):
-        raise ValueError(f"flash_attention: the bound kernel takes d in (64, 512), Sq % 64 == 0 "
-                         f"and Skv % {ONLINE_BLOCK_K if d == 64 else D512_BLOCK_K} == 0, not "
-                         f"Sq {sq}, Skv {skv}, d {d}")
+        raise ValueError(f"flash_attention: the bound kernel takes d = 64, or d = 512 with Sq % 64 "
+                         f"== 0 and Skv % {D512_BLOCK_K} == 0, not Sq {sq}, Skv {skv}, d {d}")
     return flash_online_chunk(skv, d) if d == 64 else D512_BLOCK_K
 
 
@@ -232,12 +263,11 @@ def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> tor
     """softmax(q k^T * scale) v for q [B, H, Sq, d], k/v [B, H, Skv, d].
     ``algo`` (default: ``INSTANTRESTORE_FLASH_ALGO``, else ``bound``) selects
     the algorithm as in the JAX package: ``bound`` runs this wrapper's
-    kernel, any other value ``flash_online``. The bound kernel takes bf16, d
-    in {64, 512}, Sq % 64 == 0 and Skv a multiple of its smaller key chunk
-    (``flash_bound_chunk``: 64 at d = 64, 32 at d = 512); it raises on any
-    other shape before a launch. No shape that serving produces is lost: its
-    inputs are square latents, and n^2 tokens are a multiple of 32 only when
-    8 divides n, which makes n^2 a multiple of 64 too."""
+    kernel, any other value ``flash_online``. The bound kernel takes bf16 at
+    d = 64 with any Sq and Skv, and at d = 512 with Sq % 64 == 0 and Skv %
+    32 == 0 (``_flash_tiles_fit``); it raises on any other shape before a
+    launch. The only d = 512 attention, the VAE mid block's, has n^2 tokens
+    for a latent of side n, a multiple of 8, so it always fits."""
     if algo is None:
         algo = os.environ.get("INSTANTRESTORE_FLASH_ALGO", "bound")
     if algo != "bound":
@@ -271,25 +301,31 @@ flash_attention.launches = 0
 def flash_online_chunk(skv: int, d: int) -> int:
     """Key chunk of the running max of ``flash_online`` and ``flash_fwd_lse``
     over Skv keys at head dim d: at d = 64 the tile of ``csrc/attn_wgmma.cuh``
-    takes ``SHARED_ONLINE_BLOCK_K`` where it divides Skv, else
-    ``ONLINE_BLOCK_K``; at d = 512 the tile of ``csrc/attn_wgmma_d512.cuh``
-    takes its ``D512_BLOCK_K`` keys; the plain versions take
-    ``ONLINE_BLOCK_K`` at any other width (no kernel does). Skv where that is
-    shorter (no kernel takes it)."""
-    if d == 64 and skv % SHARED_ONLINE_BLOCK_K == 0:
-        return SHARED_ONLINE_BLOCK_K
+    takes ``key_tile(Skv)`` keys a chunk, the last one cut at Skv; at d = 512
+    the tile of ``csrc/attn_wgmma_d512.cuh`` takes its ``D512_BLOCK_K`` keys;
+    the plain versions take ``ONLINE_BLOCK_K`` at any other width (no kernel
+    does). Skv where that is shorter."""
+    if d == 64:
+        return min(key_tile(skv), skv)
     return min(D512_BLOCK_K if d == 512 else ONLINE_BLOCK_K, skv)
 
 
 def check_flash_chunk(name: str, skv: int, d: int, block_k: int) -> None:
     """Raises unless the online flash kernels take a key chunk of ``block_k``
-    over Skv keys at head dim d: 64 or 128 dividing Skv at d = 64 (the tile of
-    ``csrc/attn_wgmma.cuh``), 32 dividing Skv at d = 512 (the tile of
-    ``csrc/attn_wgmma_d512.cuh``)."""
-    takes = (ONLINE_BLOCK_K, SHARED_ONLINE_BLOCK_K) if d == 64 else (D512_BLOCK_K,)
-    if block_k not in takes or skv % block_k:
-        raise ValueError(f"{name}: the kernel takes a key chunk of {takes} dividing Skv {skv} "
-                         f"at d={d}, not {block_k}")
+    over Skv keys at head dim d: at d = 64 (the tile of
+    ``csrc/attn_wgmma.cuh``) 64 or 128 keys, the last chunk cut at Skv, or
+    all Skv keys where they are fewer than 128; at d = 512 (the tile of
+    ``csrc/attn_wgmma_d512.cuh``) 32 dividing Skv."""
+    if d == 64:
+        ok = (block_k in (ONLINE_BLOCK_K, SHARED_ONLINE_BLOCK_K) and block_k <= skv) or (
+            block_k == skv < SHARED_ONLINE_BLOCK_K)
+        takes = "64 or 128 keys (no more than Skv), or all Skv < 128"
+    else:
+        ok = block_k == D512_BLOCK_K and skv % block_k == 0
+        takes = f"{D512_BLOCK_K} keys dividing Skv"
+    if not ok:
+        raise ValueError(f"{name}: the kernel takes a key chunk of {takes} at d={d}, not "
+                         f"{block_k} over Skv {skv}")
 
 
 def flash_online_plain(q, k, v, *, scale: float, block_k: Optional[int] = None) -> torch.Tensor:
@@ -437,8 +473,8 @@ def shared_identity(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
     row ``ids[b]`` of rk/rv [I, N, H, S, d], with the numerics of the TPU's
     paired kernel: bound from the pre-scaled q's norm, fp32 affine, fp32 row
     sum. aff [B, H, N, 2, d] fp32; kmax [I, H] fp32. The CUDA kernel takes
-    bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0; its tile follows the
-    shape (``shared_online_tile``). An id outside [0, I) makes its sample's
+    bf16 at d = 64 with any Sq and S; its tile follows the shape
+    (``shared_online_tile``). An id outside [0, I) makes its sample's
     outputs NaN on the card."""
     if q.device.type == "cpu":
         return shared_identity_plain(q, rk, rv, aff, kmax, ids, scale=scale)
@@ -452,7 +488,7 @@ def shared_identity(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
                 (ids32, torch.int32))
     if (d != 64 or rk.shape != (i_rows, n, h, s, d) or rv.shape != rk.shape
             or aff.shape != (b, h, n, 2, d) or kmax.shape != (i_rows, h)
-            or ids32.shape != (b,) or sq % 64 or s % 64):
+            or ids32.shape != (b,) or min(sq, s) <= 0):
         raise ValueError(
             f"shared_identity: unsupported shapes q {tuple(q.shape)} "
             f"cache {tuple(rk.shape)} ids {tuple(ids32.shape)}")
@@ -516,8 +552,7 @@ def shared_flash_bound(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: flo
     the numerics of the TPU's ``_shared_kvouter_bound_kernel`` (bound from the
     unscaled q norm, bf16 affine, row sum over bf16-rounded p). Shapes as in
     ``shared_flash_bound_plain``. The CUDA kernel takes bf16 at d = 64 with
-    Sq % 64 == 0 and S % 64 == 0; its tile follows the shape
-    (``shared_online_tile``)."""
+    any Sq and S; its tile follows the shape (``shared_online_tile``)."""
     if q.device.type == "cpu":
         return shared_flash_bound_plain(q, k_in, v_in, rk, rv, aff, kmax, ids, scale=scale,
                                         include_input=include_input)
@@ -535,7 +570,7 @@ def shared_flash_bound(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: flo
         typed.append((ids32, torch.int32))
     _check_cuda("shared_flash_bound", *typed)
     if (d != 64 or rk.shape != (rows, n, h, s, d) or rv.shape != rk.shape
-            or aff.shape != (b, h, n, 2, d) or kmax.shape != (b, h) or sq % 64 or s % 64
+            or aff.shape != (b, h, n, 2, d) or kmax.shape != (b, h) or min(sq, s) <= 0
             or (ids32 is None and rows != b) or (ids32 is not None and ids32.shape != (b,))
             or (include_input and (k_in.shape != (b, h, s, d) or v_in.shape != k_in.shape))):
         raise ValueError(
@@ -565,19 +600,14 @@ shared_flash_bound.launches = 0
 
 
 def shared_online_chunk(s: int, block_k: Optional[int] = None) -> int:
-    """Key chunk of the running max over segments of ``s`` keys. ``block_k``
-    None is the kernels' own choice: ``SHARED_ONLINE_BLOCK_K`` where it
-    divides ``s``, else ``ONLINE_BLOCK_K``, else (segments shorter than any
-    kernel takes) the whole segment. A given ``block_k`` stands for
-    ``min(block_k, s)``. The chunk must divide ``s``: chunks never straddle a
-    segment."""
-    if block_k is None:
-        bk = next((c for c in (SHARED_ONLINE_BLOCK_K, ONLINE_BLOCK_K) if s % c == 0),
-                  s if s < ONLINE_BLOCK_K else 0)
-    else:
-        bk = min(block_k, s)
-    if bk <= 0 or s % bk:
-        raise ValueError(f"key chunk {bk} does not divide the segment length {s}")
+    """Key chunk of the running max over segments of ``s`` keys: chunks start
+    at each segment's start and the last one of a segment is cut at its end,
+    so that none straddles two segments. ``block_k`` None is the kernels' own
+    choice, ``key_tile(s)``; a given ``block_k`` stands for ``min(block_k,
+    s)``. Raises on a segment or chunk of no keys."""
+    bk = min(key_tile(s) if block_k is None else block_k, s)
+    if bk <= 0:
+        raise ValueError(f"key chunk {bk} over a segment of {s} keys")
     return bk
 
 
@@ -587,12 +617,14 @@ def shared_online_tile(sq: int, s: int, h: int, *, pair: bool = False) -> Tuple[
     ``shared_identity.cu``; ``pair``: ``csrc/shared_online_pair.cu``) for Sq
     queries, segments of S keys and H heads, as ``launch_shared`` of
     ``csrc/attn_wgmma.cuh`` chooses them: two consumer warpgroups of 64 rows
-    on one head where 128 divides Sq, else one; a head pair always takes 64
-    rows, one warpgroup a head. Raises on what the kernels refuse."""
-    if min(sq, s, h) <= 0 or sq % 64 or s % 64 or (pair and h % 2):
+    on one head where 128 divides Sq and the key tile divides S, else one; a
+    head pair always takes 64 rows, one warpgroup a head. Any Sq and S; raises
+    on what the kernels refuse (an empty side, a head pair of odd H)."""
+    if min(sq, s, h) <= 0 or (pair and h % 2):
         raise ValueError(f"online shared kernel: unsupported Sq {sq}, S {s}, H {h}"
                          f"{' for a head pair' if pair else ''}")
-    return (64 if pair or sq % 128 else 128), shared_online_chunk(s)
+    wide = not pair and sq % 128 == 0 and s % key_tile(s) == 0
+    return (128 if wide else 64), shared_online_chunk(s)
 
 
 def shared_online_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_input: bool,
@@ -606,9 +638,9 @@ def shared_online_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_inp
     input, ref 1 .. N; the running max is taken over key chunks of
     ``shared_online_chunk(S, block_k)``: by default the kernel's."""
     keys, vals = _widen_rounded_affine(k_in, v_in, rk, rv, aff, include_input)
+    s = rk.shape[3]
     return _online_softmax_av(_q_scaled(q, scale), keys, vals, q.dtype,
-                              block_k=shared_online_chunk(rk.shape[3], block_k),
-                              arg_rounded=True)
+                              block_k=shared_online_chunk(s, block_k), arg_rounded=True, seg=s)
 
 
 def shared_online_pair_plain(q, k_in, v_in, rk, rv, aff, *, scale: float, include_input: bool,
@@ -662,8 +694,8 @@ def shared_online(q, k_in, v_in, rk, rv, aff, *, scale: float,
     the numerics of the TPU's ``_shared_kvouter_kernel`` and
     ``_shared_kernel`` (running max, no bound: no row can flush; bf16 affine;
     row sum over bf16-rounded p). Shapes as in ``shared_online_plain``. The
-    CUDA kernel takes bf16 at d = 64 with Sq % 64 == 0 and S % 64 == 0; its
-    tile follows the shape (``shared_online_tile``)."""
+    CUDA kernel takes bf16 at d = 64 with any Sq and S; its tile follows the
+    shape (``shared_online_tile``)."""
     if q.device.type == "cpu":
         return shared_online_plain(q, k_in, v_in, rk, rv, aff, scale=scale,
                                    include_input=include_input)

@@ -14,7 +14,8 @@ rows 1, 1b and 3 of PERF.md's table).
 every ``C75xx`` note that wgmma batches were serialised, for each kernel
 instantiation, then launches each named kernel through its wrapper at the
 shapes of a batch-16 restore at 512 px and at small shapes that take its
-other tiles, and prints for each the max-abs and relative RMS error against
+other tiles and its ragged ends (Sq or Skv off the 64-row tile, d = 64), and
+prints for each the max-abs and relative RMS error against
 its plain version, whether two launches agree bit for bit, and the time per
 launch; for flash_fwd_lse also the LSE's max-abs error (at most 1e-3 log2
 units). For the bound shared kernels it also checks that an id outside the
@@ -55,6 +56,11 @@ SHARED_SHAPES = [(20, 256), (10, 1024), (5, 4096)]  # (heads, tokens) of the 9 s
 # (batch, heads, Sq, S) of the shared kernels' other tiles: one consumer
 # warpgroup a block; a 64-key chunk; both; the smallest call
 SMALL_SHAPES = [(2, 4, 192, 256), (2, 4, 256, 64), (2, 2, 64, 192), (3, 2, 64, 64)]
+# (batch, heads, Sq, S) of the shared kernels at ragged shapes (Sq or S off
+# 64, as a UNet at sample_size 8, 16, 24 or 32 gives them): a 128-key tile
+# cut at 144 and at 100 keys, one masked 64-key tile of 36, 16, 9, 4 and 1
+RAGGED_SHAPES = [(2, 4, 144, 144), (2, 4, 200, 100), (2, 4, 36, 36), (2, 2, 16, 16),
+                 (2, 2, 9, 9), (2, 4, 4, 4), (2, 2, 1, 1)]
 FLASH_SHAPES = [(5, 4096, 64), (10, 1024, 64), (20, 256, 64), (20, 64, 64), (1, 4096, 512)]
 # flash_bound and flash_online at d=512 also at the cold capture's batch of 64
 # (the VAE mid attention of 64 references' encode); (batch, heads, tokens,
@@ -70,10 +76,15 @@ VJP_SHAPES = [(5, 4096, 16384, 64), (10, 1024, 4096, 64), (20, 64, 64, 64), (1, 
 # (chip_smoke.py's FLASH_VARIANT_SHAPES).
 FLASH_SMALL_SHAPES = [(2, 2, 64, 128, 64), (2, 4, 192, 256, 64), (2, 4, 256, 320, 64),
                       (2, 1, 64, 64, 512)]
-# the forward kernels' d = 512 tile also at Sq != Skv with three 32-key tiles
-# (chip_smoke.py's FLASH_VARIANT_D512); the backward's d = 512 tile takes no
-# Skv of 96
+# the d = 512 tiles also at Sq != Skv with three 32-key tiles, the
+# backward's with a ragged last block of 64 keys (chip_smoke.py's
+# FLASH_VARIANT_D512)
 FLASH_SMALL_D512 = [(2, 2, 192, 96, 512)]
+# the plain and backward kernels at ragged shapes (d = 64): (batch, heads, Sq,
+# Skv, head dim)
+FLASH_RAGGED_SHAPES = [(2, 4, 144, 144, 64), (2, 4, 100, 200, 64), (2, 4, 200, 100, 64),
+                       (2, 2, 36, 36, 64), (2, 2, 16, 16, 64), (2, 2, 9, 9, 64),
+                       (2, 4, 4, 4, 64), (2, 2, 1, 1, 64)]
 LSE_TOL = 1e-3  # max-abs of the LSE against the plain version, log2 units
 IDS = [3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3]
 SOURCES = ("shared_identity", "flash_bound", "shared_flash_bound", "flash_fwd_lse",
@@ -144,9 +155,13 @@ def outputs(result) -> tuple:
 
 
 def errors(out, ref):
+    """(max-abs, its tolerance, relative RMS). A reference that is zero up
+    to rounding (|ref| <= 1e-5 everywhere: dQ over a single key) has no
+    relative error; its relative RMS is reported as 0 and max-abs judges."""
     o, r = out.float(), ref.float()
-    return float((o - r).abs().max()), 1e-3 + 1e-2 * float(r.abs().max()), float(
-        (o - r).norm() / r.norm())
+    top = float(r.abs().max())
+    rel = float((o - r).norm() / r.norm()) if top > 1e-5 else 0.0
+    return float((o - r).abs().max()), 1e-3 + 1e-2 * top, rel
 
 
 def cases(source: str, g, small: bool = False):
@@ -163,7 +178,8 @@ def cases(source: str, g, small: bool = False):
         return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
 
     scale = D ** -0.5
-    shapes = SMALL_SHAPES if small else [(BATCH, h, s, s) for h, s in SHARED_SHAPES]
+    shapes = SMALL_SHAPES + RAGGED_SHAPES if small else [(BATCH, h, s, s)
+                                                         for h, s in SHARED_SHAPES]
     if source in ("shared_identity", "shared_flash_bound", "shared_online", "shared_online_pair"):
         for b, h, sq, s in shapes:
             tag = f"B={b} H={h} Sq={sq} S={s}"
@@ -171,7 +187,11 @@ def cases(source: str, g, small: bool = False):
             rk, rv = rnd(b, N_REFS, h, s, D), rnd(b, N_REFS, h, s, D)
             rk[1, N_REFS - 1] = 0  # a masked reference: zeroed, still attended
             rv[1, N_REFS - 1] = 0
-            vs, vh = sa.adain_affine(v_in, rv)
+            # AdaIN's unbiased std over one token is undefined (NaN, in JAX
+            # too): a one-token segment takes a random affine instead
+            adain = s > 1
+            vs, vh = sa.adain_affine(v_in, rv) if adain else (
+                1 + 0.1 * rnd(b, h, N_REFS, D).float(), 0.1 * rnd(b, h, N_REFS, D).float())
             aff = torch.stack([vs, vh], dim=3).contiguous()
 
             def per_call(algo, inc, q=q, k_in=k_in, v_in=v_in, rk=rk, rv=rv, vs=vs, vh=vh):
@@ -187,10 +207,11 @@ def cases(source: str, g, small: bool = False):
                 ids = torch.tensor(IDS[:b], device="cuda")
                 cs, ch = sa.adain_affine_from_stats(v_in, cache.content_mean[ids],
                                                     cache.content_std[ids])
-                caff = torch.stack([cs, ch], dim=3).contiguous()
+                caff = sa._affine((cs, ch) if adain else None, b, h, N_REFS, D, "cuda")
                 yield (f"row 1 identity cache {tag}",
-                       lambda q=q, v_in=v_in, cache=cache, ids=ids: sa.shared_attention_identity(
-                           q, None, v_in, cache, ids, scale=scale, use_adain=True),
+                       lambda q=q, v_in=v_in, cache=cache, ids=ids, adain=adain:
+                       sa.shared_attention_identity(q, None, v_in, cache, ids, scale=scale,
+                                                    use_adain=adain),
                        lambda q=q, crk=crk, crv=crv, caff=caff, cache=cache, ids=ids:
                        sa.shared_identity_plain(q, crk, crv, caff, cache.kmax, ids, scale=scale))
                 kmax = sa.key_norm_max(rk, (1, 3))
@@ -215,10 +236,11 @@ def cases(source: str, g, small: bool = False):
                 ids = torch.tensor(IDS[:b], device="cuda")
                 cs, ch = sa.adain_affine_from_stats(v_in, cache.content_mean[ids],
                                                     cache.content_std[ids])
-                caff = torch.stack([cs, ch], dim=3).contiguous()
+                caff = sa._affine((cs, ch) if adain else None, b, h, n_odd, D, "cuda")
                 yield (f"row 3 odd N={n_odd} by id {tag}",
-                       lambda q=q, v_in=v_in, cache=cache, ids=ids: sa.shared_attention_identity(
-                           q, None, v_in, cache, ids, scale=scale, use_adain=True),
+                       lambda q=q, v_in=v_in, cache=cache, ids=ids, adain=adain:
+                       sa.shared_attention_identity(q, None, v_in, cache, ids, scale=scale,
+                                                    use_adain=adain),
                        lambda q=q, crk=crk, crv=crv, caff=caff, cache=cache, ids=ids:
                        sa.shared_flash_bound_plain(q, None, None, crk, crv, caff, cache.kmax[ids],
                                                    ids, scale=scale, include_input=False))
@@ -235,7 +257,7 @@ def cases(source: str, g, small: bool = False):
     elif source in ("flash_bound", "flash_online"):
         algo = source.split("_")[1]
         plain = sa.flash_attention_plain if algo == "bound" else sa.flash_online_plain
-        shapes = FLASH_SMALL_SHAPES + FLASH_SMALL_D512 if small else [
+        shapes = FLASH_SMALL_SHAPES + FLASH_SMALL_D512 + FLASH_RAGGED_SHAPES if small else [
             (4 if d == 512 else BATCH, h, s, s, d) for h, s, d in FLASH_SHAPES]
         if not small:
             b, h, s, d = FLASH_CAPTURE_D512
@@ -248,9 +270,8 @@ def cases(source: str, g, small: bool = False):
                                                                  algo=algo),
                    lambda q=q, k=k, v=v, d=d: plain(q, k, v, scale=d ** -0.5))
     else:  # the flash-VJP kernels, batch 2
-        shapes = FLASH_SMALL_SHAPES if small else [(2, *shape) for shape in VJP_SHAPES]
-        if small and source == "flash_fwd_lse":
-            shapes = shapes + FLASH_SMALL_D512
+        shapes = (FLASH_SMALL_SHAPES + FLASH_SMALL_D512 + FLASH_RAGGED_SHAPES if small
+                  else [(2, *shape) for shape in VJP_SHAPES])
         for b, h, sq, skv, d in shapes:
             q, k, v, do = (rnd(b, h, n, d) for n in (sq, skv, skv, sq))
             sc = d ** -0.5

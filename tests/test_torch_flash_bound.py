@@ -3,8 +3,8 @@ table) and its plain version.
 
 At d = 64 the kernel runs on the plain layout of ``csrc/attn_wgmma.cuh``
 (128 query rows a block where they divide Sq, else 64; a key chunk of 128
-where it divides Skv, else 64), at d = 512 on ``csrc/attn_wgmma_d512.cuh``
-(64 rows, 32 keys). One Python rule, ``flash_bound_chunk``, gives the chunk
+where it divides Skv, else 64, else a ragged last chunk; any Sq and Skv), at
+d = 512 on ``csrc/attn_wgmma_d512.cuh`` (64 rows, 32 keys). One Python rule, ``flash_bound_chunk``, gives the chunk
 to the C entry point and refuses before any launch what the tiles do not take
 (the C launcher picks the rows). The bound softmax keeps no running max, so
 the result depends on the chunk through fp32 summation order only: the same
@@ -64,8 +64,13 @@ def test_flash_bound_tile_rule(sq, skv, d, chunk):
     (32, 4096, 512), (96, 128, 512), (64, 48, 512), (64, 0, 512),
 ])
 def test_flash_bound_tile_refuses(sq, skv, d):
-    """Sq not a multiple of 64, Skv not a multiple of the smaller chunk, an
-    empty side or another width: no tile takes it."""
+    """An empty side, another width, or at d = 512 Sq not a multiple of 64
+    or Skv not of 32: no tile takes it. At d = 64 every Sq and Skv takes the
+    tile, on the chunk of ``flash_online_chunk`` (here Skv 64: 64 keys; Skv
+    32 or 96: all of them, in a masked tile of 64 or 128)."""
+    if d == 64 and min(sq, skv) > 0:
+        assert tsa.flash_bound_chunk(sq, skv, d) == min(skv, 64 if skv % 64 == 0 else 128)
+        return
     with pytest.raises(ValueError, match="bound kernel takes"):
         tsa.flash_bound_chunk(sq, skv, d)
 
@@ -83,8 +88,8 @@ def test_flash_bound_tile_over_the_chip_shapes():
               + [(cs, cs, cd)]
               + [(s, s, d) for _, s, d in bench.FLASH_SHAPES]
               + [(sq, skv, d) for _, _, sq, skv, d in bench.FLASH_SMALL_SHAPES])
-    seen = {(d, 128 if d == 64 and sq % 128 == 0 else 64, tsa.flash_bound_chunk(sq, skv, d))
-            for sq, skv, d in shapes}
+    seen = {(d, 128 if d == 64 and sq % 128 == 0 and skv % tsa.key_tile(skv) == 0 else 64,
+             tsa.flash_bound_chunk(sq, skv, d)) for sq, skv, d in shapes if skv % 64 == 0}
     assert seen == {(64, 128, 128), (64, 64, 128), (64, 128, 64), (64, 64, 64),
                     (512, 64, 32)}
     assert smoke.FLASH_CAPTURE_D512 == bench.FLASH_CAPTURE_D512 == (64, 1, 4096, 512)
@@ -107,18 +112,24 @@ def test_flash_attention_refuses_before_launch(monkeypatch, sq, skv, d):
     """On tensors made to look like the card's: a shape no tile takes raises
     ValueError before the kernel is loaded, for the bound and the online
     kernel alike (at both widths they run on the same tiles: Sq = 96 at d =
-    512 no longer fits flash_online either); one that fits reaches the load
-    (the fixture's refusal)."""
+    512 no longer fits flash_online either); one that fits, every Sq and Skv
+    at d = 64 among them, reaches the load (the fixture's refusal)."""
     monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
 
     def meta(n, width=d):
         return torch.empty((1, 2, n, width), dtype=torch.bfloat16, device="meta")
 
-    with pytest.raises(ValueError, match="flash_attention: unsupported shapes"):
-        tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="bound")
-    with pytest.raises(ValueError, match="flash_online: unsupported shapes"):
-        tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="online")
+    if d == 64:
+        with pytest.raises(AssertionError, match="tried to load kernel flash_bound"):
+            tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="bound")
+        with pytest.raises(AssertionError, match="tried to load kernel flash_online"):
+            tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="online")
+    else:
+        with pytest.raises(ValueError, match="flash_attention: unsupported shapes"):
+            tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="bound")
+        with pytest.raises(ValueError, match="flash_online: unsupported shapes"):
+            tsa.flash_attention(meta(sq), meta(skv), meta(skv), scale=0.125, algo="online")
     with pytest.raises(AssertionError, match="tried to load kernel flash_bound"):
         tsa.flash_attention(meta(64, 64), meta(128, 64), meta(128, 64), scale=0.125,
                             algo="bound")

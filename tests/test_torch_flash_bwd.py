@@ -3,9 +3,10 @@
 
 At d = 64 both kernels run on the wgmma + TMA tile of
 ``csrc/attn_wgmma_bwd.cuh`` (128 rows a block where they divide the block's
-side, else 64; 64-row chunks), at d = 512 on ``csrc/flash_bwd_tile.cuh``. One
-Python rule, ``flash_bwd_tiles``, gives both C entry points their tiles and
-refuses before any launch what the tiles do not take. The backward keeps no
+side, else 64; 64-row chunks; any Sq and Skv), at d = 512 on that of
+``csrc/attn_wgmma_bwd_d512.cuh`` (64 rows a block, 16-row chunks; the d = 512
+forward's shapes). One Python rule, ``flash_bwd_tiles``, gives both C entry
+points their tiles and refuses before any launch what the tiles do not take. The backward keeps no
 running max, so the result depends on the chunk through fp32 summation order
 only: the plain versions summed in the tile's chunks agree with their default
 chunks within 2e-5 in fp32, and with the Pallas kernels in interpret mode at
@@ -47,8 +48,9 @@ VARIANT_SHAPES = [(sq, skv, 64) for _, _, sq, skv in SMOKE.FLASH_VARIANT_SHAPES]
 
 def _expected(sq, skv, d):
     if d == 512:
-        return (32, 64, 32, 32)
-    return (128 if sq % 128 == 0 else 64, 64, 128 if skv % 128 == 0 else 64, 64)
+        return (64, 16, 64, 16)
+    return (128 if sq % 128 == 0 and skv % 64 == 0 else 64, 64,
+            128 if skv % 128 == 0 else 64, 64)
 
 
 @pytest.mark.parametrize("sq,skv,d", TRAIN_SHAPES + VARIANT_SHAPES,
@@ -57,8 +59,7 @@ def test_flash_bwd_tile_rule(sq, skv, d):
     """Every shape of a train step and every variant shape takes a tile:
     at d = 64 128 rows a block where they divide the side the block owns
     (queries for dQ, keys for dK/dV), else 64, and 64-row chunks; at d = 512
-    the mma.sync tile's 32 rows, 64 keys (dQ) and 32 queries (dK/dV) a
-    chunk."""
+    64 rows a block and 16-row chunks."""
     tiles = tfv.flash_bwd_tiles(sq, skv, d)
     assert tuple(tiles) == _expected(sq, skv, d)
     assert sq % tiles.dq_rows == 0 and skv % tiles.dq_chunk == 0
@@ -84,7 +85,7 @@ def test_flash_bwd_tiles_over_the_chip_shapes():
               + [(sq, skv, d) for _, _, sq, skv, d in BENCH.FLASH_SMALL_SHAPES])
     dq = {(d, tfv.flash_bwd_tiles(sq, skv, d).dq_rows) for sq, skv, d in shapes}
     dkv = {(d, tfv.flash_bwd_tiles(sq, skv, d).dkv_rows) for sq, skv, d in shapes}
-    assert dq == dkv == {(64, 64), (64, 128), (512, 32)}
+    assert dq == dkv == {(64, 64), (64, 128), (512, 64)}
     small = {(sq, skv, d) for _, _, sq, skv, d in BENCH.FLASH_SMALL_SHAPES}
     assert set(VARIANT_SHAPES) <= small
 
@@ -94,7 +95,13 @@ def test_flash_bwd_tiles_over_the_chip_shapes():
     (64, 64, 128), (64, 64, 16), (16, 64, 512), (32, 32, 512), (32, 0, 512),
 ])
 def test_flash_bwd_tiles_refuse(sq, skv, d):
-    """Sq or Skv off the chunk, an empty side or another width: no tile."""
+    """An empty side, another width, or at d = 512 a shape the forward does
+    not take (Sq off 64, Skv off 32): no tile. At d = 64 Sq and Skv off the
+    64-row chunk take the tiles (the ragged ends are masked or padded), 64
+    rows a block."""
+    if d == 64 and min(sq, skv) > 0:
+        assert tuple(tfv.flash_bwd_tiles(sq, skv, d)) == (64, 64, 64, 64)
+        return
     with pytest.raises(ValueError, match="backward kernels take"):
         tfv.flash_bwd_tiles(sq, skv, d)
 
@@ -104,8 +111,9 @@ def test_flash_bwd_tiles_refuse(sq, skv, d):
                                       (32, 32, 512)])
 def test_backward_refuses_before_launch(monkeypatch, name, sq, skv, d):
     """On tensors made to look like the card's: a shape no tile takes raises
-    ValueError before the kernel is loaded; one that fits reaches the load
-    (the fixture's refusal)."""
+    ValueError before the kernel is loaded; one that fits (at d = 64 any Sq
+    and Skv, their lse2 and delta padded to the tile's 64 rows) reaches the
+    load (the fixture's refusal)."""
     monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     wrapper = getattr(tfv, name)
@@ -117,8 +125,12 @@ def test_backward_refuses_before_launch(monkeypatch, name, sq, skv, d):
         lse = torch.empty((1, 2, sq_), dtype=torch.float32, device="meta")
         return q, k, v, do, lse, lse
 
-    with pytest.raises(ValueError, match=f"{name}: unsupported shapes"):
-        wrapper(*args(sq, skv, d), scale=0.125)
+    if d == 64:
+        with pytest.raises(AssertionError, match=f"tried to load kernel {name}"):
+            wrapper(*args(sq, skv, d), scale=0.125)
+    else:
+        with pytest.raises(ValueError, match=f"{name}: unsupported shapes"):
+            wrapper(*args(sq, skv, d), scale=0.125)
     with pytest.raises(AssertionError, match=f"tried to load kernel {name}"):
         wrapper(*args(64, 128, 64), scale=0.125)
 
@@ -180,9 +192,9 @@ def test_backward_plain_matches_pallas_at_the_tile(rng, b, h, sq, skv):
 
 @pytest.mark.parametrize("scale", [0.125, 64 ** -0.5, 0.3])
 def test_backward_qs_is_the_forwards_scaled_q(rng, scale):
-    """The scaled q that the wrappers hand the d = 64 tile (the constant
-    rounded on the host) has the bits of ``_q_scaled``, the forward's; the
-    d = 512 tile takes none."""
-    q = torch.from_numpy(rng.normal(size=(2, 3, 64, 64)) * 5).to(torch.bfloat16)
-    assert torch.equal(tfv._backward_qs(q, scale), tsa._q_scaled(q, scale))
-    assert tfv._backward_qs(torch.zeros((1, 1, 32, 512), dtype=torch.bfloat16), scale) is None
+    """The scaled q that the wrappers hand both tiles (the constant rounded
+    on the host) has the bits of ``_q_scaled``, the forward's, at d = 64 and
+    at d = 512."""
+    for d in (64, 512):
+        q = torch.from_numpy(rng.normal(size=(2, 3, 64, d)) * 5).to(torch.bfloat16)
+        assert torch.equal(tfv._backward_qs(q, scale), tsa._q_scaled(q, scale))

@@ -2,7 +2,8 @@
 (rows 8 and 4 of PERF.md's kernel table).
 
 At d = 64 both kernels run on the wgmma tile of ``csrc/attn_wgmma.cuh``,
-whose chunk is 128 keys where 128 divides Skv and 64 otherwise; at d = 512 on
+whose chunk is 128 keys where 128 divides Skv, 64 where 64 does, and
+otherwise 128 (64 where Skv is shorter) with a ragged last chunk; at d = 512 on
 the wgmma tile of ``csrc/attn_wgmma_d512.cuh``, whose chunk is its 32-key
 tile. The result depends on the chunk at bf16 rounding level, so one Python
 rule (``flash_online_chunk``) gives the chunk to the kernels and to their
@@ -114,12 +115,13 @@ def test_flash_fwd_lse_default_chunk_matches_pallas(rng, b, h, sq, skv, d, dtype
 @pytest.mark.parametrize("skv,d,chunk", [
     (16384, 64, 128), (4096, 64, 128), (256, 64, 128), (384, 64, 128), (320, 64, 64),
     (192, 64, 64), (64, 64, 64), (4096, 512, 32), (256, 512, 32), (96, 512, 32), (16, 512, 16),
-    (128, 16, 64), (32, 64, 32),
+    (128, 16, 64), (32, 64, 32), (144, 64, 128), (200, 64, 128), (100, 64, 100), (36, 64, 36),
+    (16, 64, 16), (9, 64, 9), (1, 64, 1),
 ])
 def test_flash_online_chunk_rule(skv, d, chunk):
-    """128 at d = 64 where it divides Skv, else 64; 32 at d = 512 (the
-    tile's keys); 64 at every other width; Skv where that is shorter (the
-    plain versions only)."""
+    """128 at d = 64 where it divides Skv, else 64 where that does, else 128
+    over 64 keys with a ragged last chunk; 32 at d = 512 (the tile's keys);
+    64 at every other width; Skv where that is shorter."""
     assert tsa.flash_online_chunk(skv, d) == chunk
 
 
@@ -142,12 +144,14 @@ def test_flash_chunk_rule_over_the_chip_shapes():
     seen = set()
     for sq, skv, d in shapes:
         chunk = tsa.flash_online_chunk(skv, d)
-        assert chunk == ((128 if skv % 128 == 0 else 64) if d == 64 else 32), (skv, d)
+        want = min(skv, (128 if skv % 128 == 0 or skv % 64 and skv > 64 else 64)
+                   if d == 64 else 32)
+        assert chunk == want, (skv, d)
         tsa.check_flash_chunk("flash_fwd_lse", skv, d, chunk)
         assert tsa._flash_tiles_fit(sq, skv, d), (sq, skv, d)
         seen.add((d, chunk, sq == skv))
     # every chunk of the tiles is exercised, and Sq != Skv at both widths
-    assert {(d, c) for d, c, _ in seen} == {(64, 128), (64, 64), (512, 32)}
+    assert {(d, c) for d, c, _ in seen} >= {(64, 128), (64, 64), (512, 32)}
     assert {d for d, _, square in seen if not square} == {64, 512}
 
 
@@ -156,7 +160,8 @@ def test_flash_chunk_rule_over_the_chip_shapes():
 def test_flash_fwd_lse_refuses_a_chunk_the_kernel_does_not_take(monkeypatch, skv, d, block_k):
     """On tensors made to look like the card's: a chunk the tile does not
     take raises ValueError before the kernel is loaded; a chunk it takes
-    reaches the load (the fixture's refusal)."""
+    reaches the load (the fixture's refusal). 128 keys over 192 is such a
+    chunk at d = 64: 128, then 64 in a masked tile."""
     monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
 
@@ -164,6 +169,11 @@ def test_flash_fwd_lse_refuses_a_chunk_the_kernel_does_not_take(monkeypatch, skv
         return torch.empty((1, 2, n, d), dtype=torch.bfloat16, device="meta")
 
     q, k = meta(64), meta(skv)
+    if (skv, d, block_k) == (192, 64, 128):
+        tsa.check_flash_chunk("flash_fwd_lse", skv, d, block_k)
+        with pytest.raises(AssertionError, match="tried to load kernel flash_fwd_lse"):
+            tfv.flash_fwd_lse(q, k, k, scale=0.125, block_k=block_k)
+        return
     with pytest.raises(ValueError, match="key chunk"):
         tfv.flash_fwd_lse(q, k, k, scale=0.125, block_k=block_k)
     with pytest.raises(ValueError, match="key chunk"):

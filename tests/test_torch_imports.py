@@ -66,8 +66,8 @@ def test_every_kernel_source_is_in_the_checkout():
                     if ln.startswith("#include")]
         assert includes and all(
             inc in ('"attn_wgmma.cuh"', '"attn_wgmma_d512.cuh"',
-                    '"attn_wgmma_bwd.cuh"', '"flash_bwd_tile.cuh"', "<cuda.h>",
-                    "<cuda_bf16.h>", "<cuda_runtime.h>", "<mma.h>", "<stdint.h>")
+                    '"attn_wgmma_bwd.cuh"', '"attn_wgmma_bwd_d512.cuh"', "<cuda.h>",
+                    "<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>")
             for inc in includes), (path.name, includes)
 
 
@@ -95,17 +95,18 @@ def test_online_shared_kernels_are_on_the_wgmma_tile(name):
 
 
 def test_the_mma_sync_forward_tile_is_gone():
-    """attn_tile.cuh, the WMMA tile of the first slices, went with its last
-    users (rows 8 and 4 at d = 512): no source names it, and the bf16 helpers
-    the d = 512 backward took from it live in flash_bwd_tile.cuh."""
+    """attn_tile.cuh and flash_bwd_tile.cuh, the WMMA tiles of the first
+    slices, went with their last users: no source names either, and the bf16
+    helpers they held live only in attn_wgmma.cuh."""
     from instantrestore_tpu_torch.ops import _build
 
-    assert not (_build.CSRC / "attn_tile.cuh").exists()
-    for path in sorted(_build.CSRC.glob("*.cu*")):
-        assert "attn_tile" not in path.read_text(), path.name
-    bwd = (_build.CSRC / "flash_bwd_tile.cuh").read_text()
-    for word in ("uint4 pack8(", "void unpack8(", "void load8f(", "using namespace nvcuda;"):
-        assert word in bwd, word
+    for gone, word in (("attn_tile", "attn_tile"), ("flash_bwd_tile", "flash_bwd_tile.cuh")):
+        assert not (_build.CSRC / f"{gone}.cuh").exists()
+        for path in sorted(_build.CSRC.glob("*.cu*")):
+            assert word not in path.read_text(), (path.name, word)
+    holders = {p.name for p in _build.CSRC.glob("*.cu*")
+               if "uint4 pack8(" in p.read_text() or "void unpack8(" in p.read_text()}
+    assert holders == {"attn_wgmma.cuh"}
 
 
 @pytest.mark.parametrize("name", ["flash_online.cu", "flash_fwd_lse.cu"])
@@ -127,13 +128,14 @@ def test_online_flash_kernels_are_on_the_wgmma_tiles_at_both_widths(name):
 
 @pytest.mark.parametrize("word", ["wmma::", "<mma.h>"])
 def test_only_the_d512_backward_tile_holds_mma_sync(word):
-    """Every forward source and tile is on wgmma: the WMMA API (and its
-    header) appears in no source but flash_bwd_tile.cuh, the d = 512
-    backward's tile."""
+    """Every source and tile, the d = 512 backward's too, is on wgmma: the
+    WMMA API and its header appear in no source, and flash_bwd_tile.cuh is
+    gone."""
     from instantrestore_tpu_torch.ops import _build
 
     holders = {p.name for p in _build.CSRC.glob("*.cu*") if word in p.read_text()}
-    assert holders == {"flash_bwd_tile.cuh"}
+    assert holders == set()
+    assert not (_build.CSRC / "flash_bwd_tile.cuh").exists()
 
 
 def test_flash_bound_is_on_the_wgmma_tiles():
@@ -158,26 +160,27 @@ def test_flash_bound_is_on_the_wgmma_tiles():
 @pytest.mark.parametrize("name,launcher", [("flash_bwd_dq.cu", "launch_dq"),
                                            ("flash_bwd_dkv.cu", "launch_dkv")])
 def test_backward_d64_is_on_the_wgmma_tile(name, launcher):
-    """At d = 64 the two backward kernels launch the wgmma + TMA tile of
-    attn_wgmma_bwd.cuh (built on attn_wgmma.cuh's PTX wrappers: wgmma, TMA,
-    mbarriers, setmaxnreg), which holds nothing of the mma.sync tile; d = 512
-    keeps flash_bwd_tile.cuh."""
+    """The two backward kernels launch the wgmma + TMA tiles: at d = 64 that
+    of attn_wgmma_bwd.cuh, at d = 512 that of attn_wgmma_bwd_d512.cuh (both
+    built on attn_wgmma.cuh's PTX wrappers: wgmma, TMA, mbarriers,
+    setmaxnreg), which hold nothing of the mma.sync tile."""
     from instantrestore_tpu_torch.ops import _build
 
     src = (_build.CSRC / name).read_text()
-    assert '#include "attn_wgmma_bwd.cuh"' in src and '#include "flash_bwd_tile.cuh"' in src
+    includes = [ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")]
+    assert includes == ['"attn_wgmma_bwd.cuh"', '"attn_wgmma_bwd_d512.cuh"']
     d64 = src[src.index("if (D == 64)"):src.index("if (D == 512")]
-    assert f"irt::wgb::{launcher}(" in d64 and "launch_bwd_" not in d64
-    assert "launch_bwd_" in src[src.index("if (D == 512"):]
-    tile = (_build.CSRC / "attn_wgmma_bwd.cuh").read_text()
-    assert '#include "attn_wgmma.cuh"' in tile
-    for word in ("wgmma_m64n64k16<1, 1>", "tma_load_2d", "mbar_wait", "reg_inc",
-                 "__grid_constant__", "cp.async.bulk.shared"):
-        assert word in tile, word
-    for word in ("<mma.h>", "wmma::", '"attn_tile.cuh"', '"flash_bwd_tile.cuh"'):
-        assert word not in tile, word
-    old = (_build.CSRC / "flash_bwd_tile.cuh").read_text()
-    assert "<64, 64, 64, 4>" not in src and "d=64 runs" not in old
+    assert f"irt::wgb::{launcher}(" in d64
+    assert f"irt::wgb512::{launcher}(" in src[src.index("if (D == 512"):]
+    for header, loads in (("attn_wgmma_bwd.cuh", "tma_load_3d"),
+                          ("attn_wgmma_bwd_d512.cuh", "tma_load_2d")):
+        tile = (_build.CSRC / header).read_text()
+        assert '#include "attn_wgmma.cuh"' in tile
+        for word in ("wgmma_m64n64k16<1, 1>", loads, "mbar_wait", "reg_inc",
+                     "__grid_constant__", "bulk_load("):
+            assert word in tile, (header, word)
+        for word in ("<mma.h>", "wmma::", '"attn_tile.cuh"', '"flash_bwd_tile.cuh"'):
+            assert word not in tile, (header, word)
 
 
 TRAINING_MODULES = (

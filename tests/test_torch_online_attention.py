@@ -80,12 +80,19 @@ def test_online_plain_matches_softmax_and_checks_its_chunk(rng):
     ref = torch.softmax(q @ k.transpose(-1, -2) * 0.25, dim=-1) @ v
     np.testing.assert_allclose(tsa.flash_online_plain(q, k, v, scale=0.25, block_k=8).numpy(),
                                ref.numpy(), **TOL)
-    with pytest.raises(ValueError, match="chunk"):
-        tsa.flash_online_plain(q, k, v, scale=0.25, block_k=12)
+    # a chunk that does not divide the keys leaves a ragged last chunk (12,
+    # 12, 8), in each segment of a shared call: the same function
+    np.testing.assert_allclose(tsa.flash_online_plain(q, k, v, scale=0.25, block_k=12).numpy(),
+                               ref.numpy(), **TOL)
     r = torch.zeros((2, 1, 2, 32, 16))
     aff = tsa._affine(None, 2, 2, 1, 16, "cpu")
+    np.testing.assert_allclose(
+        tsa.shared_online_plain(q, k, v, r, r, aff, scale=0.25, include_input=True,
+                                block_k=12).numpy(),
+        tsa.shared_online_plain(q, k, v, r, r, aff, scale=0.25, include_input=True,
+                                block_k=32).numpy(), **TOL)
     with pytest.raises(ValueError, match="chunk"):
-        tsa.shared_online_plain(q, k, v, r, r, aff, scale=0.25, include_input=True, block_k=12)
+        tsa.shared_online_plain(q, k, v, r, r, aff, scale=0.25, include_input=True, block_k=0)
     with pytest.raises(ValueError, match="odd"):
         tsa.shared_online_pair_plain(q[:, :1], k[:, :1], v[:, :1], r[:, :, :1], r[:, :, :1],
                                      aff[:, :1], scale=0.25, include_input=True)
@@ -270,13 +277,22 @@ def test_shared_online_tile_follows_the_shape(sq, s, h, pair, tile):
     (128, 160, 4, True),
 ])
 def test_shared_online_tile_refuses(sq, s, h, pair):
+    """An empty side or a head pair of odd H: no tile. Sq or S off 64 take
+    the tile (a ragged last key tile of each segment is masked, query rows
+    past Sq are neither read nor written): 64 rows a block and the key chunk
+    of ``shared_online_chunk``."""
+    if min(sq, s) > 0 and not (pair and h % 2):
+        assert tsa.shared_online_tile(sq, s, h, pair=pair) == (64, tsa.shared_online_chunk(s))
+        assert tsa.shared_online_chunk(s) == min(s, 128 if s > 64 else 64)
+        return
     with pytest.raises(ValueError, match="unsupported"):
         tsa.shared_online_tile(sq, s, h, pair=pair)
 
 
 def test_shared_online_wrapper_refuses_what_the_kernel_refuses(monkeypatch):
     """The shape rule of the launch path, on meta tensors: a refused shape
-    raises before any kernel is loaded (the fixture fails a load)."""
+    (a head pair of odd H) raises before any kernel is loaded; Sq or S off 64
+    reach the load (the fixture fails a load)."""
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
     monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
@@ -285,7 +301,9 @@ def test_shared_online_wrapper_refuses_what_the_kernel_refuses(monkeypatch):
             (tsa.shared_online, "shared_online", 1, (2, 96, 64)),
             (tsa.shared_online, "shared_online", 1, (2, 64, 96)),
             (tsa.shared_online_pair, "shared_online_pair", 2, (3, 64, 64))]:
-        with pytest.raises(ValueError, match="unsupported"):
+        refused = h % 2 and hpb == 2
+        with pytest.raises(ValueError if refused else AssertionError,
+                           match="unsupported" if refused else f"tried to load kernel {source}"):
             tsa._launch_shared_online(
                 wrapper, source, meta(1, h, sq, 64), None, None, meta(1, 2, h, s, 64),
                 meta(1, 2, h, s, 64), meta(1, h, 2, 2, 64, dtype=torch.float32), scale=0.125,
