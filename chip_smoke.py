@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,training,small]
+    python3 chip_smoke.py [--only kernels,vjp,serving,training,small,checkpoint]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -116,11 +116,31 @@ Without arguments every phase runs and the last two lines are the result;
    batch 2; each checks its launch counts, finite outputs and agreement
    with the unfused path (the train step: loss and gradients, fused vs
    unfused, from one state);
+9c. checkpoint phase ("checkpoint"): serving from checkpoint files at full
+   width. A seeded SD-Turbo model (LoRA rank 32, the UNet's conv_in moved off
+   the capture UNet's) and a 23-layer, 1024-wide text encoder are written in
+   fp16 as a FULL .pt of the reference trainer's schema (net. prefixes, peft
+   base_layer / lora_A.default names, a cfg with the shipped statics) and as
+   a LoRA-only .pt over a diffusers-layout base folder of .safetensors, with
+   a synthetic tokenizer, under _scratch/ (disk space checked first, the
+   folder removed after). Prints the file sizes and the seconds to write, to
+   torch.load, to convert, for the text encoder and to move to the card;
+   holds the card's caption_enc to the text tower run in fp32 on the CPU
+   (relative RMS 1e-3); Predictor(checkpoint_path=FULL) must give
+   predict_batch (4 images x 4 refs) bit for bit as Predictor(params=the
+   same fp16 tree), 9 shared_flash_bound + 26 flash launches each;
+   cli.serve.load_engine(LoRA-only) + run (4 identities, 8 images, batch 8)
+   bit for bit as a ServingEngine of the same tree at LoRA scaling 8/32, 68
+   + 9 flash and 9 shared_identity launches; prints first and steady ms;
+   then, where Pillow imports, cli.infer.main and cli.serve.main on PNGs of
+   2 identities (the LoRA-only file, which carries no cfg, under the default
+   statics, train_input: 9 shared_flash_bound launches), and a line saying
+   whether they ran;
 10. prints each kernel's factor over its library call per pass of its path,
    largest first, with its d=64 and d=512 parts where it runs at both
    (flash_bwd_dq and flash_bwd_dkv ranked as one pair against SDPA's joint
    backward), then
-   {"kernels": [...]} (launches summed over the paths of 4-9b) and, last,
+   {"kernels": [...]} (launches summed over the paths of 4-9c) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -188,6 +208,15 @@ RAGGED_SHAPES = [(2, 4, 144, 144), (2, 4, 200, 100), (2, 2, 36, 36), (2, 2, 16, 
 # and 24 (192 px; 576, 144, 36 and 9 tokens, the shared layers' too)
 SMALL_SAMPLE_SIZES = (32, 24)
 SMALL_BATCH, SMALL_IDENT = 4, 4
+# the checkpoint phase: a FULL .pt (about 4.5 GB in fp16) and a LoRA-only
+# .pt over a base folder (about 2.6 GB), both written and read on this disk
+CKPT_DISK_BYTES = 10e9
+CKPT_BATCH, CKPT_SERVE_IDENT, CKPT_SERVE_IMAGES = 4, 4, 8
+CKPT_CAPTION_REL_RMS = 1e-3  # caption_enc on the card against the text tower in fp32 on the CPU
+# a synthetic CLIP vocab: every byte alone and as a word's end, a few merges
+# over the fixed prompt's words
+TOKENIZER_MERGES = [("h", "e</w>"), ("p", "h"), ("ph", "o"), ("pho", "t"), ("phot", "o</w>"),
+                    ("o", "f</w>"), ("8", "k</w>")]
 
 
 def card_line() -> str:
@@ -1120,11 +1149,16 @@ def launch_counts():
             for name, wrapper in KERNEL_WRAPPERS.items()}
 
 
-@contextlib.contextmanager
 def algo_env(attn=None, flash=None):
     """INSTANTRESTORE_ATTN_ALGO / INSTANTRESTORE_FLASH_ALGO set for the block,
     and put back as they were after it."""
-    wanted = {"INSTANTRESTORE_ATTN_ALGO": attn, "INSTANTRESTORE_FLASH_ALGO": flash}
+    return environ({"INSTANTRESTORE_ATTN_ALGO": attn, "INSTANTRESTORE_FLASH_ALGO": flash})
+
+
+@contextlib.contextmanager
+def environ(wanted: dict):
+    """The environment variables of ``wanted`` (None: left as they are) set
+    for the block, and put back as they were after it."""
     before = {k: os.environ.get(k) for k in wanted}
     try:
         for k, v in wanted.items():
@@ -1874,6 +1908,290 @@ def small_model_phase(card: str, serving_params):
 BACKWARD_PAIR = ("flash_bwd_dq", "flash_bwd_dkv")
 
 
+def write_tokenizer_files(directory) -> None:
+    """vocab.json and merges.txt of a synthetic byte-level CLIP vocab
+    (TOKENIZER_MERGES), as the tokenizer folder of an SD checkpoint holds them."""
+    from instantrestore_tpu_torch.models.tokenizer import _bytes_to_unicode
+
+    b2u = _bytes_to_unicode()
+    words = ([b2u[b] for b in range(256)] + [b2u[b] + "</w>" for b in range(256)]
+             + [a + b for a, b in TOKENIZER_MERGES] + ["<|startoftext|>", "<|endoftext|>"])
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "vocab.json").write_text(json.dumps({w: i for i, w in enumerate(words)}))
+    (directory / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in TOKENIZER_MERGES))
+
+
+def _gb(path) -> float:
+    """Size of a file, or of every file under a folder, in GB."""
+    from pathlib import Path
+
+    path = Path(path)
+    files = [path] if path.is_file() else [f for f in path.rglob("*") if f.is_file()]
+    return sum(f.stat().st_size for f in files) / 1e9
+
+
+def checkpoint_phase(card: str):
+    """Serving from checkpoint files at full width: a FULL .pt through
+    Predictor(checkpoint_path=...) and a LoRA-only .pt over a base folder
+    through cli.serve.load_engine + run, each bit for bit against the same
+    fp16 weights given in memory; then the PNG CLIs where Pillow imports.
+    Returns the launch counts of its paths."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from instantrestore_tpu_torch.cli import infer, serve
+    from instantrestore_tpu_torch.convert import state_dict, tree_to
+    from instantrestore_tpu_torch.inference.predictor import Predictor
+    from instantrestore_tpu_torch.inference.serving import ServingEngine
+    from instantrestore_tpu_torch.models.restorer import (
+        RestorerStatics,
+        init_restorer_params,
+        original_unet_view,
+        original_vae_view,
+        serving_bundle,
+    )
+    from instantrestore_tpu_torch.models.text_encoder import (
+        PROMPT,
+        CLIPTextConfig,
+        init_text_encoder_params,
+        text_encoder_apply,
+    )
+    from instantrestore_tpu_torch.models.tokenizer import load_tokenizer
+    from instantrestore_tpu_torch.ops.image_ops import preprocess
+    from instantrestore_tpu_torch.training.checkpoints import TOKENIZER_DIR_ENV, build_caption_enc
+    from instantrestore_tpu_torch.utils import safetensors
+    from instantrestore_tpu_torch.utils.torch_convert import (
+        convert_full_checkpoint,
+        export_full_checkpoint,
+        export_lora_only_checkpoint,
+        torch_load,
+    )
+
+    dev = torch.device("cuda")
+    statics = RestorerStatics(use_adain=True, train_input=False)  # the shipped statics
+    failures, total = [], {}
+    scratch = Path(__file__).resolve().parent / "_scratch"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="checkpoint_phase_", dir=scratch))
+    t_phase = time.perf_counter()
+
+    def synced(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"checkpoint phase: {free / 1e9:.1f} GB free under {tmp}")
+        if free < CKPT_DISK_BYTES:
+            raise RuntimeError(f"checkpoint phase needs {CKPT_DISK_BYTES / 1e9:.0f} GB free under "
+                               f"{tmp}, has {free / 1e9:.1f}")
+
+        # ---- a seeded full-width model in fp16 on the host, as the files hold it ----
+        gen = torch.Generator(device=dev).manual_seed(11)
+        params = init_restorer_params(gen, statics, lora_rank_unet=32, lora_rank_vae=32, device=dev)
+        # training moves conv_in away from the frozen capture UNet's
+        params["unet"]["conv_in"] = {k: v + 1e-2 * torch.randn(v.shape, generator=gen, device=dev)
+                                     for k, v in params["unet"]["conv_in"].items()}
+        text_cfg = CLIPTextConfig()  # sd-turbo's: 23 layers, 1024 wide
+        nets = tree_to({"unet": params["unet"], "vae": params["vae"],
+                        "original_unet": original_unet_view(params),
+                        "original_vae": original_vae_view(params),
+                        "text_encoder": init_text_encoder_params(gen, text_cfg, device=dev)},
+                       "cpu", torch.float16)
+        del params
+        torch.cuda.empty_cache()
+        tok_dir = tmp / "tokenizer"
+        write_tokenizer_files(tok_dir)
+        ids = load_tokenizer(str(tok_dir))(PROMPT)
+        host = torch.Generator().manual_seed(12)
+        images = preprocess(torch.randint(0, 256, (CKPT_BATCH, RES, RES, 3), dtype=torch.uint8,
+                                          generator=host).to(dev).float() / 255.0, RES)
+        conds = preprocess(torch.randint(0, 256, (CKPT_BATCH * N_REFS, RES, RES, 3),
+                                         dtype=torch.uint8, generator=host).to(dev).float() / 255.0,
+                           RES).reshape(CKPT_BATCH, N_REFS, RES, RES, 3)
+
+        # ---- FULL .pt: the loader's steps timed one by one, then the Predictor ----
+        full = tmp / "full.pt"
+        cfg = {"model": {"use_adain": True, "train_input": False, "lora_rank_unet": 32,
+                         "lora_rank_vae": 32}}
+        _, write_s = synced(lambda: export_full_checkpoint(nets, full, cfg=cfg))
+        raw, load_s = synced(lambda: torch_load(full))
+        loaded, convert_s = synced(lambda: convert_full_checkpoint(raw["state_dict"]))
+        caption, text_s = synced(lambda: build_caption_enc(loaded["text_encoder"],
+                                                           tokenizer_dir=str(tok_dir), device=dev))
+        _, move_s = synced(lambda: tree_to({k: v for k, v in loaded.items() if k != "text_encoder"},
+                                           dev, torch.bfloat16))
+        del raw, loaded
+        torch.cuda.empty_cache()
+        print(f"FULL .pt, fp16, {len(state_dict(nets))} tensors: {_gb(full):.3f} GB, written in "
+              f"{write_s:.2f} s; torch.load (mmap) {load_s:.3f} s, convert {convert_s:.3f} s, "
+              f"text encoder (fp32, {text_cfg.num_layers} layers) {text_s:.3f} s, to the card in "
+              f"bf16 {move_s:.3f} s [{card}]")
+        cpu_caption = text_encoder_apply(tree_to(nets["text_encoder"], "cpu", torch.float32),
+                                         torch.tensor([ids]), cfg=text_cfg)
+        rel = float((caption.cpu() - cpu_caption).norm() / cpu_caption.norm())
+        print(f"caption_enc on the card vs the text tower in fp32 on the CPU: relative RMS "
+              f"{rel:.2e}")
+        if not rel <= CKPT_CAPTION_REL_RMS:
+            failures.append(f"caption_enc: relative RMS {rel:.2e} against the CPU's")
+
+        pred, pred_s = synced(lambda: Predictor(full, tokenizer_dir=str(tok_dir),
+                                                deterministic=True, device=dev))
+        print(f"Predictor(checkpoint_path=FULL .pt) ready in {pred_s:.2f} s [{card}]")
+        if pred.statics != statics:
+            failures.append(f"statics from the embedded cfg: {pred.statics}")
+        if not torch.equal(pred.params["caption_enc"], caption.to(torch.bfloat16)):
+            failures.append("the Predictor's caption_enc is not the loader's")
+        ref = Predictor(params={"unet": nets["unet"], "vae": nets["vae"],
+                                "original_unet": nets["original_unet"],
+                                "original_vae": nets["original_vae"],
+                                "unet_orig_conv_in": nets["original_unet"]["conv_in"],
+                                "caption_enc": caption},
+                        statics=statics, deterministic=True, device=dev)
+        with deterministic_cudnn():
+            reset_counts()
+            lat_s, outs = [], []
+            for _ in range(RESTORE_RUNS + 1):
+                out, sec = synced(lambda: pred.predict_batch(images, conds))
+                outs.append(out)
+                lat_s.append(sec)
+            counts = launch_counts()
+            want = ref.predict_batch(images, conds)
+        check_launches(failures, f"Predictor from a FULL .pt: {RESTORE_RUNS + 1} predict_batch "
+                       f"of {CKPT_BATCH} x {N_REFS} refs", counts, RESTORE_RUNS + 1,
+                       shared_flash_bound=9, flash_attention_bound=26)
+        add_counts(total, counts)
+        same = bool((outs[0] == want).all())
+        print(f"Predictor from the FULL .pt vs Predictor(params=the same fp16 tree): "
+              f"{'bit-identical' if same else 'DIFFERENT'}, max-abs "
+              f"{abs(outs[0] - want).max():.3e}")
+        if not same or outs[0].shape != (CKPT_BATCH, RES, RES, 3) or not all_finite(outs[0]):
+            failures.append("the FULL checkpoint's Predictor is not the in-memory tree's")
+        print(f"Predictor.predict_batch {CKPT_BATCH} x {N_REFS} refs: first "
+              f"{lat_s[0] * 1e3:.1f} ms, steady median {statistics.median(lat_s[1:]) * 1e3:.1f} ms "
+              f"over {RESTORE_RUNS} [{card}]")
+        del pred, ref
+        torch.cuda.empty_cache()
+
+        # ---- LoRA-only .pt over a base folder, through the serve CLI's engine ----
+        lora = tmp / "lora_only.pt"
+        base = tmp / "base"
+        _, write_s = synced(lambda: export_lora_only_checkpoint(
+            {"unet": nets["unet"], "vae": nets["vae"]}, lora, rank_unet=32, rank_vae=32))
+        t0 = time.perf_counter()
+        for name, tree in (("unet", nets["original_unet"]), ("vae", nets["original_vae"]),
+                           ("text_encoder", nets["text_encoder"])):
+            (base / name).mkdir(parents=True)
+            safetensors.save_file(state_dict(tree),
+                                  base / name / "diffusion_pytorch_model.safetensors")
+        shutil.copytree(tok_dir, base / "tokenizer")
+        base_s = time.perf_counter() - t0
+        # a LoRA-only file carries no cfg: the shipped statics are given, and
+        # the file's ranks set the LoRA scalings
+        engine, engine_s = synced(lambda: serve.load_engine(lora, statics=statics,
+                                                            base_weights_dir=str(base), device=dev))
+        print(f"LoRA-only .pt {_gb(lora):.3f} GB (written in {write_s:.2f} s) over a base "
+              f"folder of fp16 .safetensors {_gb(base):.3f} GB (written in {base_s:.2f} s): "
+              f"serve.load_engine {engine_s:.2f} s [{card}]")
+        loaded_statics = dataclasses.replace(statics, unet_lora_scaling=8 / 32,
+                                             vae_lora_scaling=8 / 32)
+        if engine.statics != loaded_statics:
+            failures.append(f"LoRA-only statics: {engine.statics}")
+        ref = ServingEngine(serving_bundle(tree_to(
+            {"unet": nets["unet"], "vae": nets["vae"],
+             "unet_orig_conv_in": nets["original_unet"]["conv_in"], "caption_enc": caption}, dev),
+            loaded_statics), loaded_statics, device=dev)
+        refs = torch.randint(0, 256, (CKPT_SERVE_IDENT, N_REFS, RES, RES, 3), dtype=torch.uint8,
+                             generator=host)
+        imgs = torch.randint(0, 256, (CKPT_SERVE_IMAGES, RES, RES, 3), dtype=torch.uint8,
+                             generator=host)
+        slots = torch.tensor([2, 0, 3, 3, 1, 0, 2, 1])
+        with deterministic_cudnn():
+            reset_counts()
+            out, run_s = synced(lambda: serve.run(engine, refs, imgs, slots,
+                                                  batch=CKPT_SERVE_IMAGES, seed=0))
+            counts = launch_counts()
+            want = serve.run(ref, refs, imgs, slots, batch=CKPT_SERVE_IMAGES, seed=0)
+        check_launches(failures, f"serve engine from a LoRA-only .pt: onboard {CKPT_SERVE_IDENT} + "
+                       f"restore batch {CKPT_SERVE_IMAGES}", counts, 1,
+                       flash_attention_bound=17 * CKPT_SERVE_IDENT + 9, shared_identity_attention=9)
+        add_counts(total, counts)
+        same = torch.equal(out, want)
+        print(f"serve engine from the LoRA-only .pt vs ServingEngine(the same fp16 tree, LoRA "
+              f"scaling 8/32): {'bit-identical' if same else 'DIFFERENT'}, max-abs "
+              f"{float((out - want).abs().max()):.3e}")
+        if not same or tuple(out.shape) != (CKPT_SERVE_IMAGES, RES, RES, 3) or not all_finite(out):
+            failures.append("the LoRA-only checkpoint's engine is not the in-memory tree's")
+        del ref
+        ids8 = slots.to(dev)
+        lat_s = [synced(lambda: engine.restore(imgs, ids8, generator=torch.Generator(
+            device=dev).manual_seed(1)))[1] for _ in range(RESTORE_RUNS)]
+        print(f"serve.run (onboard {CKPT_SERVE_IDENT} identities + first restore batch "
+              f"{CKPT_SERVE_IMAGES}): {run_s:.3f} s; restore batch {CKPT_SERVE_IMAGES}: steady "
+              f"median {statistics.median(lat_s) * 1e3:.1f} ms over {RESTORE_RUNS} [{card}]")
+        del engine
+        torch.cuda.empty_cache()
+
+        # ---- the PNG CLIs, where Pillow imports ----
+        if importlib.util.find_spec("PIL") is None:
+            print("PNG CLIs: not run, Pillow does not import on this machine")
+        else:
+            from PIL import Image
+
+            data = tmp / "pngs"
+            for name in ("ann", "ben"):
+                for rel in ("degraded.png", *(f"conditioning/{i}.png" for i in range(N_REFS))):
+                    (data / name / rel).parent.mkdir(parents=True, exist_ok=True)
+                    Image.fromarray(torch.randint(0, 256, (RES, RES, 3), dtype=torch.uint8,
+                                                  generator=host).numpy()).save(data / name / rel)
+            for what, main, argv, per_run in (
+                    ("cli.infer.main on the FULL .pt", infer.main, ["--checkpoint", str(full)],
+                     dict(shared_flash_bound=9 * 2, flash_attention_bound=26 * 2)),
+                    # as a user runs it: without a cfg in the file, the
+                    # default statics (train_input) serve it, as in JAX
+                    ("cli.serve.main on the LoRA-only .pt", serve.main,
+                     ["--checkpoint", str(lora), "--base_weights_dir", str(base), "--batch", "2"],
+                     dict(flash_attention_bound=17 * 2 + 9, shared_flash_bound=9))):
+                out_dir = tmp / what.split()[0]
+                with environ({TOKENIZER_DIR_ENV: str(tok_dir)}):
+                    reset_counts()
+                    (rc, sec) = synced(lambda: main(argv + ["--data_root", str(data),
+                                                            "--results_dir", str(out_dir)]))
+                    counts = launch_counts()
+                check_launches(failures, what, counts, 1, **per_run)
+                add_counts(total, counts)
+                written = sorted(p.name for p in out_dir.iterdir())
+                sizes = {Image.open(out_dir / n).size for n in written}
+                print(f"{what}: exit {rc}, wrote {written} {sorted(sizes)} in {sec:.2f} s")
+                if rc != 0 or written != ["ann.png", "ben.png"] or sizes != {(RES, RES)}:
+                    failures.append(f"{what}: exit {rc}, wrote {written}")
+            import PIL
+
+            print(f"PNG CLIs: ran, cli.infer.main and cli.serve.main on 2 identities of {RES} px "
+                  f"PNGs (Pillow {PIL.__version__})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"checkpoint phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("checkpoint phase failed: " + "; ".join(failures))
+    return total
+
+
+def all_finite(a) -> bool:
+    """Every value finite (a numpy array or a tensor)."""
+    import torch
+
+    return bool(torch.isfinite(torch.as_tensor(a)).all())
+
+
 def ranking(kernels) -> list:
     """The order in which to redesign the kernels: the factor over the library
     call per pass of the kernel's path, largest first, with the d = 64 and
@@ -1930,10 +2248,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
-                    "them (kernels, vjp, serving, training, small); a partial run prints no "
-                    "result line")
+                    "them (kernels, vjp, serving, training, small, checkpoint); a partial run "
+                    "prints no result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
-    unknown = only - {"kernels", "vjp", "serving", "training", "small"}
+    unknown = only - {"kernels", "vjp", "serving", "training", "small", "checkpoint"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -1990,6 +2308,8 @@ def main() -> int:
         add_counts(counts, small_model_phase(card, serving_params))
         del serving_params
         torch.cuda.empty_cache()
+    if wanted("checkpoint"):
+        add_counts(counts, checkpoint_phase(card))
     print(f"launches over the paths: {counts}")
     if only:
         print(f"partial run ({sorted(only)}): no result line")

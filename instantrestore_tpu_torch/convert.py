@@ -16,7 +16,9 @@ PyTorch's layout:
 (the peft layouts of the reference checkpoints). ``state_dict`` flattens a
 tree to the diffusers/peft key names a released ``.pt`` uses, and
 ``tree_from_state_dict`` reads such a dict back, so real checkpoints load
-through the same mapping.
+through the same mapping. The CLIP text encoder's token and position
+embeddings are ``embedding`` leaves in the tree, as in the JAX tree, and
+``...token_embedding.weight`` in a state dict.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 _TORCH_NAMES = {"net_0_proj": "net.0.proj", "net_2": "net.2", "to_out": "to_out.0"}
 _TREE_NAMES = {v: k for k, v in _TORCH_NAMES.items()}
+_EMBEDDINGS = ("token_embedding", "position_embedding")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -93,7 +96,8 @@ def state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
         if isinstance(node, dict):
             for k, v in node.items():
                 if isinstance(v, torch.Tensor):
-                    name = f"{k}.default.weight" if k in ("lora_A", "lora_B") else k
+                    name = (f"{k}.default.weight" if k in ("lora_A", "lora_B")
+                            else "weight" if k == "embedding" else k)
                     out[f"{path}.{name}" if path else name] = v
                 else:
                     t = _TORCH_NAMES.get(k, k)
@@ -108,10 +112,14 @@ def state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def tree_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``state_dict`` (also accepts peft's ``base_layer``
-    indirection and adapter-name-free LoRA keys)."""
+    indirection and adapter-name-free LoRA keys). Only ``weight`` and
+    ``bias`` entries are parameters: buffers (``position_ids``,
+    ``num_batches_tracked``) are skipped, as the JAX converter skips them."""
     tree: Dict[str, Any] = {}
     for key, value in sd.items():
         parts = [p for p in key.split(".") if p != "base_layer"]
+        if parts[-1] not in ("weight", "bias"):
+            continue
         if len(parts) >= 3 and parts[-3] in ("lora_A", "lora_B"):
             parts = parts[:-3] + [parts[-3]]
         elif len(parts) >= 2 and parts[-2] in ("lora_A", "lora_B"):
@@ -133,13 +141,19 @@ def tree_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         node = tree
         for p in path:
             node = node.setdefault(int(p) if p.isdigit() else p, {})
-        node[parts[-1]] = value
+        leaf = parts[-1]
+        if leaf == "weight" and path and path[-1] in _EMBEDDINGS:
+            leaf = "embedding"
+        node[leaf] = value
     return _listify(tree)
 
 
 def _listify(node):
+    """Int-keyed dicts whose keys are 0..n-1 become lists; a sparse one (an
+    overlay that touches only ``up_blocks.2``) stays a dict, so that its
+    indices survive."""
     if isinstance(node, dict):
-        if node and all(isinstance(k, int) for k in node):
+        if node and all(isinstance(k, int) for k in node) and set(node) == set(range(len(node))):
             return [_listify(node[k]) for k in sorted(node)]
         return {k: _listify(v) for k, v in node.items()}
     return node

@@ -7,9 +7,10 @@ one cold restore forward at timestep 249 against up to 4 references
 (missing ones padded by flipped copies), and optionally report the
 per-reference attention-mass percentages summed over the 9 shared layers.
 
-Not ported yet (ROADMAP.md): loading a checkpoint (``checkpoint_path``;
-pass a parameter bundle as ``params``) and FaceID conditioning
-(``condition_on_face_embeds``); both raise.
+Weights come as a parameter bundle (``params``) or from a checkpoint
+(``checkpoint_path``): a reference ``.pt`` of either schema, or the port's own
+file (``load_predictor_params``). Not ported yet (ROADMAP.md): FaceID
+conditioning (``condition_on_face_embeds``), which raises.
 
 Randomness comes from a ``torch.Generator`` seeded with ``seed``; ``predict``
 and ``predict_batch`` also take ready-made ``noise`` as ``restore_forward``
@@ -18,6 +19,7 @@ does. PIL is imported only where images are read or written.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -25,9 +27,15 @@ import numpy as np
 import torch
 
 from instantrestore_tpu_torch import resolve_device
+from instantrestore_tpu_torch.configs.config import ModelConfig, _decode_section
 from instantrestore_tpu_torch.convert import tree_to
 from instantrestore_tpu_torch.data.transforms import denormalize_pm1, infer_transform
 from instantrestore_tpu_torch.models.restorer import RestorerStatics, restore_forward
+from instantrestore_tpu_torch.training.checkpoints import (
+    import_reference_checkpoint,
+    load_checkpoint,
+)
+from instantrestore_tpu_torch.utils.torch_convert import torch_load
 
 
 def attention_mass_percentages(attn_probs: Sequence[Optional[torch.Tensor]], n_refs: int = 4,
@@ -57,10 +65,15 @@ class Predictor:
     """Holds the weights on the device and restores many images.
 
     ``params`` is a parameter bundle (``init_restorer_params`` or
-    ``serving_bundle`` output, or a converted JAX tree), moved to ``device``
-    (CUDA unless asked otherwise) in ``dtype``. ``deterministic`` takes the
-    latent's mode instead of sampling it and reseeds the noise with ``seed``
-    on every ``predict``."""
+    ``serving_bundle`` output, or a converted JAX tree); without it the
+    weights and, unless ``statics`` is given, the statics come from
+    ``checkpoint_path`` (``load_predictor_params``, with
+    ``base_weights_dir``, ``tokenizer_dir`` and ``prompt_ids``). The bundle
+    is moved to ``device`` (CUDA unless asked otherwise) in ``dtype``.
+    ``resolution`` is the pixel size inputs are resized and cropped to
+    (default: the model's, 512 for SD-Turbo).
+    ``deterministic`` takes the latent's mode instead of sampling it and
+    reseeds the noise with ``seed`` on every ``predict``."""
 
     def __init__(
         self,
@@ -72,24 +85,31 @@ class Predictor:
         dtype=torch.bfloat16,
         use_fused_attention: Optional[bool] = None,
         seed: int = 0,
-        resolution: int = 512,
+        resolution: Optional[int] = None,
         deterministic: bool = False,
         device=None,
+        base_weights_dir: Optional[str] = None,
+        tokenizer_dir: Optional[str] = None,
+        prompt_ids=None,
     ):
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet (ROADMAP.md Queue 1); pass params=")
+        self.device = resolve_device(device)
         if params is None:
-            raise ValueError("need params (checkpoint loading is not ported yet, ROADMAP.md)")
+            if checkpoint_path is None:
+                raise ValueError("need checkpoint_path or params")
+            params, statics = load_predictor_params(
+                checkpoint_path, statics, base_weights_dir=base_weights_dir,
+                tokenizer_dir=tokenizer_dir, prompt_ids=prompt_ids, device=self.device)
         self.statics = statics or RestorerStatics()
         if self.statics.condition_on_face_embeds:
             raise NotImplementedError(
                 "FaceID conditioning (condition_on_face_embeds) is not ported yet (ROADMAP.md Queue 1)")
-        self.device = resolve_device(device)
         # the frozen text tower never runs at inference; caption_enc suffices
         params = {k: v for k, v in params.items() if k != "text_encoder"}
         self.params = tree_to(params, self.device, dtype)
         self.noise_timestep = noise_timestep
+        if resolution is None:  # the model's: the latent grid times the VAE's downsampling
+            resolution = self.statics.unet_cfg.sample_size * 2 ** (
+                len(self.statics.vae_cfg.block_out_channels) - 1)
         self.resolution = resolution
         self.deterministic = deterministic
         self._seed = seed
@@ -176,3 +196,41 @@ class Predictor:
                      for p in sorted((identity / "conditioning").glob("*"))][:max_refs]
             pred, _ = self.predict(Image.open(degraded).convert("RGB"), conds)
             pred.save(out_dir / f"{identity.name}.png")
+
+
+def _statics_from_cfg(cfg: Optional[Dict[str, Any]]) -> RestorerStatics:
+    """RestorerStatics from a checkpoint's embedded config dict (its
+    ``model`` section; defaults where absent)."""
+    model = _decode_section(ModelConfig, (cfg or {}).get("model", {}))
+    return RestorerStatics.from_model_config(model)
+
+
+def load_predictor_params(checkpoint_path, statics: Optional[RestorerStatics], *,
+                          base_weights_dir: Optional[str] = None,
+                          tokenizer_dir: Optional[str] = None, prompt_ids=None, device=None):
+    """A checkpoint file -> (bundle, statics), the bundle in the file's dtype
+    on the CPU and its ``caption_enc`` computed on ``device``.
+
+    A FULL reference ``.pt`` and the port's own file decode their statics
+    from their embedded cfg unless ``statics`` is given. A LoRA-only ``.pt``
+    carries no cfg (the defaults or ``statics`` apply), but its LoRA
+    scalings are always the file's ranks under peft's load-time alpha of 8,
+    since the file, not a config, decides them."""
+    path = Path(checkpoint_path)
+    if path.is_dir():
+        raise ValueError(
+            f"{path} is a directory: the port reads a reference .pt or its own torch.save file, "
+            "not the JAX package's orbax checkpoints (ROADMAP.md Queue 1)")
+    if "params" in torch_load(path):  # the port's own file
+        loaded = load_checkpoint(path)
+        return loaded["params"], statics or _statics_from_cfg(loaded["cfg"])
+    imported = import_reference_checkpoint(path, base_weights_dir=base_weights_dir,
+                                           tokenizer_dir=tokenizer_dir, prompt_ids=prompt_ids,
+                                           device=device)
+    meta = imported["meta"]
+    if statics is None:
+        statics = _statics_from_cfg(meta.get("cfg"))
+    if "unet_lora_scaling" in meta:  # a LoRA-only file
+        statics = dataclasses.replace(statics, unet_lora_scaling=meta["unet_lora_scaling"],
+                                      vae_lora_scaling=meta["vae_lora_scaling"])
+    return imported["bundle"], statics

@@ -221,3 +221,36 @@ def test_port_imports_without_pillow():
             "import instantrestore_tpu_torch.inference.predictor, "
             "instantrestore_tpu_torch.inference.serving, instantrestore_tpu_torch.data.transforms")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+CHECKPOINT_MODULES = (
+    "instantrestore_tpu_torch/utils/torch_convert.py",
+    "instantrestore_tpu_torch/utils/safetensors.py",
+    "instantrestore_tpu_torch/training/checkpoints.py",
+    "instantrestore_tpu_torch/models/text_encoder.py",
+    "instantrestore_tpu_torch/models/tokenizer.py",
+    "instantrestore_tpu_torch/cli/infer.py",
+    "instantrestore_tpu_torch/cli/serve.py",
+)
+
+
+@pytest.mark.parametrize("module", CHECKPOINT_MODULES)
+def test_checkpoint_slice_modules_are_covered(module):
+    """Each module of the checkpoint and entry-point slice is among the files
+    checked above and imports without a GPU, a CUDA compiler or Triton."""
+    assert module in {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    name = module[:-3].replace("/", ".")
+    code = (f"import sys; sys.modules['triton'] = None; import {name}; "
+            "assert 'instantrestore_tpu' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+def test_entry_points_import_without_pillow_or_safetensors():
+    """The card's machine promises neither Pillow nor the safetensors
+    package: the CLIs import without both (the port reads .safetensors
+    itself, and PIL only where PNGs are read or written)."""
+    code = ("import sys; sys.modules['PIL'] = None; sys.modules['safetensors'] = None; "
+            "import instantrestore_tpu_torch.cli.serve, instantrestore_tpu_torch.cli.infer, "
+            "instantrestore_tpu_torch.training.checkpoints; "
+            "assert 'instantrestore_tpu' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)

@@ -127,10 +127,15 @@ def test_run_directory_writes_one_png_per_identity(predictors, rng, tmp_path):
     assert Image.open(tmp_path / "out" / "alice.png").size == (RES, RES)
 
 
-def test_missing_pieces_raise(predictors, monkeypatch):
+def test_missing_pieces_raise(predictors, monkeypatch, tmp_path):
+    """FaceID conditioning is not ported; a checkpoint that is not there, or
+    neither weights nor a checkpoint, raise; without a card the default
+    device raises rather than falling back to the CPU."""
     _, tp = predictors
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpred.Predictor("model.pt", params=tp.params, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        tpred.Predictor(str(tmp_path / "model.pt"), device="cpu")
+    with pytest.raises(ValueError, match="checkpoint_path or params"):
+        tpred.Predictor(statics=T_STATICS, device="cpu")
     faceid = trest.RestorerStatics(condition_on_face_embeds=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpred.Predictor(params=tp.params, statics=faceid, device="cpu")
