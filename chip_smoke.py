@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,training,small,checkpoint]
+    python3 chip_smoke.py [--only kernels,vjp,serving,training,recipe,small,checkpoint]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -108,6 +108,28 @@ Without arguments every phase runs and the last two lines are the result;
    save_seg_sums and the attention regularisers runs. Prints ms per step,
    faces/sec, peak memory with and without remat and a profile with the
    share of the three flash-VJP kernels;
+9a. recipe phase ("recipe"): the reference's full generator loss at full
+   width. First each network and image op it adds, on the card against the
+   same port code on the CPU, fp32 with TF32 off in cuBLAS and cuDNN
+   (relative RMS within 1e-4): the DINOv2 ViT-L/14's three taps that
+   discriminate reads (batch 2, 224 px), IR-SE50 embeddings (batch 2,
+   112 px), P-net on a 512 px image and R- and O-net on crops of it,
+   degrade_with_params (batch 2, 512 px, the same noise) and the DCT JPEG.
+   Then the shipped recipe's train step (OptimConfig()'s weights: L2 5,
+   LPIPS 5, ID 1.0 on aligned crops, GAN 0.5 with the DINOv2 discriminator,
+   random seeded networks; otherwise the training phase's step): fused vs
+   unfused from the seeded state on the loss (1e-3) and on gradients by
+   leaf group (0.1), and the same without the ID term (printed: its share
+   of the gap); a warm-up and 3 timed steps, launches per step as the
+   training phase's (the loss networks run no attention kernel), loss_id
+   and loss_g finite, ms per step, peak memory, and profiles of the step,
+   of the L2 + LPIPS step, of the G term alone and of the ID term alone
+   (device busy and their shares). Then one step with every term live (cycle through
+   degrade_with_params per sample, landmark, pos/neg regularisers,
+   facial-component L2, LPIPS and GAN terms: each finite) and the
+   discriminator's side (discriminate for_real on the ground truth and not
+   for_real on the detached prediction, update_sn: finite head gradients,
+   every u vector of more than one element moved);
 9b. small-model phase ("small"): the same seeded weights at sample_size 32
    (256 px) and 24 (192 px), whose attention shapes are off the tiles' 64
    rows (16 and 9 tokens in the UNet mid block; 144 and 36 in the shared
@@ -1088,10 +1110,10 @@ def measure_slack(run, what: str):
     return records
 
 
-def profile_run(fn, what: str, card: str, shares=None):
+def profile_run(fn, what: str, card: str, shares=None, top: int = 15):
     """Device time of one call of ``fn`` by kernel, from torch.profiler;
     ``shares`` {label: name fragments} also prints those kernels' summed
-    share."""
+    share. Returns the device-busy ms (None when nothing was recorded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1110,15 +1132,16 @@ def profile_run(fn, what: str, card: str, shares=None):
     busy = sum(t for t, _ in by_name.values())
     if busy == 0:
         print("profiler: no device time recorded")
-        return
+        return None
     print(f"profile of {what} [{card}]: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall "
           f"(profiler on); kernels by device time:")
-    for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+    for name, (t, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {t:8.2f} ms {t / busy * 100:5.1f}%  x{cnt:<4d} {name[:110]}")
     for label, fragments in (shares or {}).items():
         hits = [(t, cnt) for name, (t, cnt) in by_name.items() if any(f in name for f in fragments)]
         t, cnt = sum(h[0] for h in hits), sum(h[1] for h in hits)
         print(f"  {label}: {t:.2f} ms in {cnt} launches, {t / busy * 100:.1f}% of device time")
+    return busy
 
 
 # kernel name -> its wrapper (ops/shared_attention.py, ops/flash_vjp.py for the
@@ -1761,6 +1784,425 @@ def training_phase(card: str):
     return counts
 
 
+# the recipe phase: the loss networks on the card against the same port code
+# on the CPU (fp32, TF32 off), and the shipped recipe's train step
+RECIPE_NET_REL_RMS = 1e-4
+# the fused recipe step's gradients lie no further than this factor times the
+# unfused step's from the same step in fp32: the two bf16 paths' gap is then
+# rounding, not a fault of the fused one
+RECIPE_FP32_FACTOR = 1.5
+RECIPE_STEPS = 3
+RECIPE_DISC = "dinov2"  # OptimConfig's "vagan_clip" falls back to it, as in the JAX Coach
+RECIPE_LANDMARK_LAYER = 0  # the every-term step's landmark layer (16 x 16 tokens at 512 px)
+RECIPE_TERMS = ("loss_l2", "loss_lpips", "loss_id", "sim_id", "loss_attn_reg", "loss_cycle",
+                "loss_landmark", "loss_attn_pos_reg", "loss_attn_neg_reg", "loss_facial_comp_l2",
+                "loss_facial_comp_lpips", "loss_g", "fc_loss_g", "loss")
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off in cuBLAS and cuDNN for the block (cuDNN's is on by default)."""
+    import torch
+
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def rel_rms(got, ref) -> float:
+    """||got - ref|| / ||ref||, in fp64 on the host."""
+    g, r = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((g - r).norm() / r.norm().clamp_min(1e-300))
+
+
+def dinov2_taps(params, x224, cfg):
+    """What discriminate reads from the ViT: the patch tokens of blocks 0 and
+    n/2 of the last n = 8, and the last block's class token."""
+    from instantrestore_tpu_torch.models.vit import vit_intermediate_layers
+
+    n = min(8, cfg.depth)
+    inter = vit_intermediate_layers(params, x224, n=n, cfg=cfg)
+    return inter[0][0], inter[n // 2][0], inter[-1][1]
+
+
+def recipe_networks(card: str, nets: dict, failures: list):
+    """Each network and image op the recipe adds, on the card against the same
+    port code on the CPU, fp32 with TF32 off: relative RMS within
+    RECIPE_NET_REL_RMS and finite."""
+    import numpy as np
+    import torch
+
+    from instantrestore_tpu_torch.convert import tree_to
+    from instantrestore_tpu_torch.data import mtcnn
+    from instantrestore_tpu_torch.models.vit import DINOV2_VITL14
+    from instantrestore_tpu_torch.ops.dct_jpeg import jpeg_compress_dct
+    from instantrestore_tpu_torch.ops.image_ops import cycle_noise_shapes, degrade_with_params
+    from instantrestore_tpu_torch.training.losses.id_loss import arcface_apply
+
+    res = RES
+    host = torch.Generator().manual_seed(11)
+    face = torch.rand((1, res, res, 3), generator=host)
+    boxes = np.array([[0, 0, res // 4, res // 4], [res // 3, res // 5, res // 3 + res // 2,
+                                                   res // 5 + res // 2],
+                      [res - 40, res - 60, res + 40, res + 20], [-10, res // 2, res // 6, res]],
+                     np.float32)
+    u8 = face[0].numpy() * 255.0
+    inputs = {
+        "x224": torch.randn((2, 224, 224, 3), generator=host),
+        "x112": torch.rand((2, 112, 112, 3), generator=host) * 2 - 1,
+        "face": torch.from_numpy(mtcnn._normalize(u8))[None],
+        "c24": torch.from_numpy(mtcnn._normalize(mtcnn._crop_resize(u8, boxes, 24))),
+        "c48": torch.from_numpy(mtcnn._normalize(mtcnn._crop_resize(u8, boxes, 48))),
+        "img": torch.rand((2, res, res, 3), generator=host),
+        "noise": [torch.randn(s, generator=host) for s in cycle_noise_shapes(2, res, res)],
+        "cycle": {"blur_sigma_x": torch.tensor([0.8, 2.5]), "blur_sigma_y": torch.tensor([1.6, 0.5]),
+                  "blur_rotation": torch.tensor([0.4, -1.2]),
+                  "downsample_factor": torch.tensor([2, 5]),
+                  "noise_sigma": torch.tensor([6.0, 14.0]), "jpeg_quality": torch.tensor([35, 70])},
+    }
+    cases = [
+        ("DINOv2 ViT-L/14, discriminate's three taps, batch 2 at 224 px",
+         lambda n, i: dinov2_taps(n["vit"], i["x224"], DINOV2_VITL14)),
+        ("IR-SE50 embeddings, batch 2 at 112 px", lambda n, i: (arcface_apply(n["arc"], i["x112"]),)),
+        (f"P-net on a {res} px image", lambda n, i: mtcnn.pnet_apply(n["mtcnn"]["pnet"], i["face"])),
+        (f"R-net on {len(boxes)} crops of it", lambda n, i: mtcnn.rnet_apply(n["mtcnn"]["rnet"], i["c24"])),
+        (f"O-net on {len(boxes)} crops of it", lambda n, i: mtcnn.onet_apply(n["mtcnn"]["onet"], i["c48"])),
+        (f"degrade_with_params, batch 2 at {res} px, the same noise",
+         lambda n, i: (degrade_with_params(i["img"], i["cycle"], noise=i["noise"], resolution=res),)),
+        (f"jpeg_compress_dct at quality 50, batch 2 at {res} px",
+         lambda n, i: (jpeg_compress_dct(i["img"], 50),)),
+    ]
+    on_dev = tree_to(inputs, "cuda"), tree_to(nets, "cuda")
+    on_cpu = inputs, tree_to(nets, "cpu")
+    with no_tf32(), torch.no_grad():
+        for what, run in cases:
+            got = run(on_dev[1], on_dev[0])
+            ref = run(on_cpu[1], on_cpu[0])
+            errs = [rel_rms(g.float(), r.float()) for g, r in zip(got, ref)]
+            worst = max(float((g.float().cpu() - r.float()).abs().max()) for g, r in zip(got, ref))
+            print(f"recipe network {what}: card vs CPU, fp32, TF32 off: relative RMS "
+                  f"{', '.join(f'{e:.2e}' for e in errs)} (tol {RECIPE_NET_REL_RMS}), max-abs "
+                  f"{worst:.3e} [{card}]")
+            if max(errs) > RECIPE_NET_REL_RMS or not all(all_finite(g) for g in got):
+                failures.append(f"{what}: relative RMS {errs}")
+
+
+def with_grads(heads):
+    """A copy of a head tree whose weights and biases want a gradient (the u
+    vectors are data), and those leaves in order."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: v if k == "u" else walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        leaf = node.detach().clone().requires_grad_()
+        leaves.append(leaf)
+        return leaf
+
+    return walk(heads), leaves
+
+
+def recipe_phase(card: str):
+    """The reference's full generator loss at full width: the new networks
+    held against the CPU; the shipped recipe's train step (OptimConfig()'s
+    weights: L2 5, LPIPS 5, ID 1.0 on aligned crops, GAN 0.5 with the
+    DINOv2 ViT-L/14 discriminator) at batch 2 x 4 refs, 512 px, bf16 over
+    fp32 params, LoRA rank 32, fused attention, remat: launches, loss terms,
+    fused vs unfused and both against the step in fp32, ms, busy, peak and
+    the ViT's and IR-SE50's device time; one step with every term live; and
+    the discriminator's side. Returns the launch counts of the timed steps."""
+    import dataclasses
+
+    import torch
+
+    from instantrestore_tpu_torch.configs.config import OptimConfig, SchedulerType
+    from instantrestore_tpu_torch.convert import tree_to
+    from instantrestore_tpu_torch.data.mtcnn import init_mtcnn_params
+    from instantrestore_tpu_torch.models.lora import trainable_mask
+    from instantrestore_tpu_torch.models.restorer import RestorerStatics, init_restorer_params
+    from instantrestore_tpu_torch.models.vit import DINOV2_VITL14, init_vit_params
+    from instantrestore_tpu_torch.ops.image_ops import degrade_with_params
+    from instantrestore_tpu_torch.training.losses import id_loss as id_mod
+    from instantrestore_tpu_torch.training.losses.composite import (
+        compute_generator_loss,
+        facial_comp_sizes,
+    )
+    from instantrestore_tpu_torch.training.losses.gan import (
+        diff_augment_draws,
+        discriminate,
+        init_discriminator_heads,
+    )
+    from instantrestore_tpu_torch.training.losses.lpips import init_lpips_params
+    from instantrestore_tpu_torch.training.optim import make_optimizer, trainable_leaves
+    from instantrestore_tpu_torch.training.train_step import make_train_step
+
+    dev, res, vit_cfg = torch.device("cuda"), RES, DINOV2_VITL14
+    statics = RestorerStatics(use_adain=True, train_input=False)
+    failures = []
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tree_to(init_restorer_params(gen, statics, lora_rank_unet=32, lora_rank_vae=32,
+                                          device=dev), dev)
+    lpips_params = tree_to(init_lpips_params(gen, device=dev), dev)
+    nets = {"vit": init_vit_params(gen, vit_cfg, device=dev),
+            "arc": id_mod.init_arcface_params(gen, device=dev),
+            "mtcnn": init_mtcnn_params(gen, device=dev)}
+    heads = init_discriminator_heads(gen, embed_dim=vit_cfg.embed_dim, out_ch=256, device=dev)
+    print(f"recipe networks: ViT {sum(t.numel() for _, t in _tree_leaves(nets['vit'])) / 1e6:.1f} M, "
+          f"IR-SE50 {sum(t.numel() for _, t in _tree_leaves(nets['arc']) if t is not None) / 1e6:.1f}"
+          f" M, D heads {sum(t.numel() for _, t in _tree_leaves(heads)) / 1e6:.2f} M parameters")
+    t0 = time.perf_counter()
+    recipe_networks(card, nets, failures)
+    print(f"recipe networks held against the CPU in {time.perf_counter() - t0:.1f} s")
+
+    mask = {
+        "unet": trainable_mask(params["unet"], extra_trainable=("conv_in",)),
+        "unet_orig_conv_in": trainable_mask(params["unet_orig_conv_in"]),
+        "vae": trainable_mask(params["vae"]),
+        "caption_enc": False,
+    }
+    leaves = trainable_leaves(params, mask)
+    trainable_ids = {id(t) for t in leaves}
+    host = torch.Generator().manual_seed(5)
+    bsz, lat = TRAIN_BATCH, res // 8
+
+    def images(*shape):
+        return torch.rand(shape, generator=host) * 2.0 - 1.0
+
+    # aligned ID crops from landmarks near the template (the data pipeline's path)
+    lms = [id_mod.ARCFACE_REFERENCE_POINTS * (res / 112) * s + o for s, o in ((0.85, 10.0),
+                                                                            (0.95, -6.0))]
+    mats, valid = id_mod.alignment_transforms(lms)
+    batch = {"image": images(bsz, res, res, 3), "gt": images(bsz, res, res, 3),
+             "conditioning_images": images(bsz, N_REFS, res, res, 3),
+             "valid_indices": torch.full((bsz,), N_REFS),
+             "id_mats_pred": torch.from_numpy(mats), "id_mats_target": torch.from_numpy(mats),
+             "id_valid": torch.from_numpy(valid)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    noise = {k: torch.randn((n, lat, lat, 4), generator=host).to(dev)
+             for k, n in (("latent", bsz), ("diffusion", bsz), ("cond_latent", bsz * N_REFS),
+                          ("cond_diffusion", bsz * N_REFS))}
+    nets_kw = dict(lpips_params=lpips_params, arcface_params=nets["arc"],
+                   disc_backbone=nets["vit"], disc_heads=heads, vit_cfg=vit_cfg,
+                   disc_type=RECIPE_DISC, train_input=statics.train_input)
+
+    def stepper(cfg, loss_kw=None, **kw):
+        extra = dict(nets_kw, **(loss_kw or {}))
+        loss_fn = lambda out, b, c: compute_generator_loss(out, b, c, generator=gen, **extra)
+        return make_train_step(kw.pop("statics", statics), cfg, make_optimizer(cfg, 1000, mask),
+                               mask, loss_fn, use_fused_attention=kw.pop("fused", True),
+                               remat=kw.pop("remat", True), device=dev, **kw)
+
+    def timed(step, batch=batch, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, out = step(params, batch, **kw)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        return metrics, out, time.perf_counter() - t0, peak
+
+    def finite_terms(metrics, wanted):
+        terms = {k: float(v) for k, v in metrics.items() if k != "grad_norm"}
+        bad = [k for k in wanted if k not in terms or not all_finite(torch.tensor(terms[k]))]
+        return terms, bad
+
+    # ---- fused against unfused from the seeded state (before any update,
+    # so that the deterministic algorithms give the same bits on every call),
+    # with the same draws; both against the same step in fp32; then fused
+    # against unfused without the ID term, for its share ----
+    still = OptimConfig(learning_rate=0.0, scheduler_type=SchedulerType.CONSTANT)
+    draws = [diff_augment_draws(bsz, res, res, torch.Generator(device=dev).manual_seed(9), dev)]
+    names = [n for n, t in _tree_leaves(params) if id(t) in trainable_ids]
+
+    def seeded_step(cfg, fused=True, **kw):
+        with deterministic_cudnn():
+            metrics, _, dt, peak = timed(stepper(cfg, loss_kw=dict(gan_draws=draws), fused=fused,
+                                                 **kw), noise=noise, timestep=499)
+        terms = {k: float(v) for k, v in metrics.items() if k != "grad_norm"}
+        return terms, [t.grad.clone() for t in leaves], dt, peak
+
+    def grad_rels(got, ref):
+        """Relative RMS of ``got`` against ``ref`` by leaf group."""
+        groups = {}
+        for name, a, r in zip(names, got, ref):
+            key = name.split(".")[0] + (" conv_in" if ".conv_in." in name
+                                        and name.startswith("unet") else " LoRA")
+            num, den = groups.get(key, (0.0, 0.0))
+            groups[key] = (num + float((a - r).square().sum()), den + float(r.square().sum()))
+        return {k: round((num / den) ** 0.5, 4) for k, (num, den) in groups.items()}
+
+    terms_a, g_a, _, _ = seeded_step(still)
+    terms_u, g_u, dt_u, peak_u = seeded_step(still, fused=False)
+    loss_a, loss_u = terms_a["loss"], terms_u["loss"]
+    loss_rel, rels = abs(loss_a - loss_u) / abs(loss_u), grad_rels(g_a, g_u)
+    print(f"recipe step fused vs unfused (seeded state, same noise, timestep 499, DiffAugment "
+          f"draws): loss {loss_a:.6f} vs {loss_u:.6f} (relative {loss_rel:.2e}, tol "
+          f"{TRAIN_LOSS_REL_TOL}); gradient relative RMS by group {rels} (tol "
+          f"{TRAIN_GRAD_REL_TOL}); unfused {dt_u * 1e3:.1f} ms, peak {peak_u:.2f} GiB [{card}]")
+    if loss_rel > TRAIN_LOSS_REL_TOL or max(rels.values()) > TRAIN_GRAD_REL_TOL:
+        failures.append("the fused recipe step disagrees with the unfused one")
+    with no_tf32():
+        terms_r, g_r, dt_r, peak_r = seeded_step(
+            still, fused=False, statics=dataclasses.replace(statics, compute_dtype=torch.float32))
+    to_fp32 = {"fused": grad_rels(g_a, g_r), "unfused": grad_rels(g_u, g_r)}
+    del g_a, g_u, g_r
+    print(f"both against the same step in fp32 (unfused, TF32 off; loss {terms_r['loss']:.6f}, "
+          f"{dt_r * 1e3:.1f} ms, peak {peak_r:.2f} GiB): gradient relative RMS by group, fused "
+          f"{to_fp32['fused']}, unfused {to_fp32['unfused']} (the fused path within "
+          f"{RECIPE_FP32_FACTOR}x of the unfused one's distance) [{card}]")
+    if any(v > RECIPE_FP32_FACTOR * to_fp32["unfused"][k] for k, v in to_fp32["fused"].items()):
+        failures.append("the fused recipe step lies further from the fp32 step than the unfused")
+    three = {k: tuple(round(t[k], 6) for t in (terms_a, terms_u, terms_r)) for k in terms_r}
+    print(f"the seeded steps' terms, fused / unfused / fp32: {three}")
+    no_id = dataclasses.replace(still, lambda_id_loss=0.0)
+    rels_no_id = grad_rels(seeded_step(no_id)[1], seeded_step(no_id, fused=False)[1])
+    print(f"the same without the ID term: fused vs unfused gradient relative RMS by group "
+          f"{rels_no_id} (not checked: what the ID term's share of the gap is) [{card}]")
+
+    # ---- the shipped recipe: a warm-up step, then the timed steps ----
+    ocfg = OptimConfig()
+    print(f"recipe weights (OptimConfig()): L2 {ocfg.lambda_l2}, LPIPS {ocfg.lambda_lpips}, ID "
+          f"{ocfg.lambda_id_loss}, GAN {ocfg.lambda_gan} (gan_disc_type {ocfg.gan_disc_type!r} -> "
+          f"{RECIPE_DISC!r}), cycle {ocfg.lambda_cycle}")
+    step = stepper(ocfg)
+    metrics, out, first_s, _ = timed(step, generator=gen)
+    reset_counts()
+    step_s, peaks = [], []
+    for _ in range(RECIPE_STEPS):
+        metrics, out, dt, peak = timed(step, generator=gen)
+        step_s.append(dt)
+        peaks.append(peak)
+    counts = launch_counts()
+    # the loss networks add no attention kernel: the training phase's counts
+    check_launches(failures, f"{RECIPE_STEPS} recipe steps", counts, RECIPE_STEPS,
+                   flash_fwd_lse=2 * 18, flash_bwd_dq=18, flash_bwd_dkv=18,
+                   flash_attention_bound=17)
+    terms, bad = finite_terms(metrics, ("loss_l2", "loss_lpips", "loss_id", "sim_id", "loss_g",
+                                        "loss"))
+    if bad or not all(bool(torch.isfinite(t.grad).all()) for t in leaves):
+        failures.append(f"recipe step: missing or non-finite terms {bad} or gradients; {terms}")
+    steady = statistics.median(step_s)
+    print(f"recipe train step batch {bsz} x {N_REFS} refs, {res} px, bf16, fused, remat, "
+          f"L2 + LPIPS + ID + GAN: first {first_s * 1e3:.1f} ms, steady median "
+          f"{steady * 1e3:.1f} ms over {RECIPE_STEPS} steps {[round(x * 1e3, 1) for x in step_s]}, "
+          f"peak device memory {max(peaks):.2f} GiB [{card}]")
+    print(f"recipe step terms: { {k: round(v, 5) for k, v in terms.items()} }")
+
+    # ---- device time: the recipe step, the L2 + LPIPS step, the G and ID terms alone ----
+    busy = profile_run(lambda: step(params, batch, generator=gen), "one recipe train step",
+                       card, top=25)
+    # the training phase's loss (L2 + LPIPS), timed and profiled in this call
+    plain = stepper(OptimConfig(lambda_l2=1.0, lambda_lpips=1.0, lambda_id_loss=0.0,
+                                lambda_gan=0.0))
+    timed(plain, generator=gen)
+    runs = [timed(plain, generator=gen) for _ in range(RECIPE_STEPS)]
+    print(f"L2 + LPIPS train step, same call: steady median "
+          f"{statistics.median(r[2] for r in runs) * 1e3:.1f} ms "
+          f"{[round(r[2] * 1e3, 1) for r in runs]}, peak {max(r[3] for r in runs):.2f} GiB, "
+          f"terms {sorted(runs[-1][0])} [{card}]")
+    if {"loss_id", "loss_g"} & set(runs[-1][0]):
+        failures.append(f"the L2 + LPIPS step ran more terms: {sorted(runs[-1][0])}")
+    busy_plain = profile_run(lambda: plain(params, batch, generator=gen),
+                             "one L2 + LPIPS train step (the training phase's loss), same call",
+                             card, top=5)
+    img = out["output_image"].detach().requires_grad_()
+    gt = batch["gt"]
+
+    def g_term():
+        loss, _ = discriminate(nets["vit"], heads, img, generator=gen, for_g=True,
+                               update_sn=False, vit_cfg=vit_cfg, disc_type=RECIPE_DISC)
+        torch.autograd.grad(loss.mean() * ocfg.lambda_gan, img)
+
+    def id_term():
+        loss, _ = id_mod.id_loss(nets["arc"], img.float(), gt, batch["id_mats_pred"],
+                                 batch["id_mats_target"], batch["id_valid"])
+        torch.autograd.grad(loss * ocfg.lambda_id_loss, img)
+
+    g_term(), id_term()
+    busy_g = profile_run(g_term, "the G term alone (DiffAugment, ViT-L/14 fp32 forward and "
+                         "backward into the images, heads)", card, top=12)
+    busy_id = profile_run(id_term, "the ID term alone (two warps, IR-SE50 fp32 on 2 x 2 "
+                          "crops, backward into the prediction)", card, top=12)
+    if None not in (busy, busy_plain, busy_g, busy_id):
+        print(f"recipe step device busy {busy:.1f} ms against {busy_plain:.1f} ms for L2 + "
+              f"LPIPS alone (+{busy - busy_plain:.1f} ms); the G term {busy_g:.1f} ms "
+              f"({busy_g / busy * 100:.1f}% of the step), the ID term {busy_id:.1f} ms "
+              f"({busy_id / busy * 100:.1f}%) [{card}]")
+
+    # ---- every term live, correctness only ----
+    ucfg = statics.unet_cfg
+    heads_l0 = ucfg.attention_heads[len(ucfg.attention_heads) - 2]
+    q = (ucfg.sample_size // 4) ** 2
+    n_seg = N_REFS + int(statics.train_input)
+    all_cfg = OptimConfig(lambda_l2=1.0, lambda_lpips=5.0, lambda_id_loss=1.0, lambda_gan=0.5,
+                          lambda_attn_reg=0.1, lambda_cycle=1.0, lambda_landmark=5000.0,
+                          lambda_pos_reg=0.1, lambda_neg_reg=0.1, lambda_facial_comp=0.5,
+                          learning_rate=0.0, scheduler_type=SchedulerType.CONSTANT)
+    cycle = {"blur_sigma_x": torch.tensor([0.6, 2.2]), "blur_sigma_y": torch.tensor([1.4, 0.7]),
+             "blur_rotation": torch.tensor([0.2, 1.0]), "downsample_factor": torch.tensor([3, 8]),
+             "noise_sigma": torch.tensor([8.0, 3.0]), "jpeg_quality": torch.tensor([30, 80])}
+    cycle = {k: v.to(dev) for k, v in cycle.items()}
+    sizes = facial_comp_sizes(res)
+    extra = dict(batch)
+    extra.update({
+        "gt_attn_probs": torch.rand((bsz, heads_l0, q, q), generator=host).to(dev),
+        "gt_attn_mask": (torch.rand((bsz, q), generator=host) > 0.5).to(dev),
+        "gt_attn_cond": torch.tensor([1, n_seg - 1], device=dev),
+        "pos_reg_idx": torch.tensor([0, 2], device=dev), "neg_reg_idx": torch.tensor([1, -1], device=dev),
+        "facial_comps": [(torch.rand((bsz, res, res), generator=host) > 0.8).float().to(dev)
+                         for _ in sizes],
+        "facial_comp_boxes": torch.tensor([[[res // 3, res // 4], [res // 3, res // 2],
+                                            [res // 2 + res // 8, res // 3]]] * bsz, device=dev),
+    })
+
+    def degrade_fn(x):
+        return degrade_with_params((x + 1) * 0.5, cycle, generator=gen, resolution=res) * 2 - 1
+
+    every = stepper(all_cfg, loss_kw=dict(degrade_fn=degrade_fn,
+                                          landmark_layer=RECIPE_LANDMARK_LAYER),
+                    save_seg_sums=True, save_attn_probs=True, probs_layers=(RECIPE_LANDMARK_LAYER,))
+    metrics, out, dt, peak = timed(every, batch=extra, generator=gen)
+    terms, bad = finite_terms(metrics, RECIPE_TERMS)
+    print(f"every term live (cycle through degrade_with_params per sample, landmark, pos/neg, "
+          f"facial-component L2, LPIPS and GAN terms): {dt * 1e3:.1f} ms, peak {peak:.2f} GiB, "
+          f"{ {k: round(v, 5) for k, v in terms.items()} } [{card}]")
+    if bad:
+        failures.append(f"every-term step: missing or non-finite {bad}")
+
+    # ---- the discriminator's side: its loss, its heads' gradients, new u ----
+    pred = out["output_image"].detach()
+    heads_g, head_leaves = with_grads(heads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kw = dict(generator=gen, update_sn=True, vit_cfg=vit_cfg, disc_type=RECIPE_DISC)
+    l_real, heads_1 = discriminate(nets["vit"], heads_g, batch["gt"], for_real=True, **kw)
+    l_fake, heads_2 = discriminate(nets["vit"], heads_1, pred, for_real=False, **kw)
+    d_loss = 0.5 * (l_real.mean() + l_fake.mean()) * ocfg.lambda_gan
+    d_grads = torch.autograd.grad(d_loss, head_leaves)
+    torch.cuda.synchronize()
+    d_ms = (time.perf_counter() - t0) * 1e3
+    moved_u = [name for (name, a), (_, b) in zip(_tree_leaves(heads), _tree_leaves(heads_2))
+               if name.endswith(".u") and a.numel() > 1 and not torch.equal(a, b)]
+    n_u = sum(1 for name, a in _tree_leaves(heads) if name.endswith(".u") and a.numel() > 1)
+    grads_ok = all(all_finite(g) for g in d_grads) and any(float(g.abs().max()) > 0
+                                                           for g in d_grads)
+    print(f"discriminator side: D loss {float(d_loss.detach()):.5f} (real "
+          f"{float(l_real.detach().mean()):.5f}, fake {float(l_fake.detach().mean()):.5f}), {len(d_grads)} head gradients finite and non-zero: "
+          f"{grads_ok}, u vectors moved {len(moved_u)} of {n_u}, {d_ms:.1f} ms [{card}]")
+    if not grads_ok or len(moved_u) != n_u or not all_finite(d_loss):
+        failures.append("discriminator side: non-finite loss or gradient, or u unchanged")
+
+    if failures:
+        raise AssertionError("recipe phase failed: " + "; ".join(failures))
+    return counts
+
+
 def small_model_phase(card: str, serving_params):
     """The serving and training paths of the same seeded weights at each of
     SMALL_SAMPLE_SIZES, whose attention shapes are off the tiles' 64 rows: a
@@ -2248,10 +2690,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
-                    "them (kernels, vjp, serving, training, small, checkpoint); a partial run "
-                    "prints no result line")
+                    "them (kernels, vjp, serving, training, recipe, small, checkpoint); a partial "
+                    "run prints no result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
-    unknown = only - {"kernels", "vjp", "serving", "training", "small", "checkpoint"}
+    unknown = only - {"kernels", "vjp", "serving", "training", "recipe", "small", "checkpoint"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -2293,6 +2735,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if wanted("training"):
         add_counts(counts, training_phase(card))
+    if wanted("recipe"):
+        add_counts(counts, recipe_phase(card))
+        torch.cuda.empty_cache()
     if wanted("small"):
         if not wanted("serving"):  # the same seeded weights as the warm phase's
             from instantrestore_tpu_torch.models.restorer import (

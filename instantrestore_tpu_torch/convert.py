@@ -54,7 +54,10 @@ def _convert_param_dict(node: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def from_jax_tree(tree: Any) -> Any:
     """JAX-layout param tree (numpy-convertible leaves) -> port tree of CPU
-    tensors. Works on any subtree (a UNet, a VAE, a whole bundle)."""
+    tensors. Works on any subtree (a UNet, a VAE, a whole bundle, the loss
+    networks); a None leaf (IR-SE-50's absent shortcut) stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         if "kernel" in tree or ("scale" in tree and "bias" in tree):
             return _convert_param_dict(tree)
@@ -69,6 +72,8 @@ def to_jax_tree(tree: Any) -> Any:
     like them, updated params) -> the JAX layout as numpy arrays, so that it
     can be laid beside a JAX tree leaf by leaf. A 1-D ``weight`` is a norm's
     ``scale``; 2-D and 4-D ones are dense and conv kernels."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         out = {}
         for key, val in tree.items():
@@ -161,7 +166,10 @@ def _listify(node):
 
 def tree_to(tree: Any, device=None, dtype=None) -> Any:
     """Move every floating leaf of a tree to ``device``/``dtype``; 4-D conv
-    weights go channels-last, the layout cuDNN prefers for NHWC activations."""
+    weights go channels-last, the layout cuDNN prefers for NHWC activations.
+    None stays None."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):

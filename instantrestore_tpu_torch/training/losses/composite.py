@@ -3,17 +3,18 @@
 ``OptimConfig.lambda_*``):
 
   reconstruction (L1, else L2) | LPIPS (when its params are given) | MS-SSIM
-  | attention-entropy regulariser (from streamed segment sums, else from
-  probabilities) | landmark attention | positive / negative reference-usage
-  regularisers (per sample) | facial-component L2 + LPIPS.
+  | ArcFace ID (dataset-aligned crops, else whole images) |
+  attention-entropy regulariser (from streamed segment sums, else from
+  probabilities) | cycle (``degrade_fn`` of the prediction against the
+  degraded input) | landmark attention | positive / negative
+  reference-usage regularisers (per sample) | facial-component L2 + LPIPS
+  | the vision-aided GAN's G term, and its facial-component crops.
 
-Not ported yet, and refused rather than skipped when their inputs are
-passed: the ArcFace ID term (``arcface_params``), the cycle term
-(``degrade_fn``) and the adversarial terms (``disc_backbone`` /
-``disc_heads``); each raises ``NotImplementedError`` naming its ROADMAP item.
-
-The one random choice, the layer the reference-usage regularisers read, is
-drawn from ``generator`` or given as ``layer_idx``.
+A term whose network is not given (LPIPS, ArcFace, the discriminator) is
+skipped whatever its weight, as in JAX. The random choices come from
+``generator`` or are given: the layer the reference-usage regularisers read
+(``layer_idx``) and DiffAugment's draws of the G term and of each facial
+crop (``gan_draws``, a list: the whole image's, then one per crop).
 """
 
 from __future__ import annotations
@@ -24,8 +25,21 @@ import torch
 import torch.nn.functional as F
 
 from instantrestore_tpu_torch.configs.config import OptimConfig
+from instantrestore_tpu_torch.training.losses import gan as gan_mod
+from instantrestore_tpu_torch.training.losses import id_loss as id_mod
 from instantrestore_tpu_torch.training.losses.lpips import lpips as lpips_fn
 from instantrestore_tpu_torch.training.losses.ssim import ms_ssim
+
+# eye, eye and mouth windows at 512 px (the reference's facial-component
+# crops); the data pipeline's copy of these comes with the port's datasets
+FACIAL_COMP_SIZES = ((71, 101), (71, 101), (91, 161))
+
+
+def facial_comp_sizes(resolution: int):
+    """FACIAL_COMP_SIZES scaled from 512 px to ``resolution``."""
+    s = resolution / 512.0
+    return tuple((max(2, int(round(h * s))), max(2, int(round(w * s))))
+                 for h, w in FACIAL_COMP_SIZES)
 
 
 def _minmax(x: torch.Tensor) -> torch.Tensor:
@@ -126,22 +140,18 @@ def compute_generator_loss(
     arcface_params: Optional[Dict] = None,
     disc_backbone: Optional[Dict] = None,
     disc_heads: Optional[Dict] = None,
+    vit_cfg=None,
+    disc_type: str = "dinov2",
+    gan_draws: Optional[List[Dict[str, torch.Tensor]]] = None,
     train_input: bool = True,
     degrade_fn=None,
     landmark_layer: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {term: value}) of a restore forward's ``out`` against
-    ``batch`` (``gt`` [B, H, W, 3]; optional ``gt_attn_probs``,
-    ``gt_attn_mask``, ``gt_attn_cond``, ``pos_reg_idx``, ``neg_reg_idx``,
-    ``facial_comps``)."""
-    if cfg.lambda_id_loss > 0 and arcface_params is not None:
-        raise NotImplementedError("the ArcFace ID term is not ported (ROADMAP Queue 1: id_loss)")
-    if cfg.lambda_cycle > 0 and degrade_fn is not None:
-        raise NotImplementedError("the cycle term is not ported (ROADMAP Queue 1: the on-device "
-                                  "degradations of ops/image_ops.py and ops/dct_jpeg.py)")
-    if cfg.lambda_gan > 0 and disc_backbone is not None and disc_heads is not None:
-        raise NotImplementedError("the adversarial terms are not ported (ROADMAP Queue 1: the "
-                                  "Coach's discriminator step, gan.py and its backbones)")
+    ``batch`` (``gt`` [B, H, W, 3]; optional ``image`` (the degraded input,
+    for the cycle term), ``id_mats_pred``, ``id_mats_target``, ``id_valid``,
+    ``gt_attn_probs``, ``gt_attn_mask``, ``gt_attn_cond``, ``pos_reg_idx``,
+    ``neg_reg_idx``, ``facial_comps``, ``facial_comp_boxes`` [B, 3, 2])."""
     pred = out["output_image"].float()
     gts = batch["gt"].float()
     losses: Dict[str, torch.Tensor] = {}
@@ -163,6 +173,15 @@ def compute_generator_loss(
         losses["loss_ssim"] = 1.0 - ms_ssim((pred + 1) / 2, (gts + 1) / 2, data_range=1.0)
         total = total + losses["loss_ssim"] * cfg.lambda_ssim
 
+    if cfg.lambda_id_loss > 0 and arcface_params is not None:
+        if "id_mats_pred" in batch:
+            lid, sim = id_mod.id_loss(arcface_params, pred, gts, batch["id_mats_pred"],
+                                      batch["id_mats_target"], batch["id_valid"])
+        else:  # no alignment given (pre-cropped faces): whole images
+            lid, sim = id_mod.id_loss_whole_image(arcface_params, pred, gts)
+        losses["loss_id"], losses["sim_id"] = lid, sim
+        total = total + lid * cfg.lambda_id_loss
+
     attn_probs = out.get("attn_probs")
     seg_sums = out.get("attn_seg_sums")
     n_segments = 5 if train_input else 4
@@ -174,6 +193,10 @@ def compute_generator_loss(
             reg = attention_entropy_reg(attn_probs, n_segments, train_input=train_input)
         losses["loss_attn_reg"] = reg
         total = total + reg * cfg.lambda_attn_reg
+
+    if cfg.lambda_cycle > 0 and degrade_fn is not None:
+        losses["loss_cycle"] = (degrade_fn(pred) - batch["image"].float().detach()).square().mean()
+        total = total + losses["loss_cycle"] * cfg.lambda_cycle
 
     if (cfg.lambda_landmark > 0 and attn_probs and landmark_layer is not None
             and batch.get("gt_attn_probs") is not None):
@@ -214,6 +237,33 @@ def compute_generator_loss(
         losses["loss_facial_comp_lpips"] = fc_lpips
         total = total + cfg.lambda_facial_comp * (
             fc_total * cfg.lambda_l2 + fc_lpips * cfg.lambda_lpips)
+
+    if cfg.lambda_gan > 0 and disc_backbone is not None and disc_heads is not None:
+        image = out["output_image"]
+        boxes = batch.get("facial_comp_boxes") if cfg.lambda_facial_comp > 0 else None
+        crops = [] if boxes is None else [
+            crop_with_boxes(image, boxes[:, i], hh, ww)
+            for i, (hh, ww) in enumerate(facial_comp_sizes(pred.shape[1]))]
+        if gan_draws is None:
+            if generator is None:
+                raise ValueError("the GAN term draws DiffAugment's parameters: pass gan_draws "
+                                 "or a torch.Generator")
+            gan_draws = [gan_mod.diff_augment_draws(*x.shape[:3], generator, image.device)
+                         for x in [image] + crops]
+        kw = dict(for_g=True, update_sn=False, disc_type=disc_type,
+                  vit_cfg=vit_cfg or gan_mod.DINOV2_VITL14)
+        g_loss, _ = gan_mod.discriminate(disc_backbone, disc_heads, image, draws=gan_draws[0],
+                                         **kw)
+        losses["loss_g"] = g_loss.mean()
+        total = total + losses["loss_g"] * cfg.lambda_gan
+        # facial-component G terms on eye and mouth crops
+        if crops:
+            fc_g = pred.new_zeros(())
+            for crop, draws in zip(crops, gan_draws[1:]):
+                gi, _ = gan_mod.discriminate(disc_backbone, disc_heads, crop, draws=draws, **kw)
+                fc_g = fc_g + gi.mean()
+            losses["fc_loss_g"] = fc_g
+            total = total + fc_g * cfg.lambda_gan * cfg.lambda_facial_comp
 
     losses["loss"] = total
     return total, losses

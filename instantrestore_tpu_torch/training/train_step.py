@@ -55,6 +55,7 @@ def make_train_step(
     remat: bool = False,
     save_seg_sums: bool = False,
     device=None,
+    probs_layers=None,
 ):
     """Build the generator train step ``step(params, batch, *, generator=None,
     noise=None, timestep=None) -> (metrics, out)``.
@@ -64,8 +65,10 @@ def make_train_step(
     the leaves ``trainable_mask`` marks are updated in place. ``batch``:
     {"image": degraded [B, H, W, 3], "gt": clean [B, H, W, 3],
     "conditioning_images": [B, N, H, W, 3], "valid_indices": [B]} plus what
-    ``loss_fn(out, batch, optim_cfg)`` reads; its tensors are moved to the
-    device. ``generator`` / ``noise`` / ``timestep`` as ``restore_forward``
+    ``loss_fn(out, batch, optim_cfg)`` reads; its tensors (and lists of
+    them) are moved to the device. ``probs_layers`` limits
+    ``save_attn_probs`` to those shared layers (the landmark term reads
+    one). ``generator`` / ``noise`` / ``timestep`` as ``restore_forward``
     (``timestep=None`` draws one per batch). ``metrics``: the loss terms,
     ``loss`` and ``grad_norm`` (before clipping), detached; ``out``: the
     forward's result."""
@@ -83,11 +86,14 @@ def make_train_step(
         if any(id(t) in frozen for t in orig.values()):
             raise ValueError("unet_orig_conv_in shares tensors with a trainable leaf; the "
                              "frozen capture view needs its own copy")
-        batch = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+        batch = {k: v.to(dev) if isinstance(v, torch.Tensor)
+                 else [t.to(dev) for t in v] if isinstance(v, list) else v
+                 for k, v in batch.items()}
         out = restore_forward(
             params, batch["image"], batch.get("conditioning_images"), batch.get("valid_indices"),
             statics=statics, timestep=timestep, generator=generator, noise=noise,
-            save_attn_probs=save_attn_probs, save_seg_sums=save_seg_sums,
+            save_attn_probs=save_attn_probs, probs_layers=probs_layers,
+            save_seg_sums=save_seg_sums,
             use_fused_attention=use_fused_attention, remat=remat,
         )
         total, losses = loss_fn(out, batch, optim_cfg)

@@ -254,3 +254,52 @@ def test_entry_points_import_without_pillow_or_safetensors():
             "instantrestore_tpu_torch.training.checkpoints; "
             "assert 'instantrestore_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+LOSS_MODULES = (
+    "instantrestore_tpu_torch/ops/dct_jpeg.py",
+    "instantrestore_tpu_torch/ops/image_ops.py",
+    "instantrestore_tpu_torch/training/losses/id_loss.py",
+    "instantrestore_tpu_torch/training/losses/gan.py",
+    "instantrestore_tpu_torch/training/losses/backbones.py",
+    "instantrestore_tpu_torch/models/vit.py",
+    "instantrestore_tpu_torch/models/swin.py",
+    "instantrestore_tpu_torch/data/mtcnn.py",
+    "instantrestore_tpu_torch/data/canonical_face.py",
+)
+
+
+@pytest.fixture(scope="module")
+def loss_modules_imported():
+    """The loss slice's modules imported in one fresh interpreter without
+    Triton: the names of those that failed (none, if all went well)."""
+    code = ("import importlib, sys; sys.modules['triton'] = None; bad = []\n"
+            f"for name in {[m[:-3].replace('/', '.') for m in LOSS_MODULES]!r}:\n"
+            "    try:\n        importlib.import_module(name)\n"
+            "    except Exception as e:\n        bad.append(name)\n"
+            "print(sorted(bad)); assert 'instantrestore_tpu' not in sys.modules")
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300,
+                         capture_output=True, text=True)
+    return set(ast.literal_eval(run.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("module", LOSS_MODULES)
+def test_loss_slice_modules_are_covered(module, loss_modules_imported):
+    """Each module of the full generator loss (the ID, cycle and GAN terms
+    and the networks and image ops they need) is among the files checked
+    above and imports without a GPU, a CUDA compiler or Triton."""
+    assert module in {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert module[:-3].replace("/", ".") not in loss_modules_imported
+
+
+def test_face_modules_import_without_pillow():
+    """MTCNN and the canonical-face crop import on a machine without Pillow
+    (the card's machine does not promise it): PIL is imported only where
+    an image is resized, and the cascade runs on arrays."""
+    code = ("import sys; sys.modules['PIL'] = None; "
+            "import numpy as np, torch; "
+            "from instantrestore_tpu_torch.data import canonical_face, mtcnn; "
+            "p = mtcnn.init_mtcnn_params(torch.Generator().manual_seed(0)); "
+            "mtcnn.detect_faces(p, np.zeros((40, 40, 3), np.uint8)); "
+            "assert 'instantrestore_tpu' not in sys.modules and 'PIL.Image' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)

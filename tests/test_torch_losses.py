@@ -275,19 +275,39 @@ def test_crop_with_boxes_matches_jax(rng):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("term,kw", [
-    ("id_loss", dict(arcface_params={"w": 1})),
-    ("cycle", dict(degrade_fn=lambda x: x)),
-    ("gan", dict(disc_backbone={}, disc_heads={})),
-])
-def test_unported_terms_raise(rng, term, kw):
-    """The ID, cycle and adversarial terms are refused, not skipped, when
-    their inputs are passed; without them the loss runs."""
+def _term_inputs(term):
+    """The network or function each of the ID, cycle and GAN terms needs, at
+    a tiny size (random weights)."""
+    from instantrestore_tpu_torch.models.vit import ViTConfig, init_vit_params
+    from instantrestore_tpu_torch.training.losses.gan import init_discriminator_heads
+    from instantrestore_tpu_torch.training.losses.id_loss import init_arcface_params
+
+    gen = torch.Generator().manual_seed(0)
+    if term == "id_loss":
+        return dict(arcface_params=init_arcface_params(gen))
+    if term == "cycle":
+        return dict(degrade_fn=lambda x: x * 0.5)
+    cfg = ViTConfig(embed_dim=16, depth=2, num_heads=2, mlp_ratio=2.0, pos_grid=16)
+    return dict(disc_backbone=init_vit_params(gen, cfg), vit_cfg=cfg, generator=gen,
+                disc_heads=init_discriminator_heads(gen, embed_dim=16, out_ch=8))
+
+
+@pytest.mark.parametrize("term,key", [
+    ("id_loss", "loss_id"),
+    ("cycle", "loss_cycle"),
+    ("gan", "loss_g"),
+], ids=["id_loss-kw0", "cycle-kw1", "gan-kw2"])  # the ids these cases have always had
+def test_unported_terms_raise(rng, term, key):
+    """The ID, cycle and adversarial terms were refused before they were
+    ported; now, given their inputs, each is computed (finite, and in the
+    total) rather than refused or skipped; without them the loss runs as
+    before. Their values against JAX's: tests/test_torch_full_loss.py."""
     cfg = tcfg.OptimConfig(lambda_cycle=1.0)  # lambda_id_loss and lambda_gan default > 0
-    out = {"output_image": _t(_images(rng, 1, 8, 8, 3))}
-    batch = {"gt": _t(_images(rng, 1, 8, 8, 3))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcomp.compute_generator_loss(out, batch, cfg, **kw)
+    out = {"output_image": _t(_images(rng, 1, 32, 32, 3))}
+    batch = {"gt": _t(_images(rng, 1, 32, 32, 3)), "image": _t(_images(rng, 1, 32, 32, 3))}
+    total, losses = tcomp.compute_generator_loss(out, batch, cfg, **_term_inputs(term))
+    assert key in losses and torch.isfinite(losses[key]) and torch.isfinite(total)
+    assert float(total) != float(losses["loss_l2"]) * cfg.lambda_l2
     total, losses = tcomp.compute_generator_loss(out, batch, cfg)
     assert set(losses) == {"loss_l2", "loss"} and torch.isfinite(total)
 

@@ -10,6 +10,8 @@ the output image (1e-3 relative + absolute on the intermediate taps), 1e-4 on
 the cached reference K/V.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,8 +44,9 @@ IDS = np.array([2, 0, 2, 1])
 
 
 def random_tree(fn, *args, seed=0):
-    """A JAX param tree shaped like ``fn(*args)``'s, filled with seeded numpy
-    values (nonzero norm scales, biases and LoRA B)."""
+    """A JAX param tree shaped like ``fn(*args)``'s (traced, never run),
+    filled with seeded numpy values (nonzero norm scales, biases and LoRA B;
+    BatchNorm statistics and PReLU slopes in their ranges)."""
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -52,15 +55,19 @@ def random_tree(fn, *args, seed=0):
             v = rng.uniform(-1, 1, shape) / np.sqrt(np.prod(shape[:-1]))
         elif key == "scale":
             v = 1 + 0.1 * rng.normal(size=shape)
-        elif key in ("bias", "lora_B"):
+        elif key in ("bias", "lora_B", "mean"):
             v = 0.1 * rng.normal(size=shape)
         elif key == "lora_A":
             v = rng.normal(size=shape) / shape[-1]
+        elif key == "var":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif key == "alpha" or str(key).startswith("prelu"):
+            v = rng.uniform(0.1, 0.4, shape)
         else:
             v = rng.normal(size=shape)
         return jnp.asarray(v, jnp.float32)
 
-    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(fn, *args))
+    return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(functools.partial(fn, *args)))
 
 
 def _noise_from_taps(mean, logvar, z, zt, t):
