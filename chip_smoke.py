@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,training,recipe,small,checkpoint]
+    python3 chip_smoke.py [--only kernels,vjp,serving,training,recipe,small,checkpoint,coach]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -158,11 +158,34 @@ Without arguments every phase runs and the last two lines are the result;
    2 identities (the LoRA-only file, which carries no cfg, under the default
    statics, train_input: 9 shared_flash_bound launches), and a line saying
    whether they ran;
+9d. coach phase ("coach"): the trainer (training/coach.py) at full width:
+   seeded SD-Turbo widths with LoRA, batch 2 x 4 references, 512 px, bf16
+   over fp32 params, OptimConfig()'s weights (L2, LPIPS, ID on aligned crops,
+   GAN 0.5 with the seeded DINOv2 ViT-L/14 and its heads), on an in-memory
+   set of seeded items with RestoreDataset's keys and a 4-item validation
+   set. Coach.train for 4 G + D steps (metric interval 1, validation at step
+   4, a full save at step 2): launches per step (36 flash_fwd_lse, 18
+   flash_bwd_dq, 18 flash_bwd_dkv, 17 flash_bound; the D step none), finite
+   losses with loss_d, every u vector of more than one element and every
+   head weight moved, no frozen leaf changed, best_model and timestep.txt
+   written; a fresh Coach resumed from the step-2 file ends bit for bit
+   where the run ended (params and heads, deterministic cuDNN); validation
+   batches launch 9 shared_flash_bound + 26 flash_bound, and with
+   vis_attention on (probabilities saved) 0 + 26; the Predictor serves the
+   run's final file (9 + 26 launches); with gradient_accumulation_steps=2
+   no LoRA leaf moves after micro-step 1 and they do after micro-step 2.
+   Where Pillow and OpenCV import, cli.train.main trains 2 steps on PNGs
+   through RestoreDataset (loader workers 2, the cycle term on; dotted
+   overrides, and a --config_path where yaml imports); one line says
+   whether this ran.
+   Prints G and D ms per step, the device-busy ms of one step with the D
+   step's share, host data ms per batch, ms per validation batch, peak
+   memory, and the checkpoint's size and write / read seconds;
 10. prints each kernel's factor over its library call per pass of its path,
    largest first, with its d=64 and d=512 parts where it runs at both
    (flash_bwd_dq and flash_bwd_dkv ranked as one pair against SDPA's joint
    backward), then
-   {"kernels": [...]} (launches summed over the paths of 4-9c) and, last,
+   {"kernels": [...]} (launches summed over the paths of 4-9d) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2627,6 +2650,408 @@ def checkpoint_phase(card: str):
     return total
 
 
+# the coach phase: the trainer at full width on in-memory data (and, where
+# Pillow and OpenCV import, on PNG files through RestoreDataset and the CLI)
+COACH_STEPS, COACH_SAVE_AT, COACH_VAL_ITEMS, COACH_TRAIN_ITEMS = 4, 2, 4, 8
+COACH_TIMED = 3  # extra G and D steps timed after the run
+COACH_DISK_BYTES = 25e9  # a few 3.8 GB fp32 checkpoints at once, and the PNGs
+
+
+class SeededFaces:
+    """An in-memory dataset of seeded RES x RES items with RestoreDataset's
+    keys (``train``: pos/neg indices and aligned ID matrices) or
+    RestoreDatasetTest's; each item a function of (seed, path index)."""
+
+    def __init__(self, n: int, seed: int, train: bool):
+        import numpy as np
+
+        from instantrestore_tpu_torch.training.losses import id_loss as id_mod
+
+        self.paths, self.seed, self.train = list(range(n)), seed, train
+        lms = [id_mod.ARCFACE_REFERENCE_POINTS_3 * (RES / 112) * s + o
+               for s, o in ((0.85, 10.0), (0.95, -6.0))]
+        self.mats = id_mod.alignment_transforms(lms, ref_points=id_mod.ARCFACE_REFERENCE_POINTS_3)[0]
+        self.np = np
+
+    def __len__(self):
+        return len(self.paths)
+
+    def shuffle(self, seed=None):
+        import random
+
+        random.Random(seed).shuffle(self.paths)
+
+    def __getitem__(self, idx):
+        np, key = self.np, self.paths[idx]
+        rng = np.random.default_rng([self.seed, key])
+
+        def img(*shape):
+            return rng.uniform(-1, 1, shape).astype(np.float32)
+
+        item = {"image": img(RES, RES, 3), "gt": img(RES, RES, 3),
+                "conditioning_images": img(N_REFS, RES, RES, 3),
+                "valid_indices": np.int32(N_REFS - key % 2),
+                "caption": "A high-quality photo of a person; professional, 8k"}
+        if self.train:
+            item.update(pos_reg_idx=np.int32(-1), neg_reg_idx=np.int32(-1),
+                        id_mat=self.mats[key % 2], id_valid=True)
+        else:
+            item["identity"] = f"id{key}"
+        return item
+
+
+def coach_phase(card: str):
+    """The trainer at full width (training/coach.py): seeded SD-Turbo widths
+    with LoRA, batch 2 x 4 references, 512 px, bf16 compute over fp32
+    params, OptimConfig()'s weights (L2 5, LPIPS 5, ID 1.0 on aligned crops,
+    GAN 0.5 with the seeded DINOv2 ViT-L/14 and its heads), fused attention
+    and remat, on an in-memory SeededFaces set. A run of COACH_STEPS G + D
+    steps (metric interval 1, validation at the last step, a full save at
+    COACH_SAVE_AT): launches per step, finite losses, every u vector of more
+    than one element moved and no frozen leaf changed; validation launches
+    per batch with and without attention overlays, best_model and
+    timestep.txt; a fresh Coach resumed from the full save ends bit for bit
+    where the run ended; accumulation over 2 micro-steps; the Predictor
+    serving the run's final file; then, where Pillow and OpenCV import,
+    cli.train.main for 2 steps on PNGs through RestoreDataset (the cycle term
+    on). Prints ms per G and D step, the device-busy ms of one step and the
+    D step's share, host data ms per batch, ms per validation batch, peak
+    memory and checkpoint size and seconds. Returns the launch counts of its
+    paths."""
+    import copy
+    import importlib.util
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from instantrestore_tpu_torch.configs.config import TrainConfig
+    from instantrestore_tpu_torch.data.datasets import collate, to_torch_batch
+    from instantrestore_tpu_torch.inference.predictor import Predictor
+    from instantrestore_tpu_torch.training import checkpoints as ckpt_mod
+    from instantrestore_tpu_torch.training import coach as coach_mod
+    from instantrestore_tpu_torch.training.losses import id_loss as id_mod
+    from instantrestore_tpu_torch.training.optim import trainable_leaves
+
+    dev = torch.device("cuda")
+    failures, total = [], {}
+    t_phase = time.perf_counter()
+    scratch = Path(__file__).resolve().parent / "_scratch"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="coach_phase_", dir=scratch))
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def config(name, **steps):
+        cfg = TrainConfig()
+        cfg.compute.batch_size = cfg.compute.test_batch_size = TRAIN_BATCH
+        cfg.compute.workers, cfg.compute.test_workers, cfg.compute.seed = 2, 1, 0
+        cfg.data.resolution, cfg.data.max_conditioning_images = RES, N_REFS
+        cfg.log.exp_root, cfg.log.exp_name, cfg.log.log2wandb = str(tmp), name, False
+        cfg.log.val_vis_count, cfg.log.vis_attention = 1, False
+        cfg.steps.max_steps = COACH_STEPS
+        cfg.steps.metric_interval, cfg.steps.image_interval = 1, COACH_STEPS
+        cfg.steps.val_interval, cfg.steps.save_interval = COACH_STEPS, COACH_SAVE_AT
+        for k, v in steps.items():
+            section, field = k.split("__")
+            setattr(getattr(cfg, section), field, v)
+        return cfg
+
+    arcface = id_mod.init_arcface_params(torch.Generator(device=dev).manual_seed(7), device=dev)
+    data = (SeededFaces(COACH_TRAIN_ITEMS, 1, True), SeededFaces(COACH_VAL_ITEMS, 2, False))
+
+    def make(cfg, datasets=data):
+        return coach_mod.Coach(cfg, arcface_params=arcface, datasets=datasets, device=dev)
+
+    def snapshot(tree):
+        return {name: t.clone() for name, t in _tree_leaves(tree)}
+
+    val_batches = -(-COACH_VAL_ITEMS // TRAIN_BATCH)
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"coach phase: {free / 1e9:.1f} GB free under {tmp}")
+        if free < COACH_DISK_BYTES:
+            raise RuntimeError(f"coach phase needs {COACH_DISK_BYTES / 1e9:.0f} GB free under "
+                               f"{tmp}, has {free / 1e9:.1f}")
+
+        # ---- the run: COACH_STEPS G + D steps, a full save, validation ----
+        cfg = config("run")
+        (coach, build_s) = synced(lambda: make(cfg))
+        g_ids = {id(t) for t in trainable_leaves(coach.params, coach.g_mask)}
+        n_leaves = len(list(_tree_leaves(coach.params)))
+        n_heads = len(list(_tree_leaves(coach.disc_heads)))
+        print(f"Coach built in {build_s:.1f} s: disc_type {coach.disc_type!r} (gan_disc_type "
+              f"{cfg.optim.gan_disc_type!r}), {len(g_ids)} trainable G leaves of {n_leaves}, "
+              f"{n_heads} head leaves; fused {coach._fused_attention}, remat {coach._remat}")
+        start, heads0 = snapshot(coach.params), snapshot(coach.disc_heads)
+        save_s, save = [], coach.save
+
+        def timed_save(tag, full=False):
+            save_s.append((tag, synced(lambda: save(tag, full=full))[1]))
+
+        coach.save = timed_save
+        with deterministic_cudnn():
+            reset_counts()
+            _, run_s = synced(coach.train)
+            counts = launch_counts()
+        coach.save = save
+        # two validations: the val interval's at the last step, then train()'s own
+        check_launches(failures, f"Coach.train: {COACH_STEPS} G + D steps and 2 validations of "
+                       f"{val_batches} batches", counts, 1,
+                       flash_fwd_lse=36 * COACH_STEPS, flash_bwd_dq=18 * COACH_STEPS,
+                       flash_bwd_dkv=18 * COACH_STEPS,
+                       flash_attention_bound=17 * COACH_STEPS + 26 * 2 * val_batches,
+                       shared_flash_bound=9 * 2 * val_batches)
+        add_counts(total, counts)
+        log = (Path(cfg.log.exp_dir) / "logs" / "log.txt").read_text()
+        lines = [ln for ln in log.splitlines() if ": train: " in ln]
+        print(f"Coach.train ({COACH_STEPS} steps, 2 validations, {len(save_s)} checkpoints): "
+              f"{run_s:.1f} s [{card}]; last metric line: "
+              f"{lines[-1].split(': train: ')[-1] if lines else None}")
+        terms = dict(kv.split("=") for kv in lines[-1].split(": train: ")[-1].split(", ")) \
+            if lines else {}
+        want = {"loss_l2", "loss_lpips", "loss_id", "loss_g", "loss", "loss_d"}
+        if len(lines) != COACH_STEPS or not want <= set(terms) or not all(
+                np.isfinite(float(v)) for v in terms.values()):
+            failures.append(f"Coach.train: {len(lines)} metric lines, last {terms}")
+        moved = {n for n, t in _tree_leaves(coach.params) if not torch.equal(t, start[n])}
+        wanted = {n for n, t in _tree_leaves(coach.params) if id(t) in g_ids}
+        u_still = [n for n, t in _tree_leaves(coach.disc_heads)
+                   if n.endswith(".u") and t.numel() > 1 and torch.equal(t, heads0[n])]
+        heads_still = [n for n, t in _tree_leaves(coach.disc_heads)
+                       if not n.endswith(".u") and torch.equal(t, heads0[n])]
+        print(f"after the run: {len(moved)} of {len(wanted)} trainable G leaves moved, "
+              f"{len(moved - wanted)} frozen ones; u vectors that did not move {u_still}, head "
+              f"weights that did not move {heads_still}")
+        if moved - wanted or len(moved) < 0.9 * len(wanted) or u_still or heads_still:
+            failures.append("the run moved frozen leaves or left trainable ones")
+        del start, heads0
+        ck = Path(cfg.log.exp_dir) / "checkpoints"
+        for name in (f"step_{COACH_SAVE_AT}", "best_model", "final", "timestep.txt"):
+            if not (ck / name).exists():
+                failures.append(f"Coach.train wrote no checkpoints/{name}")
+        print(f"checkpoints/timestep.txt: {(ck / 'timestep.txt').read_text().strip()}")
+
+        # ---- resume: a fresh Coach from the full save trains to the same end ----
+        cfg_b = copy.deepcopy(cfg)
+        cfg_b.log.exp_name, cfg_b.log.resume_from = "resumed", str(ck / f"step_{COACH_SAVE_AT}")
+        # validation and saves do not touch the weights: only train()'s own at the end
+        cfg_b.steps.val_interval = cfg_b.steps.save_interval = 10 * COACH_STEPS
+        (resumed, resume_s) = synced(lambda: make(cfg_b))
+        with deterministic_cudnn():
+            reset_counts()
+            synced(resumed.train)
+            add_counts(total, launch_counts())
+        pairs = list(zip(_tree_leaves(coach.params), _tree_leaves(resumed.params)))
+        pairs_h = list(zip(_tree_leaves(coach.disc_heads), _tree_leaves(resumed.disc_heads)))
+        same = [n for (n, a), (_, b) in pairs if torch.equal(a, b)]
+        same_h = [n for (n, a), (_, b) in pairs_h if torch.equal(a, b)]
+        with torch.no_grad():
+            diff = max(float((a - b).abs().max()) for (_, a), (_, b) in pairs + pairs_h)
+        n_p, n_h = len(pairs), len(pairs_h)
+        file_gb = (ck / f"step_{COACH_SAVE_AT}").stat().st_size / 1e9
+        print(f"resume from step_{COACH_SAVE_AT} ({file_gb:.2f} GB; a fresh Coach built and "
+              f"restored in {resume_s:.1f} s) to step {resumed.train_step_num}: {len(same)} of "
+              f"{n_p} params and {len(same_h)} of {n_h} head leaves bit-identical to the "
+              f"uninterrupted run (max-abs {diff:.3e})")
+        print(f"the run's checkpoints ({file_gb:.2f} GB full, weights only a little less): "
+              f"written in {', '.join(f'{t} {x:.2f} s' for t, x in save_s)} [{card}]")
+        if len(same) != n_p or len(same_h) != n_h or resumed.train_step_num != COACH_STEPS:
+            failures.append("the resumed run does not end where the uninterrupted one ends")
+        del resumed
+        torch.cuda.empty_cache()
+
+        # ---- the steps alone: G and D timed, one profiled, peak memory ----
+        batch = collate([data[0][i] for i in range(TRAIN_BATCH)])
+        (dev_batch, layer), data_s = synced(lambda: to_torch_batch(batch, dev))
+        host_s = [synced(lambda: collate([data[0][i] for i in range(TRAIN_BATCH)]))[1]
+                  for _ in range(3)]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        g_s, d_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for _ in range(COACH_TIMED):
+            (_, pred), dt = synced(lambda: coach.g_step(dev_batch, layer,
+                                                         coach.draw_g(dev_batch, gen)))
+            g_s.append(dt)
+            counts_g = launch_counts()
+            _, dt = synced(lambda: coach.d_step(pred, dev_batch["gt"], None,
+                                                draws=coach.draw_d(dev_batch, gen)))
+            d_s.append(dt)
+            if launch_counts() != counts_g:
+                failures.append("the D step launched an attention kernel")
+        counts = launch_counts()
+        check_launches(failures, f"{COACH_TIMED} Coach G steps (the D steps launch nothing)",
+                       counts, COACH_TIMED, flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18,
+                       flash_attention_bound=17)
+        add_counts(total, counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"Coach step batch {TRAIN_BATCH} x {N_REFS} refs, {RES} px, bf16, OptimConfig() "
+              f"weights: G steady median {statistics.median(g_s) * 1e3:.1f} ms "
+              f"{[round(x * 1e3, 1) for x in g_s]}, D steady median "
+              f"{statistics.median(d_s) * 1e3:.1f} ms {[round(x * 1e3, 1) for x in d_s]}, peak "
+              f"device memory {peak:.2f} GiB [{card}]")
+        print(f"host data per batch of {TRAIN_BATCH} (in-memory items, collate): "
+              f"{statistics.median(host_s) * 1e3:.1f} ms; to the card {data_s * 1e3:.1f} ms "
+              f"[{card}]")
+
+        def one_step():
+            _, p = coach.g_step(dev_batch, layer, coach.draw_g(dev_batch, gen))
+            coach.d_step(p, dev_batch["gt"], None, draws=coach.draw_d(dev_batch, gen))
+
+        busy = profile_run(one_step, "one Coach step (G + D)", card, top=12)
+        _, pred = coach.g_step(dev_batch, layer, coach.draw_g(dev_batch, gen))
+        busy_d = profile_run(lambda: coach.d_step(pred, dev_batch["gt"], None,
+                                                  draws=coach.draw_d(dev_batch, gen)),
+                             "one Coach D step", card, top=5)
+        if busy and busy_d:
+            print(f"Coach step device busy {busy:.1f} ms, of which the D step {busy_d:.1f} ms "
+                  f"({busy_d / busy * 100:.1f}%) [{card}]")
+
+        # ---- validation: launches per batch with and without overlays ----
+        val = collate([data[1][i] for i in range(TRAIN_BATCH)])
+        vdev, _ = to_torch_batch(val, dev)
+        eval_s = []
+        reset_counts()
+        for _ in range(3):
+            eval_s.append(synced(lambda: coach.eval_step(
+                vdev, coach.draw_eval(vdev, torch.Generator(device=dev).manual_seed(0))))[1])
+        counts = launch_counts()
+        check_launches(failures, "3 val batches (vis_attention off)", counts, 3,
+                       shared_flash_bound=9, flash_attention_bound=26)
+        add_counts(total, counts)
+        coach.cfg.log.vis_attention = True
+        reset_counts()
+        coach.validate()
+        counts = launch_counts()
+        # the first six batches save probabilities: their shared layers run
+        # unfused (models/attention.py), so no shared kernel launches
+        check_launches(failures, f"validate() with vis_attention, {val_batches} batches saving "
+                       "probabilities", counts, val_batches, flash_attention_bound=26)
+        add_counts(total, counts)
+        overlays = sorted(p.name for p in (Path(cfg.log.exp_dir) / "logs" / "val_attention")
+                          .glob("*")) if importlib.util.find_spec("PIL") else None
+        print(f"validation batch of {TRAIN_BATCH} x {N_REFS} refs: steady median "
+              f"{statistics.median(eval_s) * 1e3:.1f} ms {[round(x * 1e3, 1) for x in eval_s]} "
+              f"[{card}]; with vis_attention the shared layers run unfused (0 shared_flash_bound "
+              f"launches), overlays written: {overlays}")
+
+        # ---- reading a checkpoint back ----
+        _, load_s = synced(lambda: coach.restore(ck / f"step_{COACH_SAVE_AT}"))
+        print(f"full checkpoint read and restored into the live Coach in {load_s:.2f} s [{card}]")
+
+        # ---- the Predictor serves the run's final file ----
+        final = ck / "final"
+        pred_cls = Predictor(final, device=dev)
+        lora = "unet.up_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q.lora_B"
+        served = dict(_tree_leaves(pred_cls.params))[lora]
+        kept = dict(_tree_leaves(ckpt_mod.load_checkpoint(final)["params"]))[lora]
+        reset_counts()
+        out = pred_cls.predict_batch(val["image"], val["conditioning_images"])
+        counts = launch_counts()
+        check_launches(failures, "Predictor(checkpoint_path=final).predict_batch", counts, 1,
+                       shared_flash_bound=9, flash_attention_bound=26)
+        add_counts(total, counts)
+        ok = torch.equal(served.float().cpu(), kept.to(served.dtype).float())
+        print(f"Predictor(checkpoint_path=<run>/checkpoints/final): statics train_input "
+              f"{pred_cls.statics.train_input}, LoRA leaf as saved: {ok}, predict_batch "
+              f"{tuple(out.shape)} finite {all_finite(out)}")
+        if not ok or out.shape != (TRAIN_BATCH, RES, RES, 3) or not all_finite(out):
+            failures.append("the Predictor does not serve the Coach's final file")
+        del pred_cls, coach
+        torch.cuda.empty_cache()
+
+        # ---- accumulation: nothing moves until the second micro-step ----
+        acc = make(config("accumulate", optim__gradient_accumulation_steps=2,
+                          optim__lr_warmup_steps=0))
+        lora_leaves = [t for n, t in _tree_leaves(acc.params) if "lora_" in n]
+        before = [t.clone() for t in lora_leaves]
+        gen = torch.Generator(device=dev).manual_seed(6)
+        moved = []
+        for _ in range(2):
+            _, pred = acc.g_step(dev_batch, layer, acc.draw_g(dev_batch, gen))
+            acc.d_step(pred, dev_batch["gt"], None, draws=acc.draw_d(dev_batch, gen))
+            moved.append(sum(not torch.equal(a, b) for a, b in zip(lora_leaves, before)))
+        print(f"gradient_accumulation_steps=2: LoRA leaves moved after micro-step 1: {moved[0]}, "
+              f"after micro-step 2: {moved[1]} of {len(lora_leaves)}; G steps applied "
+              f"{acc.g_opt.count}, D {acc.d_opt.count}")
+        if moved[0] != 0 or moved[1] < 0.9 * len(lora_leaves) or acc.g_opt.count != 1:
+            failures.append(f"accumulation: moved {moved}")
+        del acc, lora_leaves, before
+        torch.cuda.empty_cache()
+        for name in ("run", "resumed", "accumulate"):
+            shutil.rmtree(tmp / name, ignore_errors=True)
+
+        # ---- files: the train CLI on PNGs through RestoreDataset ----
+        missing = [m for m in ("PIL", "cv2") if importlib.util.find_spec(m) is None]
+        if missing:
+            print(f"PNG training: not run, {missing} do not import on this machine")
+        else:
+            import cv2
+            import PIL
+            from PIL import Image
+
+            from instantrestore_tpu_torch.cli import train as cli_train
+            from instantrestore_tpu_torch.data.datasets import RestoreDataset
+
+            rng = np.random.default_rng(3)
+            for name in ("ann", "ben"):
+                d = tmp / "pngs" / "train" / name / "cropped_images"
+                d.mkdir(parents=True)
+                for i in range(3):
+                    Image.fromarray(rng.integers(0, 256, (RES + 32, RES + 32, 3), np.uint8)).save(
+                        d / f"{i}.png")
+                v = tmp / "pngs" / "val" / name
+                (v / "conditioning").mkdir(parents=True)
+                for rel in ("degraded.png", "gt.png", "conditioning/0.png", "conditioning/1.png"):
+                    Image.fromarray(rng.integers(0, 256, (RES, RES, 3), np.uint8)).save(v / rel)
+            ds = RestoreDataset(tmp / "pngs" / "train", max_conditioning_images=N_REFS,
+                                resolution=RES, get_id_mats=True, return_degradation_params=True)
+            items_s = [synced(lambda: collate([ds[i] for i in range(TRAIN_BATCH)]))[1]
+                       for _ in range(2)]
+            print(f"RestoreDataset from PNGs: host data per batch of {TRAIN_BATCH} "
+                  f"{statistics.median(items_s) * 1e3:.1f} ms in one thread (the degradation "
+                  f"chain, {N_REFS} references, ID matrices) [{card}]")
+            argv = ["--device", "cuda", f"log.exp_root={tmp}", "log.exp_name=cli",
+                    "log.log2wandb=false", f"data.data_root={tmp / 'pngs' / 'train'}",
+                    f"data.val_data_root={tmp / 'pngs' / 'val'}",
+                    "data.dataset_type=face_restore", f"compute.batch_size={TRAIN_BATCH}",
+                    "compute.workers=2", "steps.max_steps=2", "steps.metric_interval=1",
+                    "optim.lambda_cycle=1.0", "log.val_vis_count=0"]
+            how = "dotted overrides"
+            if importlib.util.find_spec("yaml") is not None:
+                import yaml
+
+                (tmp / "train.yaml").write_text(yaml.safe_dump({"model": {"lora_rank_unet": 32}}))
+                argv += ["--config_path", str(tmp / "train.yaml")]
+                how += " and a --config_path"
+            reset_counts()
+            rc, cli_s = synced(lambda: cli_train.main(argv))
+            counts = launch_counts()
+            add_counts(total, counts)
+            final = ckpt_mod.load_checkpoint(tmp / "cli" / "checkpoints" / "final")
+            log = (tmp / "cli" / "logs" / "log.txt").read_text()
+            print(f"cli.train.main with {how} on the PNGs (RestoreDataset, loader workers 2): exit "
+                  f"{rc}, step {final['step']}, cycle term {'loss_cycle' in log}, {cli_s:.1f} s "
+                  f"with the Coach's build, validation and two saves; launches {counts} [{card}]")
+            if rc != 0 or final["step"] != 2 or counts["flash_fwd_lse"] != 2 * 36:
+                failures.append("cli.train.main did not train its 2 steps")
+            print(f"PNG training: ran (Pillow {PIL.__version__}, OpenCV {cv2.__version__})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"coach phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("coach phase failed: " + "; ".join(failures))
+    return total
+
+
 def all_finite(a) -> bool:
     """Every value finite (a numpy array or a tensor)."""
     import torch
@@ -2690,10 +3115,11 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
-                    "them (kernels, vjp, serving, training, recipe, small, checkpoint); a partial "
-                    "run prints no result line")
+                    "them (kernels, vjp, serving, training, recipe, small, checkpoint, coach); a "
+                    "partial run prints no result line")
     only = set(filter(None, ap.parse_args().only.split(",")))
-    unknown = only - {"kernels", "vjp", "serving", "training", "recipe", "small", "checkpoint"}
+    unknown = only - {"kernels", "vjp", "serving", "training", "recipe", "small", "checkpoint",
+                      "coach"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -2755,6 +3181,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if wanted("checkpoint"):
         add_counts(counts, checkpoint_phase(card))
+    if wanted("coach"):
+        torch.cuda.empty_cache()
+        add_counts(counts, coach_phase(card))
     print(f"launches over the paths: {counts}")
     if only:
         print(f"partial run ({sorted(only)}): no result line")

@@ -3,10 +3,11 @@ dotted ``section.field=value`` overrides (the port's own copy of
 ``instantrestore_tpu/configs/config.py``: same fields, same defaults, so the
 reference's YAML files decode unchanged).
 
-Fields the port does not act on yet are kept so that such files still load:
-``mesh_shape`` and ``steps_per_dispatch`` (one process, one card, one step per
-call), the GAN, ID and cycle weights of ``OptimConfig`` (their loss terms
-raise until they are ported, ``training/losses/composite.py``).
+Every loss weight of ``OptimConfig`` is acted on (``training/losses/
+composite.py``). Fields of the JAX package's multi-device runs are kept so
+that such files still load: ``mesh_shape`` is not read (one process, one
+card), and the Coach refuses ``steps_per_dispatch`` above 1 (the JAX
+package's scanned multi-step dispatch; ROADMAP Queue 5 item 4).
 """
 
 from __future__ import annotations
@@ -42,10 +43,11 @@ class ComputeConfig:
     # return attention probabilities for a loss always take the unfused path.
     fused_attention: Optional[bool] = None
     # checkpoint each restore stage in the train step (encode, capture, UNet,
-    # decode): activations are rebuilt in the backward. None = auto: on.
+    # decode): activations are rebuilt in the backward. None = auto: on for a
+    # CUDA device, off on the CPU.
     remat: Optional[bool] = None
-    # train steps per dispatch of the JAX package's scanned loop; the port
-    # takes one step per call
+    # train steps per dispatch of the JAX package's scanned loop; the port's
+    # Coach takes one step per call and refuses more
     steps_per_dispatch: int = 1
 
     def __post_init__(self):
@@ -218,11 +220,12 @@ def load_config(
     overrides: Optional[List[str]] = None,
     cls=TrainConfig,
 ):
-    """Build a config from YAML plus ``section.field=value`` overrides."""
-    import yaml
-
+    """Build a config from YAML plus ``section.field=value`` overrides
+    (yaml is imported only to read a file)."""
     data: Dict[str, Any] = {}
     if yaml_path:
+        import yaml
+
         with open(yaml_path) as f:
             data = yaml.safe_load(f) or {}
     for ov in overrides or []:

@@ -2,8 +2,11 @@
 servable (counterpart of ``instantrestore_tpu/training/checkpoints.py``).
 
 The port's own checkpoint is one ``torch.save`` file of ``{"params",
-"step", "cfg"}`` (the cfg as a plain dict, ``encode_config``). The JAX
-package's orbax checkpoints are not read: orbax imports JAX.
+"step", "cfg"}`` (the cfg as a plain dict, ``encode_config``), plus what the
+trainer adds (``training/coach.py``: the discriminator's heads, and in a
+full checkpoint both optimizers' moments, counts and accumulation buffers,
+and the best validation loss). The JAX package's orbax checkpoints are not
+read: orbax imports JAX.
 
 A reference ``.pt`` becomes a restorer bundle through
 ``import_reference_checkpoint``. Where its files are found, unless the
@@ -38,21 +41,38 @@ BASE_WEIGHTS_ENV = "INSTANTRESTORE_BASE_WEIGHTS"
 TOKENIZER_DIR_ENV = "INSTANTRESTORE_TOKENIZER_DIR"
 
 
-def save_checkpoint(path, params: Dict[str, Any], *, cfg=None, step: Optional[int] = None) -> None:
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def save_checkpoint(path, params: Dict[str, Any], *, cfg=None, step: Optional[int] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> None:
     """Write the port's own checkpoint: ``params`` (moved to the CPU),
-    ``step`` and ``cfg`` (a config dataclass, stored as a plain dict)."""
+    ``step``, ``cfg`` (a config dataclass, stored as a plain dict) and the
+    entries of ``extra`` (trees of tensors, numbers and strings; their
+    tensors moved to the CPU). The file is written beside ``path`` and moved
+    over it, so a crash never leaves half a checkpoint."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"params": tree_to(params, "cpu"), "step": step,
-                "cfg": None if cfg is None else encode_config(cfg)}, str(path))
+    payload = {k: _to_cpu(v) for k, v in (extra or {}).items()}
+    payload.update({"params": _to_cpu(params), "step": step,
+                    "cfg": None if cfg is None else encode_config(cfg)})
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(payload, str(tmp))
+    os.replace(tmp, path)
 
 
 def load_checkpoint(path) -> Dict[str, Any]:
-    """Read the port's own checkpoint: {"params", "step", "cfg"}."""
+    """Read the port's own checkpoint: {"params", "step", "cfg"} and any
+    entries the trainer added."""
     raw = torch_load(path)
     if "params" not in raw:
         raise ValueError(f"{path} is not a checkpoint of the port (no 'params' entry)")
-    return {"params": raw["params"], "step": raw.get("step"), "cfg": raw.get("cfg")}
+    return {**raw, "step": raw.get("step"), "cfg": raw.get("cfg")}
 
 
 def _load_weight_file(path: Path) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,702 @@
+"""The trainer (counterpart of ``instantrestore_tpu/training/coach.py``): a
+GAN-style loop of a generator step (the restore forward, the composite loss,
+AdamW on the LoRA leaves and ``unet.conv_in``) and a discriminator step (the
+vision-aided D on the real image and the detached prediction, AdamW on its
+heads) per batch, gradient accumulation, metric / image / validation / save
+intervals, validation over the whole test set with best-model tracking, and
+resumable checkpoints.
+
+Differences from the JAX Coach, each deliberate:
+  * one process and one card (CUDA unless ``device="cpu"`` is asked). A
+    multi-process launch raises until DDP is ported (ROADMAP Queue 1 item
+    1e); ``steps_per_dispatch`` above 1 (the JAX package's scanned
+    multi-step dispatch) raises (Queue 5 item 4).
+  * the G step is the port's ``make_train_step`` (trainable leaves and
+    moments updated in place).
+  * the random draws are explicit: ``draw_g`` / ``draw_d`` / ``draw_eval``
+    make them from a ``torch.Generator`` and ``g_step`` / ``d_step`` /
+    ``eval_step`` take them, so tests inject what JAX drew. ``train()``
+    re-seeds one generator from (``cfg.compute.seed``, step) before each
+    step and starts the loader at the restored step's epoch and batch, so a
+    run resumed from a full checkpoint takes the steps the uninterrupted run
+    takes; ``validate()`` draws every batch from a generator seeded 0, as
+    JAX's validation uses one key for every batch.
+  * the D step leaves every spectral-norm ``u`` to the power iteration.
+    JAX's optimizer masks ``u`` out, but ``optax.masked`` passes a masked
+    leaf's update through unchanged, so its D step also adds the loss's
+    gradient w.r.t. ``u`` to the new ``u``; torch's ``spectral_norm`` keeps
+    ``u`` a buffer, and so does the port.
+  * checkpoints are one ``torch.save`` file each (``training/checkpoints.py``),
+    not orbax directories.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from instantrestore_tpu_torch import resolve_device
+from instantrestore_tpu_torch.configs.config import TrainConfig, encode_config
+from instantrestore_tpu_torch.convert import tree_to
+from instantrestore_tpu_torch.data.datasets import (
+    RestoreDataset,
+    RestoreDatasetTest,
+    to_torch_batch,
+)
+from instantrestore_tpu_torch.data.loader import DataLoader
+from instantrestore_tpu_torch.models.lora import strip_lora, trainable_mask
+from instantrestore_tpu_torch.models.restorer import (
+    RestorerStatics,
+    init_restorer_params,
+    restore_forward,
+)
+from instantrestore_tpu_torch.models.vit import CLIP_VITB32, DINO_VITB16, DINOV2_VITL14
+from instantrestore_tpu_torch.training import checkpoints as ckpt_mod
+from instantrestore_tpu_torch.training.logging_utils import CoachLogger
+from instantrestore_tpu_torch.training.losses import gan as gan_mod
+from instantrestore_tpu_torch.training.losses.composite import (
+    compute_generator_loss,
+    crop_with_boxes,
+    facial_comp_sizes,
+)
+from instantrestore_tpu_torch.training.losses.lpips import init_lpips_params
+from instantrestore_tpu_torch.training.optim import (
+    freeze_non_trainable,
+    make_optimizer,
+    trainable_leaves,
+)
+from instantrestore_tpu_torch.training.train_step import make_train_step
+
+# backbone -> (head in_ch, out_size) of the SimpleD-headed conv backbones
+SIMPLE_HEADS = {"vgg": (512, 3), "swin": (768, 3), "face_seg": (256, 4), "face_normals": (512, 4),
+                "seg_ade": (768, 4), "det_coco": (768, 4)}
+KNOWN_DISC_TYPES = ("face_normals", "face_seg", "swin", "clip", "dinov2", "dino", "vgg",
+                    "seg_ade", "det_coco")
+
+
+def _dealias(tree):
+    """Clone every leaf whose storage an earlier leaf already uses, so that
+    in-place updates of one never reach another (a bundle may share
+    ``unet.conv_in`` with ``unet_orig_conv_in``)."""
+    seen = set()
+
+    def f(x):
+        if isinstance(x, dict):
+            return {k: f(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [f(v) for v in x]
+        if not isinstance(x, torch.Tensor):
+            return x
+        ptr = x.untyped_storage().data_ptr()
+        if ptr in seen:
+            return x.clone()
+        seen.add(ptr)
+        return x
+
+    return f(tree)
+
+
+def _const_mask(tree, value: bool):
+    """A mask tree shaped like ``tree`` with every entry ``value``."""
+    if isinstance(tree, dict):
+        return {k: _const_mask(v, value) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_const_mask(v, value) for v in tree]
+    return value
+
+
+def _set_u_untrainable(mask_tree):
+    """Every ``u`` (a power-iteration vector) of a head mask set to False."""
+    if isinstance(mask_tree, dict):
+        for k in mask_tree:
+            if k == "u":
+                mask_tree[k] = False
+            else:
+                _set_u_untrainable(mask_tree[k])
+    elif isinstance(mask_tree, list):
+        for v in mask_tree:
+            _set_u_untrainable(v)
+    return mask_tree
+
+
+@torch.no_grad()
+def _copy_into(dst, src, path=""):
+    """Copy the leaves of ``src`` into the tensors of ``dst`` in place."""
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"checkpoint tree differs at '{path}': {sorted(set(dst) ^ set(src))}")
+        for k in dst:
+            _copy_into(dst[k], src[k], f"{path}.{k}" if path else k)
+    elif isinstance(dst, list):
+        if len(dst) != len(src):
+            raise ValueError(f"checkpoint tree differs at '{path}'")
+        for i, (d, s) in enumerate(zip(dst, src)):
+            _copy_into(d, s, f"{path}.{i}")
+    elif isinstance(dst, torch.Tensor):
+        if dst.shape != src.shape:
+            raise ValueError(f"checkpoint leaf '{path}': {tuple(src.shape)}, "
+                             f"the model has {tuple(dst.shape)}")
+        dst.copy_(src)
+
+
+def _u_leaves(tree, out=None):
+    """The ``u`` entries of a head tree as (parent dict, tensor) in tree order."""
+    out = [] if out is None else out
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "u":
+                out.append(tree)
+            else:
+                _u_leaves(v, out)
+    elif isinstance(tree, list):
+        for v in tree:
+            _u_leaves(v, out)
+    return out
+
+
+def _multi_process_launch() -> bool:
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return True
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+class Coach:
+    def __init__(
+        self,
+        cfg: TrainConfig,
+        *,
+        statics: Optional[RestorerStatics] = None,
+        params: Optional[Dict[str, Any]] = None,
+        lpips_params=None,
+        arcface_params=None,
+        disc_backbone=None,
+        vit_cfg=DINOV2_VITL14,
+        datasets=None,
+        mtcnn_params=None,
+        device=None,
+    ):
+        if cfg.compute.steps_per_dispatch > 1:
+            raise ValueError(
+                f"steps_per_dispatch={cfg.compute.steps_per_dispatch}: the port takes one train "
+                "step per call; the JAX package's scanned dispatch of several steps has no "
+                "counterpart until the step is a CUDA graph (ROADMAP Queue 5 item 4)")
+        if _multi_process_launch():
+            raise NotImplementedError("multi-process training is not ported yet: DDP over the "
+                                      "trainable leaves is ROADMAP Queue 1 item 1e")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.statics = statics or RestorerStatics.from_model_config(cfg.model)
+        self.vit_cfg = vit_cfg
+        self.logger = CoachLogger(cfg.log.exp_dir, use_tensorboard=cfg.log.log2wandb)
+        self.logger.log_config(encode_config(cfg))
+        self.train_step_num = 0
+        self.best_val_loss = float("inf")
+        dev = self.device
+
+        gen = torch.Generator(device=dev).manual_seed(cfg.compute.seed)
+        if params is None:
+            if cfg.model.checkpoint_path:
+                params = ckpt_mod.import_reference_checkpoint(cfg.model.checkpoint_path,
+                                                              device=dev)["bundle"]
+                self.logger.log_message(f"loaded checkpoint {cfg.model.checkpoint_path}")
+            else:
+                params = init_restorer_params(gen, self.statics,
+                                              lora_rank_unet=cfg.model.lora_rank_unet,
+                                              lora_rank_vae=cfg.model.lora_rank_vae, device=dev)
+                if not cfg.model.train_vae:
+                    params["vae"] = strip_lora(params["vae"])
+        # fp32 leaves on the device (the optimizer's rule), no two sharing storage
+        self.params = _dealias(tree_to(params, dev, torch.float32))
+
+        self.lpips_params = tree_to(lpips_params, dev)
+        if self.lpips_params is None and cfg.optim.lambda_lpips > 0:
+            self.lpips_params = init_lpips_params(gen, device=dev)
+        self.arcface_params = tree_to(arcface_params, dev)
+        self._id_detect_fn = None
+        if cfg.optim.id_detect_predictions and mtcnn_params is not None:
+            from instantrestore_tpu_torch.data.mtcnn import landmark_detector
+
+            self._id_detect_fn = landmark_detector(tree_to(mtcnn_params, dev))
+
+        # the discriminator: backbone by gan_disc_type, 'dinov2' for anything
+        # unknown (the config default 'vagan_clip' included)
+        gd = cfg.optim.gan_disc_type
+        self.disc_type = gd if gd in KNOWN_DISC_TYPES else "vgg" if "vgg" in gd else "dinov2"
+        self.disc_backbone = tree_to(disc_backbone, dev)
+        self.disc_heads = None
+        if cfg.optim.lambda_gan > 0:
+            if self.disc_type in SIMPLE_HEADS:
+                if self.disc_backbone is None:
+                    self.disc_backbone = self._init_conv_backbone(gen)
+                in_ch, out_size = SIMPLE_HEADS[self.disc_type]
+                self.disc_heads = gan_mod.init_simple_head(gen, in_ch=in_ch, out_size=out_size,
+                                                           device=dev)
+            else:
+                if vit_cfg is DINOV2_VITL14:  # the default: the backbone of the disc type
+                    self.vit_cfg = {"clip": CLIP_VITB32, "dino": DINO_VITB16}.get(
+                        self.disc_type, vit_cfg)
+                if self.disc_backbone is None:
+                    from instantrestore_tpu_torch.models.vit import init_vit_params
+
+                    self.disc_backbone = init_vit_params(gen, self.vit_cfg, device=dev)
+                self.disc_heads = gan_mod.init_discriminator_heads(
+                    gen, embed_dim=self.vit_cfg.embed_dim,
+                    out_ch=128 if self.disc_type == "dino" else 256,
+                    token_dim=self.vit_cfg.proj_dim or self.vit_cfg.embed_dim, device=dev)
+
+        # the two optimizers: G over LoRA, unet.conv_in (and the VAE skip
+        # convs with use_shortcuts); D over the heads but their u vectors
+        p = self.params
+        skips = (("skip_conv_1", "skip_conv_2", "skip_conv_3", "skip_conv_4")
+                 if cfg.model.use_shortcuts else ())
+        self.g_mask = {
+            "unet": trainable_mask(p["unet"], extra_trainable=("conv_in",)),
+            "unet_orig_conv_in": trainable_mask(p["unet_orig_conv_in"]),
+            "vae": trainable_mask(p["vae"], extra_trainable=skips),
+            "caption_enc": False,
+        }
+        for k in p:
+            self.g_mask.setdefault(k, _const_mask(p[k], False))
+        acc = cfg.optim.gradient_accumulation_steps
+        self.g_opt = make_optimizer(cfg.optim, cfg.steps.max_steps, self.g_mask, acc)
+        self.d_mask = self.d_opt = None
+        if self.disc_heads is not None:
+            self.d_mask = _set_u_untrainable(_const_mask(self.disc_heads, True))
+            self.d_opt = make_optimizer(cfg.optim, cfg.steps.max_steps, self.d_mask, acc)
+
+        if datasets is not None:
+            self.train_dataset, self.test_dataset = datasets
+        else:
+            self.train_dataset, self.test_dataset = self._build_datasets()
+        if cfg.data.overfit:
+            self.logger.log_message("WARNING: Running in overfit mode!")
+            self.train_dataset.shuffle(cfg.compute.seed)
+            self.train_dataset.paths = self.train_dataset.paths[: cfg.compute.batch_size]
+            self.test_dataset = self.train_dataset
+        self.train_loader = DataLoader(self.train_dataset, cfg.compute.batch_size,
+                                       shuffle=not cfg.data.overfit,
+                                       num_workers=cfg.compute.workers, seed=cfg.compute.seed)
+        self.test_loader = DataLoader(self.test_dataset, cfg.compute.test_batch_size,
+                                      shuffle=False, num_workers=cfg.compute.test_workers,
+                                      drop_last=False)
+
+        self._build_steps()
+        if cfg.log.resume_from:
+            self.restore(cfg.log.resume_from)
+
+    # ------------------------------------------------------------------
+
+    def _init_conv_backbone(self, gen):
+        dev, dt = self.device, self.disc_type
+        if dt == "vgg":
+            return gan_mod.init_vgg_backbone(gen, device=dev)
+        if dt in ("swin", "seg_ade", "det_coco"):
+            from instantrestore_tpu_torch.models.swin import init_swin_params
+
+            return init_swin_params(gen, device=dev)
+        from instantrestore_tpu_torch.training.losses import backbones
+
+        if dt == "face_seg":
+            return backbones.init_parsing_unet(gen, device=dev)
+        return backbones.init_resnet18(gen, device=dev)
+
+    def _build_datasets(self):
+        cfg = self.cfg
+        if cfg.data.dataset_type == "face_restore":
+            train = RestoreDataset(
+                cfg.data.data_root,
+                max_conditioning_images=cfg.data.max_conditioning_images,
+                resolution=cfg.data.resolution,
+                train_input=cfg.model.train_input,
+                get_gt_attn_probs=cfg.optim.lambda_landmark > 0,
+                get_attn_pos_reg=cfg.optim.lambda_pos_reg > 0,
+                get_attn_neg_reg=cfg.optim.lambda_neg_reg > 0,
+                get_facial_comps=cfg.optim.lambda_facial_comp > 0,
+                get_id_mats=cfg.optim.lambda_id_loss > 0 and self.arcface_params is not None,
+                return_degradation_params=cfg.optim.lambda_cycle > 0,
+                seed=cfg.compute.seed,
+            )
+            test = RestoreDatasetTest(cfg.data.val_data_root,
+                                      max_conditioning_images=cfg.data.max_conditioning_images,
+                                      resolution=cfg.data.resolution)
+            return train, test
+        if cfg.data.dataset_type in ("debug", "augmentations"):
+            from instantrestore_tpu_torch.data.datasets import PairedDataset
+
+            kw = dict(max_conditioning_images=cfg.data.max_conditioning_images,
+                      resolution=cfg.data.resolution)
+            return (PairedDataset(cfg.data.data_root, seed=cfg.compute.seed, **kw),
+                    PairedDataset(cfg.data.val_data_root, **kw))
+        raise ValueError(f"unknown dataset type {cfg.data.dataset_type!r}")
+
+    def _build_steps(self):
+        cfg = self.cfg
+        # full probabilities only for the landmark term's layer; the entropy
+        # and pos/neg regularisers read streamed per-segment sums
+        self._need_landmark_probs = cfg.optim.lambda_landmark > 0
+        self._need_seg_stats = (cfg.optim.lambda_attn_reg > 0 or cfg.optim.lambda_pos_reg > 0
+                                or cfg.optim.lambda_neg_reg > 0)
+        on_cuda = self.device.type == "cuda"
+        fused = cfg.compute.fused_attention
+        self._fused_attention = on_cuda if fused is None else fused
+        remat = cfg.compute.remat
+        self._remat = on_cuda if remat is None else remat
+        self.logger.log_message(
+            f"attention path: {'fused kernels' if self._fused_attention else 'unfused'}, "
+            f"remat {'on' if self._remat else 'off'}"
+            + (" [the landmark layer's shared attention runs unfused for its probabilities]"
+               if self._need_landmark_probs and self._fused_attention else ""))
+        self._g_steps: Dict[Optional[int], Any] = {}
+        self._g_draws: Dict[str, Any] = {}
+
+    def _g_step_fn(self, landmark_layer: Optional[int]):
+        """The port's train step, one per landmark layer (the layer whose
+        probabilities it saves)."""
+        if landmark_layer not in self._g_steps:
+            probs = self._need_landmark_probs and landmark_layer is not None
+            self._g_steps[landmark_layer] = make_train_step(
+                self.statics, self.cfg.optim, self.g_opt, self.g_mask, self._g_loss,
+                save_attn_probs=probs, probs_layers=(landmark_layer,) if probs else None,
+                save_seg_sums=self._need_seg_stats, use_fused_attention=self._fused_attention,
+                remat=self._remat, device=self.device)
+        return self._g_steps[landmark_layer]
+
+    def _g_loss(self, out, batch, ocfg):
+        d = self._g_draws
+        degrade_fn = None
+        if ocfg.lambda_cycle > 0 and "degradation_params" in batch:
+            from instantrestore_tpu_torch.ops.image_ops import degrade_with_params
+
+            def degrade_fn(pred_pm1):
+                # the batch's own degradation parameters on the prediction, in [0, 1]
+                return degrade_with_params((pred_pm1 + 1.0) * 0.5, batch["degradation_params"],
+                                           noise=d["cycle_noise"],
+                                           resolution=pred_pm1.shape[1]) * 2.0 - 1.0
+
+        return compute_generator_loss(
+            out, batch, ocfg, layer_idx=d["layer_idx"], lpips_params=self.lpips_params,
+            arcface_params=self.arcface_params, disc_backbone=self.disc_backbone,
+            disc_heads=self.disc_heads, vit_cfg=self.vit_cfg, disc_type=self.disc_type,
+            gan_draws=d["gan_draws"], train_input=self.statics.train_input,
+            degrade_fn=degrade_fn, landmark_layer=d["landmark_layer"])
+
+    # ---- the random draws ----------------------------------------------
+
+    def _restore_noise(self, batch, gen) -> Dict[str, torch.Tensor]:
+        b, h, w = batch["image"].shape[:3]
+        shape = (b, h // 8, w // 8, 4)
+        noise = {k: torch.randn(shape, generator=gen, device=gen.device)
+                 for k in ("latent", "diffusion")}
+        if batch.get("conditioning_images") is not None and self.statics.use_shared_attention:
+            n = batch["conditioning_images"].shape[1]
+            for k in ("cond_latent", "cond_diffusion"):
+                noise[k] = torch.randn((b * n,) + shape[1:], generator=gen, device=gen.device)
+        return {k: v.to(self.device) for k, v in noise.items()}
+
+    def _draw_layer(self, gen) -> int:
+        """The shared layer the reference-usage regularisers read."""
+        n = self.statics.unet_cfg.num_shared_attn_layers
+        return int(torch.randint(n, (), generator=gen, device=gen.device))
+
+    def _crop_sizes(self, batch, boxes_used: bool):
+        return facial_comp_sizes(batch["image"].shape[1]) if boxes_used else ()
+
+    def draw_g(self, batch, gen: torch.Generator) -> Dict[str, Any]:
+        """Every random choice of one G step on ``batch``, from ``gen``: the
+        restore noise and timestep, the reference-usage layer, DiffAugment's
+        draws (the whole image, then each facial crop) and the cycle term's
+        noise."""
+        from instantrestore_tpu_torch.ops.image_ops import cycle_noise_shapes
+
+        b, h, w = batch["image"].shape[:3]
+        ts = self.statics.noise_timesteps
+        draws: Dict[str, Any] = {
+            "noise": self._restore_noise(batch, gen),
+            "timestep": int(ts[int(torch.randint(len(ts), (), generator=gen, device=gen.device))]),
+            "layer_idx": self._draw_layer(gen),
+            "gan_draws": None, "cycle_noise": None,
+        }
+        if self.disc_heads is not None:
+            crops = self._crop_sizes(batch, self.cfg.optim.lambda_facial_comp > 0
+                                     and batch.get("facial_comp_boxes") is not None)
+            draws["gan_draws"] = [gan_mod.diff_augment_draws(b, hh, ww, gen, self.device)
+                                  for hh, ww in [(h, w)] + list(crops)]
+        if self.cfg.optim.lambda_cycle > 0 and "degradation_params" in batch:
+            draws["cycle_noise"] = [torch.randn(s, generator=gen, device=gen.device).to(self.device)
+                                    for s in cycle_noise_shapes(b, h, w)]
+        return draws
+
+    def draw_d(self, batch, gen: torch.Generator) -> List[Dict[str, torch.Tensor]]:
+        """DiffAugment's draws of one D step: the real image's, the fake's,
+        then (real, fake) per facial crop."""
+        b, h, w = batch["gt"].shape[:3]
+        sizes = [(h, w)] * 2
+        for hh, ww in self._crop_sizes(batch, batch.get("facial_comp_boxes") is not None):
+            sizes += [(hh, ww)] * 2
+        return [gan_mod.diff_augment_draws(b, hh, ww, gen, self.device) for hh, ww in sizes]
+
+    def draw_eval(self, batch, gen: torch.Generator) -> Dict[str, Any]:
+        """The eval step's draws: the restore noise and the reference-usage layer."""
+        return {"noise": self._restore_noise(batch, gen),
+                "layer_idx": self._draw_layer(gen)}
+
+    # ---- the steps ---------------------------------------------------------
+
+    def g_step(self, batch: Dict[str, Any], landmark_layer: Optional[int],
+               draws: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """One generator step on a device batch (``to_torch_batch``) with
+        ``draws`` (``draw_g``): the trainable leaves and the G optimizer move
+        in place (every k-th call under accumulation). Returns (the loss
+        terms, the prediction)."""
+        self._g_draws = dict(draws, landmark_layer=landmark_layer)
+        try:
+            metrics, out = self._g_step_fn(landmark_layer)(
+                self.params, batch, noise=draws["noise"], timestep=draws["timestep"])
+        finally:
+            self._g_draws = {}
+        return metrics, out["output_image"].detach()
+
+    def d_step(self, pred: torch.Tensor, real: torch.Tensor, boxes: Optional[torch.Tensor], *,
+               draws: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """One discriminator step: the multi-level loss on the real images and
+        on the detached prediction (and on their facial crops at ``boxes``),
+        its gradient w.r.t. the heads but their ``u`` vectors, the new ``u``
+        of the power iteration, then AdamW on the heads in place. Returns the
+        loss."""
+        cfg, heads = self.cfg.optim, self.disc_heads
+        fake = pred.detach()
+        kw = dict(vit_cfg=self.vit_cfg, disc_type=self.disc_type, update_sn=True)
+        freeze_non_trainable(heads, self.d_mask)
+        try:
+            l_real, new = gan_mod.discriminate(self.disc_backbone, heads, real, draws=draws[0],
+                                               for_real=True, **kw)
+            l_fake, new = gan_mod.discriminate(self.disc_backbone, new, fake, draws=draws[1],
+                                               for_real=False, **kw)
+            loss = 0.5 * (l_real.mean() + l_fake.mean()) * cfg.lambda_gan
+            if boxes is not None:
+                # the facial-component terms on eye and mouth crops of both
+                fc = loss.new_zeros(())
+                for i, (hh, ww) in enumerate(facial_comp_sizes(real.shape[1])):
+                    o = boxes[:, i]
+                    lr, new = gan_mod.discriminate(
+                        self.disc_backbone, new, crop_with_boxes(real, o, hh, ww),
+                        draws=draws[2 + 2 * i], for_real=True, **kw)
+                    lf, new = gan_mod.discriminate(
+                        self.disc_backbone, new, crop_with_boxes(fake, o, hh, ww),
+                        draws=draws[3 + 2 * i], for_real=False, **kw)
+                    fc = fc + lr.mean() + lf.mean()
+                loss = loss + fc * cfg.lambda_gan * cfg.lambda_facial_comp
+            leaves = trainable_leaves(heads, self.d_mask)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            freeze_non_trainable(heads, _const_mask(heads, False))
+        with torch.no_grad():
+            for old, fresh in zip(_u_leaves(heads), _u_leaves(new)):
+                old["u"].copy_(fresh["u"])
+        self.d_opt.update(heads, list(grads))
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, Any], draws: Dict[str, Any], *, save_attn: bool = False,
+                  save_stats: bool = False):
+        """The restore at ``cfg.model.noise_timestep`` and its loss terms
+        (no GAN or cycle term), without gradients. ``save_stats`` adds the
+        streamed segment sums (the attention regularisers on every batch),
+        ``save_attn`` the probabilities (the visualised batches). Returns
+        (the loss terms, the prediction, the probabilities or None)."""
+        out = restore_forward(
+            self.params, batch["image"], batch.get("conditioning_images"),
+            batch.get("valid_indices"), statics=self.statics,
+            timestep=self.cfg.model.noise_timestep, noise=draws["noise"],
+            save_attn_probs=save_attn, save_seg_sums=save_stats,
+            use_fused_attention=self._fused_attention)
+        _, losses = compute_generator_loss(
+            out, batch, self.cfg.optim, layer_idx=draws["layer_idx"],
+            lpips_params=self.lpips_params, arcface_params=self.arcface_params,
+            train_input=self.statics.train_input)
+        return losses, out["output_image"], out.get("attn_probs")
+
+    # ---- the loop ----------------------------------------------------------
+
+    def _step_seed(self, step: int) -> int:
+        return (self.cfg.compute.seed * 2**32 + step) % 2**63
+
+    def train(self):
+        """Steps until ``cfg.steps.max_steps``, then a validation and the
+        ``final`` checkpoint."""
+        cfg = self.cfg
+        n_batches = len(self.train_loader)
+        if n_batches == 0:
+            raise ValueError(f"the training set ({len(self.train_dataset)} items) holds no batch "
+                             f"of {cfg.compute.batch_size}")
+        gen = torch.Generator(device=self.device)
+        self._t0 = time.time()
+        self._steps_since_metric = 0
+        while self.train_step_num < cfg.steps.max_steps:
+            epoch, offset = divmod(self.train_step_num, n_batches)
+            self.train_loader.start_at(epoch, offset)
+            for batch in self.train_loader:
+                if self.train_step_num >= cfg.steps.max_steps:
+                    break
+                gen.manual_seed(self._step_seed(self.train_step_num))
+                self._run_single_step(batch, gen)
+        self.validate()
+        self.save(tag="final")
+
+    def _run_single_step(self, batch, gen: torch.Generator):
+        dev_batch, landmark_layer = to_torch_batch(batch, self.device)
+        losses, pred = self.g_step(dev_batch, landmark_layer, self.draw_g(dev_batch, gen))
+        if self.disc_heads is not None:
+            losses["loss_d"] = self.d_step(pred, dev_batch["gt"],
+                                           dev_batch.get("facial_comp_boxes"),
+                                           draws=self.draw_d(dev_batch, gen))
+        self._after_step(losses, pred, batch)
+
+    def _after_step(self, losses, pred, last_batch):
+        cfg = self.cfg
+        self.train_step_num += 1
+        self.logger.update_step(self.train_step_num)
+
+        def crossed(interval):
+            return self.train_step_num % interval == 0
+
+        self._steps_since_metric += 1
+        if crossed(cfg.steps.metric_interval):
+            scalars = {k: float(v) for k, v in losses.items()}
+            scalars["steps_per_sec"] = self._steps_since_metric / max(time.time() - self._t0, 1e-9)
+            self._t0 = time.time()
+            self._steps_since_metric = 0
+            self.logger.log_metrics(scalars, "train")
+        if crossed(cfg.steps.image_interval):
+            self.logger.vis_batch("train_images", {"input": last_batch["image"],
+                                                   "pred": pred.float().cpu().numpy(),
+                                                   "gt": last_batch["gt"]})
+        if crossed(cfg.steps.val_interval):
+            self.validate()
+        if crossed(cfg.steps.save_interval):
+            # interval checkpoints are for crash recovery: the full trainer state
+            self.save(tag=f"step_{self.train_step_num}", full=True)
+
+    def validate(self) -> Optional[float]:
+        """The whole test set: losses averaged over every batch;
+        ``val_vis_count`` caps the visualised batches (batch_idx <=
+        val_vis_count) and attention overlays go to the first six; the
+        attention regularisers enter every batch's loss through the streamed
+        segment sums, so the cap does not bias best-model selection."""
+        agg: Dict[str, list] = {}
+        gen = torch.Generator(device=self.device)
+        for batch_idx, batch in enumerate(self.test_loader):
+            dev_batch, _ = to_torch_batch(batch, self.device)
+            shared_live = (self.statics.use_shared_attention
+                           and "conditioning_images" in dev_batch)
+            save_attn = batch_idx <= 5 and self.cfg.log.vis_attention and shared_live
+            o = self.cfg.optim
+            save_stats = shared_live and (o.lambda_attn_reg > 0 or o.lambda_pos_reg > 0
+                                          or o.lambda_neg_reg > 0)
+            gen.manual_seed(0)
+            losses, pred, attn_probs = self.eval_step(dev_batch, self.draw_eval(dev_batch, gen),
+                                                      save_attn=save_attn, save_stats=save_stats)
+            for k, v in losses.items():
+                agg.setdefault(k, []).append(float(v))
+            pred_np = pred.float().cpu().numpy()
+            if batch_idx == 0 and self._id_detect_fn is not None and (
+                    self.arcface_params is not None):
+                self._log_detected_id_sim(agg, pred_np, batch)
+            if batch_idx <= self.cfg.log.val_vis_count:
+                self.logger.vis_batch(f"val_images/{batch_idx:04d}",
+                                      {"input": batch["image"], "pred": pred_np,
+                                       "gt": batch["gt"]})
+                if save_attn and attn_probs and self.logger.can_write_images():
+                    from instantrestore_tpu_torch.utils.vis import vis_attn_probs
+
+                    self.logger.save_image(f"val_attention/{batch_idx:04d}", vis_attn_probs(
+                        [p.float().cpu().numpy() for p in attn_probs],
+                        np.asarray(batch["conditioning_images"]),
+                        train_input=self.statics.train_input))
+        if not agg:
+            return None
+        mean_losses = {k: float(np.mean(v)) for k, v in agg.items()}
+        self.logger.log_metrics(mean_losses, "val")
+        if mean_losses.get("loss", math.inf) < self.best_val_loss:
+            self.best_val_loss = mean_losses["loss"]
+            self.save(tag="best_model")
+            (Path(self.cfg.log.exp_dir) / "checkpoints" / "timestep.txt").write_text(
+                f"best val loss {self.best_val_loss:.5f} at step {self.train_step_num}\n")
+        return mean_losses.get("loss")
+
+    def _log_detected_id_sim(self, agg, pred: np.ndarray, batch):
+        """The ID similarity of the first val batch aligned by MTCNN on the
+        predictions and targets, beside the dataset-aligned one, so that the
+        alignment's drift is a logged metric."""
+        from instantrestore_tpu_torch.training.losses import id_loss as id_mod
+
+        dev = self.device
+        gt = np.asarray(batch["gt"], np.float32)
+        mats_p, valid_p = id_mod.detector_alignment_mats(self._id_detect_fn, pred)
+        mats_g, valid_g = id_mod.detector_alignment_mats(self._id_detect_fn, gt)
+        valid = valid_p & valid_g
+        t = lambda x: torch.as_tensor(np.asarray(x)).to(dev)  # noqa: E731
+        with torch.no_grad():
+            _, sim_det = id_mod.id_loss(self.arcface_params, t(pred), t(gt), t(mats_p), t(mats_g),
+                                        t(valid))
+            agg.setdefault("id_sim_detected", []).append(float(sim_det))
+            agg.setdefault("id_detect_rate", []).append(float(valid.mean()))
+            if "id_mats_pred" in batch:
+                _, sim_ds = id_mod.id_loss(self.arcface_params, t(pred), t(gt),
+                                           t(np.asarray(batch["id_mats_pred"], np.float32)),
+                                           t(np.asarray(batch["id_mats_target"], np.float32)),
+                                           t(batch["id_valid"]))
+                agg.setdefault("id_sim_dataset_aligned", []).append(float(sim_ds))
+                agg.setdefault("id_align_drift", []).append(abs(float(sim_det) - float(sim_ds)))
+
+    # ---- checkpoints -------------------------------------------------------
+
+    def save(self, tag: str, full: bool = False):
+        """Write ``checkpoints/<tag>``: the weights (the file the Predictor
+        serves) and the discriminator's heads, and with ``full`` the
+        resumable state besides: both optimizers' moments, counts and
+        accumulation buffers, and the best validation loss."""
+        out = Path(self.cfg.log.exp_dir) / "checkpoints" / tag
+        extra: Dict[str, Any] = {"full": full, "best_val_loss": self.best_val_loss}
+        if self.disc_heads is not None:
+            extra["disc_heads"] = self.disc_heads
+        if full:
+            extra["g_opt"] = self.g_opt.state()
+            if self.d_opt is not None:
+                extra["d_opt"] = self.d_opt.state()
+        ckpt_mod.save_checkpoint(out, self.params, cfg=self.cfg, step=self.train_step_num,
+                                 extra=extra)
+        self.logger.log_message(f"saved checkpoint {out}")
+
+    def restore(self, path):
+        """Resume from a ``save`` file: the weights, the heads and the step
+        counter, and from a full one both optimizers' state and the best
+        validation loss. Every tensor is copied into the live one, so the
+        optimizers stay bound to the leaves."""
+        state = ckpt_mod.load_checkpoint(path)
+        full = bool(state.get("full", False))
+        _copy_into(self.params, state["params"])
+        if self.disc_heads is not None and "disc_heads" in state:
+            _copy_into(self.disc_heads, state["disc_heads"])
+        if full:
+            self.g_opt.load_state(self.params, state["g_opt"])
+            if self.d_opt is not None and "d_opt" in state:
+                self.d_opt.load_state(self.disc_heads, state["d_opt"])
+        self.train_step_num = int(state.get("step") or 0)
+        self.best_val_loss = float(state.get("best_val_loss", math.inf))
+        self.logger.update_step(self.train_step_num)
+        self.logger.log_message(f"resumed from {path} at step {self.train_step_num}"
+                                f" ({'full' if full else 'weights-only'})")
+        if not full and self.train_step_num > 0:
+            self.logger.log_message(
+                "WARNING: weights-only resume: the optimizer state (its step count, which the "
+                f"learning-rate schedule reads, too) starts at 0 while train_step_num="
+                f"{self.train_step_num}. Resume from an interval checkpoint (save(full=True)) "
+                "for an exact continuation.")

@@ -31,7 +31,7 @@ from instantrestore_tpu_torch.training.losses.lpips import lpips as lpips_fn
 from instantrestore_tpu_torch.training.losses.ssim import ms_ssim
 
 # eye, eye and mouth windows at 512 px (the reference's facial-component
-# crops); the data pipeline's copy of these comes with the port's datasets
+# crops); the data pipeline's boxes (data/datasets.py) use these sizes too
 FACIAL_COMP_SIZES = ((71, 101), (71, 101), (91, 161))
 
 

@@ -10,12 +10,17 @@ root. The schedules are evaluated at the step count before the update, from
 0, so every schedule with a warm-up gives a learning rate of 0 on the first
 step. Moments are fp32 and exist for the trainable leaves only; frozen leaves
 are never touched.
+
+Gradient accumulation over k micro-steps is ``optax.MultiSteps``'s: each
+call folds its gradients into a running mean (``acc + (g - acc) / (n + 1)``),
+and every k-th call clips that mean and takes the AdamW step with it; the
+step count, and with it the schedule, advances per applied step.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -80,16 +85,24 @@ def freeze_non_trainable(params: Any, mask: Any) -> Any:
 
 class MaskedAdamW:
     """AdamW with global-norm clipping over the trainable leaves of one
-    param tree. ``update`` binds to the leaves at its first call and keeps
-    their moments; ``count`` is the number of updates taken."""
+    param tree, optionally over the mean of ``accumulation_steps``
+    micro-steps' gradients. ``update`` binds to the leaves at its first call
+    and keeps their moments; ``count`` is the number of steps applied,
+    ``mini_step`` the micro-steps accumulated since the last one."""
 
-    def __init__(self, cfg: OptimConfig, max_steps: int, trainable_mask: Any):
+    def __init__(self, cfg: OptimConfig, max_steps: int, trainable_mask: Any,
+                 accumulation_steps: int = 1):
+        if accumulation_steps < 1:
+            raise ValueError(f"accumulation_steps must be >= 1, got {accumulation_steps}")
         self.cfg, self.mask = cfg, trainable_mask
+        self.accumulation_steps = accumulation_steps
         self.schedule = make_lr_schedule(cfg, max_steps)
         self.count = 0
+        self.mini_step = 0
         self.leaves: Optional[List[torch.Tensor]] = None
         self.exp_avg: List[torch.Tensor] = []
         self.exp_avg_sq: List[torch.Tensor] = []
+        self.acc_grads: List[torch.Tensor] = []
         self.last_grad_norm: Optional[torch.Tensor] = None
 
     def _bind(self, params: Any) -> List[torch.Tensor]:
@@ -101,20 +114,60 @@ class MaskedAdamW:
             self.leaves = leaves
             self.exp_avg = [torch.zeros_like(t) for t in leaves]
             self.exp_avg_sq = [torch.zeros_like(t) for t in leaves]
+            if self.accumulation_steps > 1:
+                self.acc_grads = [torch.zeros_like(t) for t in leaves]
         elif len(leaves) != len(self.leaves) or any(a is not b for a, b in
                                                     zip(leaves, self.leaves)):
             raise ValueError("the optimizer is bound to another param tree")
         return leaves
 
+    def state(self) -> Dict[str, Any]:
+        """The optimizer's state as tensors, lists and ints (a checkpoint's)."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                "exp_avg": list(self.exp_avg), "exp_avg_sq": list(self.exp_avg_sq),
+                "acc_grads": list(self.acc_grads)}
+
+    @torch.no_grad()
+    def load_state(self, params: Any, state: Dict[str, Any]) -> None:
+        """Bind to the trainable leaves of ``params`` and copy ``state`` (from
+        ``state()``) into the moments and the accumulation buffers."""
+        self._bind(params)
+        for name in ("exp_avg", "exp_avg_sq", "acc_grads"):
+            mine, theirs = getattr(self, name), state[name]
+            if len(mine) != len(theirs):
+                raise ValueError(f"{name}: {len(theirs)} tensors for {len(mine)} leaves")
+            for a, b in zip(mine, theirs):
+                a.copy_(b)
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+
     @torch.no_grad()
     def update(self, params: Any, grads: List[torch.Tensor]) -> None:
-        """One step on the trainable leaves of ``params``, in place, from
-        their gradients ``grads`` (tree order, fp32), which are left as given."""
-        leaves, cfg = self._bind(params), self.cfg
+        """One micro-step on the trainable leaves of ``params``, in place,
+        from their gradients ``grads`` (tree order, fp32), which are left as
+        given. Without accumulation every call is a step. ``last_grad_norm``
+        is the global norm of ``grads``."""
+        leaves = self._bind(params)
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} trainable leaves")
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        self.last_grad_norm = norm
+        self.last_grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.accumulation_steps == 1:
+            self._apply(leaves, grads, self.last_grad_norm)
+            return
+        # the running mean of the micro-steps' gradients, as optax.MultiSteps
+        diff = torch._foreach_sub(grads, self.acc_grads)
+        torch._foreach_div_(diff, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc_grads, diff)
+        if self.mini_step < self.accumulation_steps - 1:
+            self.mini_step += 1
+            return
+        mean = self.acc_grads
+        self._apply(leaves, mean, torch.linalg.vector_norm(torch.stack(torch._foreach_norm(mean))))
+        torch._foreach_zero_(self.acc_grads)
+        self.mini_step = 0
+
+    def _apply(self, leaves: List[torch.Tensor], grads: List[torch.Tensor],
+               norm: torch.Tensor) -> None:
+        cfg = self.cfg
         if cfg.use_clip_grad:
             max_norm = cfg.clip_grad_max_norm
             grads = torch._foreach_mul(grads, max_norm / norm.clamp_min(max_norm))
@@ -133,7 +186,10 @@ class MaskedAdamW:
         torch._foreach_add_(leaves, step, alpha=-lr)
 
 
-def make_optimizer(cfg: OptimConfig, max_steps: int, trainable_mask: Any) -> MaskedAdamW:
+def make_optimizer(cfg: OptimConfig, max_steps: int, trainable_mask: Any,
+                   accumulation_steps: int = 1) -> MaskedAdamW:
     """AdamW over the masked (trainable) leaves with gradient clipping; frozen
-    leaves get no update and hold no optimizer state."""
-    return MaskedAdamW(cfg, max_steps, trainable_mask)
+    leaves get no update and hold no optimizer state. With
+    ``accumulation_steps`` k > 1 the step is taken every k-th call, on the
+    mean of the k calls' gradients."""
+    return MaskedAdamW(cfg, max_steps, trainable_mask, accumulation_steps)
