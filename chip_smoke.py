@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,training,recipe,small,checkpoint,coach]
+    python3 chip_smoke.py [--only kernels,vjp,serving,training,recipe,small,checkpoint,coach,parallel]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -181,11 +181,35 @@ Without arguments every phase runs and the last two lines are the result;
    Prints G and D ms per step, the device-busy ms of one step with the D
    step's share, host data ms per batch, ms per validation batch, peak
    memory, and the checkpoint's size and write / read seconds;
+9e. parallel phase ("parallel"): training and serving across processes and
+   cards. With two cards or more, every kernel at one 512 px shape on cuda:1,
+   launched from a thread at current device 0, equals its cuda:0 launch bit
+   for bit (with one card a line says the check needs a second). DDP at
+   the coach phase's full width (TrainConfig(), OptimConfig()'s weights,
+   global batch 2, seeded in-memory data) in worker processes of this
+   script (--ddp-worker), each group under a wall-clock limit and killed
+   past it: one process without a process group and then in an NCCL group
+   of world size 1 (bit for bit the same after 2 G + D steps); two ranks on
+   the one card over gloo with CUDA tensors (NCCL refuses one card twice);
+   with two cards or more two NCCL ranks on cuda:0 and cuda:1. Each pair
+   against the one process: global loss within 1e-3; the first step's
+   gradient within 1e-5 relative RMS by leaf group of the split witness
+   (one process without a group summing the two halves' shares of the
+   global batch: the ranks' arithmetic without the collectives), and from
+   the one process at batch 2 at most 1.5x the witness's own distance (the
+   batch-1 algorithms' rounding); the two ranks bit-identical, 36 / 18 / 18 / 17 launches a G step on each rank; prints
+   per rank the G and D ms, the device busy of one G + D step, the G
+   gradient all-reduce's ms and bytes, and peak memory. Then
+   ServingEngine(devices=) on every card (two shares of cuda:0 with one
+   card) against the one-device engine: the onboarded cache of 16
+   identities bit-equal, warm and cold batch-16 restores within mean-abs
+   2e-2, launches per share as the warm and cold phases count them,
+   faces/sec beside one device's, and a batch of 3 refused;
 10. prints each kernel's factor over its library call per pass of its path,
    largest first, with its d=64 and d=512 parts where it runs at both
    (flash_bwd_dq and flash_bwd_dkv ranked as one pair against SDPA's joint
    backward), then
-   {"kernels": [...]} (launches summed over the paths of 4-9d) and, last,
+   {"kernels": [...]} (launches summed over the paths of 4-9e) and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1620,6 +1644,18 @@ TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_GRAD_REL_TOL = 0.1
 
 
+def grad_rel_rms_by_group(names, got, ref) -> dict:
+    """Relative RMS of the gradients ``got`` against ``ref`` (leaf names
+    ``names``) by leaf group: each subtree's LoRA leaves, the UNet's conv_in."""
+    groups = {}
+    for name, a, r in zip(names, got, ref):
+        key = name.split(".")[0] + (" conv_in" if ".conv_in." in name and name.startswith("unet")
+                                    else " LoRA")
+        num, den = groups.get(key, (0.0, 0.0))
+        groups[key] = (num + float((a - r).square().sum()), den + float(r.square().sum()))
+    return {k: (num / den) ** 0.5 for k, (num, den) in groups.items()}
+
+
 def training_phase(card: str):
     """The generator training step at full width: batch 2, 4 references,
     512 px, bf16 compute over fp32 params, LoRA rank 32 unmerged, L2 + LPIPS,
@@ -1766,14 +1802,8 @@ def training_phase(card: str):
         torch.cuda.empty_cache()
 
         loss_u, g_u, dt_u, peak_u = grads_of(stepper(still, fused=False))
-    groups = {}
     names = [n for n, t in _tree_leaves(params) if id(t) in trainable_ids]
-    for name, a, u in zip(names, g_a, g_u):
-        key = name.split(".")[0] + (" conv_in" if ".conv_in." in name and name.startswith("unet")
-                                    else " LoRA")
-        num, den = groups.get(key, (0.0, 0.0))
-        groups[key] = (num + float((a - u).square().sum()), den + float(u.square().sum()))
-    rels = {k: (num / den) ** 0.5 for k, (num, den) in groups.items()}
+    rels = grad_rel_rms_by_group(names, g_a, g_u)
     loss_rel = abs(loss_a - loss_u) / abs(loss_u)
     print(f"fused vs unfused train step (same noise, timestep 499): loss {loss_a:.6f} vs "
           f"{loss_u:.6f} (relative {loss_rel:.2e}, tol {TRAIN_LOSS_REL_TOL}); gradient relative "
@@ -2052,13 +2082,7 @@ def recipe_phase(card: str):
 
     def grad_rels(got, ref):
         """Relative RMS of ``got`` against ``ref`` by leaf group."""
-        groups = {}
-        for name, a, r in zip(names, got, ref):
-            key = name.split(".")[0] + (" conv_in" if ".conv_in." in name
-                                        and name.startswith("unet") else " LoRA")
-            num, den = groups.get(key, (0.0, 0.0))
-            groups[key] = (num + float((a - r).square().sum()), den + float(r.square().sum()))
-        return {k: round((num / den) ** 0.5, 4) for k, (num, den) in groups.items()}
+        return {k: round(v, 4) for k, v in grad_rel_rms_by_group(names, got, ref).items()}
 
     terms_a, g_a, _, _ = seeded_step(still)
     terms_u, g_u, dt_u, peak_u = seeded_step(still, fused=False)
@@ -3052,6 +3076,520 @@ def coach_phase(card: str):
     return total
 
 
+# the parallel phase: DDP training over processes and cards, the
+# multi-device engine, and the device guard of every kernel launch
+DDP_STEPS = 2  # G + D steps compared across ranks; one more is profiled
+DDP_LIMIT_S = 420  # wall clock of one group of worker processes, then they are killed
+DDP_COLLECTIVE_S = 300  # a collective that waits longer raises in the worker
+DDP_LOSS_REL_TOL = 1e-3
+# the ranks' first-step gradient against the witness (one process summing
+# the two halves' shares: the ranks' arithmetic without the collectives),
+# by leaf group; and against the one process at batch 2, at most this times
+# the witness's own distance from it (batch 1 and batch 2 take other
+# cuDNN / cuBLAS algorithms)
+DDP_WITNESS_REL_TOL = 1e-5
+DDP_BATCH_FACTOR = 1.5
+PAR_SERVE_MEAN_ABS = 2e-2  # the multi-device engine against the one-device engine
+
+
+def ddp_coach(spec: dict, dev, tag: str, accumulation: int = 1):
+    """The parallel phase's Coach on ``dev`` (the coach phase's config and
+    seeded data, the global batch TRAIN_BATCH) and its build seconds."""
+    import torch
+
+    from instantrestore_tpu_torch.configs.config import TrainConfig
+    from instantrestore_tpu_torch.training import coach as coach_mod
+    from instantrestore_tpu_torch.training.losses import id_loss as id_mod
+
+    cfg = TrainConfig()
+    cfg.compute.batch_size = cfg.compute.test_batch_size = TRAIN_BATCH
+    cfg.compute.workers, cfg.compute.test_workers, cfg.compute.seed = 1, 1, 0
+    cfg.data.resolution, cfg.data.max_conditioning_images = RES, N_REFS
+    cfg.log.exp_root, cfg.log.exp_name, cfg.log.log2wandb = spec["tmp"], tag, False
+    cfg.steps.max_steps = DDP_STEPS + 1
+    cfg.steps.metric_interval = 1
+    cfg.steps.image_interval = cfg.steps.val_interval = cfg.steps.save_interval = 1000
+    cfg.optim.gradient_accumulation_steps = accumulation
+    arcface = id_mod.init_arcface_params(torch.Generator(device=dev).manual_seed(7), device=dev)
+    data = (SeededFaces(COACH_TRAIN_ITEMS, 1, True), SeededFaces(COACH_VAL_ITEMS, 2, False))
+    t0 = time.perf_counter()
+    coach = coach_mod.Coach(cfg, arcface_params=arcface, datasets=data, device=dev)
+    torch.cuda.synchronize(dev)
+    return coach, time.perf_counter() - t0
+
+
+def split_witness_grads(coach, gen, ranks: int = 2) -> list:
+    """The first G step's gradient as ``ranks`` ranks compute it, in one
+    process without a process group: the global batch and its draws cut to
+    each rank's rows (``local_rows``), each half's loss its share under the
+    global batch's counts, and the halves' gradients summed in rank order
+    (the all-reduce's sum). ``coach`` accumulates over ``ranks`` micro-steps,
+    so no half moves the params before the next. Returns the gradient."""
+    import torch
+
+    from instantrestore_tpu_torch.data.datasets import to_torch_batch
+    from instantrestore_tpu_torch.parallel.distributed import local_rows
+    from instantrestore_tpu_torch.training.losses.composite import loss_counts
+    from instantrestore_tpu_torch.training.optim import trainable_leaves
+
+    if coach.cfg.optim.gradient_accumulation_steps != ranks or coach.group is not None:
+        raise ValueError("the witness runs without a group and accumulates over the ranks")
+    batch, layer = to_torch_batch(next(iter(coach.train_loader)), coach.device)
+    gen.manual_seed(coach._step_seed(0))
+    draws = coach.draw_g(batch, gen)
+    b = batch["gt"].shape[0]
+    counts = loss_counts(batch)
+    g_loss = coach._g_loss
+    coach._g_loss = lambda out, part, ocfg: g_loss(out, part, ocfg, counts=counts)
+    leaves = trainable_leaves(coach.params, coach.g_mask)
+    total = None
+    for r in range(ranks):
+        rows = {k: v for k, v in draws.items() if k in ("noise", "gan_draws", "cycle_noise")}
+        coach.g_step(local_rows(batch, b, r, ranks), layer,
+                     dict(draws, **local_rows(rows, b, r, ranks)))
+        grads = [t.grad.detach().clone() for t in leaves]
+        total = grads if total is None else [a + g for a, g in zip(total, grads)]
+    return total
+
+
+def ddp_run(spec: dict, dev, tag: str, card: str) -> dict:
+    """DDP_STEPS G + D steps of the Coach at full width (the coach phase's
+    config and seeded data, the global batch TRAIN_BATCH) on ``dev``, in the
+    process group if one was joined, through Coach._run_single_step (the step
+    train() takes), each G and D step timed; then one more step profiled and,
+    in a group, the G gradient's all-reduce timed. Returns the record: global
+    losses, ms, device busy, all-reduce ms and bytes, peak memory, launch
+    counts and a SHA-256 of the trainable leaves and heads after the
+    compared steps; the first step's gradient is saved where ``grads`` says."""
+    import hashlib
+
+    import torch
+
+    from instantrestore_tpu_torch.parallel import distributed as pdist
+    from instantrestore_tpu_torch.training.optim import trainable_leaves
+
+    coach, build_s = ddp_coach(spec, dev, tag)
+    times = {"g_step": [], "d_step": []}
+
+    def timed(name):
+        fn = getattr(coach, name)
+
+        def run(*a, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    coach.g_step, coach.d_step = timed("g_step"), timed("d_step")
+    logged = []
+    coach.logger.log_metrics = lambda m, prefix="train": logged.append(dict(m))
+    ids = {id(t) for t in trainable_leaves(coach.params, coach.g_mask)}
+    names = [n for n, t in _tree_leaves(coach.params) if id(t) in ids]
+    leaves = trainable_leaves(coach.params, coach.g_mask)
+    gen = torch.Generator(device=dev)
+    batches = iter(coach.train_loader)
+    coach._t0, coach._steps_since_metric = time.time(), 0  # what train() sets up
+    torch.cuda.reset_peak_memory_stats(dev)
+    with deterministic_cudnn():
+        reset_counts()
+        for step in range(DDP_STEPS):
+            gen.manual_seed(coach._step_seed(step))
+            coach._run_single_step(next(batches), gen)
+            if step == 0 and spec.get("grads"):
+                torch.save([t.grad.detach().cpu() for t in leaves], spec["grads"])
+        counts = launch_counts()
+        if coach.group is not None:
+            coach.check_replicas_agree()
+        digest = hashlib.sha256()  # the leaves that train: the G's and the heads
+        for t in leaves + [t for _, t in _tree_leaves(coach.disc_heads)]:
+            digest.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        gen.manual_seed(coach._step_seed(DDP_STEPS))
+        busy = profile_run(lambda: coach._run_single_step(next(batches), gen),
+                           f"{tag} rank {pdist.process_index()}: one G + D step", card, top=0)
+    ar_ms, ar_bytes = None, None
+    if coach.group is not None:
+        grads = [t.grad.detach().clone() for t in leaves]
+        pdist.all_reduce_sum_(grads, coach.group)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            ar_bytes = pdist.all_reduce_sum_(grads, coach.group)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ar_ms = statistics.median(ms)
+    train = [m for m in logged if "loss" in m]
+    return dict(tag=tag, rank=pdist.process_index(), world=pdist.process_count(),
+                device=str(dev), build_s=build_s, loss=[m["loss"] for m in train[:DDP_STEPS]],
+                loss_d=[m["loss_d"] for m in train[:DDP_STEPS]], g_ms=times["g_step"],
+                d_ms=times["d_step"], busy_ms=busy, allreduce_ms=ar_ms,
+                allreduce_bytes=ar_bytes,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, counts=counts,
+                digest=digest.hexdigest(), names=names if spec.get("grads") else None)
+
+
+def ddp_worker(path: str) -> int:
+    """One process of the parallel phase (``--ddp-worker spec.json``): mode
+    ``one`` runs ddp_run without a process group and then in an NCCL group
+    of world size 1, then saves the split witness's gradient
+    (``split_witness_grads``) where ``spec['witness']`` says; otherwise it joins the group of ``spec`` (gloo or NCCL,
+    world, rank, card) and runs ddp_run there. Writes the records to
+    ``spec['out']``."""
+    import datetime
+    import gc
+
+    import torch
+
+    from instantrestore_tpu_torch.parallel import distributed as pdist
+
+    spec = json.loads(open(path).read())
+    dev = torch.device(spec["device"])
+    torch.cuda.set_device(dev)
+    card = card_line()
+    timeout = datetime.timedelta(seconds=DDP_COLLECTIVE_S)
+    out = []
+    if spec["mode"] == "one":
+        out.append(ddp_run(spec, dev, "none", card))
+        spec["grads"] = None
+        gc.collect()  # the first Coach (its timed steps hold it in a cycle)
+        torch.cuda.empty_cache()
+        pdist.init_distributed(f"file://{spec['store']}", 1, 0, [dev.index], backend="nccl",
+                               timeout=timeout)
+        out.append(ddp_run(spec, dev, "nccl1", card))
+        torch.distributed.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        coach, _ = ddp_coach(spec, dev, "witness", accumulation=2)
+        with deterministic_cudnn():
+            grads = split_witness_grads(coach, torch.Generator(device=dev))
+        torch.save([g.cpu() for g in grads], spec["witness"])
+    else:
+        pdist.init_distributed(f"file://{spec['store']}", spec["world"], spec["rank"],
+                               [dev.index], backend=spec["backend"], timeout=timeout)
+        out.append(ddp_run(spec, dev, spec["mode"], card))
+        torch.distributed.destroy_process_group()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_workers(specs: list, tmp, limit: float) -> list:
+    """Start one ``--ddp-worker`` process per spec, all at once; wait for all
+    of them within ``limit`` seconds of wall clock. A worker that exits
+    non-zero, or any still running at the limit, has every worker killed and
+    fails the phase. Prints each worker's output; returns their records."""
+    import os as _os
+
+    procs = []
+    for spec in specs:
+        spec.update(out=str(tmp / f"{spec['name']}.out.json"), tmp=str(tmp))
+        path = tmp / f"{spec['name']}.json"
+        path.write_text(json.dumps(spec))
+        log = open(tmp / f"{spec['name']}.log", "w")
+        procs.append((spec["name"], subprocess.Popen(
+            [sys.executable, _os.path.abspath(__file__), "--ddp-worker", str(path)],
+            stdout=log, stderr=subprocess.STDOUT, env=dict(_os.environ, PYTHONUNBUFFERED="1")),
+            log))
+    deadline, failed = time.monotonic() + limit, []
+    try:
+        while any(p.poll() is None for _, p, _ in procs):
+            bad = [n for n, p, _ in procs if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                failed.append(f"workers {bad} failed" if bad else f"workers over {limit} s")
+                break
+            time.sleep(0.5)
+    finally:
+        for _, p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    for name, p, _ in procs:
+        text = (tmp / f"{name}.log").read_text()
+        lines = [ln for ln in text.splitlines() if "Warning" not in ln and ln.strip()]
+        print(f"--- worker {name} (exit {p.returncode}):")
+        for ln in lines[-40:]:
+            print(f"  [{name}] {ln}")
+        if p.returncode != 0 and not failed:
+            failed.append(f"worker {name} exit {p.returncode}")
+    if failed:
+        raise AssertionError("parallel phase: " + "; ".join(failed))
+    return [rec for spec in specs for rec in json.loads(open(spec["out"]).read())]
+
+
+def device_guard_check(card: str, failures: list):
+    """Every kernel at one 512 px shape (the (10 heads, 1024 tokens) shared
+    layer, 4 references; d=64) on cuda:1, launched from this thread at
+    current device 0, against the same launch on cuda:0: bit for bit."""
+    import torch
+
+    from instantrestore_tpu_torch.ops import flash_vjp as fv
+    from instantrestore_tpu_torch.ops import shared_attention as sa
+
+    if torch.cuda.device_count() < 2:
+        print("device guard: this check needs a second card (1 visible): not run; the CPU "
+              "test holds every launch site to its tensor's device")
+        return
+    torch.cuda.set_device(0)
+    g = torch.Generator(device="cuda:0").manual_seed(11)
+    b, h, s, d, n = 2, 10, 1024, 64, N_REFS
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda:0").to(dtype)
+
+    q, k, v, do = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d)
+    rk, rv = rnd(b, n, h, s, d), rnd(b, n, h, s, d)
+    aff = torch.stack([1 + 0.1 * rnd(b, h, n, d, dtype=torch.float32),
+                       0.1 * rnd(b, h, n, d, dtype=torch.float32)], dim=3)
+    kmax = sa.key_norm_max(rk, (1, 3))
+    ids = torch.tensor([1, 0], device="cuda:0")
+    sc = d ** -0.5
+    out0, lse0 = fv.flash_fwd_lse(q, k, v, scale=sc)
+    delta0 = (do.float() * out0.float()).sum(-1)
+    calls = {
+        "flash_attention_bound": lambda t: sa.flash_attention(t["q"], t["k"], t["v"], scale=sc,
+                                                              algo="bound"),
+        "flash_attention_online": lambda t: sa.flash_online(t["q"], t["k"], t["v"], scale=sc),
+        "shared_identity_attention": lambda t: sa.shared_identity(
+            t["q"], t["rk"], t["rv"], t["aff"], t["kmax"], t["ids"], scale=sc),
+        "shared_flash_bound": lambda t: sa.shared_flash_bound(
+            t["q"], t["k"], t["v"], t["rk"], t["rv"], t["aff"], t["kmax"], scale=sc,
+            include_input=True),
+        "shared_online": lambda t: sa.shared_online(
+            t["q"], t["k"], t["v"], t["rk"], t["rv"], t["aff"], scale=sc, include_input=True),
+        "shared_online_pair": lambda t: sa.shared_online_pair(
+            t["q"], t["k"], t["v"], t["rk"], t["rv"], t["aff"], scale=sc, include_input=True),
+        "flash_fwd_lse": lambda t: fv.flash_fwd_lse(t["q"], t["k"], t["v"], scale=sc),
+        "flash_bwd_dq": lambda t: fv.flash_bwd_dq(t["q"], t["k"], t["v"], t["do"], t["lse"],
+                                                  t["delta"], scale=sc),
+        "flash_bwd_dkv": lambda t: fv.flash_bwd_dkv(t["q"], t["k"], t["v"], t["do"], t["lse"],
+                                                    t["delta"], scale=sc),
+    }
+    on0 = dict(q=q, k=k, v=v, do=do, rk=rk, rv=rv, aff=aff, kmax=kmax, ids=ids, lse=lse0,
+               delta=delta0)
+    on1 = {key: x.to("cuda:1") for key, x in on0.items()}
+    same = []
+    for name, call in calls.items():
+        a = call(on0)
+        assert torch.cuda.current_device() == 0
+        c = call(on1)  # this thread's current device is still 0
+        a = a if isinstance(a, tuple) else (a,)
+        c = c if isinstance(c, tuple) else (c,)
+        if all(y.device == torch.device("cuda:1") and torch.equal(x, y.to("cuda:0"))
+               for x, y in zip(a, c)):
+            same.append(name)
+        else:
+            failures.append(f"device guard: {name} on cuda:1 differs from cuda:0")
+    print(f"device guard: {len(same)} of {len(calls)} kernels on cuda:1 from a thread at "
+          f"device 0 equal their cuda:0 launch bit for bit [{card}]")
+
+
+def parallel_serving(card: str, failures: list) -> dict:
+    """ServingEngine(devices=) on every card (two shares of the one card
+    when there is one) against the one-device engine: onboarding 16
+    identities (the cache bit-equal), warm and cold restores of batch 16
+    (mean-abs, launches, faces/sec). Returns the launch counts."""
+    import torch
+
+    from instantrestore_tpu_torch.inference.serving import ServingEngine
+    from instantrestore_tpu_torch.models.restorer import (
+        RestorerStatics,
+        init_restorer_params,
+        serving_bundle,
+    )
+
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(n_cards)] if n_cards > 1 else ["cuda:0", "cuda:0"]
+    statics = RestorerStatics(use_adain=True, train_input=False)
+    params = serving_bundle(init_restorer_params(
+        torch.Generator(device="cuda:0").manual_seed(0), statics, lora_rank_unet=32,
+        lora_rank_vae=32, device="cuda:0"), statics)
+    one = ServingEngine(params, statics, device="cuda:0")
+    multi = ServingEngine(params, statics, devices=devices)
+    del params
+    n_dev, total = len(devices), {}
+    host = torch.Generator().manual_seed(1)
+    refs = torch.randint(0, 256, (N_IDENT, N_REFS, RES, RES, 3), dtype=torch.uint8, generator=host)
+    images = torch.randint(0, 256, (BATCH, RES, RES, 3), dtype=torch.uint8, generator=host)
+    ids = torch.tensor([3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3])
+    lat = RES // 8
+    onboard_noise = {k: torch.randn((N_IDENT, N_REFS, lat, lat, 4), generator=host)
+                     for k in ("latent", "diffusion")}
+    noise = {k: torch.randn((BATCH, lat, lat, 4), generator=host) for k in ("latent", "diffusion")}
+    cold_noise = dict(noise)
+    for k, v in onboard_noise.items():
+        cold_noise[f"cond_{k}"] = v[ids].reshape(BATCH * N_REFS, lat, lat, 4)
+    cold_refs = refs[ids]
+
+    c1 = one.onboard(refs, noise=onboard_noise)
+    reset_counts()
+    (c2, onboard_s) = _synced_all(lambda: multi.onboard(refs, noise=onboard_noise))
+    check_launches(failures, f"multi-device onboarding of {N_IDENT} identities on {devices}",
+                   launch_counts(), N_IDENT, flash_attention_bound=17)
+    add_counts(total, launch_counts())
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(c1, c2)
+               for f in ("rk", "rv", "content_mean", "content_std", "kmax"))
+    print(f"multi-device onboarding ({N_IDENT} identities split over {devices}): {onboard_s:.3f} s; "
+          f"cache {'bit-equal to' if same else 'DIFFERS from'} the one-device cache [{card}]")
+    if not same:
+        failures.append("the multi-device onboarded cache differs from the one-device cache")
+
+    rows = []
+    for what, run1, runm, per in (
+            ("warm", lambda: one.restore(images, ids, noise=noise),
+             lambda: multi.restore(images, ids, noise=noise),
+             dict(shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev)),
+            ("cold", lambda: one.restore_cold(images, cold_refs, noise=cold_noise),
+             lambda: multi.restore_cold(images, cold_refs, noise=cold_noise),
+             dict(shared_flash_bound=9 * n_dev, flash_attention_bound=26 * n_dev))):
+        out1, _ = _synced_all(run1)  # first calls: cuDNN's set-up
+        reset_counts()
+        outm, _ = _synced_all(runm)
+        counts = launch_counts()
+        check_launches(failures, f"one multi-device {what} restore on {devices}", counts, 1, **per)
+        add_counts(total, counts)
+        diff = float((outm.float() - out1.float()).abs().mean())
+        t1 = statistics.median(_synced_all(run1)[1] for _ in range(3))
+        tm = statistics.median(_synced_all(runm)[1] for _ in range(3))
+        rows.append((what, diff, t1, tm))
+        print(f"multi-device {what} restore batch {BATCH} on {devices}: mean-abs {diff:.5f} "
+              f"against one device (tol {PAR_SERVE_MEAN_ABS}); {BATCH / tm:.2f} faces/sec "
+              f"({tm * 1e3:.1f} ms) beside one device's {BATCH / t1:.2f} ({t1 * 1e3:.1f} ms) "
+              f"[{card}]")
+        if outm.device != torch.device("cuda:0") or not torch.isfinite(outm).all() \
+                or diff > PAR_SERVE_MEAN_ABS:
+            failures.append(f"multi-device {what} restore: mean-abs {diff}, on {outm.device}")
+    try:
+        multi.restore(images[:3], ids[:3], noise={k: v[:3] for k, v in noise.items()})
+        failures.append("a batch that does not divide over the devices did not raise")
+    except ValueError as e:
+        print(f"batch 3 on {n_dev} devices raises: {e}")
+    return total
+
+
+def _synced_all(fn):
+    """fn() with every card synchronised before and after; (result, seconds)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    t0 = time.perf_counter()
+    out = fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return out, time.perf_counter() - t0
+
+
+def parallel_phase(card: str):
+    """Training and serving across processes and cards. The device guard
+    (two cards or more). DDP at full width in worker processes, each with a
+    wall-clock limit: one process without a group and then in an NCCL group
+    of world size 1 (bit for bit the same), two ranks on the one card over
+    gloo with CUDA tensors (NCCL refuses a card twice), and with two cards
+    or more two NCCL ranks on cuda:0 and cuda:1; each against the one
+    process on the same global batch and draws (loss, gradients by leaf
+    group, ranks bit-identical). Then the multi-device engine. Returns the
+    launch counts of its paths (the ranks' training steps among them)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    failures, total = [], {}
+    t_phase = time.perf_counter()
+    device_guard_check(card, failures)
+    scratch = Path(__file__).resolve().parent / "_scratch"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="parallel_phase_", dir=scratch))
+    try:
+        one = run_workers([dict(name="one", mode="one", device="cuda:0",
+                                store=str(tmp / "store_one"), grads=str(tmp / "grads_one.pt"),
+                                witness=str(tmp / "grads_witness.pt"))],
+                          tmp, DDP_LIMIT_S)
+        groups = {"gloo_one_card": [dict(name=f"gloo{r}", mode="gloo_one_card", world=2, rank=r,
+                                         backend="gloo", device="cuda:0",
+                                         store=str(tmp / "store_gloo"),
+                                         grads=str(tmp / "grads_gloo.pt") if r == 0 else None)
+                                    for r in range(2)]}
+        if torch.cuda.device_count() >= 2:
+            groups["nccl_two_cards"] = [dict(name=f"nccl{r}", mode="nccl_two_cards", world=2,
+                                             rank=r, backend="nccl", device=f"cuda:{r}",
+                                             store=str(tmp / "store_nccl"),
+                                             grads=str(tmp / "grads_nccl.pt") if r == 0 else None)
+                                        for r in range(2)]
+        else:
+            print("NCCL over two cards: needs a second card (1 visible): not run")
+        ref, ws1 = one
+        rank_counts = dict(ref["counts"])
+        for what, rec in (("no group", ref), ("NCCL world size 1", ws1)):
+            print(f"{what}: build {rec['build_s']:.1f} s; losses {rec['loss']}, loss_d "
+                  f"{rec['loss_d']}; G ms {[round(x, 1) for x in rec['g_ms']]}, D ms "
+                  f"{[round(x, 1) for x in rec['d_ms']]}; busy {rec['busy_ms']} ms; peak "
+                  f"{rec['peak_gib']:.2f} GiB; all-reduce {rec['allreduce_ms']} ms of "
+                  f"{rec['allreduce_bytes']} bytes [{card}]")
+        same = (ws1["digest"] == ref["digest"] and ws1["loss"] == ref["loss"]
+                and ws1["loss_d"] == ref["loss_d"])
+        print(f"NCCL at world size 1 against no group after {DDP_STEPS} G + D steps: "
+              f"{'bit for bit the same' if same else 'DIFFERENT'}")
+        if not same:
+            failures.append("the step in an NCCL group of world size 1 differs from no group")
+        add_counts(rank_counts, ws1["counts"])
+        want = dict(flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18, flash_attention_bound=17)
+        for what, rec in (("no group", ref), ("NCCL world size 1", ws1)):
+            check_launches(failures, f"{what}: {DDP_STEPS} G + D steps",
+                           {k: rec["counts"].get(k, 0) for k in KERNEL_NAMES}, DDP_STEPS, **want)
+        grads_ref = torch.load(tmp / "grads_one.pt")
+        grads_wit = torch.load(tmp / "grads_witness.pt")
+        wit_gap = grad_rel_rms_by_group(ref["names"], grads_wit, grads_ref)
+        print(f"split witness (one process, two halves of batch 1 under the global counts, "
+              f"summed) against the one process at batch 2: first-step gradient relative RMS "
+              f"by group {({k: round(v, 4) for k, v in wit_gap.items()})}")
+        for mode, specs in groups.items():
+            recs = run_workers(specs, tmp, DDP_LIMIT_S)
+            for rec in recs:
+                print(f"{mode} rank {rec['rank']} of {rec['world']} on {rec['device']}: build "
+                      f"{rec['build_s']:.1f} s; G ms {[round(x, 1) for x in rec['g_ms']]}, D "
+                      f"ms {[round(x, 1) for x in rec['d_ms']]}; one G + D step device busy "
+                      f"{rec['busy_ms']} ms; G gradient all-reduce {rec['allreduce_ms']:.1f} ms "
+                      f"of {rec['allreduce_bytes'] / 1e6:.1f} MB; peak {rec['peak_gib']:.2f} "
+                      f"GiB [{card}]")
+                check_launches(failures, f"{mode} rank {rec['rank']}: {DDP_STEPS} G + D steps",
+                               {k: rec["counts"].get(k, 0) for k in KERNEL_NAMES}, DDP_STEPS,
+                               **want)
+                add_counts(rank_counts, rec["counts"])
+            r0, r1 = recs
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["loss"], ref["loss"]))
+            got = torch.load(specs[0]["grads"])
+            rels = grad_rel_rms_by_group(ref["names"], got, grads_ref)
+            to_wit = grad_rel_rms_by_group(ref["names"], got, grads_wit)
+            ranks_same = r0["digest"] == r1["digest"] and r0["loss"] == r1["loss"]
+            print(f"{mode}: global losses {r0['loss']} against one process's {ref['loss']} "
+                  f"(relative {loss_rel:.2e}, tol {DDP_LOSS_REL_TOL}); first-step gradient "
+                  f"relative RMS by group against the split witness "
+                  f"{({k: float(f'{v:.3e}') for k, v in to_wit.items()})} (tol "
+                  f"{DDP_WITNESS_REL_TOL}), against the one process at batch 2 "
+                  f"{({k: round(v, 4) for k, v in rels.items()})} (tol {DDP_BATCH_FACTOR} x the "
+                  f"witness's); the two ranks {'bit-identical' if ranks_same else 'DIFFER'} "
+                  f"after {DDP_STEPS} steps")
+            if loss_rel > DDP_LOSS_REL_TOL or max(to_wit.values()) > DDP_WITNESS_REL_TOL \
+                    or any(rels[k] > DDP_BATCH_FACTOR * wit_gap[k] for k in rels) \
+                    or not ranks_same:
+                failures.append(f"{mode}: two ranks disagree with one process or each other")
+        add_counts(total, rank_counts)
+        torch.cuda.empty_cache()
+        add_counts(total, parallel_serving(card, failures))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("parallel phase failed: " + "; ".join(failures))
+    return total
+
+
 def all_finite(a) -> bool:
     """Every value finite (a numpy array or a tensor)."""
     import torch
@@ -3115,11 +3653,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
-                    "them (kernels, vjp, serving, training, recipe, small, checkpoint, coach); a "
-                    "partial run prints no result line")
-    only = set(filter(None, ap.parse_args().only.split(",")))
+                    "them (kernels, vjp, serving, training, recipe, small, checkpoint, coach, "
+                    "parallel); a partial run prints no result line")
+    ap.add_argument("--ddp-worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
     unknown = only - {"kernels", "vjp", "serving", "training", "recipe", "small", "checkpoint",
-                      "coach"}
+                      "coach", "parallel"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -3130,6 +3670,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.ddp_worker:  # one process of the parallel phase
+        return ddp_worker(args.ddp_worker)
     from instantrestore_tpu_torch.ops import _build
 
     card = card_line()
@@ -3184,6 +3726,9 @@ def main() -> int:
     if wanted("coach"):
         torch.cuda.empty_cache()
         add_counts(counts, coach_phase(card))
+    if wanted("parallel"):
+        torch.cuda.empty_cache()
+        add_counts(counts, parallel_phase(card))
     print(f"launches over the paths: {counts}")
     if only:
         print(f"partial run ({sorted(only)}): no result line")

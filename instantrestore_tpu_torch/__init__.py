@@ -26,10 +26,16 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    another. Raises rather than quietly falling back to the CPU."""
+    another, ``cuda:N`` for card N. Raises rather than quietly falling back
+    to the CPU or to another card."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available; pass device='cpu' to run on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"{dev}: this machine has {torch.cuda.device_count()} CUDA device(s)"
+            )
     return dev

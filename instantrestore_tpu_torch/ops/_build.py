@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -68,6 +69,7 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # a multi-device engine's threads may load at once
 
 
 def nvcc_path() -> str:
@@ -119,12 +121,15 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        for fn, (argtypes, restype) in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build([name])
+                lib = ctypes.CDLL(str(path))
+                for fn, (argtypes, restype) in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = restype
+                _loaded[name] = lib
     return lib

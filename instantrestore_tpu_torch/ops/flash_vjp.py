@@ -22,9 +22,10 @@ At d = 64 the two backward kernels run on the wgmma + TMA tile of
 ``flash_bwd_tiles`` gives both kernels their block and chunk and refuses,
 before any launch, a shape the tiles do not take.
 
-A wrapper given CUDA tensors launches its kernel (bf16 only) or raises; given
-CPU tensors it runs the plain version. ``<wrapper>.launches`` counts kernel
-launches and nothing else.
+A wrapper given CUDA tensors launches its kernel (bf16 only) on their card
+(``shared_attention._launch``) or raises; given CPU tensors it runs the
+plain version. ``<wrapper>.launches`` counts kernel launches and nothing
+else.
 
 ``flash_attention`` and ``shared_flash_attention`` are drop-ins for the
 functions of the same names in ``ops/shared_attention.py``. When no input
@@ -56,7 +57,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from instantrestore_tpu_torch.ops import _build
 from instantrestore_tpu_torch.ops import shared_attention as sa
 from instantrestore_tpu_torch.ops.shared_attention import (  # re-exported
     LOG2E,
@@ -96,13 +96,9 @@ def flash_fwd_lse(q, k, v, *, scale: float,
     sa.check_flash_chunk("flash_fwd_lse", skv, d, block_k)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    rc = _build.load("flash_fwd_lse").irt_flash_fwd_lse_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E), sa._stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd_lse kernel launch failed: CUDA error {rc}")
-    flash_fwd_lse.launches += 1
+    sa._launch(flash_fwd_lse, "flash_fwd_lse", q,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+               b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E))
     return out, lse
 
 
@@ -262,14 +258,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
     b, h, sq, d = q.shape
     lse, delta, pitch = _lse_rows(lse, delta)
     dq = torch.empty_like(q)
-    rc = _build.load("flash_bwd_dq").irt_flash_bwd_dq_bf16(
-        q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d, tiles.dq_rows, tiles.dq_chunk,
-        pitch, ctypes.c_float(scale), sa._stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {rc}")
-    flash_bwd_dq.launches += 1
+    sa._launch(flash_bwd_dq, "flash_bwd_dq", q,
+               q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d,
+               tiles.dq_rows, tiles.dq_chunk, pitch, ctypes.c_float(scale))
     return dq
 
 
@@ -289,14 +281,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     b, h, sq, d = q.shape
     lse, delta, pitch = _lse_rows(lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _build.load("flash_bwd_dkv").irt_flash_bwd_dkv_bf16(
-        q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d, tiles.dkv_rows,
-        tiles.dkv_chunk, pitch, ctypes.c_float(scale), sa._stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {rc}")
-    flash_bwd_dkv.launches += 1
+    sa._launch(flash_bwd_dkv, "flash_bwd_dkv", q,
+               q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+               k.shape[2], d, tiles.dkv_rows, tiles.dkv_chunk, pitch, ctypes.c_float(scale))
     return dk, dv
 
 

@@ -35,9 +35,10 @@ restore, the Predictor, ``train_input`` models) takes the algorithm;
 ``shared_attention_identity`` (an onboarded identity cache) takes none and
 always runs a bound kernel, as in the JAX package.
 
-A wrapper given CUDA tensors launches its kernel (bf16 only) or raises; given
-CPU tensors it runs the plain version. ``<wrapper>.launches`` counts kernel
-launches and nothing else.
+A wrapper given CUDA tensors launches its kernel (bf16 only) on their card or
+raises; given CPU tensors it runs the plain version. Every launch goes
+through ``_launch``, which makes the tensors' card the current one for the
+C launcher. ``<wrapper>.launches`` counts kernel launches and nothing else.
 
 Numerics (shared with the JAX package): logits in log2 units, q pre-scaled
 by ``scale * log2 e`` in the input dtype, fp32 scores and accumulator, P @ V
@@ -72,6 +73,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+import threading
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -90,6 +92,25 @@ _PLAIN_BLOCK_ELEMS = 1 << 28
 
 def _stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_count_lock = threading.Lock()
+
+
+def _launch(wrapper, source: str, q: torch.Tensor, *args) -> None:
+    """Call ``irt_<source>_bf16`` of ``csrc/<source>.cu`` with ``args`` and
+    the current stream of q's device, with q's device the calling thread's
+    current one: the C launcher's ``cudaFuncSetAttribute``, tensor-map
+    encode and launch all act on the current device, so a tensor on
+    ``cuda:1`` from a thread at device 0 would otherwise launch on the wrong
+    card. Raises on a CUDA error; counts the launch on ``wrapper``."""
+    entry = getattr(_build.load(source), f"irt_{source}_bf16")
+    with torch.cuda.device(q.device):
+        rc = entry(*args, _stream_ptr(q))
+    if rc != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
+    with _count_lock:  # the multi-device engine launches from several threads
+        wrapper.launches += 1
 
 
 def _check_cuda(name: str, *typed) -> None:
@@ -280,13 +301,9 @@ def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> tor
     block_k = flash_bound_chunk(sq, skv, d)
     kmax = _key_norm_max_one_pass(k, 2).contiguous()
     out = torch.empty_like(q)
-    rc = _build.load("flash_bound").irt_flash_bound_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(), out.data_ptr(),
-        b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E), _stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_bound kernel launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
+    _launch(flash_attention, "flash_bound", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(), out.data_ptr(),
+            b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E))
     return out
 
 
@@ -351,14 +368,9 @@ def flash_online(q, k, v, *, scale: float) -> torch.Tensor:
     b, h, sq, d = q.shape
     skv = k.shape[2]
     out = torch.empty_like(q)
-    rc = _build.load("flash_online").irt_flash_online_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, sq, skv, d, flash_online_chunk(skv, d), ctypes.c_float(scale * LOG2E),
-        _stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_online kernel launch failed: CUDA error {rc}")
-    flash_online.launches += 1
+    _launch(flash_online, "flash_online", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, sq, skv, d, flash_online_chunk(skv, d), ctypes.c_float(scale * LOG2E))
     return out
 
 
@@ -493,14 +505,10 @@ def shared_identity(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
             f"shared_identity: unsupported shapes q {tuple(q.shape)} "
             f"cache {tuple(rk.shape)} ids {tuple(ids32.shape)}")
     out = torch.empty_like(q)
-    rc = _build.load("shared_identity").irt_shared_identity_bf16(
-        q.data_ptr(), rk.data_ptr(), rv.data_ptr(), kmax.data_ptr(), aff.data_ptr(),
-        ids32.data_ptr(), out.data_ptr(),
-        b, h, sq, s, n, i_rows, d, ctypes.c_float(scale * LOG2E), _stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"shared_identity kernel launch failed: CUDA error {rc}")
-    shared_identity.launches += 1
+    _launch(shared_identity, "shared_identity", q,
+            q.data_ptr(), rk.data_ptr(), rv.data_ptr(), kmax.data_ptr(), aff.data_ptr(),
+            ids32.data_ptr(), out.data_ptr(),
+            b, h, sq, s, n, i_rows, d, ctypes.c_float(scale * LOG2E))
     return out
 
 
@@ -577,16 +585,12 @@ def shared_flash_bound(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: flo
             f"shared_flash_bound: unsupported shapes q {tuple(q.shape)} refs {tuple(rk.shape)}"
             f" input {tuple(k_in.shape) if include_input else None}")
     out = torch.empty_like(q)
-    rc = _build.load("shared_flash_bound").irt_shared_flash_bound_bf16(
-        q.data_ptr(), k_in.data_ptr() if include_input else None,
-        v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
-        kmax.data_ptr(), aff.data_ptr(), None if ids32 is None else ids32.data_ptr(),
-        out.data_ptr(), b, h, sq, s, n, rows, int(include_input), d,
-        ctypes.c_float(scale * LOG2E), _stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"shared_flash_bound kernel launch failed: CUDA error {rc}")
-    shared_flash_bound.launches += 1
+    _launch(shared_flash_bound, "shared_flash_bound", q,
+            q.data_ptr(), k_in.data_ptr() if include_input else None,
+            v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
+            kmax.data_ptr(), aff.data_ptr(), None if ids32 is None else ids32.data_ptr(),
+            out.data_ptr(), b, h, sq, s, n, rows, int(include_input), d,
+            ctypes.c_float(scale * LOG2E))
     return out
 
 
@@ -676,15 +680,11 @@ def _launch_shared_online(wrapper, source: str, q, k_in, v_in, rk, rv, aff, *, s
             f" input {tuple(k_in.shape) if include_input else None}")
     shared_online_tile(sq, s, h, pair=heads_per_block == 2)  # raises on a refused shape
     out = torch.empty_like(q)
-    rc = getattr(_build.load(source), f"irt_{source}_bf16")(
-        q.data_ptr(), k_in.data_ptr() if include_input else None,
-        v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
-        aff.data_ptr(), out.data_ptr(), b, h, sq, s, n, int(include_input), d,
-        ctypes.c_float(scale * LOG2E), _stream_ptr(q),
-    )
-    if rc != 0:
-        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
-    wrapper.launches += 1
+    _launch(wrapper, source, q,
+            q.data_ptr(), k_in.data_ptr() if include_input else None,
+            v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
+            aff.data_ptr(), out.data_ptr(), b, h, sq, s, n, int(include_input), d,
+            ctypes.c_float(scale * LOG2E))
     return out
 
 

@@ -55,7 +55,9 @@ def save_checkpoint(path, params: Dict[str, Any], *, cfg=None, step: Optional[in
     ``step``, ``cfg`` (a config dataclass, stored as a plain dict) and the
     entries of ``extra`` (trees of tensors, numbers and strings; their
     tensors moved to the CPU). The file is written beside ``path`` and moved
-    over it, so a crash never leaves half a checkpoint."""
+    over it, so a crash never leaves half a checkpoint. In a multi-process
+    run rank 0 alone writes (``Coach.save``) and the others wait at a
+    barrier until the file is whole; every rank reads it to resume."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     payload = {k: _to_cpu(v) for k, v in (extra or {}).items()}

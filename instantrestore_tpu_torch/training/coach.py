@@ -6,11 +6,29 @@ heads) per batch, gradient accumulation, metric / image / validation / save
 intervals, validation over the whole test set with best-model tracking, and
 resumable checkpoints.
 
+Across processes (``parallel.distributed.init_distributed`` before the
+Coach; ``cli.train`` does it under ``torchrun`` or ``--multihost``) each
+rank runs on its own card (``local_device()``), its loaders hand it its
+rows of every global batch, and it draws the global batch's noise,
+timestep, layer, DiffAugment and cycle noise from the (seed, step)
+generator and keeps its rows (``local_rows``), so a run over any number of
+ranks takes the steps of one process over the same global batch. Rank 0's
+params and discriminator heads are broadcast at the start; the loss terms
+are each rank's share of the global batch's, and the G and D gradients, the
+loss counts and the metrics are summed over the ranks, so every rank takes
+the same update (``u`` stays the power iteration's, the same on each).
+Validation sums each batch's loss shares over the ranks, so
+``best_val_loss`` and the ``best_model`` save agree. Rank 0 alone writes
+logs and checkpoints, a barrier follows each save, every rank restores, and
+the ranks' trainable leaves and heads are checked bit-equal at each save
+interval. A batch key that not every rank's batch has (collate adds some
+only when each item has them) is dropped on all, and the landmark term
+takes rank 0's layer.
+
 Differences from the JAX Coach, each deliberate:
-  * one process and one card (CUDA unless ``device="cpu"`` is asked). A
-    multi-process launch raises until DDP is ported (ROADMAP Queue 1 item
-    1e); ``steps_per_dispatch`` above 1 (the JAX package's scanned
-    multi-step dispatch) raises (Queue 5 item 4).
+  * one card per process (CUDA unless ``device="cpu"`` is asked);
+    ``steps_per_dispatch`` above 1 (the JAX package's scanned multi-step
+    dispatch) raises (Queue 5 item 4).
   * the G step is the port's ``make_train_step`` (trainable leaves and
     moments updated in place).
   * the random draws are explicit: ``draw_g`` / ``draw_d`` / ``draw_eval``
@@ -45,8 +63,10 @@ from instantrestore_tpu_torch import resolve_device
 from instantrestore_tpu_torch.configs.config import TrainConfig, encode_config
 from instantrestore_tpu_torch.convert import tree_to
 from instantrestore_tpu_torch.data.datasets import (
+    DEVICE_KEYS,
     RestoreDataset,
     RestoreDatasetTest,
+    build_landmark_target,
     to_torch_batch,
 )
 from instantrestore_tpu_torch.data.loader import DataLoader
@@ -57,6 +77,7 @@ from instantrestore_tpu_torch.models.restorer import (
     restore_forward,
 )
 from instantrestore_tpu_torch.models.vit import CLIP_VITB32, DINO_VITB16, DINOV2_VITL14
+from instantrestore_tpu_torch.parallel import distributed as pdist
 from instantrestore_tpu_torch.training import checkpoints as ckpt_mod
 from instantrestore_tpu_torch.training.logging_utils import CoachLogger
 from instantrestore_tpu_torch.training.losses import gan as gan_mod
@@ -64,6 +85,7 @@ from instantrestore_tpu_torch.training.losses.composite import (
     compute_generator_loss,
     crop_with_boxes,
     facial_comp_sizes,
+    loss_counts,
 )
 from instantrestore_tpu_torch.training.losses.lpips import init_lpips_params
 from instantrestore_tpu_torch.training.optim import (
@@ -71,7 +93,7 @@ from instantrestore_tpu_torch.training.optim import (
     make_optimizer,
     trainable_leaves,
 )
-from instantrestore_tpu_torch.training.train_step import make_train_step
+from instantrestore_tpu_torch.training.train_step import make_train_step, reduce_metrics
 
 # backbone -> (head in_ch, out_size) of the SimpleD-headed conv backbones
 SIMPLE_HEADS = {"vgg": (512, 3), "swin": (768, 3), "face_seg": (256, 4), "face_normals": (512, 4),
@@ -145,6 +167,15 @@ def _copy_into(dst, src, path=""):
         dst.copy_(src)
 
 
+def _named_leaves(tree, prefix=""):
+    """(dotted path, tensor) of every leaf of a param tree, in tree order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)] if isinstance(tree, torch.Tensor) else []
+
+
 def _u_leaves(tree, out=None):
     """The ``u`` entries of a head tree as (parent dict, tensor) in tree order."""
     out = [] if out is None else out
@@ -158,13 +189,6 @@ def _u_leaves(tree, out=None):
         for v in tree:
             _u_leaves(v, out)
     return out
-
-
-def _multi_process_launch() -> bool:
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        return True
-    dist = torch.distributed
-    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
 class Coach:
@@ -187,15 +211,29 @@ class Coach:
                 f"steps_per_dispatch={cfg.compute.steps_per_dispatch}: the port takes one train "
                 "step per call; the JAX package's scanned dispatch of several steps has no "
                 "counterpart until the step is a CUDA graph (ROADMAP Queue 5 item 4)")
-        if _multi_process_launch():
-            raise NotImplementedError("multi-process training is not ported yet: DDP over the "
-                                      "trainable leaves is ROADMAP Queue 1 item 1e")
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not torch.distributed.is_initialized():
+            raise RuntimeError("WORLD_SIZE > 1 but no process group: call "
+                               "parallel.distributed.init_distributed() before the Coach")
         self.cfg = cfg
+        # multi-process: rank 0 owns logs and checkpoints, every rank feeds
+        # its rows of the global batch
+        self.group = pdist.default_group()
+        self.process_count = pdist.process_count()
+        self.primary = pdist.is_primary()
+        if device is None and self.process_count > 1:
+            device = pdist.local_device()
         self.device = resolve_device(device)
         self.statics = statics or RestorerStatics.from_model_config(cfg.model)
         self.vit_cfg = vit_cfg
-        self.logger = CoachLogger(cfg.log.exp_dir, use_tensorboard=cfg.log.log2wandb)
+        self.logger = CoachLogger(cfg.log.exp_dir, use_tensorboard=cfg.log.log2wandb,
+                                  primary=self.primary)
         self.logger.log_config(encode_config(cfg))
+        if cfg.compute.batch_size % self.process_count:
+            raise ValueError(f"multi-process run: global batch_size={cfg.compute.batch_size} "
+                             f"must be divisible by the {self.process_count} processes")
+        if self.process_count > 1:
+            self.logger.log_message(f"multi-process: {self.process_count} processes, one card "
+                                    f"each, {torch.distributed.get_backend()}")
         self.train_step_num = 0
         self.best_val_loss = float("inf")
         dev = self.device
@@ -280,14 +318,20 @@ class Coach:
             self.train_dataset.shuffle(cfg.compute.seed)
             self.train_dataset.paths = self.train_dataset.paths[: cfg.compute.batch_size]
             self.test_dataset = self.train_dataset
+        ranks = dict(process_index=pdist.process_index(), process_count=self.process_count)
         self.train_loader = DataLoader(self.train_dataset, cfg.compute.batch_size,
                                        shuffle=not cfg.data.overfit,
-                                       num_workers=cfg.compute.workers, seed=cfg.compute.seed)
+                                       num_workers=cfg.compute.workers, seed=cfg.compute.seed,
+                                       **ranks)
+        # multi-process: a partial final batch cannot split across processes
         self.test_loader = DataLoader(self.test_dataset, cfg.compute.test_batch_size,
                                       shuffle=False, num_workers=cfg.compute.test_workers,
-                                      drop_last=False)
+                                      drop_last=self.process_count > 1, **ranks)
 
         self._build_steps()
+        if self.group is not None:  # every rank starts from rank 0's state
+            pdist.broadcast_([t for _, t in _named_leaves(self.params)]
+                             + [t for _, t in _named_leaves(self.disc_heads)], group=self.group)
         if cfg.log.resume_from:
             self.restore(cfg.log.resume_from)
 
@@ -365,10 +409,10 @@ class Coach:
                 self.statics, self.cfg.optim, self.g_opt, self.g_mask, self._g_loss,
                 save_attn_probs=probs, probs_layers=(landmark_layer,) if probs else None,
                 save_seg_sums=self._need_seg_stats, use_fused_attention=self._fused_attention,
-                remat=self._remat, device=self.device)
+                remat=self._remat, device=self.device, process_group=self.group)
         return self._g_steps[landmark_layer]
 
-    def _g_loss(self, out, batch, ocfg):
+    def _g_loss(self, out, batch, ocfg, counts=None):
         d = self._g_draws
         degrade_fn = None
         if ocfg.lambda_cycle > 0 and "degradation_params" in batch:
@@ -385,12 +429,20 @@ class Coach:
             arcface_params=self.arcface_params, disc_backbone=self.disc_backbone,
             disc_heads=self.disc_heads, vit_cfg=self.vit_cfg, disc_type=self.disc_type,
             gan_draws=d["gan_draws"], train_input=self.statics.train_input,
-            degrade_fn=degrade_fn, landmark_layer=d["landmark_layer"])
+            degrade_fn=degrade_fn, landmark_layer=d["landmark_layer"], counts=counts)
 
     # ---- the random draws ----------------------------------------------
 
+    def _global_batch(self, batch) -> int:
+        return batch["image"].shape[0] * self.process_count
+
+    def _local(self, draws, batch):
+        """This rank's rows of draws made for the global batch."""
+        return pdist.local_rows(draws, self._global_batch(batch))
+
     def _restore_noise(self, batch, gen) -> Dict[str, torch.Tensor]:
-        b, h, w = batch["image"].shape[:3]
+        _, h, w = batch["image"].shape[:3]
+        b = self._global_batch(batch)
         shape = (b, h // 8, w // 8, 4)
         noise = {k: torch.randn(shape, generator=gen, device=gen.device)
                  for k in ("latent", "diffusion")}
@@ -398,7 +450,7 @@ class Coach:
             n = batch["conditioning_images"].shape[1]
             for k in ("cond_latent", "cond_diffusion"):
                 noise[k] = torch.randn((b * n,) + shape[1:], generator=gen, device=gen.device)
-        return {k: v.to(self.device) for k, v in noise.items()}
+        return {k: v.to(self.device) for k, v in self._local(noise, batch).items()}
 
     def _draw_layer(self, gen) -> int:
         """The shared layer the reference-usage regularisers read."""
@@ -412,10 +464,11 @@ class Coach:
         """Every random choice of one G step on ``batch``, from ``gen``: the
         restore noise and timestep, the reference-usage layer, DiffAugment's
         draws (the whole image, then each facial crop) and the cycle term's
-        noise."""
+        noise, each drawn for the global batch and cut to this rank's rows."""
         from instantrestore_tpu_torch.ops.image_ops import cycle_noise_shapes
 
-        b, h, w = batch["image"].shape[:3]
+        _, h, w = batch["image"].shape[:3]
+        b = self._global_batch(batch)
         ts = self.statics.noise_timesteps
         draws: Dict[str, Any] = {
             "noise": self._restore_noise(batch, gen),
@@ -426,21 +479,26 @@ class Coach:
         if self.disc_heads is not None:
             crops = self._crop_sizes(batch, self.cfg.optim.lambda_facial_comp > 0
                                      and batch.get("facial_comp_boxes") is not None)
-            draws["gan_draws"] = [gan_mod.diff_augment_draws(b, hh, ww, gen, self.device)
-                                  for hh, ww in [(h, w)] + list(crops)]
+            draws["gan_draws"] = self._local(
+                [gan_mod.diff_augment_draws(b, hh, ww, gen, self.device)
+                 for hh, ww in [(h, w)] + list(crops)], batch)
         if self.cfg.optim.lambda_cycle > 0 and "degradation_params" in batch:
-            draws["cycle_noise"] = [torch.randn(s, generator=gen, device=gen.device).to(self.device)
-                                    for s in cycle_noise_shapes(b, h, w)]
+            draws["cycle_noise"] = self._local(
+                [torch.randn(s, generator=gen, device=gen.device).to(self.device)
+                 for s in cycle_noise_shapes(b, h, w)], batch)
         return draws
 
     def draw_d(self, batch, gen: torch.Generator) -> List[Dict[str, torch.Tensor]]:
         """DiffAugment's draws of one D step: the real image's, the fake's,
-        then (real, fake) per facial crop."""
-        b, h, w = batch["gt"].shape[:3]
+        then (real, fake) per facial crop (the global batch's, cut to this
+        rank's rows)."""
+        _, h, w = batch["gt"].shape[:3]
         sizes = [(h, w)] * 2
         for hh, ww in self._crop_sizes(batch, batch.get("facial_comp_boxes") is not None):
             sizes += [(hh, ww)] * 2
-        return [gan_mod.diff_augment_draws(b, hh, ww, gen, self.device) for hh, ww in sizes]
+        b = self._global_batch(batch)
+        return self._local([gan_mod.diff_augment_draws(b, hh, ww, gen, self.device)
+                            for hh, ww in sizes], batch)
 
     def draw_eval(self, batch, gen: torch.Generator) -> Dict[str, Any]:
         """The eval step's draws: the restore noise and the reference-usage layer."""
@@ -493,15 +551,20 @@ class Coach:
                         draws=draws[3 + 2 * i], for_real=False, **kw)
                     fc = fc + lr.mean() + lf.mean()
                 loss = loss + fc * cfg.lambda_gan * cfg.lambda_facial_comp
+            loss = loss / self.process_count  # this rank's share of the global batch's means
             leaves = trainable_leaves(heads, self.d_mask)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = list(torch.autograd.grad(loss, leaves))
         finally:
             freeze_non_trainable(heads, _const_mask(heads, False))
         with torch.no_grad():
             for old, fresh in zip(_u_leaves(heads), _u_leaves(new)):
                 old["u"].copy_(fresh["u"])
-        self.d_opt.update(heads, list(grads))
-        return loss.detach()
+        loss = loss.detach()
+        if self.group is not None:
+            pdist.all_reduce_sum_(grads, self.group)
+            loss = reduce_metrics({"loss_d": loss}, self.group)["loss_d"]
+        self.d_opt.update(heads, grads)
+        return loss
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, Any], draws: Dict[str, Any], *, save_attn: bool = False,
@@ -510,7 +573,12 @@ class Coach:
         (no GAN or cycle term), without gradients. ``save_stats`` adds the
         streamed segment sums (the attention regularisers on every batch),
         ``save_attn`` the probabilities (the visualised batches). Returns
-        (the loss terms, the prediction, the probabilities or None)."""
+        (the loss terms, the prediction, the probabilities or None); across
+        processes the terms are the global batch's, the prediction this
+        rank's rows."""
+        counts = loss_counts(batch)
+        if self.group is not None:  # the global batch's
+            pdist.all_reduce_sum_([counts], self.group)
         out = restore_forward(
             self.params, batch["image"], batch.get("conditioning_images"),
             batch.get("valid_indices"), statics=self.statics,
@@ -520,7 +588,9 @@ class Coach:
         _, losses = compute_generator_loss(
             out, batch, self.cfg.optim, layer_idx=draws["layer_idx"],
             lpips_params=self.lpips_params, arcface_params=self.arcface_params,
-            train_input=self.statics.train_input)
+            train_input=self.statics.train_input, counts=counts)
+        if self.group is not None:
+            losses = reduce_metrics(losses, self.group)
         return losses, out["output_image"], out.get("attn_probs")
 
     # ---- the loop ----------------------------------------------------------
@@ -550,8 +620,41 @@ class Coach:
         self.validate()
         self.save(tag="final")
 
+    def _agree_on_batch(self, batch, dev_batch, landmark_layer):
+        """Multi-process: keep only the keys every rank's batch has (one
+        all-reduce of their presence and of rank 0's landmark layer), and
+        splat this rank's landmark targets again at rank 0's layer where
+        its own differs, as collate does for the items of one batch."""
+        keys = DEVICE_KEYS + ("gt_attn_probs",)
+        layer0 = (landmark_layer + 1 if landmark_layer is not None and self.primary else 0)
+        vec = torch.tensor([float(k in dev_batch) for k in keys] + [float(layer0)],
+                           device=self.device)
+        pdist.all_reduce_sum_([vec], self.group)
+        have = vec.tolist()
+        drop = [k for k, n in zip(keys, have) if k in dev_batch and n < self.process_count]
+        if drop:
+            self.logger.log_message(f"dropping {drop}: not in every rank's batch")
+        for k in drop:
+            dev_batch.pop(k)
+            if k == "gt_attn_probs":
+                dev_batch.pop("gt_attn_mask")
+                dev_batch.pop("gt_attn_cond")
+                landmark_layer = None
+        if landmark_layer is not None and landmark_layer != int(have[-1]) - 1:
+            landmark_layer = int(have[-1]) - 1
+            res = batch["image"].shape[1]
+            maps = [build_landmark_target(g, c, landmark_layer, res)
+                    for g, c in batch["landmark_coords"]]
+            dev_batch["gt_attn_probs"] = torch.as_tensor(np.stack([m[0] for m in maps])).to(
+                self.device)
+            dev_batch["gt_attn_mask"] = torch.as_tensor(np.stack([m[1] for m in maps])).to(
+                self.device)
+        return dev_batch, landmark_layer
+
     def _run_single_step(self, batch, gen: torch.Generator):
         dev_batch, landmark_layer = to_torch_batch(batch, self.device)
+        if self.group is not None:
+            dev_batch, landmark_layer = self._agree_on_batch(batch, dev_batch, landmark_layer)
         losses, pred = self.g_step(dev_batch, landmark_layer, self.draw_g(dev_batch, gen))
         if self.disc_heads is not None:
             losses["loss_d"] = self.d_step(pred, dev_batch["gt"],
@@ -581,8 +684,18 @@ class Coach:
         if crossed(cfg.steps.val_interval):
             self.validate()
         if crossed(cfg.steps.save_interval):
+            if self.group is not None:
+                self.check_replicas_agree()
             # interval checkpoints are for crash recovery: the full trainer state
             self.save(tag=f"step_{self.train_step_num}", full=True)
+
+    def check_replicas_agree(self):
+        """Raise on every rank unless the ranks' trainable leaves and heads
+        are bit-equal (one checksum all-reduce)."""
+        trainable = {id(t) for t in trainable_leaves(self.params, self.g_mask)}
+        named = [(n, t) for n, t in _named_leaves(self.params) if id(t) in trainable]
+        named += _named_leaves(self.disc_heads, "disc_heads.")
+        pdist.check_replicas_agree([t for _, t in named], [n for n, _ in named], self.group)
 
     def validate(self) -> Optional[float]:
         """The whole test set: losses averaged over every batch;
@@ -627,8 +740,9 @@ class Coach:
         if mean_losses.get("loss", math.inf) < self.best_val_loss:
             self.best_val_loss = mean_losses["loss"]
             self.save(tag="best_model")
-            (Path(self.cfg.log.exp_dir) / "checkpoints" / "timestep.txt").write_text(
-                f"best val loss {self.best_val_loss:.5f} at step {self.train_step_num}\n")
+            if self.primary:
+                (Path(self.cfg.log.exp_dir) / "checkpoints" / "timestep.txt").write_text(
+                    f"best val loss {self.best_val_loss:.5f} at step {self.train_step_num}\n")
         return mean_losses.get("loss")
 
     def _log_detected_id_sim(self, agg, pred: np.ndarray, batch):
@@ -671,9 +785,11 @@ class Coach:
             extra["g_opt"] = self.g_opt.state()
             if self.d_opt is not None:
                 extra["d_opt"] = self.d_opt.state()
-        ckpt_mod.save_checkpoint(out, self.params, cfg=self.cfg, step=self.train_step_num,
-                                 extra=extra)
-        self.logger.log_message(f"saved checkpoint {out}")
+        if self.primary:
+            ckpt_mod.save_checkpoint(out, self.params, cfg=self.cfg, step=self.train_step_num,
+                                     extra=extra)
+            self.logger.log_message(f"saved checkpoint {out}")
+        pdist.barrier(self.group)  # no rank reads a save before it is whole
 
     def restore(self, path):
         """Resume from a ``save`` file: the weights, the heads and the step

@@ -317,18 +317,20 @@ def convert_arcface_params(sd: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def id_loss(arcface_params: Dict[str, Any], pred: torch.Tensor, target: torch.Tensor,
-            pred_mats: torch.Tensor, target_mats: torch.Tensor, valid: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            pred_mats: torch.Tensor, target_mats: torch.Tensor, valid: torch.Tensor,
+            count: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, mean similarity): 1 - cos over the valid samples, 0 when none
     is valid. ``*_mats`` [B, 2, 3] from ``alignment_transforms``; the target
-    branch carries no gradient."""
+    branch carries no gradient. ``count``: the valid samples of the whole
+    batch when this call sees one rank's part of it (default: ``valid``'s)."""
     pred_feats = arcface_apply(arcface_params, warp_affine(pred.float(), pred_mats, 112))
     with torch.no_grad():
         target_feats = arcface_apply(arcface_params, warp_affine(target.float(), target_mats, 112))
     sims = (pred_feats * target_feats).sum(dim=1)
     validf = torch.as_tensor(valid, device=sims.device).float()
-    denom = validf.sum().clamp_min(1.0)
-    any_valid = (validf.sum() > 0).float()
+    n = validf.sum() if count is None else count
+    denom = n.clamp_min(1.0)
+    any_valid = (n > 0).float()
     loss = ((1.0 - sims) * validf).sum() / denom
     sim = (sims * validf).sum() / denom
     return loss * any_valid, sim * any_valid

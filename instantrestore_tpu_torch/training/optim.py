@@ -14,7 +14,11 @@ are never touched.
 Gradient accumulation over k micro-steps is ``optax.MultiSteps``'s: each
 call folds its gradients into a running mean (``acc + (g - acc) / (n + 1)``),
 and every k-th call clips that mean and takes the AdamW step with it; the
-step count, and with it the schedule, advances per applied step.
+step count, and with it the schedule, advances per applied step. Across
+processes the caller passes each micro-step's gradient already summed over
+the ranks (``make_train_step(process_group=)``, the Coach's D step), so the
+running mean and the clip are the global ones, as on JAX's mesh, and every
+rank's moments stay equal.
 """
 
 from __future__ import annotations

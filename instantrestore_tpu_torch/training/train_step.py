@@ -8,6 +8,14 @@ the trainable leaves of ``params`` in place and the optimizer's moments with
 them; frozen leaves are never written. The raw (unclipped) gradients of the
 last step stay on the trainable leaves' ``.grad``. The whole composite loss
 plugs in through ``loss_fn``; the reconstruction terms live here.
+
+Across processes (``process_group``, one rank per card) each rank's batch
+is its rows of the global batch and its loss its share of the global
+loss (``training/losses/composite.py``): the loss's counts are summed over
+the ranks before it, the gradients after ``torch.autograd.grad`` and before
+the optimizer (so the clip reads the global norm, as JAX's on the mesh),
+and the metrics after it, so every rank reports the global values and
+takes the same update.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import torch
 from instantrestore_tpu_torch import resolve_device
 from instantrestore_tpu_torch.configs.config import OptimConfig
 from instantrestore_tpu_torch.models.restorer import RestorerStatics, restore_forward
+from instantrestore_tpu_torch.parallel.distributed import all_reduce_sum_
+from instantrestore_tpu_torch.training.losses.composite import loss_counts
 from instantrestore_tpu_torch.training.optim import (
     MaskedAdamW,
     freeze_non_trainable,
@@ -37,11 +47,26 @@ def reconstruction_losses(pred: torch.Tensor, target: torch.Tensor, cfg: OptimCo
     return losses
 
 
-def default_loss_fn(out: Dict[str, Any], batch: Dict[str, Any],
-                    cfg: OptimConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def default_loss_fn(out: Dict[str, Any], batch: Dict[str, Any], cfg: OptimConfig,
+                    counts: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The weighted reconstruction terms as this batch's share of the global
+    batch's means (``counts``: ``loss_counts`` of the global batch; by
+    default this batch's own)."""
+    if counts is None:
+        counts = loss_counts(batch)
     losses = reconstruction_losses(out["output_image"], batch["gt"], cfg)
+    losses = {k: v * (batch["gt"].shape[0] / counts[0]) for k, v in losses.items()}
     total = sum(losses.values()) if losses else out["output_image"].new_zeros(())
     return total, losses
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each rank's share of each 0-d metric summed over ``group``: the
+    global values, the same on every rank (one all-reduce)."""
+    vals = torch.stack([v.float() for v in metrics.values()])
+    all_reduce_sum_([vals], group)
+    return dict(zip(metrics, vals.unbind()))
 
 
 def make_train_step(
@@ -56,6 +81,7 @@ def make_train_step(
     save_seg_sums: bool = False,
     device=None,
     probs_layers=None,
+    process_group=None,
 ):
     """Build the generator train step ``step(params, batch, *, generator=None,
     noise=None, timestep=None) -> (metrics, out)``.
@@ -71,7 +97,13 @@ def make_train_step(
     one). ``generator`` / ``noise`` / ``timestep`` as ``restore_forward``
     (``timestep=None`` draws one per batch). ``metrics``: the loss terms,
     ``loss`` and ``grad_norm`` (before clipping), detached; ``out``: the
-    forward's result."""
+    forward's result.
+
+    ``process_group`` (``parallel.distributed.default_group()`` in a
+    multi-process run): ``batch`` is this rank's rows of the global batch,
+    ``noise`` its rows of the global draws, and ``loss_fn`` takes
+    ``counts=`` (``composite.loss_counts`` summed over the ranks); the
+    gradients and the metrics are summed over the ranks (module docstring)."""
     dev = resolve_device(device)
 
     def train_step(params, batch, *, generator: Optional[torch.Generator] = None,
@@ -96,15 +128,22 @@ def make_train_step(
             save_seg_sums=save_seg_sums,
             use_fused_attention=use_fused_attention, remat=remat,
         )
-        total, losses = loss_fn(out, batch, optim_cfg)
+        kw = {}
+        if process_group is not None:  # the global batch's counts
+            kw["counts"] = loss_counts(batch)
+            all_reduce_sum_([kw["counts"]], process_group)
+        total, losses = loss_fn(out, batch, optim_cfg, **kw)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         # a leaf the loss does not reach (to_k of a refs-only shared layer) has a zero gradient
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        if process_group is not None:
+            all_reduce_sum_(grads, process_group)
+            metrics = reduce_metrics(metrics, process_group)
         for t, g in zip(leaves, grads):
             t.grad = g
         optimizer.update(params, grads)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
         metrics["grad_norm"] = optimizer.last_grad_norm
         return metrics, out
 

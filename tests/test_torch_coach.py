@@ -26,8 +26,10 @@ Behaviour (the port alone, 64 px, as ``tests/test_coach.py`` tests the JAX
 Coach): the smoke run, validation over the whole set with the visualisation
 cap, the attention regularisers on every val batch, a full save and a resume
 that ends bit for bit where the uninterrupted run ends, the overfit loss
-going down, the refused multi-step dispatch and multi-process launch, the
-train entry point, and the Predictor serving the trainer's ``final`` file.
+going down, the refused multi-step dispatch, a multi-process launch that
+has not joined a process group, the train entry point, and the Predictor
+serving the trainer's ``final`` file (multi-process training itself:
+``tests/test_torch_parallel.py``).
 """
 
 import copy
@@ -581,10 +583,12 @@ def test_one_process_one_step_per_call(small_roots, tmp_path, monkeypatch):
     cfg = small_cfg(small_roots, tmp_path, "spd", compute__steps_per_dispatch=2)
     with pytest.raises(ValueError, match="scanned dispatch.*Queue 5 item 4"):
         small_coach(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1e"):
+    # a multi-process run joins its group first: --multihost needs its rendezvous
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="coordinator_address"):
         cli_train.main(["--multihost", "--device", "cpu"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1e"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         small_coach(small_cfg(small_roots, tmp_path, "ddp"))
 
 

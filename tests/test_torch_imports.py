@@ -341,3 +341,22 @@ def test_trainer_slice_modules_are_covered(module, trainer_modules_imported):
     imports without a GPU, a CUDA compiler, Triton, OpenCV, Pillow or yaml."""
     assert module in {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert module[:-3].replace("/", ".") not in trainer_modules_imported
+
+
+PARALLEL_MODULES = (
+    "instantrestore_tpu_torch/parallel/__init__.py",
+    "instantrestore_tpu_torch/parallel/distributed.py",
+)
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_slice_modules_are_covered(module):
+    """The multi-process and multi-device modules are among the files checked
+    above and import in a fresh interpreter without a GPU or Triton, and
+    with neither JAX nor the JAX package loaded after them."""
+    assert module in {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    name = module[:-3].replace("/", ".").removesuffix(".__init__")
+    code = (f"import sys; sys.modules['triton'] = None; import {name}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'instantrestore_tpu')]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
