@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,training,recipe,small,checkpoint,coach,parallel]
+    python3 chip_smoke.py [--only kernels,vjp,serving,training,options,recipe,small,checkpoint,coach,parallel]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -58,7 +58,10 @@ Without arguments every phase runs and the last two lines are the result;
    1e-3 log2 units), dQ, dK, dV against the plain versions on the same
    inputs, two launches of each kernel bit-identical, one mid shape and the
    d=512 train-step shape against fp32 autograd through the unfused
-   attention; timed beside
+   attention, and all three at the capture's shapes under a gradient
+   (VJP_CAPTURE_SHAPES: batch 8, the capture UNet's self-attentions and the
+   original VAE encoder's, with their time per G step of
+   train_reference_networks printed); timed beside
    the plain versions, scaled_dot_product_attention forward and its autograd
    backward (dQ, dK, dV together), and the bounds;
 4. warm phase: random full-width SD-Turbo weights (seeded), LoRA rank 32
@@ -108,6 +111,22 @@ Without arguments every phase runs and the last two lines are the result;
    save_seg_sums and the attention regularisers runs. Prints ms per step,
    faces/sec, peak memory with and without remat and a profile with the
    share of the three flash-VJP kernels;
+9o. options phase ("options"): the three model options at full width. A G
+   step with use_shortcuts (the VAE's skip convs) and
+   train_reference_networks (rank-16 LoRA on the capture nets), the
+   training phase's batch, L2 + LPIPS and remat, over the Coach's mask (the
+   capture nets' LoRA and conv_in, the skip convs): a warm-up and 2 timed
+   steps, launches per step (70 flash_fwd_lse: the 18 attentions with a
+   gradient and the capture's 17, each forward twice; 34 flash_bwd_dq and
+   34 flash_bwd_dkv: the capture's last self-attention reaches no captured
+   K/V; no flash_bound), the capture nets' gradients finite and nonzero by
+   group, fused against unfused (loss 1e-3, gradients 0.1 by group), ms
+   and peak memory. Then a FaceID model (condition_on_face_embeds): a
+   batch-16 restore_forward(face_embeds=) (9 shared_flash_bound + 26
+   flash_bound; finite, moved by other embeddings and by none, fused vs
+   unfused on 2 samples) and a 512 px Predictor restore with embeddings
+   from a stub provider (PIL images where Pillow imports, else
+   predict_batch);
 9a. recipe phase ("recipe"): the reference's full generator loss at full
    width. First each network and image op it adds, on the card against the
    same port code on the CPU, fp32 with TF32 off in cuBLAS and cuDNN
@@ -201,10 +220,13 @@ Without arguments every phase runs and the last two lines are the result;
    per rank the G and D ms, the device busy of one G + D step, the G
    gradient all-reduce's ms and bytes, and peak memory. Then
    ServingEngine(devices=) on every card (two shares of cuda:0 with one
-   card) against the one-device engine: the onboarded cache of 16
-   identities bit-equal, warm and cold batch-16 restores within mean-abs
-   2e-2, launches per share as the warm and cold phases count them,
-   faces/sec beside one device's, and a batch of 3 refused;
+   card; a worker process for each device after the first) against the
+   one-device engine: onboarding seconds of 16 identities on both and every
+   device's cache bit-equal to the one-device cache, warm and cold batch-16
+   restores and, with two cards or more, batches of 16 rows a card, within
+   mean-abs 2e-2, launches summed over the processes as the warm and cold
+   phases count them, faces/sec beside one device's at batch 16, a batch of
+   3 refused, and no worker process left after close();
 10. prints each kernel's factor over its library call per pass of its path,
    largest first, with its d=64 and d=512 parts where it runs at both
    (flash_bwd_dq and flash_bwd_dkv ranked as one pair against SDPA's joint
@@ -249,6 +271,13 @@ TRAIN_BATCH, TRAIN_STEPS = 2, 4
 VJP_SHAPES = [(20, 256, 1024, 64, 3), (10, 1024, 4096, 64, 3), (5, 4096, 16384, 64, 3),
               (5, 4096, 4096, 64, 2), (10, 1024, 1024, 64, 2), (20, 256, 256, 64, 2),
               (20, 64, 64, 64, 1), (1, 4096, 4096, 512, 2)]
+# (heads, tokens, head dim, forwards, backwards per forward pass) of the
+# capture under a gradient (train_reference_networks) at batch B * N = 8:
+# the capture UNet's 16 self-attentions and the original VAE encoder's; the
+# last up-block layer's output reaches no captured K/V, so it has no backward
+VJP_CAPTURE_BATCH = TRAIN_BATCH * 4
+VJP_CAPTURE_SHAPES = [(5, 4096, 64, 5, 4), (10, 1024, 64, 5, 5), (20, 256, 64, 5, 5),
+                      (20, 64, 64, 1, 1), (1, 4096, 512, 1, 1)]
 VJP_AUTOGRAD_SHAPE = (10, 1024, 4096, 64)  # held against fp32 autograd too
 VJP_AUTOGRAD_D512 = (1, 4096, 4096, 512)  # and the d=512 backward tile at its train-step shape
 VJP_AUTOGRAD_REL_RMS = 3e-2  # bf16 P, dS and outputs against an fp32 reference
@@ -899,6 +928,33 @@ def vjp_kernel_phase(card: str):
             del qf, kf, vf, ref
         del q, k, v, do, out, lse, dq, dk, dv
         torch.cuda.empty_cache()
+
+    # rows 4-6 at the capture's shapes under a gradient (train_reference_networks,
+    # batch 8): not on the default train step, so per_pass 0; their time per
+    # G step of that option is printed
+    capture_ms = {"flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for h, s_, d, fwds, bwds in VJP_CAPTURE_SHAPES:
+        q, k, v, do = (torch.randn((VJP_CAPTURE_BATCH, h, s_, d), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = fv.flash_fwd_lse(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        meta = dict(batch=VJP_CAPTURE_BATCH, heads=h, queries=s_, keys=s_, head_dim=d,
+                    per_pass=0, route="capture under a gradient",
+                    per_capture_step=dict(forward=2 * fwds, backward=bwds))
+        label = f"capture B={VJP_CAPTURE_BATCH} H={h} S={s_} d={d}"
+        fwd_rows.append(fwd_row(q, k, v, scale, meta, label, (out, lse)))
+        dq_row, dkv_row, _ = bwd_rows(q, k, v, do, out, lse, scale, meta, label)
+        dq_rows.append(dq_row)
+        dkv_rows.append(dkv_row)
+        capture_ms["flash_fwd_lse"] += 2 * fwds * fwd_rows[-1]["ms"]  # remat: twice
+        capture_ms["flash_bwd_dq"] += bwds * dq_row["ms"]
+        capture_ms["flash_bwd_dkv"] += bwds * dkv_row["ms"]
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    print(f"rows 4-6 at the capture's shapes, per G step with train_reference_networks (batch "
+          f"{VJP_CAPTURE_BATCH}, remat): {({k: round(v, 3) for k, v in capture_ms.items()})} ms "
+          f"[{card}]")
 
     # rows 4-6 at d=512 with Sq != Skv (the backward's keys in a ragged last
     # block of 64: 96 keys)
@@ -1644,13 +1700,23 @@ TRAIN_LOSS_REL_TOL = 1e-3
 TRAIN_GRAD_REL_TOL = 0.1
 
 
+def _grad_group(name: str) -> str:
+    """A trainable leaf's group: its subtree's LoRA leaves, a UNet's conv_in,
+    the VAE's skip convs."""
+    parts = name.split(".")
+    if parts[-1] in ("lora_A", "lora_B"):
+        return f"{parts[0]} LoRA"
+    if parts[1] == "conv_in" and parts[0] in ("unet", "original_unet"):
+        return f"{parts[0]} conv_in"
+    return f"{parts[0]} skip convs" if parts[-2].startswith("skip_conv_") else f"{parts[0]} LoRA"
+
+
 def grad_rel_rms_by_group(names, got, ref) -> dict:
     """Relative RMS of the gradients ``got`` against ``ref`` (leaf names
-    ``names``) by leaf group: each subtree's LoRA leaves, the UNet's conv_in."""
+    ``names``) by leaf group (``_grad_group``)."""
     groups = {}
     for name, a, r in zip(names, got, ref):
-        key = name.split(".")[0] + (" conv_in" if ".conv_in." in name and name.startswith("unet")
-                                    else " LoRA")
+        key = _grad_group(name)
         num, den = groups.get(key, (0.0, 0.0))
         groups[key] = (num + float((a - r).square().sum()), den + float(r.square().sum()))
     return {k: (num / den) ** 0.5 for k, (num, den) in groups.items()}
@@ -1835,6 +1901,233 @@ def training_phase(card: str):
     if failures:
         raise AssertionError("training phase failed: " + "; ".join(failures))
     return counts
+
+
+# the options phase: the VAE's skip convs and LoRA on the capture networks in
+# one G step, and FaceID conditioning in a cold restore and the Predictor
+OPTIONS_STEPS = 2
+FACEID_EMBEDS = 4  # face embeddings a sample: one per reference
+
+
+def options_phase(card: str):
+    """The three model options at full width. A G step with use_shortcuts
+    and train_reference_networks (the training phase's batch, L2 + LPIPS,
+    remat, the Coach's mask: the capture nets' LoRA and conv_in, the skip
+    convs): launches per step, the capture LoRA's gradients finite and
+    nonzero, fused against unfused, peak memory. Then a FaceID model: a
+    batch-16 restore_forward(face_embeds=) and a 512 px Predictor restore
+    with embeddings from a stub provider. Returns the launch counts."""
+    import torch
+
+    from instantrestore_tpu_torch.configs.config import OptimConfig, SchedulerType
+    from instantrestore_tpu_torch.convert import tree_to
+    from instantrestore_tpu_torch.inference.predictor import Predictor
+    from instantrestore_tpu_torch.models.lora import trainable_mask
+    from instantrestore_tpu_torch.models.restorer import (
+        RestorerStatics,
+        init_restorer_params,
+        restore_forward,
+        serving_bundle,
+    )
+    from instantrestore_tpu_torch.training.losses.composite import compute_generator_loss
+    from instantrestore_tpu_torch.training.losses.lpips import init_lpips_params
+    from instantrestore_tpu_torch.training.optim import make_optimizer, trainable_leaves
+    from instantrestore_tpu_torch.training.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    failures, total = [], {}
+    t_phase = time.perf_counter()
+    statics = RestorerStatics(use_adain=True, train_input=False, use_shortcuts=True,
+                              train_reference_networks=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tree_to(init_restorer_params(gen, statics, lora_rank_unet=32, lora_rank_vae=32,
+                                          device=dev), dev)
+    lpips_params = tree_to(init_lpips_params(gen, device=dev), dev)
+    skips = ("skip_conv_1", "skip_conv_2", "skip_conv_3", "skip_conv_4")
+    mask = {  # the Coach's g_mask with both options
+        "unet": trainable_mask(params["unet"], extra_trainable=("conv_in",)),
+        "unet_orig_conv_in": trainable_mask(params["unet_orig_conv_in"]),
+        "vae": trainable_mask(params["vae"], extra_trainable=skips),
+        "caption_enc": False,
+        "original_unet": trainable_mask(params["original_unet"], extra_trainable=("conv_in",)),
+        "original_vae": trainable_mask(params["original_vae"]),
+    }
+    leaves = trainable_leaves(params, mask)
+    trainable_ids = {id(t) for t in leaves}
+    names = [n for n, t in _tree_leaves(params) if id(t) in trainable_ids]
+    capture = [i for i, n in enumerate(names) if n.startswith("original_")]
+    print(f"options step params: {sum(t.numel() for t in leaves) / 1e6:.2f} M trainable in "
+          f"{len(leaves)} leaves, of them the capture nets' {len(capture)} leaves "
+          f"({sum(leaves[i].numel() for i in capture) / 1e6:.2f} M)")
+
+    host = torch.Generator().manual_seed(5)
+    bsz, lat = TRAIN_BATCH, RES // 8
+    batch = {"image": torch.rand((bsz, RES, RES, 3), generator=host) * 2 - 1,
+             "gt": torch.rand((bsz, RES, RES, 3), generator=host) * 2 - 1,
+             "conditioning_images": torch.rand((bsz, N_REFS, RES, RES, 3), generator=host) * 2 - 1,
+             "valid_indices": torch.full((bsz,), N_REFS)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    noise = {k: torch.randn((n, lat, lat, 4), generator=host).to(dev)
+             for k, n in (("latent", bsz), ("diffusion", bsz), ("cond_latent", bsz * N_REFS),
+                          ("cond_diffusion", bsz * N_REFS))}
+
+    def stepper(cfg, fused=True):
+        loss_fn = lambda out, b, c: compute_generator_loss(  # noqa: E731
+            out, b, c, lpips_params=lpips_params, train_input=statics.train_input, generator=gen)
+        return make_train_step(statics, cfg, make_optimizer(cfg, 1000, mask), mask, loss_fn,
+                               use_fused_attention=fused, remat=True, device=dev)
+
+    def timed(step, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, _ = step(params, batch, **kw)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    step = stepper(OptimConfig(lambda_l2=1.0, lambda_lpips=1.0))
+    timed(step, generator=gen)  # warm-up
+    reset_counts()
+    step_s, peaks = [], []
+    for _ in range(OPTIONS_STEPS):
+        metrics, dt, peak = timed(step, generator=gen)
+        step_s.append(dt)
+        peaks.append(peak)
+    counts = launch_counts()
+    add_counts(total, counts)
+    # per step with remat: the training phase's 18 attentions with a
+    # gradient and the capture's 17 (16 UNet self-attentions and the VAE
+    # encoder's at batch 8), each forward twice; one backward fewer than
+    # forwards in the capture (the last up-block self-attention's output
+    # reaches no captured K/V); no inference kernel
+    check_launches(failures, f"{OPTIONS_STEPS} G steps with use_shortcuts and "
+                   "train_reference_networks", counts, OPTIONS_STEPS,
+                   flash_fwd_lse=2 * 35, flash_bwd_dq=34, flash_bwd_dkv=34)
+    norms = {k: 0.0 for k in ("original_unet LoRA", "original_unet conv_in", "original_vae LoRA")}
+    finite = all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+    for i in capture:
+        norms[_grad_group(names[i])] += float(leaves[i].grad.float().square().sum())
+    print(f"G step with use_shortcuts and train_reference_networks, batch {bsz} x {N_REFS} refs, "
+          f"512 px, L2 + LPIPS, remat: {[round(x * 1e3, 1) for x in step_s]} ms, peak device "
+          f"memory {max(peaks):.2f} GiB; loss {float(metrics['loss']):.6f}; the capture nets' "
+          f"gradient norms {({k: round(v ** 0.5, 6) for k, v in norms.items()})}; all gradients "
+          f"{'finite' if finite else 'NOT finite'} [{card}]")
+    if not finite or not all(v > 0 for v in norms.values()):
+        failures.append(f"capture gradients: finite {finite}, norms {norms}")
+    profile_run(lambda: step(params, batch, generator=gen),
+                "one G step with use_shortcuts and train_reference_networks", card,
+                shares={"rows 4-6 (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)":
+                        ("(irt::Mode)1", "(irt::wg::Policy)0", "bwd_dq_kernel",
+                         "bwd_dkv_kernel", "bwd_d512_kernel")})
+
+    still = OptimConfig(lambda_l2=1.0, lambda_lpips=1.0, learning_rate=0.0,
+                        scheduler_type=SchedulerType.CONSTANT)
+    grads = []
+    for fused in (True, False):
+        metrics, dt, peak = timed(stepper(still, fused), noise=noise, timestep=499)
+        grads.append((float(metrics["loss"]), [t.grad for t in leaves], dt, peak))
+    (loss_f, g_f, _, _), (loss_u, g_u, dt_u, peak_u) = grads
+    rels = grad_rel_rms_by_group(names, g_f, g_u)
+    loss_rel = abs(loss_f - loss_u) / abs(loss_u)
+    print(f"fused vs unfused G step with both options (same noise, timestep 499): loss "
+          f"{loss_f:.6f} vs {loss_u:.6f} (relative {loss_rel:.2e}, tol {TRAIN_LOSS_REL_TOL}); "
+          f"gradient relative RMS by group {({k: round(v, 4) for k, v in rels.items()})} (tol "
+          f"{TRAIN_GRAD_REL_TOL}); unfused {dt_u * 1e3:.1f} ms, peak {peak_u:.2f} GiB [{card}]")
+    if loss_rel > TRAIN_LOSS_REL_TOL or max(rels.values()) > TRAIN_GRAD_REL_TOL:
+        failures.append("the fused G step with both options disagrees with the unfused one")
+    del params, grads, g_f, g_u, leaves, lpips_params, batch
+    torch.cuda.empty_cache()
+
+    # ---- FaceID: a batch-16 cold restore and the Predictor ----
+    fstatics = RestorerStatics(use_adain=True, train_input=False, condition_on_face_embeds=True)
+    bundle = tree_to(serving_bundle(init_restorer_params(
+        torch.Generator(device=dev).manual_seed(1), fstatics, lora_rank_unet=32,
+        lora_rank_vae=32, device=dev), fstatics), dev, torch.bfloat16)
+    images = (torch.rand((BATCH, RES, RES, 3), generator=host) * 2 - 1).to(dev)
+    conds = (torch.rand((BATCH, N_REFS, RES, RES, 3), generator=host) * 2 - 1).to(dev)
+    embeds = torch.randn((BATCH, FACEID_EMBEDS, 512), generator=host).to(dev)
+    fnoise = {k: torch.randn((n, lat, lat, 4), generator=host).to(dev)
+              for k, n in (("latent", BATCH), ("diffusion", BATCH),
+                           ("cond_latent", BATCH * N_REFS), ("cond_diffusion", BATCH * N_REFS))}
+
+    def face_restore(e, fused=True, rows=slice(None)):
+        with torch.no_grad():
+            return restore_forward(
+                bundle, images[rows], conds[rows], statics=fstatics, face_embeds=e,
+                noise={k: v[rows] if not k.startswith("cond_") else
+                       v.reshape(BATCH, N_REFS, lat, lat, 4)[rows].reshape(-1, lat, lat, 4)
+                       for k, v in fnoise.items()},
+                use_fused_attention=fused)["output_image"]
+
+    face_restore(embeds)  # cuDNN's set-up
+    reset_counts()
+    out, dt = _synced_all(lambda: face_restore(embeds))
+    counts = launch_counts()
+    add_counts(total, counts)
+    check_launches(failures, "one batch-16 FaceID restore_forward", counts, 1,
+                   shared_flash_bound=9, flash_attention_bound=26)
+    prompt = face_restore(None)
+    other = face_restore(-embeds)
+    unfused = face_restore(embeds[:2], fused=False, rows=slice(0, 2))
+    d_unfused = mean_abs(out[:2], unfused)
+    print(f"FaceID restore_forward batch {BATCH}, 512 px, {FACEID_EMBEDS} embeddings a sample: "
+          f"{dt * 1e3:.1f} ms ({BATCH / dt:.2f} faces/sec); mean-abs to the prompt's output "
+          f"{mean_abs(out, prompt):.5f}, to other embeddings' {mean_abs(out, other):.5f}; fused vs "
+          f"unfused on 2 samples {d_unfused:.5f} (tol {PAR_SERVE_MEAN_ABS}) [{card}]")
+    if (tuple(out.shape) != (BATCH, RES, RES, 3) or not torch.isfinite(out).all()
+            or d_unfused > PAR_SERVE_MEAN_ABS or mean_abs(out, prompt) == 0
+            or mean_abs(out, other) == 0):
+        failures.append("the FaceID restore_forward is wrong")
+    del out, prompt, other, unfused
+
+    def stub_provider(image):
+        """A face embedder stand-in: a unit vector from the image's pixels."""
+        import numpy as np
+
+        a = np.asarray(image, np.float32).reshape(-1)[:8192]
+        v = np.resize(a - a.mean(), 512)
+        return v / max(float(np.linalg.norm(v)), 1e-6)
+
+    pred = Predictor(params=bundle, statics=fstatics, device=dev, seed=0, deterministic=True,
+                     face_embed_provider=stub_provider)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        to_pil = lambda x: Image.fromarray(  # noqa: E731
+            ((x.float().cpu().numpy() + 1) * 127.5).clip(0, 255).astype("uint8"))
+        ref_imgs = [to_pil(conds[0, i]) for i in range(N_REFS)]
+        pred.predict(to_pil(images[0]), ref_imgs)  # cuDNN's set-up
+        reset_counts()
+        (pil, _), dt = _synced_all(lambda: pred.predict(to_pil(images[0]), ref_imgs))
+        counts = launch_counts()
+        e = pred.compute_face_embeds(ref_imgs)
+        ok = pil.size == (RES, RES) and e.shape == (N_REFS, 512) and bool(abs(e).sum() > 0)
+        what = f"Predictor.predict on PIL images, embeddings from the stub provider: {dt * 1e3:.1f} ms"
+    else:
+        arrays = [conds[0, i].float().cpu().numpy() for i in range(N_REFS)]
+        e = pred.compute_face_embeds(arrays)
+        pred.predict_batch(images[:1], conds[:1], face_embeds=torch.as_tensor(e)[None])
+        reset_counts()
+        out, dt = _synced_all(lambda: pred.predict_batch(images[:1], conds[:1],
+                                                         face_embeds=torch.as_tensor(e)[None]))
+        counts = launch_counts()
+        ok = out.shape == (1, RES, RES, 3) and all_finite(out)
+        what = (f"Predictor.predict_batch (Pillow does not import), embeddings from the stub "
+                f"provider: {dt * 1e3:.1f} ms")
+    add_counts(total, counts)
+    check_launches(failures, "one FaceID Predictor restore", counts, 1,
+                   shared_flash_bound=9, flash_attention_bound=26)
+    print(f"{what}; output {'right' if ok else 'WRONG'} [{card}]")
+    if not ok:
+        failures.append("the FaceID Predictor's restore is wrong")
+    del pred, bundle
+    torch.cuda.empty_cache()
+    print(f"options phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("options phase failed: " + "; ".join(failures))
+    return total
 
 
 # the recipe phase: the loss networks on the card against the same port code
@@ -3389,9 +3682,15 @@ def device_guard_check(card: str, failures: list):
 
 def parallel_serving(card: str, failures: list) -> dict:
     """ServingEngine(devices=) on every card (two shares of the one card
-    when there is one) against the one-device engine: onboarding 16
-    identities (the cache bit-equal), warm and cold restores of batch 16
-    (mean-abs, launches, faces/sec). Returns the launch counts."""
+    when there is one; a worker process for each device after the first)
+    against the one-device engine: onboarding 16 identities (seconds on
+    both; every device's cache bit-equal to the one-device cache), warm and
+    cold restores of batch 16 (mean-abs, launches summed over the processes,
+    faces/sec) and, with two cards or more, of 16 rows a card; a batch that
+    does not divide refused; no worker left after close(). Returns the
+    launch counts."""
+    import multiprocessing
+
     import torch
 
     from instantrestore_tpu_torch.inference.serving import ServingEngine
@@ -3408,65 +3707,101 @@ def parallel_serving(card: str, failures: list) -> dict:
         torch.Generator(device="cuda:0").manual_seed(0), statics, lora_rank_unet=32,
         lora_rank_vae=32, device="cuda:0"), statics)
     one = ServingEngine(params, statics, device="cuda:0")
+    children = set(multiprocessing.active_children())
+    t0 = time.perf_counter()
     multi = ServingEngine(params, statics, devices=devices)
+    start_s = time.perf_counter() - t0
     del params
     n_dev, total = len(devices), {}
     host = torch.Generator().manual_seed(1)
     refs = torch.randint(0, 256, (N_IDENT, N_REFS, RES, RES, 3), dtype=torch.uint8, generator=host)
-    images = torch.randint(0, 256, (BATCH, RES, RES, 3), dtype=torch.uint8, generator=host)
-    ids = torch.tensor([3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3])
+    # with two cards or more also 16 rows a card: the batch-16 inputs once a card
+    big = BATCH * n_dev if n_cards > 1 else BATCH
+    reps = big // BATCH
+    images = torch.randint(0, 256, (BATCH, RES, RES, 3), dtype=torch.uint8,
+                           generator=host).repeat(reps, 1, 1, 1)
+    ids = torch.tensor([3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3]).repeat(reps)
     lat = RES // 8
     onboard_noise = {k: torch.randn((N_IDENT, N_REFS, lat, lat, 4), generator=host)
                      for k in ("latent", "diffusion")}
-    noise = {k: torch.randn((BATCH, lat, lat, 4), generator=host) for k in ("latent", "diffusion")}
+    noise = {k: torch.randn((BATCH, lat, lat, 4), generator=host).repeat(reps, 1, 1, 1)
+             for k in ("latent", "diffusion")}
     cold_noise = dict(noise)
     for k, v in onboard_noise.items():
-        cold_noise[f"cond_{k}"] = v[ids].reshape(BATCH * N_REFS, lat, lat, 4)
+        cold_noise[f"cond_{k}"] = v[ids].reshape(big * N_REFS, lat, lat, 4)
     cold_refs = refs[ids]
+    print(f"multi-device engine on {devices}: {n_dev - 1} worker processes started and given "
+          f"their replicas in {start_s:.1f} s [{card}]")
 
-    c1 = one.onboard(refs, noise=onboard_noise)
+    c1, onboard_1 = _synced_all(lambda: one.onboard(refs, noise=onboard_noise))
     reset_counts()
-    (c2, onboard_s) = _synced_all(lambda: multi.onboard(refs, noise=onboard_noise))
+    c2, onboard_s = _synced_all(lambda: multi.onboard(refs, noise=onboard_noise))
     check_launches(failures, f"multi-device onboarding of {N_IDENT} identities on {devices}",
                    launch_counts(), N_IDENT, flash_attention_bound=17)
     add_counts(total, launch_counts())
-    same = all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(c1, c2)
-               for f in ("rk", "rv", "content_mean", "content_std", "kmax"))
-    print(f"multi-device onboarding ({N_IDENT} identities split over {devices}): {onboard_s:.3f} s; "
-          f"cache {'bit-equal to' if same else 'DIFFERS from'} the one-device cache [{card}]")
-    if not same:
-        failures.append("the multi-device onboarded cache differs from the one-device cache")
+    caches = multi.device_caches()
+    same = [all(torch.equal(getattr(a, f), getattr(b, f).to(getattr(a, f).device))
+                for a, b in zip(c1, c) for f in ("rk", "rv", "content_mean", "content_std", "kmax"))
+            for c in caches]
+    print(f"multi-device onboarding ({N_IDENT} identities split over {devices}): {onboard_s:.3f} s "
+          f"beside one device's {onboard_1:.3f} s; the cache of each of the {len(caches)} devices "
+          f"{'bit-equal to' if all(same) else 'DIFFERS from'} the one-device cache {same} [{card}]")
+    if not all(same) or len(caches) != n_dev or caches[0] is not c2:
+        failures.append("a multi-device onboarded cache differs from the one-device cache")
+    del caches
 
-    rows = []
-    for what, run1, runm, per in (
-            ("warm", lambda: one.restore(images, ids, noise=noise),
-             lambda: multi.restore(images, ids, noise=noise),
-             dict(shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev)),
-            ("cold", lambda: one.restore_cold(images, cold_refs, noise=cold_noise),
-             lambda: multi.restore_cold(images, cold_refs, noise=cold_noise),
-             dict(shared_flash_bound=9 * n_dev, flash_attention_bound=26 * n_dev))):
+    def rows(n):
+        sel = slice(0, n)
+        return (images[sel], ids[sel], {k: v[sel] for k, v in noise.items()},
+                {k: v[:n * N_REFS] if k.startswith("cond_") else v[sel]
+                 for k, v in cold_noise.items()}, cold_refs[sel])
+
+    sizes = [BATCH] + ([big] if big != BATCH else [])
+    for what in ("warm", "cold"):
+        im, ii, nz, cnz, cr = rows(BATCH)
+        run1 = ((lambda: one.restore(im, ii, noise=nz)) if what == "warm"
+                else (lambda: one.restore_cold(im, cr, noise=cnz)))
         out1, _ = _synced_all(run1)  # first calls: cuDNN's set-up
-        reset_counts()
-        outm, _ = _synced_all(runm)
-        counts = launch_counts()
-        check_launches(failures, f"one multi-device {what} restore on {devices}", counts, 1, **per)
-        add_counts(total, counts)
-        diff = float((outm.float() - out1.float()).abs().mean())
-        t1 = statistics.median(_synced_all(run1)[1] for _ in range(3))
-        tm = statistics.median(_synced_all(runm)[1] for _ in range(3))
-        rows.append((what, diff, t1, tm))
-        print(f"multi-device {what} restore batch {BATCH} on {devices}: mean-abs {diff:.5f} "
-              f"against one device (tol {PAR_SERVE_MEAN_ABS}); {BATCH / tm:.2f} faces/sec "
-              f"({tm * 1e3:.1f} ms) beside one device's {BATCH / t1:.2f} ({t1 * 1e3:.1f} ms) "
-              f"[{card}]")
-        if outm.device != torch.device("cuda:0") or not torch.isfinite(outm).all() \
-                or diff > PAR_SERVE_MEAN_ABS:
-            failures.append(f"multi-device {what} restore: mean-abs {diff}, on {outm.device}")
+        t1 = statistics.median(_synced_all(run1)[1] for _ in range(RESTORE_RUNS))
+        for n in sizes:
+            im, ii, nz, cnz, cr = rows(n)
+            runm = ((lambda: multi.restore(im, ii, noise=nz)) if what == "warm"
+                    else (lambda: multi.restore_cold(im, cr, noise=cnz)))
+            per = (dict(shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev)
+                   if what == "warm" else
+                   dict(shared_flash_bound=9 * n_dev, flash_attention_bound=26 * n_dev))
+            _synced_all(runm)  # the workers' cuDNN set-up at this batch
+            reset_counts()
+            outm, _ = _synced_all(runm)
+            counts = launch_counts()
+            check_launches(failures, f"one multi-device {what} restore of batch {n} on {devices}",
+                           counts, 1, **per)
+            add_counts(total, counts)
+            diff = float((outm[:BATCH].float() - out1.float()).abs().mean())
+            if n > BATCH:  # each card's 16 rows are the batch-16 inputs
+                diff = max(diff, float((outm.float().reshape(n // BATCH, BATCH, *outm.shape[1:])
+                                        - out1.float()).abs().mean()))
+            tm = statistics.median(_synced_all(runm)[1] for _ in range(RESTORE_RUNS))
+            print(f"multi-device {what} restore batch {n} ({n // n_dev} rows a device) on "
+                  f"{devices}: mean-abs {diff:.5f} against one device (tol {PAR_SERVE_MEAN_ABS}); "
+                  f"{n / tm:.2f} faces/sec ({tm * 1e3:.1f} ms) beside one device's "
+                  f"{BATCH / t1:.2f} at batch {BATCH} ({t1 * 1e3:.1f} ms): "
+                  f"{(n / tm) / (BATCH / t1):.2f}x [{card}]")
+            if outm.device != torch.device("cuda:0") or not torch.isfinite(outm).all() \
+                    or diff > PAR_SERVE_MEAN_ABS or tuple(outm.shape) != (n, RES, RES, 3):
+                failures.append(f"multi-device {what} restore of batch {n}: mean-abs {diff}, "
+                                f"on {outm.device}")
+            del outm
     try:
         multi.restore(images[:3], ids[:3], noise={k: v[:3] for k, v in noise.items()})
         failures.append("a batch that does not divide over the devices did not raise")
     except ValueError as e:
         print(f"batch 3 on {n_dev} devices raises: {e}")
+    multi.close()
+    left = set(multiprocessing.active_children()) - children
+    print(f"after close(): {len(left)} worker processes left")
+    if left:
+        failures.append(f"worker processes outlive close(): {left}")
     return total
 
 
@@ -3653,13 +3988,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
-                    "them (kernels, vjp, serving, training, recipe, small, checkpoint, coach, "
-                    "parallel); a partial run prints no result line")
+                    "them (kernels, vjp, serving, training, options, recipe, small, checkpoint, "
+                    "coach, parallel); a partial run prints no result line")
     ap.add_argument("--ddp-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
-    unknown = only - {"kernels", "vjp", "serving", "training", "recipe", "small", "checkpoint",
-                      "coach", "parallel"}
+    unknown = only - {"kernels", "vjp", "serving", "training", "options", "recipe", "small",
+                      "checkpoint", "coach", "parallel"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -3703,6 +4038,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if wanted("training"):
         add_counts(counts, training_phase(card))
+    if wanted("options"):
+        torch.cuda.empty_cache()
+        add_counts(counts, options_phase(card))
     if wanted("recipe"):
         add_counts(counts, recipe_phase(card))
         torch.cuda.empty_cache()

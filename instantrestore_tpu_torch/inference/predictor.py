@@ -9,8 +9,12 @@ per-reference attention-mass percentages summed over the 9 shared layers.
 
 Weights come as a parameter bundle (``params``) or from a checkpoint
 (``checkpoint_path``): a reference ``.pt`` of either schema, or the port's own
-file (``load_predictor_params``). Not ported yet (ROADMAP.md): FaceID
-conditioning (``condition_on_face_embeds``), which raises.
+file (``load_predictor_params``). A FaceID model (``condition_on_face_embeds``)
+conditions on face embeddings of the references: given to ``predict`` /
+``predict_batch`` as ``face_embeds``, or computed by ``face_embed_provider``
+(any callable from a reference image to a 512-d embedding or None, e.g. a
+wrapped insightface ``FaceAnalysis``; the port tries no default). Without
+either it raises rather than fall back to the prompt.
 
 Randomness comes from a ``torch.Generator`` seeded with ``seed``; ``predict``
 and ``predict_batch`` also take ready-made ``noise`` as ``restore_forward``
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,7 +77,8 @@ class Predictor:
     ``resolution`` is the pixel size inputs are resized and cropped to
     (default: the model's, 512 for SD-Turbo).
     ``deterministic`` takes the latent's mode instead of sampling it and
-    reseeds the noise with ``seed`` on every ``predict``."""
+    reseeds the noise with ``seed`` on every ``predict``.
+    ``face_embed_provider``: the FaceID model's embedder (module docstring)."""
 
     def __init__(
         self,
@@ -91,6 +96,7 @@ class Predictor:
         base_weights_dir: Optional[str] = None,
         tokenizer_dir: Optional[str] = None,
         prompt_ids=None,
+        face_embed_provider: Optional[Callable[[Any], Any]] = None,
     ):
         self.device = resolve_device(device)
         if params is None:
@@ -100,9 +106,7 @@ class Predictor:
                 checkpoint_path, statics, base_weights_dir=base_weights_dir,
                 tokenizer_dir=tokenizer_dir, prompt_ids=prompt_ids, device=self.device)
         self.statics = statics or RestorerStatics()
-        if self.statics.condition_on_face_embeds:
-            raise NotImplementedError(
-                "FaceID conditioning (condition_on_face_embeds) is not ported yet (ROADMAP.md Queue 1)")
+        self.face_embed_provider = face_embed_provider
         # the frozen text tower never runs at inference; caption_enc suffices
         params = {k: v for k, v in params.items() if k != "text_encoder"}
         self.params = tree_to(params, self.device, dtype)
@@ -119,13 +123,36 @@ class Predictor:
         self._fused = use_fused_attention
 
     @torch.no_grad()
-    def _fwd(self, image, conds, valid, generator, save_attn: bool, noise):
+    def _fwd(self, image, conds, valid, generator, save_attn: bool, noise, face_embeds=None):
+        if self.statics.condition_on_face_embeds:
+            if face_embeds is None:
+                raise ValueError("a FaceID model (condition_on_face_embeds) needs face_embeds= "
+                                 "or a Predictor(face_embed_provider=)")
+            face_embeds = torch.as_tensor(face_embeds).to(self.device, torch.float32)
         return restore_forward(
-            self.params, image, conds, valid, statics=self.statics,
+            self.params, image, conds, valid, statics=self.statics, face_embeds=face_embeds,
             timestep=self.noise_timestep, save_attn_probs=save_attn,
             sample_posterior=not self.deterministic, generator=generator, noise=noise,
             use_fused_attention=self._fused and not save_attn,
         )
+
+    def compute_face_embeds(self, cond_imgs, max_refs: int = 4) -> np.ndarray:
+        """[max_refs, 512] face embeddings of the first ``max_refs``
+        references by the provider: zeros where it finds no face (returns
+        None), the given ones repeated to fill ``max_refs``, all zeros with
+        no references."""
+        if self.face_embed_provider is None:
+            raise ValueError("no face_embed_provider: pass face_embeds= to predict() or a "
+                             "Predictor(face_embed_provider=)")
+        embeds = []
+        for im in cond_imgs[:max_refs]:
+            e = self.face_embed_provider(im)
+            embeds.append(np.zeros(512, np.float32) if e is None else np.asarray(e, np.float32))
+        if not embeds:
+            return np.zeros((max_refs, 512), np.float32)
+        n = len(embeds)
+        embeds += [embeds[i % n] for i in range(max_refs - n)]
+        return np.stack(embeds)
 
     # -- preprocessing --------------------------------------------------
 
@@ -146,9 +173,10 @@ class Predictor:
     # -- prediction -----------------------------------------------------
 
     def predict(self, input_img, cond_imgs, *, return_attention: bool = False,
-                noise: Optional[Dict[str, torch.Tensor]] = None):
+                noise: Optional[Dict[str, torch.Tensor]] = None, face_embeds=None):
         """One restoration of a PIL image against PIL references. Returns
-        (PIL image, attention percentages or None)."""
+        (PIL image, attention percentages or None). A FaceID model reads
+        ``face_embeds`` [M, 512], by default ``compute_face_embeds(cond_imgs)``."""
         from PIL import Image
 
         image = torch.from_numpy(self.prepare_image(input_img, self.resolution))[None]
@@ -157,8 +185,11 @@ class Predictor:
         valid = torch.full((1,), conds.shape[0], device=self.device)
         generator = (torch.Generator(device=self.device).manual_seed(self._seed)
                      if self.deterministic else self.generator)
+        if self.statics.condition_on_face_embeds and face_embeds is None:
+            face_embeds = self.compute_face_embeds(cond_imgs)
         out = self._fwd(image.to(self.device), torch.from_numpy(conds)[None].to(self.device),
-                        valid, generator, return_attention, noise)
+                        valid, generator, return_attention, noise,
+                        None if face_embeds is None else torch.as_tensor(face_embeds)[None])
         pred = out["output_image"][0].float().cpu().numpy()
         pil = Image.fromarray((denormalize_pm1(pred) * 255).astype(np.uint8))
         attn = None
@@ -168,16 +199,18 @@ class Predictor:
         return pil, attn
 
     def predict_batch(self, images, conds, valid=None, *,
-                      noise: Optional[Dict[str, torch.Tensor]] = None) -> np.ndarray:
+                      noise: Optional[Dict[str, torch.Tensor]] = None,
+                      face_embeds=None) -> np.ndarray:
         """Array in, array out: images [B, res, res, 3] and conds
         [B, N, res, res, 3] in [-1, 1] (numpy or tensors) -> [B, res, res, 3]
-        float32 numpy in [-1, 1]."""
+        float32 numpy in [-1, 1]. A FaceID model reads ``face_embeds``
+        [B, M, 512]."""
         images = torch.as_tensor(images).to(self.device)
         conds = torch.as_tensor(conds).to(self.device)
         if valid is None:
             valid = torch.full((images.shape[0],), conds.shape[1])
         out = self._fwd(images, conds, torch.as_tensor(valid).to(self.device), self.generator,
-                        False, noise)
+                        False, noise, face_embeds)
         return out["output_image"].float().cpu().numpy()
 
     def run_directory(self, data_root: str, results_dir: str = "results", max_refs: int = 4):

@@ -18,21 +18,22 @@ what the identity cache does not model).
 Cold path: ``restore_cold`` re-encodes each request's references in the call
 (the reference implementation's own flow).
 
-Several cards (``devices=``, the counterpart of JAX's ``mesh=``): params
-and the identity cache are copied to each listed device (a device listed
-twice shares its copy). Every draw is made once for the whole batch, from
-the caller's generator on its own device in the order a one-device restore
-draws (or taken through ``noise``), and each device gets its contiguous rows
-of images, identity ids and noise; so the output does not depend on the
-number of devices beyond the order of fp sums. A batch must divide by the
-device count (``ValueError`` "...divisible..." as in JAX). Each card's
-share is issued from a host thread of its own under ``torch.cuda.device``,
-so the cards run at once (CPU devices take turns), and the output is
-gathered on the first device.
+Several cards (``devices=``, the counterpart of JAX's ``mesh=``): the
+calling process serves the first device, and each further device gets a
+worker process of its own (``inference/workers.py``) holding its own
+replica of the bundle and of the cache. Every draw is made once for the
+whole batch, from the caller's generator on its own device in the order a
+one-device restore draws (or taken through ``noise``), and each device gets
+its contiguous rows of images, identity ids and noise (``local_rows``); so
+the output does not depend on the number of devices beyond the order of fp
+sums. A batch must divide by the device count (``ValueError``
+"...divisible..." as in JAX). The workers run their rows while the calling
+process runs its own, and the outputs are gathered on the first device.
 Onboarding splits the identities over the devices when their count divides
 by the number of devices (each identity's encode is the one-device one, so
 the cache is bit-equal), else it onboards on the first device; the cache is
-then copied to every device.
+then copied to every worker. ``close()`` (or a ``with`` block) stops the
+workers.
 
 Differences from the JAX engine: onboarding is a Python loop over
 identities (no ``lax.map``), and a restore draws its batch noise from one
@@ -45,13 +46,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from instantrestore_tpu_torch import resolve_device
 from instantrestore_tpu_torch.convert import tree_to
+from instantrestore_tpu_torch.inference.workers import WorkerPool
 from instantrestore_tpu_torch.models import scheduler as sched
 from instantrestore_tpu_torch.models.restorer import (
     RestorerStatics,
@@ -78,16 +79,11 @@ def _fields(layer) -> List[torch.Tensor]:
     return [getattr(layer, f.name) for f in dataclasses.fields(layer)]
 
 
-def _cache_to(cache: List[Any], device: torch.device) -> List[Any]:
-    """A warm cache's layers on ``device`` (shared where already there)."""
-    return [dataclasses.replace(c, **{f.name: getattr(c, f.name).to(device)
-                                      for f in dataclasses.fields(c)})
-            if dataclasses.is_dataclass(c) else tuple(t.to(device) for t in c) for c in cache]
-
-
 def _on(device: torch.device):
     """``device`` the calling thread's current CUDA device (no-op off CUDA)."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 
 
 class ServingEngine:
@@ -105,7 +101,9 @@ class ServingEngine:
     times the VAE's downsampling). ``identity_cache`` None takes the JAX
     engine's default: ``use_fused_attention and not statics.train_input``
     and ``INSTANTRESTORE_IDENT_CACHE`` unset or ``1``. ``devices`` (instead
-    of ``device``): serve on each of them (the module's docstring).
+    of ``device``): serve on each of them, a worker process for each after
+    the first (the module's docstring); ``close()`` or a ``with`` block
+    stops them.
     """
 
     def __init__(
@@ -127,12 +125,7 @@ class ServingEngine:
             raise ValueError("devices= is empty")
         self.device = self.devices[0]
         self.statics = statics
-        copies: Dict[torch.device, Any] = {}
-        for d in self.devices:
-            if d not in copies:
-                copies[d] = tree_to(params, d, statics.compute_dtype)
-        self._replicas = [copies[d] for d in self.devices]
-        self.params = self._replicas[0]
+        self.params = tree_to(params, self.device, statics.compute_dtype)
         self.use_fused_attention = use_fused_attention
         self.timestep = timestep
         if resolution is None:
@@ -146,15 +139,44 @@ class ServingEngine:
                               and os.environ.get("INSTANTRESTORE_IDENT_CACHE", "1") == "1")
         self.identity_cache = identity_cache
         self.kv_cache: Optional[List[Any]] = None
-        self._caches: List[List[Any]] = []  # kv_cache on each of self.devices
+        self._pool: Optional[WorkerPool] = None
+        if len(self.devices) > 1:
+            self._pool = WorkerPool(
+                self.devices[1:], self.params, statics,
+                dict(use_fused_attention=use_fused_attention, timestep=timestep,
+                     resolution=resolution, identity_cache=identity_cache))
+
+    def close(self) -> None:
+        """Stop the worker processes (a no-op on one device)."""
+        if self._pool is not None:
+            self._pool.close()
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _run(self, cmd: str, args: List[tuple], own: Callable[[], Any]) -> List[Any]:
+        """``own()`` on the first device while each worker runs
+        ``cmd(*args[i])``: [own's value, worker 0's, ...]."""
+        def here():
+            with torch.no_grad(), _on(self.device):
+                return own()
+
+        return self._pool.run(cmd, args, here)
+
+    def device_caches(self) -> List[List[Any]]:
+        """The warm cache as each device holds it (the workers' copied to the
+        calling process): the first device's is ``kv_cache``."""
+        if self._pool is None:
+            return [self.kv_cache]
+        return self._run("cache", [()] * len(self._pool.workers), lambda: self.kv_cache)
 
     def _set_cache(self, cache: List[Any]) -> None:
         self.kv_cache = cache
-        copies = {self.device: cache}
-        for d in self.devices:
-            if d not in copies:
-                copies[d] = _cache_to(cache, d)
-        self._caches = [copies[d] for d in self.devices]
+        if self._pool is not None:
+            self._pool.run("set_cache", [(cache,)] * len(self._pool.workers))
 
     def _latent_side(self) -> int:
         return self.resolution // 2 ** (len(self.statics.vae_cfg.block_out_channels) - 1)
@@ -168,42 +190,47 @@ class ServingEngine:
         return {k: torch.randn((rows, side, side, 4), generator=generator,
                                device=generator.device) for k in names}
 
-    def _per_device(self, fn: Callable[[int], Any]) -> List[Any]:
-        """[fn(j) for each device j] without gradients, each card's from a
-        host thread of its own with that card current (CPU "devices" share
-        the cores torch already uses, so they take their turns)."""
-        def run(j):
-            with torch.no_grad(), _on(self.devices[j]):
-                return fn(j)
-
-        if self.device.type != "cuda":
-            return [run(j) for j in range(len(self.devices))]
-        with ThreadPoolExecutor(len(self.devices)) as pool:
-            return list(pool.map(run, range(len(self.devices))))
-
-    def _split_batch(self, b: int, noise, fn: Callable[[int, slice, Any], torch.Tensor]
-                     ) -> torch.Tensor:
-        """``fn(j, rows, noise rows)`` on each device j for its contiguous
-        rows of a batch of ``b``; the outputs gathered on the first device."""
+    def _split_batch(self, b: int, noise, cmd: str, inputs: Callable[[slice], tuple],
+                     own: Callable[[slice, Any], Any]) -> List[Any]:
+        """The first device's contiguous rows of a batch of ``b`` by
+        ``own(rows, noise rows)`` here, each worker's by ``cmd(*inputs(rows),
+        noise rows)``: [the first device's result, each worker's]."""
         n_dev = len(self.devices)
         if b % n_dev:
             raise ValueError(f"batch {b} must be divisible by the {n_dev} serving devices")
         per = b // n_dev
-        outs = self._per_device(lambda j: fn(j, slice(j * per, (j + 1) * per),
-                                             local_rows(noise, b, j, n_dev)))
+        rows = [slice(j * per, (j + 1) * per) for j in range(n_dev)]
+        return self._run(cmd, [(*inputs(rows[j]), local_rows(noise, b, j, n_dev))
+                               for j in range(1, n_dev)],
+                         lambda: own(rows[0], local_rows(noise, b, 0, n_dev)))
+
+    def _gather(self, outs: List[torch.Tensor]) -> torch.Tensor:
         return torch.cat([o.to(self.device) for o in outs])
 
-    def _refs_kv(self, refs: torch.Tensor, generator, noise, j: int = 0):
-        """One identity's references [N, H, W, 3] -> 9 (k, v) [N, H, S, d]
-        on device ``j``."""
-        n, dev = refs.shape[0], self.devices[j]
+    def _refs_kv(self, refs: torch.Tensor, generator, noise):
+        """One identity's references [N, H, W, 3] -> 9 (k, v) [N, H, S, d]."""
+        n, dev = refs.shape[0], self.device
         refs = _maybe_preprocess(refs.to(dev), self.resolution)
         kv, _ = get_conditioning_kv(
-            self._replicas[j], refs[None], torch.full((1,), n, device=dev),
-            statics=self.statics, alphas_cumprod=self.abar.to(dev), generator=generator,
+            self.params, refs[None], torch.full((1,), n, device=dev),
+            statics=self.statics, alphas_cumprod=self.abar, generator=generator,
             noise=noise, use_fused_attention=self.use_fused_attention,
         )
         return [(k[0], v[0]) for k, v in kv]
+
+    def _onboard_rows(self, identity_refs: torch.Tensor, noise, generator):
+        """identity_refs [I, N, H, W, 3] -> per layer [k, v] [I, N, H, S, d]
+        (``noise`` entries [I, N, h, w, 4], else draws from ``generator``)."""
+        rows: Optional[List[List[torch.Tensor]]] = None
+        for i in range(identity_refs.shape[0]):
+            kv = self._refs_kv(identity_refs[i], generator,
+                               None if noise is None else {k: v[i] for k, v in noise.items()})
+            if rows is None:
+                rows = [[k.new_empty((identity_refs.shape[0], *k.shape)),
+                         v.new_empty((identity_refs.shape[0], *v.shape))] for k, v in kv]
+            for (rk, rv), (k, v) in zip(rows, kv):
+                rk[i], rv[i] = k, v
+        return rows
 
     @torch.no_grad()
     def onboard(self, identity_refs: torch.Tensor, *, generator: Optional[torch.Generator] = None,
@@ -219,37 +246,30 @@ class ServingEngine:
             draws = [self._draw(("latent", "diffusion"), n_refs, generator)
                      for _ in range(n_ident)]
             noise = {k: torch.stack([d[k] for d in draws]) for k in ("latent", "diffusion")}
-
-        def rows_of(idents, j):
-            rows: Optional[List[List[torch.Tensor]]] = None
-            for r, i in enumerate(idents):
-                kv = self._refs_kv(identity_refs[i], generator,
-                                   None if noise is None else {k: v[i] for k, v in noise.items()},
-                                   j)
-                if rows is None:
-                    rows = [[k.new_empty((len(idents), *k.shape)),
-                             v.new_empty((len(idents), *v.shape))] for k, v in kv]
-                for (rk, rv), (k, v) in zip(rows, kv):
-                    rk[r], rv[r] = k, v
-            return rows
-
         if n_dev > 1 and n_ident % n_dev == 0:  # identities split over the devices
-            per = n_ident // n_dev
-            parts = self._per_device(lambda j: rows_of(range(j * per, (j + 1) * per), j))
-            rows = [[torch.cat([p[l][x].to(self.device) for p in parts]) for x in (0, 1)]
+            parts = self._split_batch(
+                n_ident, noise, "onboard_rows", lambda sel: (identity_refs[sel],),
+                lambda sel, nz: self._onboard_rows(identity_refs[sel], nz, None))
+            rows = [[self._gather([p[l][x] for p in parts]) for x in (0, 1)]
                     for l in range(len(parts[0]))]
         else:
-            rows = rows_of(range(n_ident), 0)
+            rows = self._onboard_rows(identity_refs, noise, generator)
         self._set_cache(build_identity_kv_cache(rows) if self.identity_cache
                         else [(k, v) for k, v in rows])
         return self.kv_cache
+
+    def _write_row(self, slot: int, row: List[List[torch.Tensor]]) -> None:
+        """Row ``slot`` of each layer of the cache set to ``row``'s tensors."""
+        for cur, new in zip(self.kv_cache, row):
+            for t, r in zip(_fields(cur) if self.identity_cache else cur, new):
+                t[slot].copy_(r)
 
     @torch.no_grad()
     def onboard_one(self, identity_refs: torch.Tensor, slot: int, *,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[Dict[str, torch.Tensor]] = None) -> List[Any]:
         """Onboard or replace one identity ([N, H, W, 3]) in row ``slot`` of
-        the cache, in place; other rows are untouched."""
+        the cache on every device, in place; other rows are untouched."""
         if self.kv_cache is None:
             raise RuntimeError("call onboard() first")
         capacity = self._capacity()
@@ -259,16 +279,28 @@ class ServingEngine:
         if self.identity_cache:
             kv = [[t[0] for t in _fields(one)]
                   for one in build_identity_kv_cache([(k[None], v[None]) for k, v in kv])]
-        # the row on each device's cache (one copy per distinct device)
-        for cache in {id(c): c for c in self._caches}.values():
-            for cur, row in zip(cache, kv):
-                for t, r in zip(_fields(cur) if self.identity_cache else cur, row):
-                    t[slot].copy_(r)
+        self._write_row(slot, kv)
+        if self._pool is not None:
+            self._pool.run("write_row", [(slot, kv)] * len(self._pool.workers))
         return self.kv_cache
 
     def _capacity(self) -> int:
         first = self.kv_cache[0]
         return (first.rk if self.identity_cache else first[0]).shape[0]
+
+    def _restore_rows(self, images, ids, generator, noise) -> torch.Tensor:
+        """The warm restore of ``images`` of identities ``ids`` here."""
+        ids = ids.to(device=self.device, dtype=torch.long)
+        if self.identity_cache:
+            ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
+        else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
+            ref_kv = [(k[ids], v[ids]) for k, v in self.kv_cache]
+        out = restore_forward(
+            self.params, _maybe_preprocess(images.to(self.device), self.resolution),
+            statics=self.statics, timestep=self.timestep, precomputed_ref_kv=ref_kv,
+            generator=generator, noise=noise, use_fused_attention=self.use_fused_attention,
+        )
+        return out["output_image"]
 
     @torch.no_grad()
     def restore(self, images: torch.Tensor, identity_ids, *,
@@ -284,28 +316,28 @@ class ServingEngine:
             capacity = self._capacity()
             if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= capacity):
                 raise ValueError(f"identity ids outside [0, {capacity})")
-
-        def rows(j, sel, noise_rows):
-            dev = self.devices[j]
-            ids_j = ids[sel].to(device=dev, dtype=torch.long)
-            if self.identity_cache:
-                ref_kv = [IdentityRef(c, ids_j) for c in self._caches[j]]
-            else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
-                ref_kv = [(k[ids_j], v[ids_j]) for k, v in self._caches[j]]
-            out = restore_forward(
-                self._replicas[j], _maybe_preprocess(images[sel].to(dev), self.resolution),
-                statics=self.statics, timestep=self.timestep, precomputed_ref_kv=ref_kv,
-                generator=generator, noise=noise_rows,
-                use_fused_attention=self.use_fused_attention,
-            )
-            return out["output_image"]
-
         b = images.shape[0]
         if len(self.devices) == 1:
-            return rows(0, slice(None), noise)
+            return self._restore_rows(images, ids, generator, noise)
         if noise is None and b % len(self.devices) == 0:
             noise = self._draw(("latent", "diffusion"), b, generator)
-        return self._split_batch(b, noise, rows)
+        return self._gather(self._split_batch(
+            b, noise, "restore", lambda sel: (images[sel], ids[sel]),
+            lambda sel, nz: self._restore_rows(images[sel], ids[sel], None, nz)))
+
+    def _restore_cold_rows(self, images, cond_images, generator, noise) -> torch.Tensor:
+        """The cold restore of ``images`` against ``cond_images`` here."""
+        b, n = cond_images.shape[:2]
+        res, dev = self.resolution, self.device
+        conds = _maybe_preprocess(cond_images.to(dev).reshape(b * n, *cond_images.shape[2:]),
+                                  res)
+        out = restore_forward(
+            self.params, _maybe_preprocess(images.to(dev), res),
+            conds.reshape(b, n, res, res, 3), statics=self.statics,
+            timestep=self.timestep, generator=generator, noise=noise,
+            use_fused_attention=self.use_fused_attention,
+        )
+        return out["output_image"]
 
     @torch.no_grad()
     def restore_cold(self, images: torch.Tensor, cond_images: torch.Tensor, *,
@@ -317,25 +349,13 @@ class ServingEngine:
         may give ``latent``/``diffusion`` [B, h, w, 4] and
         ``cond_latent``/``cond_diffusion`` [B*N, h, w, 4]."""
         b, n = cond_images.shape[:2]
-        res = self.resolution
-
-        def rows(j, sel, noise_rows):
-            dev = self.devices[j]
-            conds = cond_images[sel].to(dev)
-            conds = _maybe_preprocess(conds.reshape(-1, *cond_images.shape[2:]), res)
-            out = restore_forward(
-                self._replicas[j], _maybe_preprocess(images[sel].to(dev), res),
-                conds.reshape(-1, n, res, res, 3), statics=self.statics,
-                timestep=self.timestep, generator=generator, noise=noise_rows,
-                use_fused_attention=self.use_fused_attention,
-            )
-            return out["output_image"]
-
         if len(self.devices) == 1:
-            return rows(0, slice(None), noise)
+            return self._restore_cold_rows(images, cond_images, generator, noise)
         if noise is None and b % len(self.devices) == 0:  # in a one-device forward's order
             noise = self._draw(("latent",), b, generator)
             noise.update({f"cond_{k}": v for k, v in
                           self._draw(("latent", "diffusion"), b * n, generator).items()})
             noise.update(self._draw(("diffusion",), b, generator))
-        return self._split_batch(b, noise, rows)
+        return self._gather(self._split_batch(
+            b, noise, "restore_cold", lambda sel: (images[sel], cond_images[sel]),
+            lambda sel, nz: self._restore_cold_rows(images[sel], cond_images[sel], None, nz)))

@@ -132,16 +132,25 @@ def attention(
     save_seg_sums: bool = False,
     lora_scaling: float = 1.0,
     use_fused: bool = False,
+    use_faceid: bool = False,
 ) -> Tuple[torch.Tensor, dict]:
     """hidden [B, S, C]; returns (out [B, S, C], aux with 'kv' when
     ``capture_kv``, 'probs' [B, h, Sq, Skv] when ``save_probs`` and 'seg_sums'
     [B, h, Sq, n_seg] when ``save_seg_sums`` and per-call references are
-    given)."""
+    given). ``use_faceid`` (a cross-attention): ``encoder_hidden`` holds face
+    embeddings, projected by ``face_projection`` and read through the
+    bias-free ``to_k_face_embed`` / ``to_v_face_embed`` instead of
+    ``to_k`` / ``to_v``."""
     aux = {}
     ctx = hidden if encoder_hidden is None else encoder_hidden
     q = _split_heads(dense(p["to_q"], hidden, lora_scaling=lora_scaling), heads)
-    k = _split_heads(dense(p["to_k"], ctx, lora_scaling=lora_scaling), heads)
-    v = _split_heads(dense(p["to_v"], ctx, lora_scaling=lora_scaling), heads)
+    if use_faceid and encoder_hidden is not None:
+        ctx = dense(p["face_projection"], ctx)
+        k = _split_heads(dense(p["to_k_face_embed"], ctx), heads)
+        v = _split_heads(dense(p["to_v_face_embed"], ctx), heads)
+    else:
+        k = _split_heads(dense(p["to_k"], ctx, lora_scaling=lora_scaling), heads)
+        v = _split_heads(dense(p["to_v"], ctx, lora_scaling=lora_scaling), heads)
     if capture_kv:
         aux["kv"] = (k, v)
     scale = q.shape[-1] ** -0.5

@@ -1,7 +1,9 @@
-"""LoRA attach/merge/strip and the trainable mask over port param trees
-(counterpart of ``instantrestore_tpu/models/lora.py``), with the reference's
-target lists. Trainables of the generator: the LoRA leaves everywhere, plus
-the modules named in ``extra_trainable`` (the UNet's ``conv_in``).
+"""LoRA attach/merge/strip, the FaceID projections and the trainable mask
+over port param trees (counterpart of ``instantrestore_tpu/models/lora.py``),
+with the reference's target lists. Trainables of the generator: the LoRA
+leaves everywhere, plus the modules named in ``extra_trainable`` (the UNet's
+``conv_in``, the VAE's skip convs). As in the JAX package, the FaceID leaves
+are not among them.
 
 Factors use peft's layouts: linear A [r, in], B [out, r]; conv A
 [r, in, kh, kw], B [out, r, 1, 1]."""
@@ -12,7 +14,7 @@ from typing import Any, Sequence
 
 import torch
 
-from instantrestore_tpu_torch.ops.primitives import add_lora
+from instantrestore_tpu_torch.ops.primitives import add_lora, init_dense
 
 UNET_LORA_TARGETS = (
     "to_k", "to_q", "to_v", "to_out.0", "conv", "conv1", "conv2",
@@ -22,6 +24,9 @@ UNET_LORA_TARGETS = (
 VAE_LORA_TARGETS = (
     "conv1", "conv2", "conv_in", "conv_shortcut", "conv", "conv_out",
     "to_k", "to_q", "to_v", "to_out.0",
+)
+VAE_SHORTCUT_TARGETS = VAE_LORA_TARGETS + (
+    "skip_conv_1", "skip_conv_2", "skip_conv_3", "skip_conv_4",
 )
 
 _TORCH_NAMES = {"net_0_proj": "net.0.proj", "net_2": "net.2", "to_out": "to_out.0"}
@@ -111,3 +116,32 @@ def strip_lora(params: Any) -> Any:
     if isinstance(params, list):
         return [strip_lora(v) for v in params]
     return params
+
+
+def attach_faceid(params: Any, gen, *, cross_dim: int = 1024, embed_dim: int = 512,
+                  device=None) -> Any:
+    """Copy of a UNet tree with the FaceID projections on every
+    cross-attention (``attn2``): ``face_projection`` (``embed_dim`` ->
+    ``cross_dim``, with a bias) and the bias-free ``to_k_face_embed`` /
+    ``to_v_face_embed`` (``cross_dim`` -> the attention's width)."""
+
+    def walk(node):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == "attn2" and isinstance(v, dict) and "to_q" in v:
+                    hidden = v["to_q"]["weight"].shape[0]
+                    out[k] = dict(v, face_projection=init_dense(gen, embed_dim, cross_dim,
+                                                                device=device),
+                                  to_k_face_embed=init_dense(gen, cross_dim, hidden, bias=False,
+                                                             device=device),
+                                  to_v_face_embed=init_dense(gen, cross_dim, hidden, bias=False,
+                                                             device=device))
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)

@@ -4,7 +4,11 @@
 One parameter bundle holds the LoRA'd restoration UNet/VAE; the frozen
 "original" nets that capture reference K/V are views of the same base
 weights (LoRA stripped, pretrained conv_in), or explicit trees in a serving
-bundle. Ported: ``get_conditioning_kv`` (the reference branch),
+bundle or, with ``train_reference_networks``, trees with their own rank-16
+LoRA (applied at ``reference_lora_scaling``) and their own ``conv_in`` and
+skip convs. The options ``use_shortcuts`` (the VAE's skip convs) and
+``condition_on_face_embeds`` (``restore_forward(face_embeds=)``) are as in
+the JAX package. Ported: ``get_conditioning_kv`` (the reference branch),
 ``restore_forward`` against references encoded in the call (cold) or
 precomputed (warm), for serving (fixed timestep) and for training
 (``timestep=None`` draws one per batch from ``statics.noise_timesteps``;
@@ -31,6 +35,8 @@ from instantrestore_tpu_torch.models import scheduler as sched
 from instantrestore_tpu_torch.models.lora import (
     UNET_LORA_TARGETS,
     VAE_LORA_TARGETS,
+    VAE_SHORTCUT_TARGETS,
+    attach_faceid,
     attach_lora,
     merge_lora,
     strip_lora,
@@ -63,18 +69,17 @@ class RestorerStatics:
     use_adain: bool = False
     train_input: bool = True
     use_shortcuts: bool = False
-    # FaceID conditioning is not ported (ROADMAP.md); the Predictor refuses it
     condition_on_face_embeds: bool = False
     unet_lora_scaling: float = 0.5  # alpha = r // 2 at training
     vae_lora_scaling: float = 0.5
     noise_timesteps: Tuple[int, ...] = NOISE_TIMESTEPS
+    # rank-16, alpha-8 LoRA on the capture networks (off in the shipped configs)
+    train_reference_networks: bool = False
+    reference_lora_scaling: float = 0.5
     compute_dtype: Any = torch.bfloat16
 
     @classmethod
     def from_model_config(cls, mcfg: ModelConfig, **overrides) -> "RestorerStatics":
-        if mcfg.train_reference_networks:
-            raise NotImplementedError("LoRA on the frozen capture networks "
-                                      "(train_reference_networks) is not ported")
         kw = dict(
             use_shared_attention=mcfg.use_shared_attention,
             use_adain=mcfg.use_adain,
@@ -85,6 +90,7 @@ class RestorerStatics:
         )
         kw.update(overrides)
         kw.setdefault("condition_on_face_embeds", mcfg.condition_on_face_embeds)
+        kw.setdefault("train_reference_networks", mcfg.train_reference_networks)
         return cls(**kw)
 
 
@@ -98,26 +104,44 @@ def init_restorer_params(
 ) -> Dict[str, Any]:
     """Random-init bundle at any width, fp32, drawn from ``gen`` (whose
     device must be ``device``): ``unet`` and ``vae`` with LoRA factors on the
-    reference's target modules, ``unet_orig_conv_in`` (its own copy of the
-    UNet's conv_in, which training updates in place) and the prompt embedding
-    ``caption_enc`` [1, 77, ctx]. LoRA B starts at N(0, ``LORA_B_STD``)
-    rather than peft's zeros."""
-    if statics.use_shortcuts:
-        raise NotImplementedError("random init of the VAE skip convs is not ported")
+    reference's target modules (and the VAE's skip convs with
+    ``use_shortcuts``), ``unet_orig_conv_in`` (its own copy of the UNet's
+    conv_in, which training updates in place) and the prompt embedding
+    ``caption_enc`` [1, 77, ctx]; the UNet's FaceID projections with
+    ``condition_on_face_embeds``; with ``train_reference_networks`` explicit
+    ``original_unet`` / ``original_vae`` with rank-16 LoRA, which share only
+    frozen base weights with the restoration nets (their ``conv_in`` and
+    skip convs are copies). LoRA B starts at N(0, ``LORA_B_STD``) rather
+    than peft's zeros."""
+    vae_cfg = dataclasses.replace(statics.vae_cfg, use_shortcuts=statics.use_shortcuts)
+    vae_targets = VAE_SHORTCUT_TARGETS if statics.use_shortcuts else VAE_LORA_TARGETS
     base_unet = init_unet_params(gen, statics.unet_cfg, device=device)
-    base_vae = init_vae_params(gen, statics.vae_cfg, device=device)
+    base_vae = init_vae_params(gen, vae_cfg, device=device)
     unet = attach_lora(base_unet, gen, lora_rank_unet, UNET_LORA_TARGETS,
                        b_std=LORA_B_STD, device=device)
-    vae = attach_lora(base_vae, gen, lora_rank_vae, VAE_LORA_TARGETS,
-                      b_std=LORA_B_STD, device=device)
+    vae = attach_lora(base_vae, gen, lora_rank_vae, vae_targets, b_std=LORA_B_STD, device=device)
     caption = torch.randn((1, 77, statics.unet_cfg.cross_attention_dim),
                           generator=gen, device=device)
-    return {
+    if statics.condition_on_face_embeds:
+        unet = attach_faceid(unet, gen, cross_dim=statics.unet_cfg.cross_attention_dim,
+                             device=device)
+    bundle = {
         "unet": unet,
         "unet_orig_conv_in": {k: v.clone() for k, v in unet["conv_in"].items()},
         "vae": vae,
         "caption_enc": caption,
     }
+    if statics.train_reference_networks:
+        # in-place updates: a leaf trainable in one tree gets its own tensor
+        ounet = dict(base_unet, conv_in={k: v.clone() for k, v in base_unet["conv_in"].items()})
+        ovae = dict(base_vae, decoder={
+            k: {n: t.clone() for n, t in v.items()} if k.startswith("skip_conv_") else v
+            for k, v in base_vae["decoder"].items()})
+        bundle["original_unet"] = attach_lora(ounet, gen, 16, UNET_LORA_TARGETS,
+                                              b_std=LORA_B_STD, device=device)
+        bundle["original_vae"] = attach_lora(ovae, gen, 16, vae_targets, b_std=LORA_B_STD,
+                                             device=device)
+    return bundle
 
 
 def original_unet_view(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -197,8 +221,11 @@ def get_conditioning_kv(
     flat = cond_images.reshape(b * n, *cond_images.shape[2:])
     sf = statics.vae_cfg.scaling_factor
     ovae = original_vae_view(params)
+    # the capture nets' own LoRA (train_reference_networks); a tree without
+    # LoRA leaves ignores the scaling
+    ref_scaling = statics.reference_lora_scaling
     mean, logvar, _ = vae_encode(
-        ovae, flat, cfg=statics.vae_cfg,
+        ovae, flat, cfg=statics.vae_cfg, lora_scaling=ref_scaling,
         compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention,
     )
     eps = _noise(noise, "latent", mean, generator) if sample_posterior else None
@@ -208,7 +235,7 @@ def get_conditioning_kv(
     caption = params["caption_enc"].expand(b * n, *params["caption_enc"].shape[1:])
     eps_pred, aux = unet_apply(
         original_unet_view(params), zt, t1, caption, cfg=statics.unet_cfg,
-        capture_kv=True, use_fused_attention=use_fused_attention,
+        capture_kv=True, lora_scaling=ref_scaling, use_fused_attention=use_fused_attention,
         compute_dtype=statics.compute_dtype,
     )
     ref_kv = mask_ref_kv(aux["kv"], valid_indices, b, n)
@@ -217,7 +244,7 @@ def get_conditioning_kv(
         x0 = sched.pred_original_sample(alphas_cumprod, eps_pred, zt, t1)
         decoded = torch.clamp(
             vae_decode(ovae, x0 / sf, cfg=statics.vae_cfg, compute_dtype=statics.compute_dtype,
-                       use_fused_attention=use_fused_attention),
+                       lora_scaling=ref_scaling, use_fused_attention=use_fused_attention),
             -1.0, 1.0,
         ).reshape(b, n, *cond_images.shape[2:])
     if debug_taps:
@@ -239,6 +266,7 @@ def restore_forward(
     valid_indices: Optional[torch.Tensor] = None,
     *,
     statics: RestorerStatics,
+    face_embeds: Optional[torch.Tensor] = None,
     timestep: Optional[int] = SERVING_TIMESTEP,
     sample_posterior: bool = True,
     decode_conditions: bool = False,
@@ -259,6 +287,11 @@ def restore_forward(
     N when None; cold restore), or given as ``precomputed_ref_kv``: a list of
     9 ``(k, v)`` [B, N, H, S, d] or ``IdentityRef`` entries (warm restore).
     Neither runs without shared attention.
+
+    ``face_embeds`` [B, M, 512] (face embeddings of the references) replace
+    the prompt embedding as the restoration UNet's cross-attention context,
+    through its FaceID projections, when ``statics.condition_on_face_embeds``
+    (without them that model attends to the prompt, as in the JAX package).
 
     ``timestep=None`` (training) draws one timestep for the batch from
     ``statics.noise_timesteps`` with ``generator``. ``remat`` checkpoints
@@ -319,18 +352,22 @@ def restore_forward(
         timestep = statics.noise_timesteps[int(idx)]
     tb = torch.full((b,), timestep, dtype=torch.long, device=z.device)
     zt = sched.add_noise(abar, z, _noise(noise, "diffusion", z, generator), tb)
-    caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
+    use_faceid = statics.condition_on_face_embeds and face_embeds is not None
+    if use_faceid:
+        caption = face_embeds.to(z.device)
+    else:
+        caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
     if not statics.use_shared_attention:
         ref_kv = None
     eps_pred, aux = stage(
-        lambda p, zt_, ref_kv_: unet_apply(
-            p, zt_, tb, caption, cfg=statics.unet_cfg, ref_kv=ref_kv_,
+        lambda p, zt_, ref_kv_, caption_: unet_apply(
+            p, zt_, tb, caption_, cfg=statics.unet_cfg, ref_kv=ref_kv_,
             use_adain=statics.use_adain, train_input=statics.train_input,
             save_attn_probs=save_attn_probs, probs_layers=probs_layers,
             save_seg_sums=save_seg_sums, use_fused_attention=use_fused_attention,
-            capture_taps=debug_taps, lora_scaling=statics.unet_lora_scaling,
-            compute_dtype=statics.compute_dtype),
-        params["unet"], zt, ref_kv)
+            use_faceid=use_faceid, capture_taps=debug_taps,
+            lora_scaling=statics.unet_lora_scaling, compute_dtype=statics.compute_dtype),
+        params["unet"], zt, ref_kv, caption)
     x0 = sched.pred_original_sample(abar, eps_pred, zt, tb)
     out = stage(
         lambda p, z_, skips: vae_decode(

@@ -205,7 +205,8 @@ def _transformer(p, x, ctx, *, cfg: UNetConfig, heads: int, lora_scaling: float,
                  shared: dict):
     """Transformer2DModel with linear projections; ``shared`` carries the
     self-attention's options (ref_kv, use_adain, train_input, capture_kv,
-    save_probs, save_seg_sums, use_fused). Returns (out, aux)."""
+    save_probs, save_seg_sums, use_fused) and the cross-attention's
+    use_faceid. Returns (out, aux)."""
     b, hh, ww, c = x.shape
     h = group_norm(p["norm"], x, num_groups=cfg.norm_num_groups, eps=cfg.transformer_norm_eps)
     h = dense(p["proj_in"], h.reshape(b, hh * ww, c), lora_scaling=lora_scaling)
@@ -225,7 +226,8 @@ def _transformer(p, x, ctx, *, cfg: UNetConfig, heads: int, lora_scaling: float,
         aux_out.update(aux)
         h = h + attn_out
         attn_out, _ = attention(bp["attn2"], layer_norm(bp["norm2"], h), heads=heads,
-                                encoder_hidden=ctx, lora_scaling=lora_scaling)
+                                encoder_hidden=ctx, lora_scaling=lora_scaling,
+                                use_faceid=shared.get("use_faceid", False))
         h = h + attn_out
         ff = geglu(bp["ff"]["net_0_proj"], layer_norm(bp["norm3"], h), lora_scaling=lora_scaling)
         h = h + dense(bp["ff"]["net_2"], ff, lora_scaling=lora_scaling)
@@ -250,6 +252,7 @@ def unet_apply(
     freeu: Optional[FreeUParams] = DEFAULT_FREEU,
     lora_scaling: float = 1.0,
     use_fused_attention: bool = False,
+    use_faceid: bool = False,
     capture_taps: bool = False,
     compute_dtype=torch.bfloat16,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -260,7 +263,9 @@ def unet_apply(
     ``probs_layers`` when given), 'seg_sums': [s x 9] when save_seg_sums
     (fp32 [B, h, Sq, n_seg]), 'taps': {...} when capture_taps}). Tap
     names match the JAX package: conv_in, down_block_i, mid_block,
-    shared_attn_i, up_block_i."""
+    shared_attn_i, up_block_i. ``use_faceid``: ``encoder_hidden_states`` are
+    face embeddings [B, M, 512], read through every cross-attention's FaceID
+    projections."""
     if timesteps.ndim == 0:
         timesteps = timesteps.expand(sample.shape[0])
     x = sample.to(compute_dtype)
@@ -277,7 +282,7 @@ def unet_apply(
     taps: Dict[str, torch.Tensor] = {}
     if capture_taps:
         taps["conv_in"] = x
-    plain = {"use_fused": use_fused_attention}
+    plain = {"use_fused": use_fused_attention, "use_faceid": use_faceid}
 
     skips = [x]
     for i, (btype, bp) in enumerate(zip(cfg.down_block_types, params["down_blocks"])):
@@ -323,6 +328,7 @@ def unet_apply(
                                                        or shared_idx in probs_layers),
                     "save_seg_sums": save_seg_sums,
                     "use_fused": use_fused_attention,
+                    "use_faceid": use_faceid,
                 }
                 x, aux = _transformer(bp["attentions"][j], x, ctx, cfg=cfg, heads=heads,
                                       lora_scaling=lora_scaling, shared=shared)

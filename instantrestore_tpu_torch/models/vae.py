@@ -71,7 +71,8 @@ def _init_mid(gen, ch: int, device) -> Dict[str, Any]:
 
 
 def init_vae_params(gen: torch.Generator, cfg: VAEConfig = VAEConfig(), *, device=None) -> Dict[str, Any]:
-    """Random-init parameter tree (fp32) in the port's layout."""
+    """Random-init parameter tree (fp32) in the port's layout, with the
+    decoder's ``skip_conv_1..4`` when ``cfg.use_shortcuts``."""
     chs = cfg.block_out_channels
     encoder: Dict[str, Any] = {
         "conv_in": init_conv2d(gen, cfg.in_channels, chs[0], 3, device=device),
@@ -109,6 +110,15 @@ def init_vae_params(gen: torch.Generator, cfg: VAEConfig = VAEConfig(), *, devic
             block["upsamplers"] = [{"conv": init_conv2d(gen, out_ch, out_ch, 3, device=device)}]
         decoder["up_blocks"].append(block)
         in_ch = out_ch
+
+    if cfg.use_shortcuts:
+        # the reference's 1x1 bias-free skip convs, set to 1e-5: the widths of
+        # the SD VAE's encoder outputs into its decoder (512 and 256 are fixed,
+        # as in the JAX package, so only a decoder of SD's widths runs them)
+        shapes = [(chs[3], 512), (chs[1], 512), (chs[0], 512), (chs[0], 256)]
+        for i, (cin, cout) in enumerate(shapes, start=1):
+            decoder[f"skip_conv_{i}"] = {
+                "weight": torch.full((cout, cin, 1, 1), 1e-5, device=device)}
 
     lat2 = 2 * cfg.latent_channels
     return {

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -442,3 +442,18 @@ def reset_launch_counts() -> None:
     """Zero the launch count of every kernel wrapper of the port."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launches in this process, by its name."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add launches made in another process on this one's behalf (the
+    serving engine's worker processes, ``inference/workers.py``) to the
+    wrappers' counts, so that they count every launch of a call."""
+    by_name = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
+    with sa._count_lock:
+        for name, n in counts.items():
+            by_name[name].launches += n

@@ -109,7 +109,7 @@ def _launch(wrapper, source: str, q: torch.Tensor, *args) -> None:
         rc = entry(*args, _stream_ptr(q))
     if rc != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
-    with _count_lock:  # the multi-device engine launches from several threads
+    with _count_lock:  # callers may launch from several threads
         wrapper.launches += 1
 
 

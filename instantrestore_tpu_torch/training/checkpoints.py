@@ -185,7 +185,10 @@ def import_reference_checkpoint(pt_path, *, base_weights_dir: Optional[str] = No
         bundle = {"unet": nets["unet"], "vae": nets["vae"]}
         if "original_unet" in nets:
             bundle["original_unet"] = nets["original_unet"]
-            bundle["unet_orig_conv_in"] = nets["original_unet"]["conv_in"]
+            # its own copy: the original's conv_in is trainable with
+            # train_reference_networks, and the step updates in place
+            bundle["unet_orig_conv_in"] = {k: v.clone()
+                                           for k, v in nets["original_unet"]["conv_in"].items()}
         if "original_vae" in nets:
             bundle["original_vae"] = nets["original_vae"]
         if "text_encoder" in nets:

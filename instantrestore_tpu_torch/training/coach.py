@@ -290,7 +290,8 @@ class Coach:
                     token_dim=self.vit_cfg.proj_dim or self.vit_cfg.embed_dim, device=dev)
 
         # the two optimizers: G over LoRA, unet.conv_in (and the VAE skip
-        # convs with use_shortcuts); D over the heads but their u vectors
+        # convs with use_shortcuts; the capture nets' LoRA and their conv_in
+        # with train_reference_networks); D over the heads but their u vectors
         p = self.params
         skips = (("skip_conv_1", "skip_conv_2", "skip_conv_3", "skip_conv_4")
                  if cfg.model.use_shortcuts else ())
@@ -300,6 +301,10 @@ class Coach:
             "vae": trainable_mask(p["vae"], extra_trainable=skips),
             "caption_enc": False,
         }
+        if cfg.model.train_reference_networks and "original_unet" in p:
+            self.g_mask["original_unet"] = trainable_mask(p["original_unet"],
+                                                          extra_trainable=("conv_in",))
+            self.g_mask["original_vae"] = trainable_mask(p["original_vae"])
         for k in p:
             self.g_mask.setdefault(k, _const_mask(p[k], False))
         acc = cfg.optim.gradient_accumulation_steps

@@ -20,6 +20,7 @@ takes the same update.
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -69,6 +70,28 @@ def reduce_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.T
     return dict(zip(metrics, vals.unbind()))
 
 
+def _aliased(params: Any, trainable: set) -> list:
+    """The dotted paths of the bundle's leaves whose tensor is trainable and
+    stands at another place of the bundle too (the step updates trainable
+    leaves in place, so a frozen view or a second tree would change with
+    them)."""
+    named = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}{i}.")
+        elif isinstance(node, torch.Tensor):
+            named.append((path[:-1], id(node)))
+
+    walk(params, "")
+    uses = collections.Counter(i for _, i in named)
+    return [n for n, i in named if i in trainable and uses[i] > 1]
+
+
 def make_train_step(
     statics: RestorerStatics,
     optim_cfg: OptimConfig,
@@ -111,13 +134,12 @@ def make_train_step(
                    timestep: Optional[int] = None):
         freeze_non_trainable(params, trainable_mask)
         leaves = trainable_leaves(params, trainable_mask)
-        frozen = {id(t) for t in leaves}
         if any(t.device.type != dev.type for t in leaves):
             raise ValueError(f"the params are not on {dev}")
-        orig = params.get("unet_orig_conv_in", {})
-        if any(id(t) in frozen for t in orig.values()):
-            raise ValueError("unet_orig_conv_in shares tensors with a trainable leaf; the "
-                             "frozen capture view needs its own copy")
+        twice = _aliased(params, {id(t) for t in leaves})
+        if twice:
+            raise ValueError(f"a trainable tensor stands at several places of the bundle "
+                             f"({', '.join(twice[:4])}); each needs its own copy")
         batch = {k: v.to(dev) if isinstance(v, torch.Tensor)
                  else [t.to(dev) for t in v] if isinstance(v, list) else v
                  for k, v in batch.items()}

@@ -42,6 +42,16 @@ RES, LAT, B, N = 128, 16, 2, 2
 F32 = jnp.float32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, more threads only
+    contend (as ``tests/test_torch_coach.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def statics_pair(**kw):
     j = jrest.RestorerStatics(unet_cfg=UCFG, vae_cfg=VCFG, compute_dtype=jnp.float32, **kw)
     t = trest.RestorerStatics(unet_cfg=tunet.UNetConfig(**UCFG.__dict__),

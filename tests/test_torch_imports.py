@@ -360,3 +360,25 @@ def test_parallel_slice_modules_are_covered(module):
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'instantrestore_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+SLICE16_MODULES = (
+    "instantrestore_tpu_torch/inference/workers.py",
+    "instantrestore_tpu_torch/models/lora.py",
+    "instantrestore_tpu_torch/inference/predictor.py",
+)
+
+
+@pytest.mark.parametrize("module", SLICE16_MODULES)
+def test_worker_and_option_modules_are_covered(module):
+    """The serving workers' module and the modules of the three model
+    options are among the files checked above and import in a fresh
+    interpreter without a GPU or Triton, starting no process, and with
+    neither JAX nor the JAX package loaded after them."""
+    assert module in {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    name = module[:-3].replace("/", ".")
+    code = (f"import sys, multiprocessing; sys.modules['triton'] = None; import {name}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'instantrestore_tpu')]; assert not bad, bad; "
+            "assert not multiprocessing.active_children()")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)

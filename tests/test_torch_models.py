@@ -32,6 +32,16 @@ T_UCFG = tunet.UNetConfig(**UCFG.__dict__)
 T_VCFG = tvae.VAEConfig(**VCFG.__dict__)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, more threads only
+    contend (as ``tests/test_torch_coach.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def random_tree(fn, *args, seed=0):
     """A JAX param tree shaped like ``fn(*args)``'s, filled with seeded numpy
     values (nonzero norm scales, biases and LoRA B)."""

@@ -40,6 +40,16 @@ from test_torch_cold import B, J_STATICS, N, RES, T_STATICS, jax_draws, models  
 SHARED_ALGOS = ("kv_outer", "q_outer", "kv_outer_packed")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, more threads only
+    contend (as ``tests/test_torch_coach.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def no_kernel_build(monkeypatch):
     """CPU tensors must never reach the CUDA build."""

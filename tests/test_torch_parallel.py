@@ -46,6 +46,7 @@ from instantrestore_tpu_torch import convert
 from instantrestore_tpu_torch.configs import config as tcfg
 from instantrestore_tpu_torch.data.loader import DataLoader
 from instantrestore_tpu_torch.inference import serving as tserving
+from instantrestore_tpu_torch.inference import workers as tworkers
 from instantrestore_tpu_torch.models import lora as tlora
 from instantrestore_tpu_torch.models import restorer as trest
 from instantrestore_tpu_torch.models import unet as tunet
@@ -326,7 +327,7 @@ def _coach_cfg(root):
 
 
 def _coach_spec(roots):
-    from test_torch_coach import SMALL_STATICS, SMALL_VIT
+    from test_torch_coach_port import SMALL_STATICS, SMALL_VIT
 
     return dict(cfg=_coach_cfg(roots[0]), roots=[str(r) for r in roots], statics=SMALL_STATICS,
                 vit=SMALL_VIT, seed=0,
@@ -399,7 +400,7 @@ def test_train_entry_point_multihost_on_two_processes(tmp_path):
         (d / "conditioning").mkdir(parents=True)
         for f in ("degraded.png", "gt.png", "conditioning/c0.png"):
             Image.fromarray(rng.integers(0, 255, (80, 80, 3), np.uint8)).save(d / f)
-    from test_torch_coach import SMALL_STATICS, SMALL_VIT
+    from test_torch_coach_port import SMALL_STATICS, SMALL_VIT
 
     roots = [tmp_path / "exp0", tmp_path / "exp1"]
     spec = dict(store=str(tmp_path / "cli_store"), roots=[str(r) for r in roots],
@@ -492,7 +493,7 @@ def test_loader_multi_process_errors():
 def test_coach_multi_process_checks(tmp_path, monkeypatch):
     """A global batch that does not divide over the processes raises, as in
     JAX's Coach, and so does WORLD_SIZE > 1 without a process group."""
-    from test_torch_coach import SMALL_STATICS
+    from test_torch_coach_port import SMALL_STATICS
 
     cfg = _coach_cfg(tmp_path)
     cfg.compute.batch_size = 3
@@ -510,7 +511,7 @@ def test_ranks_agree_on_batch_keys_and_landmark_layer(tmp_path, monkeypatch):
     here standing in for rank 0's contribution) and its landmark targets are
     splatted again at rank 0's layer, as collate does for one batch."""
     from instantrestore_tpu_torch.data import datasets as tds
-    from test_torch_coach import SMALL_STATICS
+    from test_torch_coach_port import SMALL_STATICS
 
     cfg = _coach_cfg(tmp_path)
     coach = tcoach_mod.Coach(cfg, statics=SMALL_STATICS, params=W.tiny_params(
@@ -593,17 +594,26 @@ def test_multi_device_engine_matches_jax_mesh_and_one_device(serving, n_ident):
     divide raises."""
     tsa.reset_launch_counts()
     one = tserving.ServingEngine(serving["torch"], T_STATICS, device="cpu")
-    two = tserving.ServingEngine(serving["torch"], T_STATICS, devices=["cpu", "cpu"])
-    assert two.devices == [torch.device("cpu")] * 2 and two.identity_cache
-    refs = torch.from_numpy(serving["refs"][:n_ident])
-    noise = {k: v[:n_ident] for k, v in serving["onboard_noise"].items()}
-    c1, c2 = one.onboard(refs, noise=noise), two.onboard(refs, noise=noise)
-    for a, b in zip(c1, c2):
+    with tserving.ServingEngine(serving["torch"], T_STATICS, devices=["cpu", "cpu"]) as two:
+        assert two.devices == [torch.device("cpu")] * 2 and two.identity_cache
+        refs = torch.from_numpy(serving["refs"][:n_ident])
+        noise = {k: v[:n_ident] for k, v in serving["onboard_noise"].items()}
+        c1, c2 = one.onboard(refs, noise=noise), two.onboard(refs, noise=noise)
+        caches = two.device_caches()
+        assert len(caches) == 2 and caches[0] is c2
+        for cache in caches:  # the calling process's and the worker's own copy
+            _assert_caches_equal(c1, cache)
+        if n_ident == 4:
+            _restores_match(serving, one, two)
+
+
+def _assert_caches_equal(want, got):
+    for a, b in zip(want, got, strict=True):
         for f in dataclasses.fields(a):
             assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
-    assert all(c is two.kv_cache for c in two._caches)
-    if n_ident < 4:
-        return
+
+
+def _restores_match(serving, one, two):
     images = torch.from_numpy(serving["images"])
     warm2 = two.restore(images, torch.from_numpy(IDS), noise=serving["warm_noise"])
     warm1 = one.restore(images, torch.from_numpy(IDS), noise=serving["warm_noise"])
@@ -627,12 +637,13 @@ def test_multi_device_draws_do_not_depend_on_the_device_count(serving):
     and the same cache from one seed on one device and on two."""
     outs = []
     for kw in (dict(device="cpu"), dict(devices=["cpu", "cpu"])):
-        eng = tserving.ServingEngine(serving["torch"], T_STATICS, **kw)
-        g = torch.Generator().manual_seed(7)
-        cache = eng.onboard(torch.from_numpy(serving["refs"]), generator=g)
-        images = torch.from_numpy(serving["images"])
-        outs.append((cache, eng.restore(images, torch.from_numpy(IDS), generator=g),
-                     eng.restore_cold(images, torch.from_numpy(serving["conds"]), generator=g)))
+        with tserving.ServingEngine(serving["torch"], T_STATICS, **kw) as eng:
+            g = torch.Generator().manual_seed(7)
+            cache = eng.onboard(torch.from_numpy(serving["refs"]), generator=g)
+            images = torch.from_numpy(serving["images"])
+            outs.append((cache, eng.restore(images, torch.from_numpy(IDS), generator=g),
+                         eng.restore_cold(images, torch.from_numpy(serving["conds"]),
+                                          generator=g)))
     (c1, w1, k1), (c2, w2, k2) = outs
     for a, b in zip(c1, c2):
         assert torch.equal(a.rk, b.rk) and torch.equal(a.kmax, b.kmax)
@@ -641,29 +652,77 @@ def test_multi_device_draws_do_not_depend_on_the_device_count(serving):
 
 
 def test_multi_device_onboard_one_writes_every_device(serving):
-    """``onboard_one`` writes its row into each device's cache (a second
-    device's own copy stands in for another card's) and leaves every cache
-    bit-equal to the one-device engine's after the same onboarding."""
+    """``onboard_one`` writes its row into each device's cache (the worker
+    process's own copy) and leaves every cache bit-equal to the one-device
+    engine's after the same onboarding."""
     one = tserving.ServingEngine(serving["torch"], T_STATICS, device="cpu")
-    two = tserving.ServingEngine(serving["torch"], T_STATICS, devices=["cpu", "cpu"])
-    refs = torch.from_numpy(serving["refs"])
-    noise = serving["onboard_noise"]
-    one.onboard(refs, noise=noise)
-    two.onboard(refs, noise=noise)
-    two._caches[1] = tserving._cache_to([dataclasses.replace(
-        c, **{f.name: getattr(c, f.name).clone() for f in dataclasses.fields(c)})
-        for c in two.kv_cache], torch.device("cpu"))
-    new = torch.from_numpy(serving["refs"][3])
-    one_noise = {k: v[0] for k, v in noise.items()}
-    before = two._caches[1][0].rk[1].clone()
-    one.onboard_one(new, 1, noise=one_noise)
-    two.onboard_one(new, 1, noise=one_noise)
-    assert two._caches[1] is not two.kv_cache
-    for cache in two._caches:
-        for a, b in zip(one.kv_cache, cache):
-            for f in dataclasses.fields(a):
-                assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
-    assert not torch.equal(two._caches[1][0].rk[1], before)
+    with tserving.ServingEngine(serving["torch"], T_STATICS, devices=["cpu", "cpu"]) as two:
+        refs = torch.from_numpy(serving["refs"])
+        noise = serving["onboard_noise"]
+        one.onboard(refs, noise=noise)
+        two.onboard(refs, noise=noise)
+        new = torch.from_numpy(serving["refs"][3])
+        one_noise = {k: v[0] for k, v in noise.items()}
+        before = two.device_caches()[1][0].rk[1].clone()
+        one.onboard_one(new, 1, noise=one_noise)
+        two.onboard_one(new, 1, noise=one_noise)
+        caches = two.device_caches()
+        for cache in caches:
+            _assert_caches_equal(one.kv_cache, cache)
+        assert not torch.equal(caches[1][0].rk[1], before)
+
+
+def test_worker_exception_is_raised_in_the_caller_and_close_ends_the_workers(serving):
+    """A worker's exception comes back as its own type with the worker's
+    traceback as its cause, and the engine goes on serving; ``close()``
+    leaves no child process, and ``with`` closes too."""
+    import multiprocessing
+
+    children = set(multiprocessing.active_children())
+    eng = tserving.ServingEngine(serving["torch"], T_STATICS, devices=["cpu", "cpu"])
+    pids = [w.proc.pid for w in eng._pool.workers]
+    assert len(pids) == 1 and {p.pid for p in multiprocessing.active_children()} >= set(pids)
+    eng.onboard(torch.from_numpy(serving["refs"]), noise=serving["onboard_noise"])
+    images = torch.from_numpy(serving["images"])
+    bad = {k: v[2:, :-1] for k, v in serving["warm_noise"].items()}
+    with pytest.raises(ValueError, match="noise") as info:  # only the worker's rows are bad
+        eng._pool.run("restore", [(images[2:], torch.from_numpy(IDS[2:]), bad)])
+    assert isinstance(info.value.__cause__, tworkers.RemoteTraceback)
+    assert "workers.py" in str(info.value.__cause__) and "restore_forward" in str(info.value.__cause__)
+    out = eng.restore(images, torch.from_numpy(IDS), noise=serving["warm_noise"])
+    np.testing.assert_allclose(out.numpy(), serving["jax_warm"], rtol=0, atol=1e-3)
+    eng.close()
+    assert set(multiprocessing.active_children()) == children
+    eng.close()  # a second close is a no-op
+    with tserving.ServingEngine(serving["torch"], T_STATICS, devices=["cpu", "cpu"]) as eng2:
+        pid = eng2._pool.workers[0].proc.pid
+    assert pid not in {p.pid for p in multiprocessing.active_children()}
+
+
+def test_a_dead_worker_makes_every_later_call_raise(serving):
+    """A worker killed between calls: the next call and every later one
+    raise, naming the device; nothing is retried in the calling process."""
+    with tserving.ServingEngine(serving["torch"], T_STATICS, devices=["cpu", "cpu"]) as eng:
+        worker = eng._pool.workers[0]
+        worker.proc.kill()
+        worker.proc.join(30)
+        refs = torch.from_numpy(serving["refs"])
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="worker for cpu is dead"):
+                eng.onboard(refs, noise=serving["onboard_noise"])
+        assert eng.kv_cache is None
+
+
+def test_worker_launches_are_added_to_the_callers_counts():
+    """The counts a worker reports are added to the wrappers' counts of the
+    calling process, under the counters' lock."""
+    tfv.reset_launch_counts()
+    tfv.add_launch_counts({"shared_identity": 9, "flash_attention": 9})
+    tfv.add_launch_counts({"flash_attention": 26})
+    counts = tfv.launch_counts()
+    assert counts["shared_identity"] == 9 and counts["flash_attention"] == 35
+    assert sum(counts.values()) == 44
+    tfv.reset_launch_counts()
 
 
 def test_engine_takes_device_or_devices(serving):
@@ -715,9 +774,9 @@ def _fake_cuda_launches(monkeypatch):
 
 
 def test_launch_counts_lose_no_update_across_threads(monkeypatch):
-    """The multi-device engine launches from one host thread per card: with
-    more threads than cores and a short switch interval, every launch is
-    counted once."""
+    """Launches from many host threads at once (a caller's threads, and the
+    serving engine adding its workers' counts): with more threads than cores
+    and a short switch interval, every launch is counted once."""
     import sys
     import threading
 

@@ -8,6 +8,8 @@ outputs agree to 1e-3, and truncation to uint8 can flip a level), 2e-3 on the
 attention percentages (rounded to 3 decimals by both).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,16 @@ from test_torch_cold import J_STATICS, T_STATICS, jax_draws
 from test_torch_serving import random_tree
 
 RES = 128
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, more threads only
+    contend (as ``tests/test_torch_coach.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _pil(rng, w, h):
@@ -128,7 +140,8 @@ def test_run_directory_writes_one_png_per_identity(predictors, rng, tmp_path):
 
 
 def test_missing_pieces_raise(predictors, monkeypatch, tmp_path):
-    """FaceID conditioning is not ported; a checkpoint that is not there, or
+    """A FaceID model with neither embeddings nor a provider raises rather
+    than fall back to the prompt; a checkpoint that is not there, or
     neither weights nor a checkpoint, raise; without a card the default
     device raises rather than falling back to the CPU."""
     _, tp = predictors
@@ -136,9 +149,13 @@ def test_missing_pieces_raise(predictors, monkeypatch, tmp_path):
         tpred.Predictor(str(tmp_path / "model.pt"), device="cpu")
     with pytest.raises(ValueError, match="checkpoint_path or params"):
         tpred.Predictor(statics=T_STATICS, device="cpu")
-    faceid = trest.RestorerStatics(condition_on_face_embeds=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpred.Predictor(params=tp.params, statics=faceid, device="cpu")
+    faceid = dataclasses.replace(T_STATICS, condition_on_face_embeds=True)
+    fp = tpred.Predictor(params=tp.params, statics=faceid, device="cpu")
+    with pytest.raises(ValueError, match="face_embeds"):
+        fp.predict_batch(np.zeros((1, RES, RES, 3), np.float32),
+                         np.zeros((1, 4, RES, RES, 3), np.float32))
+    with pytest.raises(ValueError, match="face_embed_provider"):
+        fp.compute_face_embeds([np.zeros((RES, RES, 3), np.uint8)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         tpred.Predictor(params=tp.params, statics=T_STATICS)

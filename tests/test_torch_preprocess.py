@@ -37,6 +37,16 @@ from test_torch_serving import random_tree
 OFF_SIZES = [(40, 56, 32), (56, 40, 32), (24, 20, 32), (20, 24, 32), (600, 512, 512)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, more threads only
+    contend (as ``tests/test_torch_coach.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("kind", ["float01", "float_pm1", "uint8"])
 @pytest.mark.parametrize("h,w,res", OFF_SIZES)
 def test_preprocess_matches_jax(rng, h, w, res, kind):

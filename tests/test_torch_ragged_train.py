@@ -51,6 +51,16 @@ B, N = 2, 2
 OPT_KW = dict(lambda_l2=1.0, lambda_lpips=1.0, learning_rate=1e-3, lr_warmup_steps=0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, more threads only
+    contend (as ``tests/test_torch_coach.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def no_kernel_build(monkeypatch):
     """CPU tensors must never reach the CUDA build."""

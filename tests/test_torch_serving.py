@@ -43,6 +43,16 @@ RES, N_IDENT, N_REFS = 128, 3, 4
 IDS = np.array([2, 0, 2, 1])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, more threads only
+    contend (as ``tests/test_torch_coach.py``)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def random_tree(fn, *args, seed=0):
     """A JAX param tree shaped like ``fn(*args)``'s (traced, never run),
     filled with seeded numpy values (nonzero norm scales, biases and LoRA B;
