@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,training,options,recipe,small,checkpoint,coach,parallel]
+    python3 chip_smoke.py [--only kernels,vjp,serving,int8,training,options,recipe,small,checkpoint,coach,parallel]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -96,6 +96,19 @@ Without arguments every phase runs and the last two lines are the result;
    Predictor.predict_batch; each checks its launch counts and its output
    against the default algorithms';
 8. replacing one identity's references changes exactly its outputs;
+8i. int8 phase ("int8"): the warm phase's seeded bundle in a bf16 engine
+   and in ServingEngine(int8_decoder=True, int8_unet=True) (quantized from
+   the fp32 bundle); 16 identities onboarded in each, the caches bit-equal
+   (the capture networks stay bf16); warm batch-16 restores with dynamic
+   scales, calibrate_int8 on another batch at margin 1.05, calibrated warm
+   restores: faces/sec, device busy and peak memory of each against the
+   bf16 engine's, launches as the warm phase's, bench.py's quality gates on
+   the calibrated images against the bf16 ones (PSNR >= 30 dB with
+   peak-to-peak 2, MS-SSIM >= 0.98, max-abs <= 0.5); each distinct int8
+   conv shape of a warm restore with its count, the int8 route's ms, the
+   cuDNN bf16 conv's ms on the same shape and the bound (int8 operations at
+   1,979 TOPS or bytes at 3.35 TB/s); one cold int8 restore (finite, the
+   cold phase's launches);
 9. training phase: the generator step at full width (batch 2, 4 references,
    512 px, fp32 params with unmerged rank-32 LoRA, bf16 compute, L2 + LPIPS
    with random VGG weights, AdamW with global-norm clipping on the LoRA
@@ -226,7 +239,11 @@ Without arguments every phase runs and the last two lines are the result;
    restores and, with two cards or more, batches of 16 rows a card, within
    mean-abs 2e-2, launches summed over the processes as the warm and cold
    phases count them, faces/sec beside one device's at batch 16, a batch of
-   3 refused, and no worker process left after close();
+   3 refused, and no worker process left after close(); then an int8
+   engine on the same devices against the one-device int8 engine: caches
+   bit-equal, calibrate_int8 on the same batch giving the same scales, and
+   each device's rows of a calibrated warm restore against the one-device
+   engine's restore of those rows (mean-abs 2e-2);
 10. prints each kernel's factor over its library call per pass of its path,
    largest first, with its d=64 and d=512 parts where it runs at both
    (flash_bwd_dq and flash_bwd_dkv ranked as one pair against SDPA's joint
@@ -1650,6 +1667,256 @@ def other_paths(card: str, w, cold):
         raise AssertionError("other paths failed: " + "; ".join(failures))
     return total
 
+
+# bench.py's quality gates of int8 serving against the bf16 engine's images
+INT8_PSNR_DB, INT8_MS_SSIM, INT8_MAX_ABS = 30.0, 0.98, 0.5
+INT8_MARGIN = 1.05  # calibrate_int8's default clipping headroom
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+
+
+def int8_convs(tree) -> list:
+    """The int8 conv dicts of a param tree, in tree-walk order."""
+    from instantrestore_tpu_torch.ops.primitives import _map_int8_convs
+
+    convs = []
+    _map_int8_convs(tree, lambda p: convs.append(p) or p)
+    return convs
+
+
+def _synced(fn):
+    """fn() between two synchronisations: (result, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def int8_gates(out, ref) -> dict:
+    """bench.py's three numbers of an int8 output against the bf16 one:
+    PSNR (peak-to-peak 2), MS-SSIM on [0, 1] and max-abs."""
+    import math
+
+    from instantrestore_tpu_torch.training.losses.ssim import ms_ssim
+
+    o, r = out.float(), ref.float()
+    mse = float((o - r).square().mean())
+    return {"psnr_db": 10 * math.log10(4.0 / max(mse, 1e-12)),
+            "ms_ssim": float(ms_ssim((o + 1) / 2, (r + 1) / 2, data_range=1.0)),
+            "max_abs": float((o - r).abs().max())}
+
+
+def int8_conv_table(card: str, run):
+    """Each distinct int8 conv of one ``run()`` (a warm restore): its count,
+    the int8 route's ms (``ops/primitives.py``: quantize, im2col columns,
+    ``torch._int_mm``, dequantize), the cuDNN bf16 conv's ms on the same
+    shape (the upsamplers: nearest-2x then the 3x3 conv, the bf16 engine's
+    route; timed here only) and the bound: int8 operations at 1,979 TOPS or
+    the bf16 input and output bytes (and the int8 weight) at 3.35 TB/s.
+    Returns the summed ms of both routes a restore."""
+    import torch
+    import torch.nn.functional as F
+
+    from instantrestore_tpu_torch.ops import primitives as prims
+
+    seen = {}
+    orig_conv, orig_up = prims.conv2d_int8, prims.upsample2x_conv_int8
+
+    def rec_conv(p, x, *, stride=1, padding=1):
+        key = ("conv", tuple(x.shape), tuple(p["weight_int8"].shape), stride, padding)
+        seen.setdefault(key, [p, 0])[1] += 1
+        return orig_conv(p, x, stride=stride, padding=padding)
+
+    def rec_up(p, x):
+        key = ("up", tuple(x.shape), tuple(p["weight_int8"].shape), 1, 1)
+        seen.setdefault(key, [p, 0])[1] += 1
+        return orig_up(p, x)
+
+    prims.conv2d_int8, prims.upsample2x_conv_int8 = rec_conv, rec_up
+    try:
+        run()
+    finally:
+        prims.conv2d_int8, prims.upsample2x_conv_int8 = orig_conv, orig_up
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tot8 = totb = 0.0
+    print(f"int8 conv route against cuDNN bf16, per distinct shape of one warm restore "
+          f"({len(seen)} shapes, {sum(c for _, c in seen.values())} calls) [{card}]:")
+    for (kind, xs, ws, stride, pad), (p, count) in sorted(seen.items(), key=lambda kv: -kv[0][1][1]):
+        b, h, w, cin = xs
+        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
+        if kind == "up":
+            cout = ws[1]
+            k4 = prims.folded_kernel(p["weight_int8"])  # [4, 4, Cin, Cout]
+            w3 = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda").to(torch.bfloat16)
+            ho, wo, kk, taps = 2 * h, 2 * w, 4 * cin, 16
+            t8 = cuda_ms(lambda: orig_up(p, x), 3)
+            tb = cuda_ms(lambda: F.conv2d(F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                                                        mode="nearest"),
+                                          w3.contiguous(memory_format=torch.channels_last),
+                                          None, 1, 1), 3)
+            nweights = k4.numel()
+        else:
+            cout, kh = ws[0], ws[1]
+            ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kh) // stride + 1
+            kk, taps = kh * kh * cin, kh * kh
+            wb = torch.randn((cout, cin, kh, kh), generator=gen, device="cuda").to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            t8 = cuda_ms(lambda: orig_conv(p, x, stride=stride, padding=pad), 3)
+            tb = cuda_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wb, None, stride, pad), 3)
+            nweights = p["weight_int8"].numel()
+        ops = 2.0 * b * ho * wo * kk * cout
+        nbytes = 2.0 * (x.numel() + b * ho * wo * cout) + nweights
+        t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        b_ms, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        tot8 += count * t8
+        totb += count * tb
+        print(f"  {kind:4s} x{list(xs)} -> [{b}, {ho}, {wo}, {cout}] k{taps} s{stride} x{count}: "
+              f"int8 {t8:.3f} ms, cuDNN bf16 {tb:.3f} ms ({t8 / tb:.2f}x), bound {b_ms:.4f} ms "
+              f"({by})")
+    print(f"int8 convs of one warm restore: int8 route {tot8:.1f} ms, cuDNN bf16 on the same "
+          f"shapes {totb:.1f} ms [{card}]")
+    return tot8, totb
+
+
+def int8_phase(card: str):
+    """int8 serving at full width: the warm phase's seeded bundle served by a
+    bf16 engine and by ServingEngine(int8_decoder=True, int8_unet=True),
+    16 identities onboarded in each (the capture nets stay bf16: the caches
+    must be bit-equal); warm batch-16 restores with dynamic scales, then
+    calibrate_int8 on another batch at margin 1.05, then calibrated warm
+    restores, each against the bf16 engine's images on the same inputs and
+    noise under bench.py's gates (PSNR >= 30 dB, MS-SSIM >= 0.98, max-abs <=
+    0.5: the calibrated run must pass), with faces/sec, device busy and peak
+    memory of each, the table of the int8 conv shapes, and one cold int8
+    restore. Returns the launch counts of its paths."""
+    import torch
+
+    from instantrestore_tpu_torch.inference.serving import ServingEngine
+    from instantrestore_tpu_torch.models.restorer import (
+        RestorerStatics,
+        init_restorer_params,
+        serving_bundle,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    statics = RestorerStatics(use_adain=True, train_input=False)
+    bundle = serving_bundle(init_restorer_params(
+        torch.Generator(device=dev).manual_seed(0), statics, lora_rank_unet=32,
+        lora_rank_vae=32, device=dev), statics)
+    (fp, q), t_build = _synced(lambda: (ServingEngine(bundle, statics, device=dev),
+                                        ServingEngine(bundle, statics, device=dev,
+                                                      int8_decoder=True, int8_unet=True)))
+    del bundle
+    torch.cuda.empty_cache()
+    print(f"bf16 and int8 engines built (the int8 one quantized from the fp32 bundle): "
+          f"{t_build:.2f} s")
+    host = torch.Generator().manual_seed(1)  # the warm phase's inputs
+    refs = torch.randint(0, 256, (N_IDENT, N_REFS, RES, RES, 3), dtype=torch.uint8, generator=host)
+    images = torch.randint(0, 256, (BATCH, RES, RES, 3), dtype=torch.uint8, generator=host)
+    ids = torch.tensor([3, 7, 7, 0, 15, 2, 3, 9, 12, 7, 1, 0, 5, 15, 8, 3])
+    lat = RES // 8
+    noise = {k: torch.randn((BATCH, lat, lat, 4), generator=host).to(dev)
+             for k in ("latent", "diffusion")}
+    onboard_noise = {k: torch.randn((N_IDENT, N_REFS, lat, lat, 4), generator=host).to(dev)
+                     for k in ("latent", "diffusion")}
+    cal_images = torch.randint(0, 256, (BATCH, RES, RES, 3), dtype=torch.uint8, generator=host)
+    cal_ids = torch.arange(BATCH) % N_IDENT
+    cal_noise = {k: torch.randn((BATCH, lat, lat, 4), generator=host).to(dev)
+                 for k in ("latent", "diffusion")}
+    failures, total = [], {}
+
+    reset_counts()
+    for eng in (fp, q):
+        eng.onboard(refs, noise=onboard_noise)
+    check_launches(failures, f"onboarding {N_IDENT} identities in the bf16 and int8 engines",
+                   launch_counts(), 2 * N_IDENT, flash_attention_bound=17)
+    add_counts(total, launch_counts())
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(fp.kv_cache, q.kv_cache)
+               for f in ("rk", "rv", "content_mean", "content_std", "kmax"))
+    print(f"int8 engine's identity cache {'bit-equal to' if same else 'DIFFERS from'} the bf16 "
+          f"engine's (the capture networks are not quantized)")
+    if not same:
+        failures.append("the int8 engine's identity cache differs from the bf16 engine's")
+
+    def timed(eng, what):
+        """RESTORE_RUNS + 1 warm restores (the first sets up): the output,
+        the steady median seconds, peak memory and launches."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        runs = [_synced(lambda: eng.restore(images, ids, noise=noise))
+                for _ in range(RESTORE_RUNS + 1)]
+        counts = launch_counts()
+        check_launches(failures, f"{RESTORE_RUNS + 1} {what} warm restores", counts,
+                       RESTORE_RUNS + 1, shared_identity_attention=9, flash_attention_bound=9)
+        add_counts(total, counts)
+        steady = statistics.median(s for _, s in runs[1:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{what} warm restore batch {BATCH}: first {runs[0][1] * 1e3:.1f} ms, steady median "
+              f"{steady * 1e3:.1f} ms over {RESTORE_RUNS} runs "
+              f"{[round(s * 1e3, 1) for _, s in runs[1:]]}; {BATCH / steady:.2f} faces/sec; "
+              f"peak device memory {peak:.2f} GiB [{card}]")
+        return runs[-1][0], steady, peak
+
+    ref, t_fp, _ = timed(fp, "bf16")
+    busy_fp = profile_run(lambda: fp.restore(images, ids, noise=noise), "one bf16 warm restore",
+                          card, top=8)
+    out_dyn, t_dyn, _ = timed(q, "int8 (dynamic scales)")
+    g = int8_gates(out_dyn, ref)
+    print(f"int8 dynamic against bf16: PSNR {g['psnr_db']:.2f} dB, MS-SSIM {g['ms_ssim']:.4f}, "
+          f"max-abs {g['max_abs']:.4f} (bench.py's gates apply to the calibrated engine)")
+    busy_dyn = profile_run(lambda: q.restore(images, ids, noise=noise),
+                           "one int8 warm restore, dynamic scales", card, top=8)
+    tot8, totb = int8_conv_table(card, lambda: q.restore(images, ids, noise=noise))
+
+    n_cal, t_cal = _synced(lambda: q.calibrate_int8([(cal_images, cal_ids, cal_noise)],
+                                                    margin=INT8_MARGIN))
+    print(f"calibrate_int8: {n_cal} convs given static scales from one batch of {BATCH} "
+          f"(margin {INT8_MARGIN}) in {t_cal:.2f} s")
+    convs = int8_convs(q.params)
+    if n_cal != len(convs) or not all("a_scale" in p for p in convs):
+        failures.append(f"calibrate_int8 gave {n_cal} of the {len(convs)} int8 convs a scale")
+    out_cal, t_cal_run, peak_cal = timed(q, "int8 (calibrated)")
+    gc = int8_gates(out_cal, ref)
+    print(f"int8 calibrated against bf16: PSNR {gc['psnr_db']:.2f} dB (gate >= {INT8_PSNR_DB}), "
+          f"MS-SSIM {gc['ms_ssim']:.4f} (>= {INT8_MS_SSIM}), max-abs {gc['max_abs']:.4f} "
+          f"(<= {INT8_MAX_ABS}) [{card}]")
+    if (gc["psnr_db"] < INT8_PSNR_DB or gc["ms_ssim"] < INT8_MS_SSIM
+            or gc["max_abs"] > INT8_MAX_ABS or not torch.isfinite(out_cal).all()):
+        failures.append(f"int8 calibrated output misses bench.py's gates: {gc}")
+    busy_cal = profile_run(lambda: q.restore(images, ids, noise=noise),
+                           "one int8 warm restore, calibrated scales", card, top=8)
+    print(f"int8 serving summary (batch {BATCH}, 512 px, {N_REFS} refs, warm): faces/sec bf16 "
+          f"{BATCH / t_fp:.2f}, int8 dynamic {BATCH / t_dyn:.2f}, int8 calibrated "
+          f"{BATCH / t_cal_run:.2f}; device busy ms {busy_fp} / {busy_dyn} / {busy_cal}; int8 "
+          f"convs {tot8:.1f} ms against cuDNN bf16 {totb:.1f} ms a restore; peak "
+          f"{peak_cal:.2f} GiB [{card}]")
+
+    # one cold int8 restore: the bf16 capture networks, the int8 restore nets
+    dev_ids = ids.to(dev)
+    cold_noise = dict(noise)
+    for k, v in onboard_noise.items():
+        cold_noise[f"cond_{k}"] = v[dev_ids].reshape(BATCH * N_REFS, lat, lat, 4)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cold, t_cold = _synced(lambda: q.restore_cold(images, refs[ids], noise=cold_noise))
+    counts = launch_counts()
+    check_launches(failures, "one int8 cold restore", counts, 1, shared_flash_bound=9,
+                   flash_attention_bound=26)
+    add_counts(total, counts)
+    d_warm = mean_abs(cold, out_cal)
+    print(f"int8 cold restore batch {BATCH}: {t_cold * 1e3:.1f} ms (first call), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean-abs {d_warm:.5f} against "
+          f"the int8 warm restore of the same references and noise [{card}]")
+    if not torch.isfinite(cold).all() or tuple(cold.shape) != (BATCH, RES, RES, 3):
+        failures.append("int8 cold restore not finite or of the wrong shape")
+    print(f"int8 phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("int8 phase failed: " + "; ".join(failures))
+    return total
 
 def replace_identity(w):
     """Replacing one identity's refs changes exactly its samples."""
@@ -3711,7 +3978,6 @@ def parallel_serving(card: str, failures: list) -> dict:
     t0 = time.perf_counter()
     multi = ServingEngine(params, statics, devices=devices)
     start_s = time.perf_counter() - t0
-    del params
     n_dev, total = len(devices), {}
     host = torch.Generator().manual_seed(1)
     refs = torch.randint(0, 256, (N_IDENT, N_REFS, RES, RES, 3), dtype=torch.uint8, generator=host)
@@ -3802,6 +4068,71 @@ def parallel_serving(card: str, failures: list) -> dict:
     print(f"after close(): {len(left)} worker processes left")
     if left:
         failures.append(f"worker processes outlive close(): {left}")
+    del one, multi
+    torch.cuda.empty_cache()
+    add_counts(total, parallel_int8(card, failures, params, statics, devices, refs, onboard_noise,
+                                    images[:BATCH], ids[:BATCH],
+                                    {k: v[:BATCH] for k, v in noise.items()}))
+    return total
+
+
+def parallel_int8(card: str, failures: list, params, statics, devices, refs, onboard_noise,
+                  images, ids, noise) -> dict:
+    """An int8 engine on ``devices`` against the one-device int8 engine
+    (both quantized from the same fp32 bundle): every device's cache
+    bit-equal to the one-device cache, ``calibrate_int8`` on the same batch
+    giving every conv the same scale (the workers get them through their
+    calibrate command), and a calibrated warm restore whose rows on each
+    device are held against the one-device engine's restore of those rows
+    (mean-abs 2e-2; bit-equality printed). Returns the launch counts."""
+    import multiprocessing
+
+    import torch
+
+    from instantrestore_tpu_torch.inference.serving import ServingEngine
+
+    n_dev, total = len(devices), {}
+    children = set(multiprocessing.active_children())
+    one = ServingEngine(params, statics, device="cuda:0", int8_decoder=True, int8_unet=True)
+    multi = ServingEngine(params, statics, devices=devices, int8_decoder=True, int8_unet=True)
+    for eng in (one, multi):
+        eng.onboard(refs, noise=onboard_noise)
+    same = [all(torch.equal(getattr(a, f), getattr(b, f).to(getattr(a, f).device))
+                for a, b in zip(one.kv_cache, c) for f in ("rk", "rv", "content_mean",
+                                                          "content_std", "kmax"))
+            for c in multi.device_caches()]
+    cal = [(images, ids, noise)]
+    n_one, n_multi = one.calibrate_int8(cal), multi.calibrate_int8(cal)
+    scales = [[p["a_scale"] for p in int8_convs(e.params)] for e in (one, multi)]
+    same_scales = len(scales[0]) == len(scales[1]) == n_one and all(
+        torch.equal(a, b) for a, b in zip(*scales))
+    reset_counts()
+    outm, tm = _synced_all(lambda: multi.restore(images, ids, noise=noise))
+    counts = launch_counts()
+    check_launches(failures, f"one multi-device int8 warm restore on {devices}", counts, 1,
+                   shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev)
+    add_counts(total, counts)
+    per = BATCH // n_dev
+    rows = torch.cat([one.restore(images[j * per:(j + 1) * per], ids[j * per:(j + 1) * per],
+                                  noise={k: v[j * per:(j + 1) * per] for k, v in noise.items()})
+                      for j in range(n_dev)])
+    diff = mean_abs(outm, rows)
+    whole = mean_abs(outm, one.restore(images, ids, noise=noise))
+    print(f"multi-device int8 engine on {devices}: caches bit-equal to one device's {same}; "
+          f"{n_multi} convs calibrated ({n_one} on one device), scales "
+          f"{'equal' if same_scales else 'DIFFERENT'}; calibrated warm restore batch {BATCH} "
+          f"in {tm * 1e3:.1f} ms: each device's rows against one device's restore of those "
+          f"rows mean-abs {diff:.6f} ({'bit-equal' if torch.equal(outm, rows) else 'not bit-equal'}"
+          f"; tol {PAR_SERVE_MEAN_ABS}), against one device's batch-{BATCH} restore {whole:.5f} "
+          f"[{card}]")
+    if not all(same) or not same_scales or n_multi != n_one or diff > PAR_SERVE_MEAN_ABS \
+            or not torch.isfinite(outm).all():
+        failures.append(f"the multi-device int8 engine differs from one device: caches {same}, "
+                        f"scales equal {same_scales}, mean-abs {diff}")
+    multi.close()
+    left = set(multiprocessing.active_children()) - children
+    if left:
+        failures.append(f"int8 worker processes outlive close(): {left}")
     return total
 
 
@@ -3988,13 +4319,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
-                    "them (kernels, vjp, serving, training, options, recipe, small, checkpoint, "
-                    "coach, parallel); a partial run prints no result line")
+                    "them (kernels, vjp, serving, int8, training, options, recipe, small, "
+                    "checkpoint, coach, parallel); a partial run prints no result line")
     ap.add_argument("--ddp-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
-    unknown = only - {"kernels", "vjp", "serving", "training", "options", "recipe", "small",
-                      "checkpoint", "coach", "parallel"}
+    unknown = only - {"kernels", "vjp", "serving", "int8", "training", "options", "recipe",
+                      "small", "checkpoint", "coach", "parallel"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -4035,6 +4366,9 @@ def main() -> int:
         replace_identity(warm)
         serving_params = warm["engine"].params
         del warm, cold
+        torch.cuda.empty_cache()
+    if wanted("int8"):
+        add_counts(counts, int8_phase(card))
         torch.cuda.empty_cache()
     if wanted("training"):
         add_counts(counts, training_phase(card))

@@ -12,11 +12,14 @@ its last image, whose outputs are not written.
 
     python -m instantrestore_tpu_torch.cli.serve --checkpoint ckpt.pt --data_root DIR \
         [--results_dir results] [--batch 16] [--refs 4] [--base_weights_dir DIR] \
-        [--tokenizer_dir DIR] [--seed 0] [--device cuda]
+        [--tokenizer_dir DIR] [--seed 0] [--device cuda] [--int8 [--no_calibrate]]
 
 Onboarding draws its noise from ``torch.Generator(device).manual_seed(seed)``,
 the batch starting at image ``start`` from ``manual_seed(seed + 1 + start)``.
-``--int8`` (calibrated int8 serving) is not ported yet and raises.
+``--int8`` serves the int8 decoder and UNet (``ServingEngine(int8_decoder=True,
+int8_unet=True)``), their static activation scales calibrated on the first
+batch (with that batch's draws) unless ``--no_calibrate`` keeps the dynamic
+per-call scales.
 """
 
 from __future__ import annotations
@@ -37,21 +40,24 @@ from instantrestore_tpu_torch.models.restorer import serving_bundle
 
 
 def load_engine(checkpoint, *, statics=None, base_weights_dir=None, tokenizer_dir=None,
-                device=None) -> ServingEngine:
+                device=None, int8: bool = False) -> ServingEngine:
     """A checkpoint -> a ServingEngine on ``device`` (CUDA unless asked
-    otherwise): LoRA merged on the device, the text tower dropped."""
+    otherwise): LoRA merged on the device, the text tower dropped; with
+    ``int8`` the decoder and UNet quantized."""
     dev = resolve_device(device)
     params, statics = load_predictor_params(checkpoint, statics, base_weights_dir=base_weights_dir,
                                             tokenizer_dir=tokenizer_dir, device=dev)
     params.pop("text_encoder", None)  # caption_enc was computed at load
-    return ServingEngine(serving_bundle(tree_to(params, dev), statics), statics, device=dev)
+    return ServingEngine(serving_bundle(tree_to(params, dev), statics), statics, device=dev,
+                         int8_decoder=int8, int8_unet=int8)
 
 
-def run(engine: ServingEngine, refs, images, slots, *, batch: int = 16, seed: int = 0
-        ) -> torch.Tensor:
+def run(engine: ServingEngine, refs, images, slots, *, batch: int = 16, seed: int = 0,
+        calibrate: bool = False) -> torch.Tensor:
     """Onboard ``refs`` [I, N, H, W, 3] and restore ``images`` [M, H, W, 3]
     of identities ``slots`` [M] in batches of ``batch`` -> [M, res, res, 3]
-    float32 on the CPU in [-1, 1]. Inputs are uint8 (or float in [-1, 1])."""
+    float32 on the CPU in [-1, 1]. Inputs are uint8 (or float in [-1, 1]).
+    ``calibrate``: an int8 engine's static scales from the first batch."""
     dev = engine.device
     refs, images = torch.as_tensor(refs), torch.as_tensor(images)
     slots = torch.as_tensor(slots, dtype=torch.long)
@@ -69,6 +75,10 @@ def run(engine: ServingEngine, refs, images, slots, *, batch: int = 16, seed: in
         if n < batch:  # a fixed batch shape: pad with the last item
             imgs = torch.cat([imgs, imgs[-1:].expand(batch - n, *imgs.shape[1:])])
             ids = torch.cat([ids, ids[-1:].expand(batch - n)])
+        if calibrate and start == 0:
+            n_convs = engine.calibrate_int8(
+                [(imgs, ids, torch.Generator(device=dev).manual_seed(seed + 1 + start))])
+            print(f"# calibrated {n_convs} int8 convs on the first batch", file=sys.stderr)
         t0 = time.perf_counter()
         out = engine.restore(imgs, ids,
                              generator=torch.Generator(device=dev).manual_seed(seed + 1 + start))
@@ -107,7 +117,7 @@ def main(argv=None, statics=None) -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--refs", type=int, default=4)
     ap.add_argument("--int8", action="store_true",
-                    help="calibrated static-scale int8 decoder + UNet (not ported yet)")
+                    help="calibrated static-scale int8 decoder + UNet")
     ap.add_argument("--no_calibrate", action="store_true",
                     help="with --int8: keep dynamic per-call scales")
     ap.add_argument("--base_weights_dir", default=None,
@@ -116,15 +126,13 @@ def main(argv=None, statics=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md Queue 1 item 6)")
 
     from PIL import Image
 
     from instantrestore_tpu_torch.data.transforms import denormalize_pm1
 
     engine = load_engine(args.checkpoint, statics=statics, base_weights_dir=args.base_weights_dir,
-                         tokenizer_dir=args.tokenizer_dir, device=args.device)
+                         tokenizer_dir=args.tokenizer_dir, device=args.device, int8=args.int8)
     res = engine.resolution
     identities, refs, work = [], [], []  # work: (identity slot, image path)
     for d in sorted(p for p in Path(args.data_root).glob("*") if p.is_dir()):
@@ -147,7 +155,7 @@ def main(argv=None, statics=None) -> int:
 
     images = np.stack([load_image(p) for _, p in work])
     out = run(engine, np.stack(refs), images, [s for s, _ in work], batch=args.batch,
-              seed=args.seed).numpy()
+              seed=args.seed, calibrate=args.int8 and not args.no_calibrate).numpy()
     out_dir = Path(args.results_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for (slot, p), img in zip(work, out):

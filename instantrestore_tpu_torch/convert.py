@@ -12,6 +12,10 @@ PyTorch's layout:
   LoRA dense ``lora_A`` [in, r]          -> [r, in];   ``lora_B`` [r, out] -> [out, r]
   LoRA conv  ``lora_A`` [kh, kw, in, r]  -> [r, in, kh, kw]
              ``lora_B`` [1, 1, r, out]   -> [out, r, 1, 1]
+  int8 conv  ``kernel_int8`` HWIO        -> ``weight_int8`` OHWI [out, kh, kw, in]
+             folded ``[4, 4, in, out]``  -> the phase kernel [4, out, 3, 3, in]
+             (``ops/primitives.py``); ``kernel_scale``, ``a_scale`` and
+             ``calib_slot`` stay as they are
 
 (the peft layouts of the reference checkpoints). ``state_dict`` flattens a
 tree to the diffusers/peft key names a released ``.pt`` uses, and
@@ -28,9 +32,12 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from instantrestore_tpu_torch.ops.primitives import folded_kernel, phase_kernel
+
 _TORCH_NAMES = {"net_0_proj": "net.0.proj", "net_2": "net.2", "to_out": "to_out.0"}
 _TREE_NAMES = {v: k for k, v in _TORCH_NAMES.items()}
 _EMBEDDINGS = ("token_embedding", "position_embedding")
+_INT8_LEAVES = ("weight_int8", "kernel_scale", "a_scale", "calib_slot")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -47,6 +54,9 @@ def _convert_param_dict(node: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             out["weight"] = _tensor(a)
         elif key in ("lora_A", "lora_B"):
             out[key] = _tensor(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
+        elif key == "kernel_int8":
+            out["weight_int8"] = (phase_kernel(_tensor(a)) if a.shape[0] == 4
+                                  else _tensor(a.transpose(3, 0, 1, 2)))
         else:
             out[key] = _tensor(a)
     return out
@@ -59,7 +69,7 @@ def from_jax_tree(tree: Any) -> Any:
     if tree is None:
         return None
     if isinstance(tree, dict):
-        if "kernel" in tree or ("scale" in tree and "bias" in tree):
+        if "kernel" in tree or "kernel_int8" in tree or ("scale" in tree and "bias" in tree):
             return _convert_param_dict(tree)
         return {k: from_jax_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -71,7 +81,9 @@ def to_jax_tree(tree: Any) -> Any:
     """Inverse of ``from_jax_tree``: a port tree (params, gradients laid out
     like them, updated params) -> the JAX layout as numpy arrays, so that it
     can be laid beside a JAX tree leaf by leaf. A 1-D ``weight`` is a norm's
-    ``scale``; 2-D and 4-D ones are dense and conv kernels."""
+    ``scale``; 2-D and 4-D ones are dense and conv kernels. Floating leaves
+    come back as fp32, the others (int8 kernels, calibration slots) in their
+    own dtype."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -80,7 +92,11 @@ def to_jax_tree(tree: Any) -> Any:
             if not isinstance(val, torch.Tensor):
                 out[key] = to_jax_tree(val)
                 continue
-            a = val.detach().cpu().float().numpy()
+            if key == "weight_int8":
+                k = folded_kernel(val) if val.ndim == 5 else val.permute(1, 2, 3, 0)
+                out["kernel_int8"] = np.ascontiguousarray(k.detach().cpu().numpy())
+                continue
+            a = _numpy(val)
             if key in ("weight", "lora_A", "lora_B") and a.ndim >= 2:
                 a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
             name = key if key != "weight" else ("scale" if a.ndim == 1 else "kernel")
@@ -88,7 +104,12 @@ def to_jax_tree(tree: Any) -> Any:
         return out
     if isinstance(tree, (list, tuple)):
         return [to_jax_tree(v) for v in tree]
-    return tree.detach().cpu().float().numpy()
+    return _numpy(tree)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.is_floating_point() else t).numpy()
 
 
 def state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -118,12 +139,14 @@ def state_dict(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
 def tree_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``state_dict`` (also accepts peft's ``base_layer``
     indirection and adapter-name-free LoRA keys). Only ``weight`` and
-    ``bias`` entries are parameters: buffers (``position_ids``,
-    ``num_batches_tracked``) are skipped, as the JAX converter skips them."""
+    ``bias`` entries (and an int8 conv's ``weight_int8``, ``kernel_scale``,
+    ``a_scale`` and ``calib_slot``) are parameters: buffers
+    (``position_ids``, ``num_batches_tracked``) are skipped, as the JAX
+    converter skips them."""
     tree: Dict[str, Any] = {}
     for key, value in sd.items():
         parts = [p for p in key.split(".") if p != "base_layer"]
-        if parts[-1] not in ("weight", "bias"):
+        if parts[-1] not in ("weight", "bias") + _INT8_LEAVES:
             continue
         if len(parts) >= 3 and parts[-3] in ("lora_A", "lora_B"):
             parts = parts[:-3] + [parts[-3]]
@@ -167,10 +190,15 @@ def _listify(node):
 def tree_to(tree: Any, device=None, dtype=None) -> Any:
     """Move every floating leaf of a tree to ``device``/``dtype``; 4-D conv
     weights go channels-last, the layout cuDNN prefers for NHWC activations.
-    None stays None."""
+    An int8 conv keeps its int8 weight as it is laid out and its scales in
+    fp32, as the JAX package keeps them. None stays None."""
     if tree is None:
         return None
     if isinstance(tree, dict):
+        if "weight_int8" in tree:
+            return {k: (v.to(device) if k in ("weight_int8", "calib_slot")
+                        else v.to(device, torch.float32) if k in _INT8_LEAVES
+                        else tree_to(v, device, dtype)) for k, v in tree.items()}
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, device, dtype) for v in tree]

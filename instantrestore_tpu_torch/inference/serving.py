@@ -35,6 +35,16 @@ the cache is bit-equal), else it onboards on the first device; the cache is
 then copied to every worker. ``close()`` (or a ``with`` block) stops the
 workers.
 
+int8 serving (``int8_decoder``, ``int8_unet``, as in the JAX engine): the
+frozen capture networks are materialised first from the unmerged tree, then
+the restoration decoder's and UNet's conv mass is quantized
+(``models/vae.py::quantize_decoder_int8``,
+``models/unet.py::quantize_unet_int8``) from the tree the caller passed, in
+fp32, before the engine's cast to the compute dtype, and each int8 conv gets
+a calibration slot. Restores then quantize each conv's input with a
+per-sample dynamic scale until ``calibrate_int8`` bakes static scales
+observed on representative batches (every worker receives them too).
+
 Differences from the JAX engine: onboarding is a Python loop over
 identities (no ``lax.map``), and a restore draws its batch noise from one
 ``torch.Generator`` (or takes it through ``noise``) instead of per-row PRNG
@@ -45,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import os
 from typing import Any, Callable, Dict, List, Optional
 
@@ -54,12 +65,23 @@ from instantrestore_tpu_torch import resolve_device
 from instantrestore_tpu_torch.convert import tree_to
 from instantrestore_tpu_torch.inference.workers import WorkerPool
 from instantrestore_tpu_torch.models import scheduler as sched
+from instantrestore_tpu_torch.models.lora import merge_lora
 from instantrestore_tpu_torch.models.restorer import (
     RestorerStatics,
     get_conditioning_kv,
+    original_unet_view,
+    original_vae_view,
     restore_forward,
 )
+from instantrestore_tpu_torch.models.unet import quantize_unet_int8
+from instantrestore_tpu_torch.models.vae import quantize_decoder_int8
 from instantrestore_tpu_torch.ops.image_ops import preprocess
+from instantrestore_tpu_torch.ops.primitives import (
+    apply_int8_calibration,
+    assign_calib_slots,
+    int8_records,
+    stack_records,
+)
 from instantrestore_tpu_torch.ops.shared_attention import IdentityRef, build_identity_kv_cache
 from instantrestore_tpu_torch.parallel.distributed import local_rows
 
@@ -79,11 +101,28 @@ def _fields(layer) -> List[torch.Tensor]:
     return [getattr(layer, f.name) for f in dataclasses.fields(layer)]
 
 
+_logger = logging.getLogger(__name__)
+
+
 def _on(device: torch.device):
     """``device`` the calling thread's current CUDA device (no-op off CUDA)."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+def quantize_bundle(params: Dict[str, Any], statics: RestorerStatics, *, decoder: bool,
+                    unet: bool) -> Dict[str, Any]:
+    """The int8 serving bundle (the JAX engine's order): ``original_vae`` and
+    ``original_unet`` materialised from the unmerged tree first, then the
+    restoration decoder and/or UNet LoRA-merged and quantized in fp32, then
+    a calibration slot for every int8 conv."""
+    params = dict(params)
+    params.setdefault("original_vae", original_vae_view(params))
+    params.setdefault("original_unet", original_unet_view(params))
+    if decoder:
+        params["vae"] = quantize_decoder_int8(merge_lora(params["vae"], statics.vae_lora_scaling))
+    if unet:
+        params["unet"] = quantize_unet_int8(merge_lora(params["unet"], statics.unet_lora_scaling))
+    return assign_calib_slots(params)
 
 
 class ServingEngine:
@@ -117,6 +156,8 @@ class ServingEngine:
         resolution: Optional[int] = None,
         identity_cache: Optional[bool] = None,
         devices: Optional[List[Any]] = None,
+        int8_decoder: bool = False,
+        int8_unet: bool = False,
     ):
         if devices is not None and device is not None:
             raise ValueError("pass device= or devices=, not both")
@@ -125,6 +166,8 @@ class ServingEngine:
             raise ValueError("devices= is empty")
         self.device = self.devices[0]
         self.statics = statics
+        if int8_decoder or int8_unet:
+            params = quantize_bundle(params, statics, decoder=int8_decoder, unet=int8_unet)
         self.params = tree_to(params, self.device, statics.compute_dtype)
         self.use_fused_attention = use_fused_attention
         self.timestep = timestep
@@ -145,6 +188,12 @@ class ServingEngine:
                 self.devices[1:], self.params, statics,
                 dict(use_fused_attention=use_fused_attention, timestep=timestep,
                      resolution=resolution, identity_cache=identity_cache))
+        quant = {(True, True): "int8-unet+decoder", (True, False): "int8-decoder",
+                 (False, True): "int8-unet"}.get((int8_decoder, int8_unet), "fp")
+        _logger.info("ServingEngine paths: attention=%s, warm-kv=%s, quant=%s, res=%d, devices=%s",
+                     "fused kernels" if use_fused_attention else "unfused",
+                     "identity-kv-cache" if identity_cache else "per-call KV gather", quant,
+                     resolution, [str(d) for d in self.devices])
 
     def close(self) -> None:
         """Stop the worker processes (a no-op on one device)."""
@@ -324,6 +373,33 @@ class ServingEngine:
         return self._gather(self._split_batch(
             b, noise, "restore", lambda sel: (images[sel], ids[sel]),
             lambda sel, nz: self._restore_rows(images[sel], ids[sel], None, nz)))
+
+    def _calibrate(self, slots: torch.Tensor, scales: torch.Tensor, margin: float) -> None:
+        self.params = apply_int8_calibration(self.params, slots, scales, margin=margin)
+
+    @torch.no_grad()
+    def calibrate_int8(self, batches, *, margin: float = 1.05) -> int:
+        """Bake static int8 activation scales from representative batches.
+        ``batches``: ``(images, identity_ids, generator or noise dict)``
+        tuples. Each is restored on the first device with every conv's
+        per-sample dynamic scale recorded; each conv keeps its max over the
+        batches, times ``margin``, as its static ``a_scale`` (on every
+        device). Returns the number of convs calibrated."""
+        if self.kv_cache is None:
+            raise RuntimeError("call onboard() first")
+        slots, scales = [torch.zeros(0, dtype=torch.int32)], [torch.zeros(0)]
+        for images, ids, draws in batches:
+            gen, noise = (draws, None) if isinstance(draws, torch.Generator) else (None, draws)
+            with _on(self.device), int8_records() as records:
+                self._restore_rows(images, torch.as_tensor(ids), gen, noise)
+            s, v = stack_records(records)
+            slots.append(s)
+            scales.append(v)
+        slots, scales = torch.cat(slots), torch.cat(scales)
+        self._calibrate(slots, scales, margin)
+        if self._pool is not None:
+            self._pool.run("calibrate", [(slots, scales, margin)] * len(self._pool.workers))
+        return int(torch.unique(slots).numel())
 
     def _restore_cold_rows(self, images, cond_images, generator, noise) -> torch.Tensor:
         """The cold restore of ``images`` against ``cond_images`` here."""

@@ -4,7 +4,8 @@ its own, started with the ``spawn`` context (CUDA does not survive a
 fork). A worker makes its card current, copies the caller's serving bundle
 onto it (its own replica), builds a one-device ``ServingEngine`` there and
 then answers commands: the rows of an onboarding, the identity cache, a row
-of it, and its rows of a warm or cold restore. So each card's forward is
+of it, its rows of a warm or cold restore, and an int8 engine's calibrated
+scales (the bundle it receives is already quantized, its scales fp32). So each card's forward is
 issued by a host thread of its own process, and no card waits for another's
 launches at the interpreter lock.
 
@@ -114,6 +115,7 @@ def _serve(conn, device: str, statics, engine_kw: dict, threads: int) -> None:
         "restore_cold": lambda images, conds, noise: engine.restore_cold(images, conds,
                                                                          noise=noise),
         "cache": lambda: engine.kv_cache,
+        "calibrate": lambda slots, scales, margin: engine._calibrate(slots, scales, margin),
     }
 
     def handle(msg) -> bool:

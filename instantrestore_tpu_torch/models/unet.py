@@ -27,6 +27,7 @@ from instantrestore_tpu_torch.ops.primitives import (
     init_dense,
     init_norm,
     layer_norm,
+    quantize_block_convs_int8,
     silu,
     timestep_embedding,
     upsample2x_conv,
@@ -358,3 +359,16 @@ def unet_apply(
     if capture_taps:
         aux_out["taps"] = taps
     return x.to(sample.dtype), aux_out
+
+
+def quantize_unet_int8(unet_params: Dict[str, Any]) -> Dict[str, Any]:
+    """Serving-only int8 of the UNet's conv mass: the down, mid and up
+    blocks' resnet convs and their down/upsamplers (upsamplers folded), as
+    ``models/vae.py::quantize_decoder_int8``. conv_in, conv_out, the time
+    embedding and the transformers stay as they are. For the restoration
+    UNet only: the capture UNet keeps full precision."""
+    out = dict(unet_params)
+    out["down_blocks"] = [quantize_block_convs_int8(b) for b in unet_params["down_blocks"]]
+    out["mid_block"] = quantize_block_convs_int8(unet_params["mid_block"])
+    out["up_blocks"] = [quantize_block_convs_int8(b) for b in unet_params["up_blocks"]]
+    return out

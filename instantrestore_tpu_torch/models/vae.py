@@ -22,6 +22,7 @@ from instantrestore_tpu_torch.ops.primitives import (
     init_conv2d,
     init_dense,
     init_norm,
+    quantize_block_convs_int8,
     silu,
     upsample2x_conv,
 )
@@ -235,3 +236,16 @@ def vae_decode(
             x = upsample2x_conv(block["upsamplers"][0]["conv"], x, lora_scaling=lora_scaling)
     x = silu(group_norm(p["conv_norm_out"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
     return conv2d(p["conv_out"], x, lora_scaling=lora_scaling)
+
+
+def quantize_decoder_int8(vae_params: Dict[str, Any]) -> Dict[str, Any]:
+    """Serving-only int8 of the decoder's conv mass: the mid and up blocks'
+    resnet convs and the upsamplers (folded). conv_in, conv_out, the
+    mid-block attention and the encoder stay as they are. Not parity-exact
+    with the reference by design; LoRA must be merged first."""
+    out = dict(vae_params)
+    dec = dict(out["decoder"])
+    dec["mid_block"] = quantize_block_convs_int8(dec["mid_block"])
+    dec["up_blocks"] = [quantize_block_convs_int8(b) for b in dec["up_blocks"]]
+    out["decoder"] = dec
+    return out

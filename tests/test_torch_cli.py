@@ -24,6 +24,7 @@ from instantrestore_tpu_torch.models.restorer import (
     original_unet_view,
     original_vae_view,
 )
+from instantrestore_tpu_torch.ops.primitives import _map_int8_convs
 from instantrestore_tpu_torch.training.checkpoints import BASE_WEIGHTS_ENV, TOKENIZER_DIR_ENV
 from instantrestore_tpu_torch.utils import safetensors
 from instantrestore_tpu_torch.utils.torch_convert import (
@@ -116,11 +117,39 @@ def test_serve_main_equals_load_engine_and_run(files, tmp_path, rng):
 
 
 def test_serve_refusals(files, tmp_path):
+    """A folder with nothing to restore is refused, by the int8 engine too
+    (``--int8`` raised NotImplementedError before int8 serving was ported)."""
     argv = ["--checkpoint", str(files / "lora.pt"), "--data_root", str(tmp_path),
-            "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(argv + ["--int8"], statics=T_STATICS)
-    assert serve.main(argv + ["--base_weights_dir", str(files / "base")], statics=T_STATICS) == 1
+            "--device", "cpu", "--base_weights_dir", str(files / "base")]
+    assert serve.main(argv + ["--int8"], statics=T_STATICS) == 1
+    assert serve.main(argv, statics=T_STATICS) == 1
+
+
+@pytest.mark.parametrize("calibrate", [True, False])
+def test_serve_main_int8(files, tmp_path, rng, capsys, calibrate):
+    """``--int8`` writes what an int8 ``load_engine`` + ``run`` give, its
+    static scales calibrated on the first batch unless ``--no_calibrate``."""
+    refs, images, slots, names = write_dataset(tmp_path / "data", rng)
+    argv = ["--checkpoint", str(files / "lora.pt"), "--data_root", str(tmp_path / "data"),
+            "--results_dir", str(tmp_path / "out"), "--base_weights_dir", str(files / "base"),
+            "--batch", "3", "--seed", "5", "--device", "cpu", "--int8"]
+    assert serve.main(argv + ([] if calibrate else ["--no_calibrate"]), statics=T_STATICS) == 0
+    assert ("# calibrated" in capsys.readouterr().err) == calibrate
+    engine = serve.load_engine(files / "lora.pt", statics=T_STATICS,
+                               base_weights_dir=str(files / "base"), device="cpu", int8=True)
+    out = serve.run(engine, refs, images, slots, batch=3, seed=5, calibrate=calibrate).numpy()
+    convs = _int8_convs(engine.params)
+    assert convs and sum("a_scale" in p for p in convs) == (len(convs) if calibrate else 0)
+    for name, arr in zip(names, out):
+        want = (denormalize_pm1(arr) * 255).clip(0, 255).astype(np.uint8)
+        np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "out" / f"{name}.png")),
+                                      want, err_msg=name)
+
+
+def _int8_convs(tree):
+    convs = []
+    _map_int8_convs(tree, lambda p: convs.append(p) or p)
+    return convs
 
 
 @pytest.mark.parametrize("schema", ["full", "lora"])

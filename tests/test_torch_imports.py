@@ -382,3 +382,48 @@ def test_worker_and_option_modules_are_covered(module):
             "'instantrestore_tpu')]; assert not bad, bad; "
             "assert not multiprocessing.active_children()")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+INT8_AND_TOOL_MODULES = (
+    "instantrestore_tpu_torch/ops/primitives.py",
+    "instantrestore_tpu_torch/convert.py",
+    "instantrestore_tpu_torch/models/vae.py",
+    "instantrestore_tpu_torch/models/unet.py",
+    "instantrestore_tpu_torch/inference/serving.py",
+    "instantrestore_tpu_torch/cli/serve.py",
+    "instantrestore_tpu_torch/cli/evaluate.py",
+    "instantrestore_tpu_torch/inference/demo.py",
+    "instantrestore_tpu_torch/data/mask_utils.py",
+    "instantrestore_tpu_torch/utils/profiling.py",
+    "instantrestore_tpu_torch/utils/git_utils.py",
+)
+
+
+@pytest.fixture(scope="module")
+def int8_and_tool_modules_imported():
+    """The int8 serving slice's modules and the evaluate CLI, the demo and
+    the small utilities, imported in one fresh interpreter without Triton,
+    OpenCV, Pillow or gradio (the card's machine promises none of them):
+    the names of those that failed (none, if all went well)."""
+    code = ("import importlib, multiprocessing, sys\n"
+            "for m in ('triton', 'cv2', 'PIL', 'gradio'):\n    sys.modules[m] = None\n"
+            "bad = []\n"
+            f"for name in {[m[:-3].replace('/', '.') for m in INT8_AND_TOOL_MODULES]!r}:\n"
+            "    try:\n        importlib.import_module(name)\n"
+            "    except Exception as e:\n        bad.append(name)\n"
+            "print(sorted(bad)); assert not multiprocessing.active_children()\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'instantrestore_tpu')]")
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300,
+                         capture_output=True, text=True)
+    return set(ast.literal_eval(run.stdout.strip().splitlines()[-1]))
+
+
+@pytest.mark.parametrize("module", INT8_AND_TOOL_MODULES)
+def test_int8_and_tool_modules_are_covered(module, int8_and_tool_modules_imported):
+    """Each module of this slice is among the files checked above and
+    imports without a GPU, a CUDA compiler, Triton, OpenCV, Pillow or
+    gradio, starting no process and loading neither JAX nor the JAX
+    package."""
+    assert module in {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert module[:-3].replace("/", ".") not in int8_and_tool_modules_imported
