@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only kernels,vjp,serving,int8,training,options,recipe,small,checkpoint,coach,parallel]
+    python3 chip_smoke.py [--only kernels,vjp,serving,int8,training,options,recipe,small,checkpoint,coach,dispatch,parallel]
 
 Without arguments every phase runs and the last two lines are the result;
 ``--only`` runs the named phases for a quick look and prints no result line.
@@ -188,15 +188,17 @@ Without arguments every phase runs and the last two lines are the result;
    + 9 flash and 9 shared_identity launches; prints first and steady ms;
    then, where Pillow imports, cli.infer.main and cli.serve.main on PNGs of
    2 identities (the LoRA-only file, which carries no cfg, under the default
-   statics, train_input: 9 shared_flash_bound launches), and a line saying
-   whether they ran;
+   statics, train_input: 9 shared_flash_bound launches), and cli.parity
+   determinism (deterministic: true, and its dumped noise reproduces the
+   output; 3 x 9 + 26 launches) and dump-activations (its stage count and
+   seconds) on the FULL .pt at 512 px, and a line saying whether they ran;
 9d. coach phase ("coach"): the trainer (training/coach.py) at full width:
    seeded SD-Turbo widths with LoRA, batch 2 x 4 references, 512 px, bf16
    over fp32 params, OptimConfig()'s weights (L2, LPIPS, ID on aligned crops,
    GAN 0.5 with the seeded DINOv2 ViT-L/14 and its heads), on an in-memory
    set of seeded items with RestoreDataset's keys and a 4-item validation
-   set. Coach.train for 4 G + D steps (metric interval 1, validation at step
-   4, a full save at step 2): launches per step (36 flash_fwd_lse, 18
+   set. Coach.train for 3 G + D steps (metric interval 1, validation at step
+   3, a full save at step 2): launches per step (36 flash_fwd_lse, 18
    flash_bwd_dq, 18 flash_bwd_dkv, 17 flash_bound; the D step none), finite
    losses with loss_d, every u vector of more than one element and every
    head weight moved, no frozen leaf changed, best_model and timestep.txt
@@ -213,6 +215,22 @@ Without arguments every phase runs and the last two lines are the result;
    Prints G and D ms per step, the device-busy ms of one step with the D
    step's share, host data ms per batch, ms per validation batch, peak
    memory, and the checkpoint's size and write / read seconds;
+9f. dispatch phase ("dispatch"): the Coach's multi-step dispatch at the
+   coach phase's width and data (deterministic cuDNN). Two Coaches from one
+   seeded init train 8 steps, steps_per_dispatch 1 and 4 (the second's
+   steps replays of a captured CUDA graph of the G + D step; metrics at 4
+   and 8, its full save at 4): every trainable leaf, head and u vector,
+   both optimizers' moments and counts and the last step's losses
+   bit-equal, and the launches per step the same (36 / 18 / 18 / 17 of rows
+   4 / 5 / 6 / 2, a replay's counted per replay); a Coach resumed from the
+   dispatch run's step-4 file ends bit for bit where that run ended; 2-step
+   accumulation under dispatches of 4 (a static step per phase) equals the
+   one-step accumulation on the same 4 batches. Prints, for both Coaches:
+   wall ms per step over a few more (a dispatch of 4; 2 one a call), the
+   device-busy ms of one step and
+   the launch API calls a step (cudaLaunchKernel against cudaGraphLaunch in
+   the profiler), and for the dispatch its capture seconds, its graph
+   pool's bytes and peak memory;
 9e. parallel phase ("parallel"): training and serving across processes and
    cards. With two cards or more, every kernel at one 512 px shape on cuda:1,
    launched from a thread at current device 0, equals its cuda:0 launch bit
@@ -229,7 +247,10 @@ Without arguments every phase runs and the last two lines are the result;
    (one process without a group summing the two halves' shares of the
    global batch: the ranks' arithmetic without the collectives), and from
    the one process at batch 2 at most 1.5x the witness's own distance (the
-   batch-1 algorithms' rounding); the two ranks bit-identical, 36 / 18 / 18 / 17 launches a G step on each rank; prints
+   batch-1 algorithms' rounding); the two ranks bit-identical, 36 / 18 / 18 / 17 launches a G step on each rank;
+   the two NCCL ranks also run their 2 steps as one dispatch
+   (steps_per_dispatch 2, a captured graph with its all-reduces): both
+   ranks bit-equal to each other and to their eager DDP steps; prints
    per rank the G and D ms, the device busy of one G + D step, the G
    gradient all-reduce's ms and bytes, and peak memory. Then
    ServingEngine(devices=) on every card (two shares of cuda:0 with one
@@ -1230,20 +1251,32 @@ def measure_slack(run, what: str):
     return records
 
 
-def profile_run(fn, what: str, card: str, shares=None, top: int = 15):
+# the host's launch calls the profiler records, by runtime API name
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile_run(fn, what: str, card: str, shares=None, top: int = 15, api_calls=None):
     """Device time of one call of ``fn`` by kernel, from torch.profiler;
     ``shares`` {label: name fragments} also prints those kernels' summed
-    share. Returns the device-busy ms (None when nothing was recorded)."""
+    share; a dict ``api_calls`` receives the count of each LAUNCH_APIS call
+    the host made. Returns the device-busy ms (None when nothing was
+    recorded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only (kernels and the runtime's launch calls): the
+    # host's op events of a ~30k-launch step take the profiler half a
+    # minute to read and nothing here uses them
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    if api_calls is not None:
+        api_calls.update({e.key: e.count for e in prof.key_averages() if e.key in LAUNCH_APIS})
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
@@ -3222,10 +3255,48 @@ def checkpoint_phase(card: str):
                 print(f"{what}: exit {rc}, wrote {written} {sorted(sizes)} in {sec:.2f} s")
                 if rc != 0 or written != ["ann.png", "ben.png"] or sizes != {(RES, RES)}:
                     failures.append(f"{what}: exit {rc}, wrote {written}")
+            # ---- cli.parity on the FULL .pt ----
+            import numpy as np
+
+            from instantrestore_tpu_torch.cli import parity
+
+            ident = data / "ann"
+            common = ["--checkpoint", str(full), "--tokenizer_dir", str(tok_dir), "--input",
+                      str(ident / "degraded.png"), "--refs", str(ident / "conditioning"),
+                      "--resolution", str(RES), "--device", "cuda"]
+            reset_counts()
+            (rc, sec) = synced(lambda: parity.main(["determinism", *common, "--dump",
+                                                    str(tmp / "det.npz"), "--out",
+                                                    str(tmp / "det.json")]))
+            counts = launch_counts()
+            # two predictions, then one more on the dumped noise
+            check_launches(failures, "cli.parity determinism", counts, 3, shared_flash_bound=9,
+                           flash_attention_bound=26)
+            add_counts(total, counts)
+            det = json.loads((tmp / "det.json").read_text())
+            print(f"cli.parity determinism on the FULL .pt at {RES} px: exit {rc}, deterministic "
+                  f"{det['deterministic']}, repeat max-abs {det['repeat_maxabs_uint8']}, dumped "
+                  f"noise reproduces the output {det.get('dump_noise_reproduces_output')}; "
+                  f"{sec:.2f} s with the load [{card}]")
+            if rc != 0 or not det["deterministic"] or not det.get("dump_noise_reproduces_output"):
+                failures.append(f"cli.parity determinism: exit {rc}, {det}")
+            (rc, sec) = synced(lambda: parity.main(["dump-activations", *common, "--dump",
+                                                    str(tmp / "act.npz"), "--out",
+                                                    str(tmp / "act.json")]))
+            act = json.loads((tmp / "act.json").read_text())
+            finite = all(np.isfinite(v) for v in act["stage_absmax"].values())
+            print(f"cli.parity dump-activations on the FULL .pt at {RES} px: exit {rc}, "
+                  f"{len(act['stages'])} stages, forward {act['seconds']:.2f} s, {sec:.2f} s with "
+                  f"the load and the .npz ({_gb(tmp / 'act.npz'):.3f} GB), every stage finite "
+                  f"{finite} [{card}]")
+            if rc != 0 or len(act["stages"]) < 20 or not finite:
+                failures.append(f"cli.parity dump-activations: exit {rc}, {len(act['stages'])} "
+                                "stages")
             import PIL
 
             print(f"PNG CLIs: ran, cli.infer.main and cli.serve.main on 2 identities of {RES} px "
-                  f"PNGs (Pillow {PIL.__version__})")
+                  f"PNGs, and cli.parity determinism and dump-activations (Pillow "
+                  f"{PIL.__version__})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"checkpoint phase: {time.perf_counter() - t_phase:.1f} s")
@@ -3236,7 +3307,7 @@ def checkpoint_phase(card: str):
 
 # the coach phase: the trainer at full width on in-memory data (and, where
 # Pillow and OpenCV import, on PNG files through RestoreDataset and the CLI)
-COACH_STEPS, COACH_SAVE_AT, COACH_VAL_ITEMS, COACH_TRAIN_ITEMS = 4, 2, 4, 8
+COACH_STEPS, COACH_SAVE_AT, COACH_VAL_ITEMS, COACH_TRAIN_ITEMS = 3, 2, 4, 8
 COACH_TIMED = 3  # extra G and D steps timed after the run
 COACH_DISK_BYTES = 25e9  # a few 3.8 GB fp32 checkpoints at once, and the PNGs
 
@@ -3636,6 +3707,261 @@ def coach_phase(card: str):
     return total
 
 
+# the dispatch phase: the Coach's multi-step dispatch (each step a replay of
+# a captured CUDA graph of the G + D step) against its one-step run
+DISPATCH_STEPS, DISPATCH_SPD, DISPATCH_SAVE_AT = 8, 4, 4
+
+
+def pool_bytes(pool):
+    """Bytes the caching allocator holds in a CUDA graph memory pool (None
+    where the memory snapshot names no pools)."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segs):
+        return None
+    return sum(seg["total_size"] for seg in segs if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def dispatch_phase(card: str):
+    """The Coach's steps_per_dispatch at the coach phase's full width and
+    data: the one-step run against the dispatch (DISPATCH_SPD steps a
+    dispatch, each a graph replay) bit for bit over DISPATCH_STEPS steps, a
+    resume of the dispatch run, accumulation under a dispatch, and both
+    runs' per-step times, device busy, launch API calls, capture seconds,
+    graph pool and peak memory. Returns the launch counts of its paths."""
+    import gc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from instantrestore_tpu_torch.configs.config import TrainConfig
+    from instantrestore_tpu_torch.data.datasets import collate
+    from instantrestore_tpu_torch.training import coach as coach_mod
+    from instantrestore_tpu_torch.training.losses import id_loss as id_mod
+    from instantrestore_tpu_torch.training.optim import trainable_leaves
+
+    dev = torch.device("cuda")
+    failures, total = [], {}
+    t_phase = time.perf_counter()
+    scratch = Path(__file__).resolve().parent / "_scratch"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="dispatch_phase_", dir=scratch))
+    arcface = id_mod.init_arcface_params(torch.Generator(device=dev).manual_seed(7), device=dev)
+    data = (SeededFaces(COACH_TRAIN_ITEMS, 1, True), SeededFaces(COACH_VAL_ITEMS, 2, False))
+    val_batches = -(-COACH_VAL_ITEMS // TRAIN_BATCH)
+    # the extra steps timed after a run: one dispatch's worth of the training set's batches
+    timed = [collate([data[0][i] for i in range(k * TRAIN_BATCH, (k + 1) * TRAIN_BATCH)])
+             for k in range(DISPATCH_SPD)]
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def config(name, spd, **over):
+        cfg = TrainConfig()
+        cfg.compute.batch_size = cfg.compute.test_batch_size = TRAIN_BATCH
+        cfg.compute.workers, cfg.compute.test_workers, cfg.compute.seed = 2, 1, 0
+        cfg.compute.steps_per_dispatch = spd
+        cfg.data.resolution, cfg.data.max_conditioning_images = RES, N_REFS
+        cfg.log.exp_root, cfg.log.exp_name, cfg.log.log2wandb = str(tmp), name, False
+        cfg.log.val_vis_count, cfg.log.vis_attention = 0, False
+        cfg.steps.max_steps, cfg.steps.metric_interval = DISPATCH_STEPS, DISPATCH_SPD
+        never = 100 * DISPATCH_STEPS
+        cfg.steps.image_interval = cfg.steps.val_interval = never
+        cfg.steps.save_interval = DISPATCH_SAVE_AT if spd > 1 else never
+        for k, v in over.items():
+            section, field = k.split("__")
+            setattr(getattr(cfg, section), field, v)
+        return cfg
+
+    def make(cfg):
+        coach = coach_mod.Coach(cfg, arcface_params=arcface, datasets=data, device=dev)
+        coach.logged = []
+        log = coach.logger.log_metrics
+
+        def keep(m, prefix="train"):
+            coach.logged.append((coach.train_step_num, prefix, dict(m)))
+            log(m, prefix)
+
+        coach.logger.log_metrics = keep
+        return coach
+
+    def state(coach):
+        """A CPU copy of everything a step moves: the trainable G leaves, the
+        heads with their u vectors, both optimizers' moments and counts."""
+        out = {f"g.{i}": t for i, t in enumerate(trainable_leaves(coach.params, coach.g_mask))}
+        out.update({f"heads.{n}": t for n, t in _tree_leaves(coach.disc_heads)})
+        for name in ("g_opt", "d_opt"):
+            opt = getattr(coach, name)
+            for k in ("exp_avg", "exp_avg_sq", "acc_grads"):
+                out.update({f"{name}.{k}.{i}": t for i, t in enumerate(getattr(opt, k))})
+            out[f"{name}.counts"] = torch.tensor([opt.count, opt.mini_step])
+        return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+    def differ(got, want):
+        return sorted(k for k in want if not torch.equal(got[k], want[k]))
+
+    def train(coach):
+        with deterministic_cudnn():
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            _, secs = synced(coach.train)
+            return launch_counts(), secs, torch.cuda.max_memory_allocated() / 2**30
+
+    def last_losses(coach):
+        train_logs = [m for _, prefix, m in coach.logged if prefix == "train"]
+        return {k: v for k, v in train_logs[-1].items() if k != "steps_per_sec"}
+
+    def free():
+        gc.collect()  # a Coach's logger hook holds it in a cycle
+        torch.cuda.empty_cache()
+
+    def measure(coach, spd):
+        """Wall ms a step over a few more steps (one dispatch, or two steps
+        one a call), then the device busy and launch API calls a step from
+        the profiler over one dispatch or one step. No interval fires."""
+        coach.cfg.steps.metric_interval = coach.cfg.steps.save_interval = 10**6
+        coach._t0, coach._steps_since_metric = time.time(), 0
+        gen = torch.Generator(device=dev)
+
+        def steps(n):
+            if spd == 1:
+                for b in timed[:n]:
+                    gen.manual_seed(coach._step_seed(coach.train_step_num))
+                    coach._run_single_step(b, gen)
+            else:
+                coach._run_dispatch(timed[:n], gen)
+
+        n_timed, n_profiled = (2, 1) if spd == 1 else (len(timed), len(timed))
+        with deterministic_cudnn():
+            _, secs = synced(lambda: steps(n_timed))
+            api = {}
+            busy = profile_run(lambda: steps(n_profiled), f"{n_profiled} Coach step(s), "
+                               f"steps_per_dispatch {spd}", card, top=6, api_calls=api)
+        return dict(ms=secs / n_timed * 1e3, n=n_timed,
+                    busy=None if busy is None else round(busy / n_profiled, 2),
+                    api={k: v / n_profiled for k, v in sorted(api.items())})
+
+    try:
+        free_bytes = shutil.disk_usage(tmp).free
+        if free_bytes < COACH_DISK_BYTES:  # up to four 4.1 GB checkpoints at once
+            raise RuntimeError(f"dispatch phase needs {COACH_DISK_BYTES / 1e9:.0f} GB free under "
+                               f"{tmp}, has {free_bytes / 1e9:.1f}")
+        # ---- the one-step run ----
+        eager = make(config("eager", 1))
+        counts_e, secs_e, peak_e = train(eager)
+        want_state, want_losses = state(eager), last_losses(eager)
+        steps_e = [s for s, prefix, _ in eager.logged if prefix == "train"]
+        m_e = measure(eager, 1)
+        del eager
+        free()
+        shutil.rmtree(tmp / "eager", ignore_errors=True)
+
+        # ---- the dispatch run ----
+        disp = make(config("dispatch", DISPATCH_SPD))
+        counts_d, secs_d, peak_d = train(disp)
+        got_state, got_losses = state(disp), last_losses(disp)
+        steps_d = [s for s, prefix, _ in disp.logged if prefix == "train"]
+        captured = list(disp._static_steps.values())
+        capture_s = [round(s.capture_seconds, 3) for s in captured]
+        pool = pool_bytes(disp.graph_pool)
+        m_d = measure(disp, DISPATCH_SPD)
+        n_static = len(disp._static_steps)
+        del captured
+        del disp
+        free()
+
+        per_step = dict(flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18,
+                        flash_attention_bound=17)
+        for what, counts in (("one-step run", counts_e), ("dispatch run", counts_d)):
+            want = {k: n * DISPATCH_STEPS for k, n in per_step.items()}
+            want["flash_attention_bound"] += 26 * val_batches  # train()'s own validation
+            want["shared_flash_bound"] = 9 * val_batches
+            check_launches(failures, f"Coach.train, {what}: {DISPATCH_STEPS} G + D steps and a "
+                           f"validation of {val_batches} batches", counts, 1, **want)
+            add_counts(total, counts)
+        bad = differ(got_state, want_state)
+        same_losses = got_losses == want_losses
+        print(f"dispatch ({DISPATCH_SPD} steps a dispatch, {n_static} captured step) against "
+              f"the one-step run after {DISPATCH_STEPS} steps: {len(want_state) - len(bad)} of "
+              f"{len(want_state)} tensors bit-equal (trainable leaves, heads with u, both "
+              f"optimizers' moments and counts){'; differ: ' + str(bad[:6]) if bad else ''}; "
+              f"last losses {'bit-equal' if same_losses else 'DIFFER'} {got_losses}; metrics "
+              f"logged at {steps_d} and {steps_e}")
+        if bad or not same_losses or steps_d != steps_e or n_static != 1:
+            failures.append(f"the dispatch run differs from the one-step run: {bad[:6]}, "
+                            f"losses {got_losses} against {want_losses}")
+        for what, secs, peak, m in (("steps_per_dispatch 1", secs_e, peak_e, m_e),
+                                    (f"steps_per_dispatch {DISPATCH_SPD}", secs_d, peak_d, m_d)):
+            print(f"Coach, {what}: train() {secs:.1f} s ({DISPATCH_STEPS} steps, a validation, "
+                  f"its saves); {m['ms']:.1f} ms wall a step over {m['n']} more, device "
+                  f"busy {m['busy']} ms a step, launch API calls a step {m['api']}; peak "
+                  f"{peak:.2f} GiB [{card}]")
+        print(f"dispatch capture: {capture_s} s; graph pool "
+              f"{'not measured' if pool is None else f'{pool / 2**30:.2f} GiB'} [{card}]")
+
+        # ---- a resume of the dispatch run from its step-4 file ----
+        ck = tmp / "dispatch" / "checkpoints" / f"step_{DISPATCH_SAVE_AT}"
+        resumed = make(config("resumed", DISPATCH_SPD, log__resume_from=str(ck),
+                              steps__save_interval=100 * DISPATCH_STEPS))
+        counts_r, _, _ = train(resumed)
+        add_counts(total, counts_r)
+        bad = differ(state(resumed), got_state)
+        print(f"dispatch run resumed from step_{DISPATCH_SAVE_AT} to step "
+              f"{resumed.train_step_num}: {len(got_state) - len(bad)} of {len(got_state)} "
+              f"tensors bit-equal to the uninterrupted dispatch run")
+        if bad or resumed.train_step_num != DISPATCH_STEPS:
+            failures.append(f"the resumed dispatch run differs: {bad[:6]}")
+        del resumed
+        free()
+        for name in ("dispatch", "resumed"):
+            shutil.rmtree(tmp / name, ignore_errors=True)
+
+        # ---- accumulation over 2 micro-steps under a dispatch of 4 ----
+        ends = {}
+        for spd in (1, DISPATCH_SPD):
+            acc = make(config(f"accumulate{spd}", spd, optim__gradient_accumulation_steps=2,
+                              optim__lr_warmup_steps=0,
+                              steps__save_interval=100 * DISPATCH_STEPS))
+            acc._t0, acc._steps_since_metric = time.time(), 0
+            gen = torch.Generator(device=dev)
+            with deterministic_cudnn():
+                reset_counts()
+                if spd == 1:
+                    for b in timed:
+                        gen.manual_seed(acc._step_seed(acc.train_step_num))
+                        acc._run_single_step(b, gen)
+                else:
+                    acc._run_dispatch(timed, gen)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            check_launches(failures, f"{len(timed)} accumulating steps, steps_per_dispatch {spd}",
+                           counts, len(timed), **per_step)
+            add_counts(total, counts)
+            ends[spd] = (state(acc), acc.g_opt.count, len(acc._static_steps))
+            del acc
+            free()
+        bad = differ(ends[DISPATCH_SPD][0], ends[1][0])
+        print(f"gradient_accumulation_steps=2, {len(timed)} steps: dispatch ({ends[DISPATCH_SPD][2]}"
+              f" captured steps, {ends[DISPATCH_SPD][1]} applied) against one step a call "
+              f"({ends[1][1]} applied): {len(ends[1][0]) - len(bad)} of {len(ends[1][0])} "
+              f"tensors bit-equal")
+        if bad or ends[DISPATCH_SPD][1:] != (2, 2) or ends[1][1] != 2:
+            failures.append(f"accumulation under a dispatch differs: {bad[:6]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"dispatch phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("dispatch phase failed: " + "; ".join(failures))
+    return total
+
+
 # the parallel phase: DDP training over processes and cards, the
 # multi-device engine, and the device guard of every kernel launch
 DDP_STEPS = 2  # G + D steps compared across ranks; one more is profiled
@@ -3652,7 +3978,7 @@ DDP_BATCH_FACTOR = 1.5
 PAR_SERVE_MEAN_ABS = 2e-2  # the multi-device engine against the one-device engine
 
 
-def ddp_coach(spec: dict, dev, tag: str, accumulation: int = 1):
+def ddp_coach(spec: dict, dev, tag: str, accumulation: int = 1, steps_per_dispatch: int = 1):
     """The parallel phase's Coach on ``dev`` (the coach phase's config and
     seeded data, the global batch TRAIN_BATCH) and its build seconds."""
     import torch
@@ -3670,6 +3996,7 @@ def ddp_coach(spec: dict, dev, tag: str, accumulation: int = 1):
     cfg.steps.metric_interval = 1
     cfg.steps.image_interval = cfg.steps.val_interval = cfg.steps.save_interval = 1000
     cfg.optim.gradient_accumulation_steps = accumulation
+    cfg.compute.steps_per_dispatch = steps_per_dispatch
     arcface = id_mod.init_arcface_params(torch.Generator(device=dev).manual_seed(7), device=dev)
     data = (SeededFaces(COACH_TRAIN_ITEMS, 1, True), SeededFaces(COACH_VAL_ITEMS, 2, False))
     t0 = time.perf_counter()
@@ -3721,6 +4048,7 @@ def ddp_run(spec: dict, dev, tag: str, card: str) -> dict:
     losses, ms, device busy, all-reduce ms and bytes, peak memory, launch
     counts and a SHA-256 of the trainable leaves and heads after the
     compared steps; the first step's gradient is saved where ``grads`` says."""
+    import gc
     import hashlib
 
     import torch
@@ -3782,13 +4110,62 @@ def ddp_run(spec: dict, dev, tag: str, card: str) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
         ar_ms = statistics.median(ms)
     train = [m for m in logged if "loss" in m]
-    return dict(tag=tag, rank=pdist.process_index(), world=pdist.process_count(),
-                device=str(dev), build_s=build_s, loss=[m["loss"] for m in train[:DDP_STEPS]],
-                loss_d=[m["loss_d"] for m in train[:DDP_STEPS]], g_ms=times["g_step"],
-                d_ms=times["d_step"], busy_ms=busy, allreduce_ms=ar_ms,
-                allreduce_bytes=ar_bytes,
-                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, counts=counts,
-                digest=digest.hexdigest(), names=names if spec.get("grads") else None)
+    rec = dict(tag=tag, rank=pdist.process_index(), world=pdist.process_count(),
+               device=str(dev), build_s=build_s, loss=[m["loss"] for m in train[:DDP_STEPS]],
+               loss_d=[m["loss_d"] for m in train[:DDP_STEPS]], g_ms=times["g_step"],
+               d_ms=times["d_step"], busy_ms=busy, allreduce_ms=ar_ms,
+               allreduce_bytes=ar_bytes,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, counts=counts,
+               digest=digest.hexdigest(), names=names if spec.get("grads") else None)
+    if spec.get("dispatch"):
+        del coach, leaves
+        gc.collect()  # the timed steps hold the Coach in a cycle
+        torch.cuda.empty_cache()
+        rec.update(ddp_dispatch(spec, dev, tag))
+    return rec
+
+
+def ddp_dispatch(spec: dict, dev, tag: str) -> dict:
+    """A fresh Coach of the same seed at steps_per_dispatch DDP_STEPS, in the
+    same process group, runs the DDP_STEPS steps of ddp_run as one dispatch
+    (a captured graph of the G + D step with its all-reduces, replayed).
+    Returns its last losses, launches, SHA-256 of the trainable leaves and
+    heads (ddp_run's digest), the dispatch's wall ms and capture seconds."""
+    import gc
+    import hashlib
+
+    import torch
+
+    from instantrestore_tpu_torch.training.optim import trainable_leaves
+
+    coach, _ = ddp_coach(spec, dev, f"{tag}_dispatch", steps_per_dispatch=DDP_STEPS)
+    logged = []
+    coach.logger.log_metrics = lambda m, prefix="train": logged.append(dict(m))
+    batches = iter(coach.train_loader)
+    coach._t0, coach._steps_since_metric = time.time(), 0
+    with deterministic_cudnn():
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        coach._run_dispatch([next(batches) for _ in range(DDP_STEPS)], torch.Generator(device=dev))
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+    if coach.group is not None:
+        coach.check_replicas_agree()
+    digest = hashlib.sha256()
+    for t in (trainable_leaves(coach.params, coach.g_mask)
+              + [t for _, t in _tree_leaves(coach.disc_heads)]):
+        digest.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    rec = dict(dispatch_loss=logged[-1]["loss"], dispatch_loss_d=logged[-1]["loss_d"],
+               dispatch_counts=counts, dispatch_digest=digest.hexdigest(), dispatch_ms=ms,
+               dispatch_capture_s=[s.capture_seconds for s in coach._static_steps.values()])
+    # the graphs (and their collectives) go before the caller leaves the group
+    coach._static_steps.clear()
+    del coach
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def ddp_worker(path: str) -> int:
@@ -3812,7 +4189,7 @@ def ddp_worker(path: str) -> int:
     timeout = datetime.timedelta(seconds=DDP_COLLECTIVE_S)
     out = []
     if spec["mode"] == "one":
-        out.append(ddp_run(spec, dev, "none", card))
+        out.append(ddp_run(dict(spec, dispatch=False), dev, "none", card))
         spec["grads"] = None
         gc.collect()  # the first Coach (its timed steps hold it in a cycle)
         torch.cuda.empty_cache()
@@ -4174,7 +4551,7 @@ def parallel_phase(card: str):
     try:
         one = run_workers([dict(name="one", mode="one", device="cuda:0",
                                 store=str(tmp / "store_one"), grads=str(tmp / "grads_one.pt"),
-                                witness=str(tmp / "grads_witness.pt"))],
+                                witness=str(tmp / "grads_witness.pt"), dispatch=True)],
                           tmp, DDP_LIMIT_S)
         groups = {"gloo_one_card": [dict(name=f"gloo{r}", mode="gloo_one_card", world=2, rank=r,
                                          backend="gloo", device="cuda:0",
@@ -4185,10 +4562,12 @@ def parallel_phase(card: str):
             groups["nccl_two_cards"] = [dict(name=f"nccl{r}", mode="nccl_two_cards", world=2,
                                              rank=r, backend="nccl", device=f"cuda:{r}",
                                              store=str(tmp / "store_nccl"),
-                                             grads=str(tmp / "grads_nccl.pt") if r == 0 else None)
+                                             grads=str(tmp / "grads_nccl.pt") if r == 0 else None,
+                                             dispatch=True)
                                         for r in range(2)]
         else:
-            print("NCCL over two cards: needs a second card (1 visible): not run")
+            print("NCCL over two cards, and the DDP Coach's steps_per_dispatch 2 there: needs a "
+                  "second card (1 visible): not run")
         ref, ws1 = one
         rank_counts = dict(ref["counts"])
         for what, rec in (("no group", ref), ("NCCL world size 1", ws1)):
@@ -4204,6 +4583,21 @@ def parallel_phase(card: str):
         if not same:
             failures.append("the step in an NCCL group of world size 1 differs from no group")
         add_counts(rank_counts, ws1["counts"])
+        check_launches(failures, f"NCCL world size 1: {DDP_STEPS} G + D steps as one dispatch",
+                       {k: ws1["dispatch_counts"].get(k, 0) for k in KERNEL_NAMES}, DDP_STEPS,
+                       flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18,
+                       flash_attention_bound=17)
+        add_counts(rank_counts, ws1["dispatch_counts"])
+        same = (ws1["dispatch_digest"] == ws1["digest"] and ws1["dispatch_loss"] == ws1["loss"][-1]
+                and ws1["dispatch_loss_d"] == ws1["loss_d"][-1])
+        print(f"NCCL world size 1, steps_per_dispatch {DDP_STEPS} (a captured G + D step with its "
+              f"all-reduces, replayed) against its eager steps: "
+              f"{'bit for bit the same' if same else 'DIFFERENT'}; {DDP_STEPS} steps "
+              f"{ws1['dispatch_ms']:.1f} ms with capture "
+              f"{[round(c, 2) for c in ws1['dispatch_capture_s']]} s [{card}]")
+        if not same:
+            failures.append("the dispatch in an NCCL group of world size 1 differs from its eager "
+                            "steps")
         want = dict(flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18, flash_attention_bound=17)
         for what, rec in (("no group", ref), ("NCCL world size 1", ws1)):
             check_launches(failures, f"{what}: {DDP_STEPS} G + D steps",
@@ -4245,6 +4639,23 @@ def parallel_phase(card: str):
                     or any(rels[k] > DDP_BATCH_FACTOR * wit_gap[k] for k in rels) \
                     or not ranks_same:
                 failures.append(f"{mode}: two ranks disagree with one process or each other")
+            if specs[0].get("dispatch"):
+                for rec in recs:
+                    check_launches(failures, f"{mode} rank {rec['rank']}: {DDP_STEPS} G + D steps "
+                                   "as one dispatch", {k: rec["dispatch_counts"].get(k, 0)
+                                                       for k in KERNEL_NAMES}, DDP_STEPS, **want)
+                    add_counts(rank_counts, rec["dispatch_counts"])
+                same = [rec["dispatch_digest"] == rec["digest"]
+                        and rec["dispatch_loss"] == rec["loss"][-1]
+                        and rec["dispatch_loss_d"] == rec["loss_d"][-1] for rec in recs]
+                print(f"{mode}, steps_per_dispatch {DDP_STEPS} (one captured G + D step with its "
+                      f"all-reduces, replayed): ranks "
+                      f"{'bit-identical' if r0['dispatch_digest'] == r1['dispatch_digest'] else 'DIFFER'}"
+                      f"; each rank against its eager DDP steps {same}; {DDP_STEPS} steps "
+                      f"{[round(r['dispatch_ms'], 1) for r in recs]} ms with capture "
+                      f"{[[round(c, 2) for c in r['dispatch_capture_s']] for r in recs]} s [{card}]")
+                if not all(same) or r0["dispatch_digest"] != r1["dispatch_digest"]:
+                    failures.append(f"{mode}: the dispatch differs from the eager DDP steps")
         add_counts(total, rank_counts)
         torch.cuda.empty_cache()
         add_counts(total, parallel_serving(card, failures))
@@ -4320,12 +4731,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated phases to run instead of all of "
                     "them (kernels, vjp, serving, int8, training, options, recipe, small, "
-                    "checkpoint, coach, parallel); a partial run prints no result line")
+                    "checkpoint, coach, dispatch, parallel); a partial run prints no result "
+                    "line")
     ap.add_argument("--ddp-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = set(filter(None, args.only.split(",")))
     unknown = only - {"kernels", "vjp", "serving", "int8", "training", "options", "recipe",
-                      "small", "checkpoint", "coach", "parallel"}
+                      "small", "checkpoint", "coach", "dispatch", "parallel"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -4398,6 +4810,9 @@ def main() -> int:
     if wanted("coach"):
         torch.cuda.empty_cache()
         add_counts(counts, coach_phase(card))
+    if wanted("dispatch"):
+        torch.cuda.empty_cache()
+        add_counts(counts, dispatch_phase(card))
     if wanted("parallel"):
         torch.cuda.empty_cache()
         add_counts(counts, parallel_phase(card))

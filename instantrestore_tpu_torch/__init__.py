@@ -21,6 +21,8 @@ PyTorch version instead.
 
 from __future__ import annotations
 
+from typing import Callable, Dict, Hashable, Tuple
+
 import torch
 
 
@@ -39,3 +41,18 @@ def resolve_device(device=None) -> torch.device:
                 f"{dev}: this machine has {torch.cuda.device_count()} CUDA device(s)"
             )
     return dev
+
+
+_CONSTANTS: Dict[Tuple[Hashable, torch.device], torch.Tensor] = {}
+
+
+def device_constant(key: Hashable, device, make: Callable[[], object]) -> torch.Tensor:
+    """The constant tensor ``make()`` (an array or a CPU tensor) on
+    ``device``, made and copied there once per ``key`` and kept: a step
+    captured in a CUDA graph may not copy from the host, so every call after
+    the first reads the same device tensor. Callers never write to it."""
+    dev = torch.device(device)
+    t = _CONSTANTS.get((key, dev))
+    if t is None:
+        t = _CONSTANTS[(key, dev)] = torch.as_tensor(make()).to(dev)
+    return t

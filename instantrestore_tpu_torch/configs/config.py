@@ -6,8 +6,9 @@ reference's YAML files decode unchanged).
 Every loss weight of ``OptimConfig`` is acted on (``training/losses/
 composite.py``). Fields of the JAX package's multi-device runs are kept so
 that such files still load: ``mesh_shape`` is not read (one process, one
-card), and the Coach refuses ``steps_per_dispatch`` above 1 (the JAX
-package's scanned multi-step dispatch; ROADMAP Queue 5 item 4).
+card). ``steps_per_dispatch`` above 1 runs that many G + D steps per
+dispatch, each a replay of one captured CUDA graph (``training/coach.py``),
+as JAX's scanned multi-step dispatch runs them in one compiled program.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ class ComputeConfig:
     # decode): activations are rebuilt in the backward. None = auto: on for a
     # CUDA device, off on the CPU.
     remat: Optional[bool] = None
-    # train steps per dispatch of the JAX package's scanned loop; the port's
-    # Coach takes one step per call and refuses more
+    # G + D steps per dispatch (the JAX package's scanned loop; the port's
+    # Coach replays a captured CUDA graph of the step that many times)
     steps_per_dispatch: int = 1
 
     def __post_init__(self):

@@ -111,7 +111,8 @@ def segment_softmax_sums(q: torch.Tensor, k_segments: Sequence[torch.Tensor],
         return torch.exp(logits(k_seg) - m).sum(dim=-1)
 
     if torch.is_grad_enabled():
-        sums = [checkpoint(seg_sum, k_seg, use_reentrant=False) for k_seg in k_segments]
+        sums = [checkpoint(seg_sum, k_seg, use_reentrant=False, preserve_rng_state=False)
+                for k_seg in k_segments]
     else:
         sums = [seg_sum(k_seg) for k_seg in k_segments]
     sums = torch.stack(sums, dim=-1)

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from instantrestore_tpu_torch import device_constant
+
 
 @dataclasses.dataclass(frozen=True)
 class FreeUParams:
@@ -29,8 +31,14 @@ def lowfreq_component(x: torch.Tensor) -> torch.Tensor:
     """Real part of the inverse DFT of x [B, H, W, C] restricted to the
     frequencies {0, -1} x {0, -1}, in fp32."""
     xf = torch.fft.fft2(x.float(), dim=(1, 2))
-    mask = torch.zeros(x.shape[1], x.shape[2], 1, device=x.device)
-    mask[[0, 0, -1, -1], [0, -1, 0, -1]] = 1.0
+    h, w = x.shape[1:3]
+
+    def make():
+        m = torch.zeros(h, w, 1)
+        m[[0, 0, -1, -1], [0, -1, 0, -1]] = 1.0
+        return m
+
+    mask = device_constant(("freeu_lowfreq_mask", h, w), x.device, make)
     return torch.fft.ifft2(xf * mask, dim=(1, 2)).real
 
 

@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from instantrestore_tpu_torch import device_constant
 from instantrestore_tpu_torch.configs.config import ModelConfig
 from instantrestore_tpu_torch.models import scheduler as sched
 from instantrestore_tpu_torch.models.lora import (
@@ -259,6 +260,14 @@ def _cond_noise(noise: Optional[Dict[str, torch.Tensor]]):
     return {k[len("cond_"):]: v for k, v in noise.items() if k.startswith("cond_")}
 
 
+def timestep_table(statics: RestorerStatics, device) -> torch.Tensor:
+    """``statics.noise_timesteps`` as an int64 tensor on ``device`` (made once):
+    a timestep drawn as an index into it stays on the device."""
+    ts = tuple(statics.noise_timesteps)
+    return device_constant(("noise_timesteps", ts), device,
+                           lambda: torch.tensor(ts, dtype=torch.long))
+
+
 def restore_forward(
     params: Dict[str, Any],
     image: torch.Tensor,
@@ -294,10 +303,13 @@ def restore_forward(
     (without them that model attends to the prompt, as in the JAX package).
 
     ``timestep=None`` (training) draws one timestep for the batch from
-    ``statics.noise_timesteps`` with ``generator``. ``remat`` checkpoints
-    each stage (encode, capture, UNet, decode): its activations are rebuilt
-    in the backward instead of kept; all noise is drawn outside the stages, so
-    the rebuilt forward is the first one.
+    ``statics.noise_timesteps`` with ``generator`` (as a 0-d tensor);
+    ``timestep`` may be an int or a 0-d integer tensor, which is read on its
+    device only (a step captured in a CUDA graph takes it so), and comes
+    back as given. ``remat`` checkpoints each stage (encode, capture, UNet,
+    decode): its activations are rebuilt in the backward instead of kept;
+    all noise is drawn outside the stages, so the rebuilt forward is the
+    first one.
 
     ``noise`` may give ``latent`` and ``diffusion`` [B, h, w, 4], and
     ``cond_latent`` and ``cond_diffusion`` [B*N, h, w, 4]. Returns
@@ -349,8 +361,11 @@ def restore_forward(
             raise ValueError("timestep=None draws the timestep: pass a torch.Generator")
         idx = torch.randint(len(statics.noise_timesteps), (), generator=generator,
                             device=generator.device)
-        timestep = statics.noise_timesteps[int(idx)]
-    tb = torch.full((b,), timestep, dtype=torch.long, device=z.device)
+        timestep = timestep_table(statics, z.device)[idx.to(z.device).reshape(1)][0]
+    if isinstance(timestep, torch.Tensor):  # read on the device, never on the host
+        tb = timestep.to(z.device, torch.long).reshape(1).repeat(b)
+    else:
+        tb = torch.full((b,), timestep, dtype=torch.long, device=z.device)
     zt = sched.add_noise(abar, z, _noise(noise, "diffusion", z, generator), tb)
     use_faceid = statics.condition_on_face_embeds and face_embeds is not None
     if use_faceid:

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from instantrestore_tpu_torch import device_constant
+
 
 def make_alphas_cumprod(
     num_train_timesteps: int = 1000,
@@ -16,11 +18,15 @@ def make_alphas_cumprod(
     beta_end: float = 0.012,
     device=None,
 ) -> torch.Tensor:
-    """Cumulative alpha-bar table [T] in fp32 (computed in float64)."""
-    betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_train_timesteps,
-                        dtype=np.float64) ** 2
-    abar = np.cumprod(1.0 - betas).astype(np.float32)
-    return torch.from_numpy(abar).to(device)
+    """Cumulative alpha-bar table [T] in fp32 (computed in float64), made
+    once per device (``device_constant``)."""
+    def make():
+        betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_train_timesteps,
+                            dtype=np.float64) ** 2
+        return np.cumprod(1.0 - betas).astype(np.float32)
+
+    return device_constant(("alphas_cumprod", num_train_timesteps, beta_start, beta_end),
+                           device or "cpu", make)
 
 
 def _per_sample(abar_t: torch.Tensor, ndim: int) -> torch.Tensor:

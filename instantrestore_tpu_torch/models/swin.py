@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from instantrestore_tpu_torch import device_constant
 from instantrestore_tpu_torch.ops.primitives import dense, init_dense, init_norm, layer_norm
 
 
@@ -126,11 +127,13 @@ def _swin_block(bp, x, h, w_img, heads, window, shift, cfg: SwinConfig):
     qkv = dense(bp["attn"]["qkv"], wins)
     q, k, v = (t.reshape(-1, w2, heads, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
-    index = torch.from_numpy(_rel_position_index(window)).to(x.device)
+    index = device_constant(("swin_rel_index", window), x.device,
+                            lambda: torch.from_numpy(_rel_position_index(window)))
     bias = bp["attn"]["rel_bias"][index]  # [w2, w2, heads]
     logits = logits + bias.permute(2, 0, 1)[None].to(logits.dtype)
     if shift:
-        mask = torch.from_numpy(_shift_attn_mask(hp, wp, window, shift)).to(x.device)
+        mask = device_constant(("swin_shift_mask", hp, wp, window, shift), x.device,
+                               lambda: torch.from_numpy(_shift_attn_mask(hp, wp, window, shift)))
         logits = (logits.reshape(b, nw, heads, w2, w2) + mask[None, :, None]).reshape(
             -1, heads, w2, w2)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from instantrestore_tpu_torch import device_constant
+
 # the Annex-K quantisation tables
 _LUMA_TABLE = np.array([
     [16, 11, 10, 16, 24, 40, 51, 61],
@@ -67,14 +69,15 @@ def _scaled_table_traced(table: np.ndarray, quality: torch.Tensor) -> torch.Tens
     """Per-sample quantisation tables [B, 8, 8] from a quality tensor [B]."""
     q = quality.float().clamp(1.0, 100.0)
     s = torch.where(q < 50.0, 5000.0 / q, 200.0 - 2.0 * q)
-    t = torch.from_numpy(table).to(q.device)[None] * s[:, None, None]
+    t = device_constant(("jpeg_table", table.tobytes()), q.device,
+                        lambda: torch.from_numpy(table))[None] * s[:, None, None]
     return torch.floor((t + 50.0) / 100.0).clamp(1.0, 255.0)
 
 
 def _channel_jpeg(x: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """x [B, H, W] centred at 0; tables [8, 8] or [B, 8, 8]."""
     b, h, w = x.shape
-    d = torch.from_numpy(_dct_matrix()).to(x.device)
+    d = device_constant("dct_matrix", x.device, lambda: torch.from_numpy(_dct_matrix()))
     blocks = x.reshape(b, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
     coeffs = torch.einsum("ki,bnmij,lj->bnmkl", d, blocks, d)
     q = tables if tables.ndim == 2 else tables[:, None, None]

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from instantrestore_tpu_torch import device_constant
+
 
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     return None if t is None else t.to(dtype)
@@ -472,11 +474,10 @@ def timestep_embedding(
     get_timestep_embedding), with the same explicit mod-2pi range reduction
     as the JAX package."""
     half = dim // 2
-    freqs = torch.from_numpy(
-        np.exp(-np.log(max_period) * np.arange(half) / (half - downscale_freq_shift)).astype(
-            np.float32
-        )
-    ).to(timesteps.device)
+    freqs = device_constant(
+        ("timestep_freqs", half, downscale_freq_shift, max_period), timesteps.device,
+        lambda: np.exp(-np.log(max_period) * np.arange(half)
+                       / (half - downscale_freq_shift)).astype(np.float32))
     args = timesteps.float()[:, None] * freqs[None, :]
     two_pi = 2.0 * math.pi
     args = args - two_pi * torch.floor(args / two_pi)

@@ -130,7 +130,7 @@ def _check_cuda(name: str, *typed) -> None:
 
 def _q_scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     """q * (scale * log2 e), the constant and the product in q's dtype."""
-    return q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
+    return q * torch.full((), scale * LOG2E, dtype=q.dtype, device=q.device)
 
 
 def _row_norm(x: torch.Tensor) -> torch.Tensor:

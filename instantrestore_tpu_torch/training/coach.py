@@ -25,10 +25,21 @@ interval. A batch key that not every rank's batch has (collate adds some
 only when each item has them) is dropped on all, and the landmark term
 takes rank 0's layer.
 
+``compute.steps_per_dispatch`` N > 1 runs N steps per dispatch, as JAX's
+``lax.scan`` of the G + D step does: the N collated batches are stacked on
+the card once (``_stack_batches``, JAX's keys and landmark re-splat), and
+each step writes its batch and its draws (the same as a one-step run's at
+that step) into static buffers and replays one CUDA graph of the whole G +
+D step: forward, loss, gradients, the all-reduces of a multi-process run
+and both optimizers (``_StaticStep``). A graph is captured per landmark
+layer, accumulation phase and input structure, after a first eager run of
+that step on a side stream, into one memory pool; a capture error raises.
+On the CPU the same static-buffer step runs eagerly. Either way a dispatch
+run ends bit for bit where the one-step run ends; the intervals fire when a
+dispatch crosses them (JAX's ``_after_steps``).
+
 Differences from the JAX Coach, each deliberate:
-  * one card per process (CUDA unless ``device="cpu"`` is asked);
-    ``steps_per_dispatch`` above 1 (the JAX package's scanned multi-step
-    dispatch) raises (Queue 5 item 4).
+  * one card per process (CUDA unless ``device="cpu"`` is asked).
   * the G step is the port's ``make_train_step`` (trainable leaves and
     moments updated in place).
   * the random draws are explicit: ``draw_g`` / ``draw_d`` / ``draw_eval``
@@ -75,8 +86,10 @@ from instantrestore_tpu_torch.models.restorer import (
     RestorerStatics,
     init_restorer_params,
     restore_forward,
+    timestep_table,
 )
 from instantrestore_tpu_torch.models.vit import CLIP_VITB32, DINO_VITB16, DINOV2_VITL14
+from instantrestore_tpu_torch.ops.flash_vjp import add_launch_counts, launch_counts
 from instantrestore_tpu_torch.parallel import distributed as pdist
 from instantrestore_tpu_torch.training import checkpoints as ckpt_mod
 from instantrestore_tpu_torch.training.logging_utils import CoachLogger
@@ -191,6 +204,95 @@ def _u_leaves(tree, out=None):
     return out
 
 
+def _landmark_maps(batch, layer: int):
+    """The landmark targets of a collated batch's items splatted again at
+    ``layer`` from its ``landmark_coords``: (probs, masks) stacked."""
+    res = batch["image"].shape[1]
+    maps = [build_landmark_target(g, c, layer, res) for g, c in batch["landmark_coords"]]
+    return np.stack([m[0] for m in maps]), np.stack([m[1] for m in maps])
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a tree of dicts and lists (None kept)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _structure(tree):
+    """A hashable key of a tree's layout: its keys, and each tensor's shape
+    and dtype (a captured step takes inputs of one structure only)."""
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_structure(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    return tree
+
+
+class _StaticStep:
+    """The dispatch's step for one (landmark layer, accumulation phase,
+    input structure): the Coach's G + D step (``Coach._step``) over static
+    input buffers, which each step of a dispatch fills.
+
+    On the card the step's first run is eager, on a side stream (it builds
+    every kernel and is the dispatch's real step); then the same step is
+    captured into a ``torch.cuda.CUDAGraph`` in the Coach's memory pool and
+    each later step is one replay, which writes the static outputs (the
+    loss terms, the prediction, the gradients on the leaves' ``.grad``). A
+    replay does not pass through the kernel wrappers, so it adds the
+    capture's launches to their counts. A capture error raises. On the CPU
+    the same static-buffer step runs eagerly each time."""
+
+    def __init__(self, coach: "Coach", inputs, landmark_layer: Optional[int], phase: bool):
+        self.inputs = _tree_map(torch.clone, inputs)
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.capture_seconds = 0.0
+
+        def body():
+            x = self.inputs
+            return coach._step(x["batch"], landmark_layer, x["g"], x["d"], opt_phase=phase)
+
+        self._body = body
+        if coach.device.type != "cuda":
+            self.first = body()
+            return
+        dev, side = coach.device, coach._side_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.first = body()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        # in a process group the collective library's own threads keep querying
+        # its events while this thread captures
+        mode = "global" if coach.group is None else "thread_local"
+        with torch.cuda.graph(self.graph, pool=coach.graph_pool, stream=side,
+                              capture_error_mode=mode):
+            self.outputs = body()
+        self.capture_seconds = time.perf_counter() - t0
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        add_launch_counts({k: -n for k, n in self.launches.items()})  # nothing ran yet
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._leaves = trainable_leaves(coach.params, coach.g_mask)
+        self._grads = [t.grad for t in self._leaves]  # held: the pool keeps them apart
+
+    def run(self):
+        """One step over the static inputs: (the loss terms, the prediction)."""
+        if self.graph is None:
+            return self._body()
+        self.graph.replay()
+        add_launch_counts(self.launches)
+        for t, g in zip(self._leaves, self._grads):
+            t.grad = g
+        return self.outputs
+
+
 class Coach:
     def __init__(
         self,
@@ -206,11 +308,6 @@ class Coach:
         mtcnn_params=None,
         device=None,
     ):
-        if cfg.compute.steps_per_dispatch > 1:
-            raise ValueError(
-                f"steps_per_dispatch={cfg.compute.steps_per_dispatch}: the port takes one train "
-                "step per call; the JAX package's scanned dispatch of several steps has no "
-                "counterpart until the step is a CUDA graph (ROADMAP Queue 5 item 4)")
         if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not torch.distributed.is_initialized():
             raise RuntimeError("WORLD_SIZE > 1 but no process group: call "
                                "parallel.distributed.init_distributed() before the Coach")
@@ -223,6 +320,12 @@ class Coach:
         if device is None and self.process_count > 1:
             device = pdist.local_device()
         self.device = resolve_device(device)
+        if (cfg.compute.steps_per_dispatch > 1 and self.device.type == "cuda"
+                and self.group is not None and torch.distributed.get_backend() != "nccl"):
+            raise ValueError(
+                "steps_per_dispatch > 1 captures the step in a CUDA graph, and only NCCL's "
+                f"all-reduces can join one ({torch.distributed.get_backend()} copies CUDA "
+                "tensors through the host): run the group on NCCL or dispatch one step")
         self.statics = statics or RestorerStatics.from_model_config(cfg.model)
         self.vit_cfg = vit_cfg
         self.logger = CoachLogger(cfg.log.exp_dir, use_tensorboard=cfg.log.log2wandb,
@@ -404,6 +507,14 @@ class Coach:
                if self._need_landmark_probs and self._fused_attention else ""))
         self._g_steps: Dict[Optional[int], Any] = {}
         self._g_draws: Dict[str, Any] = {}
+        # the dispatch's static steps by (landmark layer, phase, input structure)
+        self._static_steps: Dict[Any, _StaticStep] = {}
+        self.graph_pool = torch.cuda.graph_pool_handle() if on_cuda else None
+        self._side_stream = torch.cuda.Stream(self.device) if on_cuda else None
+        # the moments and device scalars exist before any capture
+        self.g_opt.bind(self.params)
+        if self.d_opt is not None:
+            self.d_opt.bind(self.disc_heads)
 
     def _g_step_fn(self, landmark_layer: Optional[int]):
         """The port's train step, one per landmark layer (the layer whose
@@ -457,10 +568,11 @@ class Coach:
                 noise[k] = torch.randn((b * n,) + shape[1:], generator=gen, device=gen.device)
         return {k: v.to(self.device) for k, v in self._local(noise, batch).items()}
 
-    def _draw_layer(self, gen) -> int:
-        """The shared layer the reference-usage regularisers read."""
+    def _draw_layer(self, gen) -> torch.Tensor:
+        """The shared layer the reference-usage regularisers read (a 0-d
+        tensor on the card: the loss selects it there)."""
         n = self.statics.unet_cfg.num_shared_attn_layers
-        return int(torch.randint(n, (), generator=gen, device=gen.device))
+        return torch.randint(n, (), generator=gen, device=gen.device).to(self.device)
 
     def _crop_sizes(self, batch, boxes_used: bool):
         return facial_comp_sizes(batch["image"].shape[1]) if boxes_used else ()
@@ -469,7 +581,8 @@ class Coach:
         """Every random choice of one G step on ``batch``, from ``gen``: the
         restore noise and timestep, the reference-usage layer, DiffAugment's
         draws (the whole image, then each facial crop) and the cycle term's
-        noise, each drawn for the global batch and cut to this rank's rows."""
+        noise, each drawn for the global batch and cut to this rank's rows.
+        The timestep and the layer are 0-d tensors on the card."""
         from instantrestore_tpu_torch.ops.image_ops import cycle_noise_shapes
 
         _, h, w = batch["image"].shape[:3]
@@ -477,7 +590,8 @@ class Coach:
         ts = self.statics.noise_timesteps
         draws: Dict[str, Any] = {
             "noise": self._restore_noise(batch, gen),
-            "timestep": int(ts[int(torch.randint(len(ts), (), generator=gen, device=gen.device))]),
+            "timestep": timestep_table(self.statics, self.device)[  # a [1] index: no host read
+                torch.randint(len(ts), (1,), generator=gen, device=gen.device).to(self.device)][0],
             "layer_idx": self._draw_layer(gen),
             "gan_draws": None, "cycle_noise": None,
         }
@@ -513,26 +627,30 @@ class Coach:
     # ---- the steps ---------------------------------------------------------
 
     def g_step(self, batch: Dict[str, Any], landmark_layer: Optional[int],
-               draws: Dict[str, Any]) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+               draws: Dict[str, Any], opt_phase: Optional[bool] = None
+               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """One generator step on a device batch (``to_torch_batch``) with
         ``draws`` (``draw_g``): the trainable leaves and the G optimizer move
-        in place (every k-th call under accumulation). Returns (the loss
-        terms, the prediction)."""
+        in place (every k-th call under accumulation). ``opt_phase``: as
+        ``MaskedAdamW.update``'s ``phase`` (the dispatch's static step).
+        Returns (the loss terms, the prediction)."""
         self._g_draws = dict(draws, landmark_layer=landmark_layer)
         try:
             metrics, out = self._g_step_fn(landmark_layer)(
-                self.params, batch, noise=draws["noise"], timestep=draws["timestep"])
+                self.params, batch, noise=draws["noise"], timestep=draws["timestep"],
+                opt_phase=opt_phase)
         finally:
             self._g_draws = {}
         return metrics, out["output_image"].detach()
 
     def d_step(self, pred: torch.Tensor, real: torch.Tensor, boxes: Optional[torch.Tensor], *,
-               draws: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+               draws: List[Dict[str, torch.Tensor]], opt_phase: Optional[bool] = None
+               ) -> torch.Tensor:
         """One discriminator step: the multi-level loss on the real images and
         on the detached prediction (and on their facial crops at ``boxes``),
         its gradient w.r.t. the heads but their ``u`` vectors, the new ``u``
-        of the power iteration, then AdamW on the heads in place. Returns the
-        loss."""
+        of the power iteration, then AdamW on the heads in place
+        (``opt_phase`` as ``g_step``'s). Returns the loss."""
         cfg, heads = self.cfg.optim, self.disc_heads
         fake = pred.detach()
         kw = dict(vit_cfg=self.vit_cfg, disc_type=self.disc_type, update_sn=True)
@@ -568,7 +686,7 @@ class Coach:
         if self.group is not None:
             pdist.all_reduce_sum_(grads, self.group)
             loss = reduce_metrics({"loss_d": loss}, self.group)["loss_d"]
-        self.d_opt.update(heads, grads)
+        self.d_opt.update(heads, grads, phase=opt_phase)
         return loss
 
     @torch.no_grad()
@@ -604,24 +722,33 @@ class Coach:
         return (self.cfg.compute.seed * 2**32 + step) % 2**63
 
     def train(self):
-        """Steps until ``cfg.steps.max_steps``, then a validation and the
-        ``final`` checkpoint."""
+        """Steps until ``cfg.steps.max_steps`` (``compute.steps_per_dispatch``
+        at a time), then a validation and the ``final`` checkpoint."""
         cfg = self.cfg
         n_batches = len(self.train_loader)
         if n_batches == 0:
             raise ValueError(f"the training set ({len(self.train_dataset)} items) holds no batch "
                              f"of {cfg.compute.batch_size}")
+        spd = max(1, cfg.compute.steps_per_dispatch)
         gen = torch.Generator(device=self.device)
         self._t0 = time.time()
         self._steps_since_metric = 0
+        pending: List[Dict[str, Any]] = []  # carries across the loader's epoch ends
         while self.train_step_num < cfg.steps.max_steps:
-            epoch, offset = divmod(self.train_step_num, n_batches)
+            epoch, offset = divmod(self.train_step_num + len(pending), n_batches)
             self.train_loader.start_at(epoch, offset)
             for batch in self.train_loader:
                 if self.train_step_num >= cfg.steps.max_steps:
                     break
-                gen.manual_seed(self._step_seed(self.train_step_num))
-                self._run_single_step(batch, gen)
+                if spd == 1:
+                    gen.manual_seed(self._step_seed(self.train_step_num))
+                    self._run_single_step(batch, gen)
+                    continue
+                pending.append(batch)
+                if len(pending) < min(spd, cfg.steps.max_steps - self.train_step_num):
+                    continue
+                self._run_dispatch(pending, gen)
+                pending = []
         self.validate()
         self.save(tag="final")
 
@@ -629,7 +756,9 @@ class Coach:
         """Multi-process: keep only the keys every rank's batch has (one
         all-reduce of their presence and of rank 0's landmark layer), and
         splat this rank's landmark targets again at rank 0's layer where
-        its own differs, as collate does for the items of one batch."""
+        its own differs, as collate does for the items of one batch.
+        ``batch``: the host batch behind ``dev_batch``, or the list of a
+        dispatch's host batches behind its [N, B, ...] stack."""
         keys = DEVICE_KEYS + ("gt_attn_probs",)
         layer0 = (landmark_layer + 1 if landmark_layer is not None and self.primary else 0)
         vec = torch.tensor([float(k in dev_batch) for k in keys] + [float(layer0)],
@@ -647,35 +776,130 @@ class Coach:
                 landmark_layer = None
         if landmark_layer is not None and landmark_layer != int(have[-1]) - 1:
             landmark_layer = int(have[-1]) - 1
-            res = batch["image"].shape[1]
-            maps = [build_landmark_target(g, c, landmark_layer, res)
-                    for g, c in batch["landmark_coords"]]
-            dev_batch["gt_attn_probs"] = torch.as_tensor(np.stack([m[0] for m in maps])).to(
-                self.device)
-            dev_batch["gt_attn_mask"] = torch.as_tensor(np.stack([m[1] for m in maps])).to(
-                self.device)
+            stacked = isinstance(batch, list)
+            maps = [_landmark_maps(b, landmark_layer) for b in (batch if stacked else [batch])]
+            for i, k in enumerate(("gt_attn_probs", "gt_attn_mask")):
+                x = np.stack([m[i] for m in maps]) if stacked else maps[0][i]
+                dev_batch[k] = torch.as_tensor(x).to(self.device)
         return dev_batch, landmark_layer
 
     def _run_single_step(self, batch, gen: torch.Generator):
         dev_batch, landmark_layer = to_torch_batch(batch, self.device)
         if self.group is not None:
             dev_batch, landmark_layer = self._agree_on_batch(batch, dev_batch, landmark_layer)
-        losses, pred = self.g_step(dev_batch, landmark_layer, self.draw_g(dev_batch, gen))
-        if self.disc_heads is not None:
-            losses["loss_d"] = self.d_step(pred, dev_batch["gt"],
-                                           dev_batch.get("facial_comp_boxes"),
-                                           draws=self.draw_d(dev_batch, gen))
-        self._after_step(losses, pred, batch)
+        losses, pred = self._step(dev_batch, landmark_layer, self.draw_g(dev_batch, gen),
+                                  self._draw_d_if(dev_batch, gen))
+        self._after_steps(1, losses, pred, batch)
 
-    def _after_step(self, losses, pred, last_batch):
+    def _draw_d_if(self, dev_batch, gen):
+        return self.draw_d(dev_batch, gen) if self.disc_heads is not None else None
+
+    def _step(self, batch, landmark_layer, g_draws, d_draws, opt_phase=None):
+        """One G step and one D step on the prediction (the body of a
+        one-step run and of the dispatch's static step). Returns (the loss
+        terms with ``loss_d``, the prediction)."""
+        losses, pred = self.g_step(batch, landmark_layer, g_draws, opt_phase)
+        if self.disc_heads is not None:
+            losses["loss_d"] = self.d_step(pred, batch["gt"], batch.get("facial_comp_boxes"),
+                                           draws=d_draws, opt_phase=opt_phase)
+        return losses, pred
+
+    # ---- the multi-step dispatch ----------------------------------------
+
+    def _stack_batches(self, batches) -> Tuple[Dict[str, Any], Optional[int]]:
+        """N collated batches -> one [N, B, ...] tree of ``to_torch_batch``'s
+        keys on the card, and the landmark layer (JAX's ``_stack_batches``).
+        The steps share the first batch's landmark layer: a batch whose
+        layer differs is splatted again at it from its ``landmark_coords``;
+        the targets are dropped where some batch lacks them or its
+        coordinates, and so is every key that only some batches hold."""
+        all_lm = all(b.get("gt_attn_probs") is not None for b in batches)
+        if batches[0].get("gt_attn_probs") is not None and not all_lm:
+            self.logger.log_message("dispatch: dropping landmark targets (present in only some "
+                                    "of the stacked batches)")
+        if all_lm and not all(b.get("landmark_coords") for b in batches):
+            self.logger.log_message("dispatch: dropping landmark targets (no landmark_coords to "
+                                    "rebuild a shared layer)")
+            all_lm = False
+        landmark_layer = None
+        host = []
+        for b in batches:
+            keep = {k: b[k] for k in DEVICE_KEYS if k in b}
+            if all_lm:
+                probs, masks, layer, conds = b["gt_attn_probs"]
+                if landmark_layer is None:
+                    landmark_layer = int(layer)
+                elif int(layer) != landmark_layer:
+                    probs, masks = _landmark_maps(b, landmark_layer)
+                keep["gt_attn_probs"] = np.asarray(probs, np.float32)
+                keep["gt_attn_mask"] = np.asarray(masks, bool)
+                keep["gt_attn_cond"] = np.asarray(conds, np.int32)
+            host.append(keep)
+        common = [k for k in host[0] if all(k in h for h in host[1:])]
+        dropped = sorted({k for h in host for k in h} - set(common))
+        if dropped:
+            self.logger.log_message(f"dispatch: dropping {dropped} (present in only some of the "
+                                    "stacked batches)")
+
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            if isinstance(xs[0], (tuple, list)):
+                return [stack(*parts) for parts in zip(*xs)]
+            return torch.as_tensor(np.stack([np.asarray(x) for x in xs])).to(self.device)
+
+        return {k: stack(*(h[k] for h in host)) for k in common}, landmark_layer
+
+    def _run_dispatch(self, batches, gen: torch.Generator):
+        """N G + D steps on N batches: stacked on the card once; per step its
+        draws from the per-step seed, then the static step."""
+        n = len(batches)
+        stacked, landmark_layer = self._stack_batches(batches)
+        if self.group is not None:
+            stacked, landmark_layer = self._agree_on_batch(list(batches), stacked,
+                                                           landmark_layer)
+        for i in range(n):
+            batch = _tree_map(lambda t: t[i], stacked)
+            gen.manual_seed(self._step_seed(self.train_step_num + i))
+            losses, pred = self._static_step(batch, landmark_layer, self.draw_g(batch, gen),
+                                             self._draw_d_if(batch, gen))
+        self._after_steps(n, losses, pred, batches[-1])
+
+    def _static_step(self, batch, landmark_layer, g_draws, d_draws):
+        """One step of a dispatch: the optimizers' device scalars written,
+        the inputs copied into the static buffers of the step for this
+        (landmark layer, accumulation phase, input structure), that step
+        replayed (captured first if new), the counts advanced."""
+        opts = [o for o in (self.g_opt, self.d_opt) if o is not None]
+        for o in opts:
+            o.write_scalars()
+        phase = self.g_opt.applies()  # the D optimizer's micro-steps keep the same count
+        inputs = {"batch": batch, "g": g_draws, "d": d_draws}
+        key = (landmark_layer, phase, _structure(inputs))
+        step = self._static_steps.get(key)
+        if step is None:
+            step = self._static_steps[key] = _StaticStep(self, inputs, landmark_layer, phase)
+            out = step.first
+        else:
+            _copy_into(step.inputs, inputs)
+            out = step.run()
+        for o in opts:
+            o.advance()
+        return out
+
+    def _after_steps(self, n, losses, pred, last_batch):
+        """Bookkeeping after n steps (JAX's): an interval fires when the step
+        count crosses a multiple of it; the metrics are the last step's
+        losses and ``steps_per_sec`` over the steps since the last log."""
         cfg = self.cfg
-        self.train_step_num += 1
+        prev = self.train_step_num
+        self.train_step_num += n
         self.logger.update_step(self.train_step_num)
 
         def crossed(interval):
-            return self.train_step_num % interval == 0
+            return self.train_step_num // interval > prev // interval
 
-        self._steps_since_metric += 1
+        self._steps_since_metric += n
         if crossed(cfg.steps.metric_interval):
             scalars = {k: float(v) for k, v in losses.items()}
             scalars["steps_per_sec"] = self._steps_since_metric / max(time.time() - self._t0, 1e-9)

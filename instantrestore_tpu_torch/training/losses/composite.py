@@ -13,8 +13,10 @@
 A term whose network is not given (LPIPS, ArcFace, the discriminator) is
 skipped whatever its weight, as in JAX. The random choices come from
 ``generator`` or are given: the layer the reference-usage regularisers read
-(``layer_idx``) and DiffAugment's draws of the G term and of each facial
-crop (``gan_draws``, a list: the whole image's, then one per crop).
+(``layer_idx``, an int, or a 0-d tensor chosen on the device, as a step
+captured in a CUDA graph takes it) and DiffAugment's draws of the G term
+and of each facial crop (``gan_draws``, a list: the whole image's, then one
+per crop).
 
 Across ranks each value is this rank's share of the global batch's value,
 so the shares sum to JAX's loss on the mesh and their gradients to its
@@ -33,10 +35,9 @@ gradient. Every term was checked for its denominator:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from instantrestore_tpu_torch.configs.config import OptimConfig
 from instantrestore_tpu_torch.training.losses import gan as gan_mod
@@ -82,7 +83,9 @@ def landmark_attention_loss(pred_probs, gt_probs, mask, chosen_cond,
 def _entropy_from_mean_act(mean_act: torch.Tensor, n_segments: int) -> torch.Tensor:
     """Cross-entropy between the per-query argmax-segment histogram and the
     uniform distribution (no gradient passes the argmax)."""
-    one_hot = F.one_hot(mean_act.argmax(dim=-1), n_segments).float()
+    # F.one_hot without its range check, which reads the indices on the host
+    segments = torch.arange(n_segments, device=mean_act.device)
+    one_hot = (mean_act.argmax(dim=-1)[..., None] == segments).float()
     avg = one_hot.mean(dim=2)  # [B, h, n]
     return -(torch.log(avg + 1e-8) * (1.0 / n_segments)).sum() / mean_act.shape[0]
 
@@ -163,7 +166,7 @@ def loss_counts(batch: Dict[str, Any]) -> torch.Tensor:
     gt = batch["gt"]
     b, dev = gt.shape[0], gt.device
     out = torch.zeros(len(COUNT_KEYS), device=dev)
-    out[0] = b
+    out[0].fill_(b)
     if "id_valid" in batch:
         out[1] = torch.as_tensor(batch["id_valid"], device=dev).float().sum()
     if batch.get("gt_attn_mask") is not None:
@@ -181,7 +184,7 @@ def compute_generator_loss(
     cfg: OptimConfig,
     *,
     generator: Optional[torch.Generator] = None,
-    layer_idx: Optional[int] = None,
+    layer_idx: Optional[Union[int, torch.Tensor]] = None,
     lpips_params: Optional[Dict] = None,
     arcface_params: Optional[Dict] = None,
     disc_backbone: Optional[Dict] = None,
@@ -273,12 +276,19 @@ def compute_generator_loss(
             if generator is None:
                 raise ValueError("the reference-usage regularisers draw a layer: pass "
                                  "layer_idx or a torch.Generator")
-            layer_idx = int(torch.randint(n_layers, (), generator=generator,
-                                          device=generator.device))
-        if seg_sums:
-            means = seg_sums[layer_idx].float().sum(dim=(1, 2))
+            layer_idx = torch.randint(n_layers, (), generator=generator,
+                                      device=generator.device).to(pred.device)
+
+        def layer_means(i):
+            if seg_sums:
+                return seg_sums[i].float().sum(dim=(1, 2))
+            return reference_usage_means_per_sample(attn_probs, i)
+
+        if isinstance(layer_idx, torch.Tensor):  # chosen on the device: every layer's means
+            means = torch.stack([layer_means(i) for i in range(n_layers)])[
+                layer_idx.reshape(1)][0]
         else:
-            means = reference_usage_means_per_sample(attn_probs, layer_idx)
+            means = layer_means(layer_idx)
         for name, lam, key, negative in (("pos", cfg.lambda_pos_reg, "pos_reg_idx", False),
                                          ("neg", cfg.lambda_neg_reg, "neg_reg_idx", True)):
             if lam > 0 and key in batch:

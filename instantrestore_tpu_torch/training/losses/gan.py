@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from instantrestore_tpu_torch import device_constant
 from instantrestore_tpu_torch.models.vit import (
     CLIP_VITB32,
     DINOV2_VITL14,
@@ -87,7 +88,8 @@ def _sn_dense(p, x, *, update):
 def _depthwise_blur(x: torch.Tensor, stride: int) -> torch.Tensor:
     """The 4x4 binomial filter per channel over NCHW ``x``, no padding."""
     c = x.shape[1]
-    filt = torch.from_numpy(_BLUR4).to(x.device, x.dtype)[None, None].expand(c, 1, 4, 4)
+    filt = device_constant("blur4", x.device, lambda: torch.from_numpy(_BLUR4)).to(x.dtype)
+    filt = filt[None, None].expand(c, 1, 4, 4)
     return F.conv2d(x, filt, stride=stride, groups=c)
 
 
@@ -184,8 +186,7 @@ def vgg_backbone_features(params: Dict[str, Any], x_pm1: torch.Tensor) -> torch.
     normalisation, conv stages each followed by max-pool k2 s1 (right and
     bottom padded) and a blurpool of stride 2."""
     x = resize(x_pm1.float() * 0.5 + 0.5, (224, 224), "linear")
-    mean = torch.from_numpy(_IMAGENET_MEAN).to(x.device)
-    x = (x - mean) / torch.from_numpy(_IMAGENET_STD).to(x.device)
+    x = (x - _const(_IMAGENET_MEAN, x.device)) / _const(_IMAGENET_STD, x.device)
     for stage in params["vgg"]:
         for conv in stage:
             x = F.relu(conv2d(conv, x))
@@ -289,9 +290,15 @@ def multilevel_sigmoid_loss(logits: List[torch.Tensor], *, for_real: bool, for_g
     return total
 
 
+def _const(a: np.ndarray, device) -> torch.Tensor:
+    """A normalisation constant on ``device`` (``device_constant``)."""
+    return device_constant(("gan_const", a.dtype.str, a.tobytes()), device,
+                           lambda: torch.from_numpy(a))
+
+
 def _normalised(x01: torch.Tensor, size: int, mean: np.ndarray, std: np.ndarray) -> torch.Tensor:
     x = resize(x01, (size, size), "linear")
-    return (x - torch.from_numpy(mean).to(x.device)) / torch.from_numpy(std).to(x.device)
+    return (x - _const(mean, x.device)) / _const(std, x.device)
 
 
 def discriminate(

@@ -17,6 +17,7 @@ from typing import Any, Dict, List
 import torch
 import torch.nn.functional as F
 
+from instantrestore_tpu_torch import device_constant
 from instantrestore_tpu_torch.ops.primitives import conv2d, init_conv2d
 
 # VGG16 conv plan up to relu5_3: (out_channels, convs per stage)
@@ -62,8 +63,10 @@ def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 def lpips(params, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """img1/img2 [B, H, W, 3] in [-1, 1] -> per-sample LPIPS distance [B]."""
-    shift = torch.tensor(_SHIFT, dtype=torch.float32, device=img1.device)
-    scale = torch.tensor(_SCALE, dtype=torch.float32, device=img1.device)
+    shift = device_constant("lpips_shift", img1.device,
+                            lambda: torch.tensor(_SHIFT, dtype=torch.float32))
+    scale = device_constant("lpips_scale", img1.device,
+                            lambda: torch.tensor(_SCALE, dtype=torch.float32))
     f1 = _vgg_features(params, (img1.float() - shift) / scale)
     f2 = _vgg_features(params, (img2.float() - shift) / scale)
     total = 0.0

@@ -13,13 +13,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from instantrestore_tpu_torch import device_constant
+
 MS_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
 
 def _gaussian_window(size: int, sigma: float, device) -> torch.Tensor:
     coords = np.arange(size) - size // 2
     g = np.exp(-(coords ** 2) / (2 * sigma ** 2))
-    return torch.from_numpy((g / g.sum()).astype(np.float32)).to(device)
+    return device_constant(("ssim_window", size, sigma), device,
+                           lambda: torch.from_numpy((g / g.sum()).astype(np.float32)))
 
 
 def _filter2d_separable(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
@@ -77,5 +80,6 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, *, data_range: float = 1.0,
             x = F.avg_pool2d(F.pad(x, pad), 2)
             y = F.avg_pool2d(F.pad(y, pad), 2)
     vals = torch.stack(mcs + [F.relu(s.mean(dim=(1, 2, 3)))], dim=0)  # [levels, B]
-    w = torch.tensor(weights, dtype=torch.float32, device=x.device)
+    w = device_constant(("ms_ssim_weights", tuple(weights)), x.device,
+                        lambda: torch.tensor(weights, dtype=torch.float32))
     return torch.prod(vals ** w[:, None], dim=0).mean()

@@ -19,6 +19,13 @@ processes the caller passes each micro-step's gradient already summed over
 the ranks (``make_train_step(process_group=)``, the Coach's D step), so the
 running mean and the clip are the global ones, as on JAX's mesh, and every
 rank's moments stay equal.
+
+The schedule's learning rate, the bias corrections and the running mean's
+divisor are device scalars that the host writes before each micro-step
+(``write_scalars``), so the device part of an update (``update(...,
+phase=)``) reads no host value and can be captured in a CUDA graph; the
+counts advance on the host after it (``advance``). ``update`` without
+``phase`` does all three.
 """
 
 from __future__ import annotations
@@ -90,9 +97,9 @@ def freeze_non_trainable(params: Any, mask: Any) -> Any:
 class MaskedAdamW:
     """AdamW with global-norm clipping over the trainable leaves of one
     param tree, optionally over the mean of ``accumulation_steps``
-    micro-steps' gradients. ``update`` binds to the leaves at its first call
-    and keeps their moments; ``count`` is the number of steps applied,
-    ``mini_step`` the micro-steps accumulated since the last one."""
+    micro-steps' gradients. ``bind`` (or the first ``update``) binds it to
+    the leaves and makes their moments; ``count`` is the number of steps
+    applied, ``mini_step`` the micro-steps accumulated since the last one."""
 
     def __init__(self, cfg: OptimConfig, max_steps: int, trainable_mask: Any,
                  accumulation_steps: int = 1):
@@ -108,8 +115,14 @@ class MaskedAdamW:
         self.exp_avg_sq: List[torch.Tensor] = []
         self.acc_grads: List[torch.Tensor] = []
         self.last_grad_norm: Optional[torch.Tensor] = None
+        # device scalars of the next micro-step: the learning rate, 1 - b1^t,
+        # 1 - b2^t (t the count after the step) and the running mean's divisor
+        self.scalars: Dict[str, torch.Tensor] = {}
 
-    def _bind(self, params: Any) -> List[torch.Tensor]:
+    def bind(self, params: Any) -> List[torch.Tensor]:
+        """Bind to the trainable leaves of ``params`` (the first call makes
+        the moments and the device scalars; later ones check that the leaves
+        are the same tensors) and return them."""
         leaves = trainable_leaves(params, self.mask)
         if self.leaves is None:
             if any(t.dtype != torch.float32 for t in leaves):
@@ -120,6 +133,8 @@ class MaskedAdamW:
             self.exp_avg_sq = [torch.zeros_like(t) for t in leaves]
             if self.accumulation_steps > 1:
                 self.acc_grads = [torch.zeros_like(t) for t in leaves]
+            dev = leaves[0].device if leaves else torch.device("cpu")
+            self.scalars = {k: torch.zeros((), device=dev) for k in ("lr", "bc1", "bc2", "div")}
         elif len(leaves) != len(self.leaves) or any(a is not b for a, b in
                                                     zip(leaves, self.leaves)):
             raise ValueError("the optimizer is bound to another param tree")
@@ -135,7 +150,7 @@ class MaskedAdamW:
     def load_state(self, params: Any, state: Dict[str, Any]) -> None:
         """Bind to the trainable leaves of ``params`` and copy ``state`` (from
         ``state()``) into the moments and the accumulation buffers."""
-        self._bind(params)
+        self.bind(params)
         for name in ("exp_avg", "exp_avg_sq", "acc_grads"):
             mine, theirs = getattr(self, name), state[name]
             if len(mine) != len(theirs):
@@ -144,50 +159,82 @@ class MaskedAdamW:
                 a.copy_(b)
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
 
+    def applies(self) -> bool:
+        """Whether the next micro-step takes the AdamW step (the last of its
+        accumulation cycle)."""
+        return self.mini_step == self.accumulation_steps - 1
+
     @torch.no_grad()
-    def update(self, params: Any, grads: List[torch.Tensor]) -> None:
+    def write_scalars(self) -> bool:
+        """Write the next micro-step's device scalars from the host counts
+        (kernel launches, no copy from host memory); returns ``applies()``."""
+        t, b1, b2 = self.count + 1, self.cfg.adam_beta1, self.cfg.adam_beta2
+        values = {"lr": self.schedule(self.count), "bc1": 1.0 - b1 ** t, "bc2": 1.0 - b2 ** t,
+                  "div": float(self.mini_step + 1)}
+        for k, v in values.items():
+            self.scalars[k].fill_(v)
+        return self.applies()
+
+    def advance(self) -> None:
+        """Count the micro-step just taken."""
+        if self.applies():
+            self.count += 1
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
+
+    @torch.no_grad()
+    def update(self, params: Any, grads: List[torch.Tensor], *,
+               phase: Optional[bool] = None) -> None:
         """One micro-step on the trainable leaves of ``params``, in place,
         from their gradients ``grads`` (tree order, fp32), which are left as
         given. Without accumulation every call is a step. ``last_grad_norm``
-        is the global norm of ``grads``."""
-        leaves = self._bind(params)
+        is the global norm of ``grads``.
+
+        ``phase`` (a step captured in a CUDA graph): ``applies()`` of this
+        micro-step, fixed by the caller, who calls ``write_scalars`` before
+        the step runs and ``advance`` after it; the call itself then launches
+        device work only."""
+        leaves = self.bind(params)
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} trainable leaves")
+        eager = phase is None
+        if eager:
+            phase = self.write_scalars()
         self.last_grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.accumulation_steps == 1:
             self._apply(leaves, grads, self.last_grad_norm)
-            return
-        # the running mean of the micro-steps' gradients, as optax.MultiSteps
-        diff = torch._foreach_sub(grads, self.acc_grads)
-        torch._foreach_div_(diff, float(self.mini_step + 1))
-        torch._foreach_add_(self.acc_grads, diff)
-        if self.mini_step < self.accumulation_steps - 1:
-            self.mini_step += 1
-            return
-        mean = self.acc_grads
-        self._apply(leaves, mean, torch.linalg.vector_norm(torch.stack(torch._foreach_norm(mean))))
-        torch._foreach_zero_(self.acc_grads)
-        self.mini_step = 0
+        else:
+            # the running mean of the micro-steps' gradients, as optax.MultiSteps
+            diff = torch._foreach_sub(grads, self.acc_grads)
+            torch._foreach_div_(diff, self.scalars["div"])
+            torch._foreach_add_(self.acc_grads, diff)
+            if phase:
+                mean = self.acc_grads
+                self._apply(leaves, mean,
+                            torch.linalg.vector_norm(torch.stack(torch._foreach_norm(mean))))
+                torch._foreach_zero_(self.acc_grads)
+        if eager:
+            self.advance()
 
     def _apply(self, leaves: List[torch.Tensor], grads: List[torch.Tensor],
                norm: torch.Tensor) -> None:
-        cfg = self.cfg
+        cfg, sc = self.cfg, self.scalars
         if cfg.use_clip_grad:
             max_norm = cfg.clip_grad_max_norm
             grads = torch._foreach_mul(grads, max_norm / norm.clamp_min(max_norm))
-        lr = self.schedule(self.count)
-        self.count += 1
         b1, b2 = cfg.adam_beta1, cfg.adam_beta2
         torch._foreach_lerp_(self.exp_avg, grads, 1.0 - b1)
         torch._foreach_mul_(self.exp_avg_sq, b2)
         torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, 1.0 - b2)
-        denom = torch._foreach_div(self.exp_avg_sq, 1.0 - b2 ** self.count)
+        denom = torch._foreach_div(self.exp_avg_sq, sc["bc2"])
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, cfg.adam_epsilon)
         step = torch._foreach_div(self.exp_avg, denom)
-        torch._foreach_div_(step, 1.0 - b1 ** self.count)
+        torch._foreach_div_(step, sc["bc1"])
         torch._foreach_add_(step, leaves, alpha=cfg.adam_weight_decay)
-        torch._foreach_add_(leaves, step, alpha=-lr)
+        torch._foreach_mul_(step, sc["lr"])
+        torch._foreach_sub_(leaves, step)
 
 
 def make_optimizer(cfg: OptimConfig, max_steps: int, trainable_mask: Any,

@@ -118,7 +118,10 @@ def make_train_step(
     them) are moved to the device. ``probs_layers`` limits
     ``save_attn_probs`` to those shared layers (the landmark term reads
     one). ``generator`` / ``noise`` / ``timestep`` as ``restore_forward``
-    (``timestep=None`` draws one per batch). ``metrics``: the loss terms,
+    (``timestep=None`` draws one per batch). ``opt_phase``: as
+    ``MaskedAdamW.update``'s ``phase`` (a step captured in a CUDA graph,
+    whose caller writes the optimizer's scalars and advances its counts).
+    ``metrics``: the loss terms,
     ``loss`` and ``grad_norm`` (before clipping), detached; ``out``: the
     forward's result.
 
@@ -131,7 +134,7 @@ def make_train_step(
 
     def train_step(params, batch, *, generator: Optional[torch.Generator] = None,
                    noise: Optional[Dict[str, torch.Tensor]] = None,
-                   timestep: Optional[int] = None):
+                   timestep=None, opt_phase: Optional[bool] = None):
         freeze_non_trainable(params, trainable_mask)
         leaves = trainable_leaves(params, trainable_mask)
         if any(t.device.type != dev.type for t in leaves):
@@ -165,7 +168,7 @@ def make_train_step(
             metrics = reduce_metrics(metrics, process_group)
         for t, g in zip(leaves, grads):
             t.grad = g
-        optimizer.update(params, grads)
+        optimizer.update(params, grads, phase=opt_phase)
         metrics["grad_norm"] = optimizer.last_grad_norm
         return metrics, out
 

@@ -171,3 +171,48 @@ def test_infer_main_writes_what_the_predictor_predicts(files, tmp_path, rng, mon
         want, _ = pred.predict(Image.open(d / "degraded.png").convert("RGB"), conds)
         np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "out" / f"{name}.png")),
                                       np.asarray(want), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the console scripts and the packaging that names them
+# ---------------------------------------------------------------------------
+
+CONSOLE_SCRIPTS = ("train", "infer", "serve", "parity", "evaluate")
+
+
+@pytest.mark.parametrize("name", CONSOLE_SCRIPTS)
+def test_console_script_runs_the_port_main(name, monkeypatch):
+    """``_cli.<name>()`` runs ``cli.<name>.main()`` and returns its code."""
+    import importlib
+
+    from instantrestore_tpu_torch import _cli
+
+    module = importlib.import_module(f"instantrestore_tpu_torch.cli.{name}")
+    calls = []
+    monkeypatch.setattr(module, "main", lambda argv=None, **kw: calls.append(argv) or 7)
+    assert getattr(_cli, name)() == 7 and calls == [None]
+
+
+def test_pyproject_names_the_console_scripts_and_the_kernel_sources():
+    """``[project.scripts]`` has ``instantrestore-torch-<name>`` for each
+    console script, every ``csrc`` file of the port matches its package-data
+    globs, and the port has its ``torch`` extra."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+
+    import instantrestore_tpu_torch
+
+    root = Path(__file__).resolve().parent.parent
+    project = tomllib.loads((root / "pyproject.toml").read_text())
+    scripts = project["project"]["scripts"]
+    for name in CONSOLE_SCRIPTS:
+        assert scripts[f"instantrestore-torch-{name}"] == f"instantrestore_tpu_torch._cli:{name}"
+    assert "torch" in project["project"]["optional-dependencies"]["torch"]
+    globs = project["tool"]["setuptools"]["package-data"]["instantrestore_tpu_torch"]
+    pkg = Path(instantrestore_tpu_torch.__file__).parent
+    sources = sorted(p.relative_to(pkg).as_posix() for p in (pkg / "csrc").iterdir())
+    assert len(sources) >= 13
+    assert [s for s in sources if not any(fnmatch.fnmatch(s, g) for g in globs)] == []
+    assert any(fnmatch.fnmatch("instantrestore_tpu_torch", p)
+               for p in project["tool"]["setuptools"]["packages"]["find"]["include"])

@@ -6,7 +6,7 @@ Behaviour (the port alone, 64 px, as ``tests/test_coach.py`` tests the JAX
 Coach): the smoke run, validation over the whole set with the visualisation
 cap, the attention regularisers on every val batch, a full save and a resume
 that ends bit for bit where the uninterrupted run ends, the overfit loss
-going down, the refused multi-step dispatch, a multi-process launch that
+going down, the multi-step dispatch, a multi-process launch that
 has not joined a process group, the train entry point, and the Predictor
 serving the trainer's ``final`` file (multi-process training itself:
 ``tests/test_torch_parallel.py``).
@@ -239,9 +239,10 @@ def test_overfit_loss_decreases(small_roots, tmp_path):
 def test_one_process_one_step_per_call(small_roots, tmp_path, monkeypatch):
     from instantrestore_tpu_torch.cli import train as cli_train
 
-    cfg = small_cfg(small_roots, tmp_path, "spd", compute__steps_per_dispatch=2)
-    with pytest.raises(ValueError, match="scanned dispatch.*Queue 5 item 4"):
-        small_coach(cfg)
+    # several steps a dispatch: one static step, run twice (tests/test_torch_dispatch.py)
+    coach = small_coach(small_cfg(small_roots, tmp_path, "spd", compute__steps_per_dispatch=2))
+    coach.train()
+    assert coach.train_step_num == 2 and len(coach._static_steps) == 1
     # a multi-process run joins its group first: --multihost needs its rendezvous
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     with pytest.raises(ValueError, match="coordinator_address"):

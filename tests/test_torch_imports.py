@@ -49,6 +49,14 @@ def test_cold_slice_modules_are_covered():
     assert (ROOT / NEW_MODULES[2]).is_file()
 
 
+def test_parity_cli_and_console_scripts_are_covered():
+    """The parity CLI and the console entry points are port files the rule
+    above reads (neither may import JAX to reach the JAX package's scripts)."""
+    files = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"instantrestore_tpu_torch/cli/parity.py",
+            "instantrestore_tpu_torch/_cli.py"} <= files
+
+
 def test_every_kernel_source_is_in_the_checkout():
     """The list of ops/_build.py, its ctypes signatures and csrc/*.cu name the same
     nine kernels, the online-max family and the three flash-VJP kernels among

@@ -124,10 +124,11 @@ def test_timestep_is_drawn_from_the_generator(setup):
                                         generator=torch.Generator().manual_seed(seed))
             again = trest.restore_forward(params, img, refs, statics=T_STATICS, timestep=None,
                                           generator=torch.Generator().manual_seed(seed))
-            assert out["timestep"] == again["timestep"]
+            # the drawn timestep stays on the device (a 0-d tensor)
+            assert out["timestep"].ndim == 0 and out["timestep"] == again["timestep"]
             assert torch.equal(out["output_image"], again["output_image"])
             assert out["latent_pred"].shape == (B, RES // 8, RES // 8, 4)
-            drawn.add(out["timestep"])
+            drawn.add(int(out["timestep"]))
         with pytest.raises(ValueError, match="torch.Generator"):
             trest.restore_forward(params, img, refs, statics=T_STATICS, timestep=None,
                                   noise=setup["steps"][0]["noise"])

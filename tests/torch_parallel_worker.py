@@ -207,6 +207,11 @@ def coach_ranks(rank: int, spec: dict):
                         coach.test_loader.drop_last))
 
 
+def coach_ranks_each(rank: int, specs: list):
+    """``coach_ranks`` for each spec in turn, in one process group."""
+    return [coach_ranks(rank, spec) for spec in specs]
+
+
 def tiny_params(spec: dict):
     from instantrestore_tpu_torch.models import restorer as trest
 
