@@ -18,6 +18,12 @@ what the identity cache does not model).
 Cold path: ``restore_cold`` re-encodes each request's references in the call
 (the reference implementation's own flow).
 
+Spans (``utils/profiling.py``, on only under a profiler or ``tracing()``):
+the rows a restore runs in this process (all of them on one device, the
+first device's otherwise) are a call ``restore`` or ``restore_cold`` with
+``faces`` those rows. Its stage ``inputs`` is the copies to the device and
+the resize and normalise; ``restore_forward`` opens the others.
+
 Several cards (``devices=``, the counterpart of JAX's ``mesh=``): the
 calling process serves the first device, and each further device gets a
 worker process of its own (``inference/workers.py``) holding its own
@@ -84,6 +90,7 @@ from instantrestore_tpu_torch.ops.primitives import (
 )
 from instantrestore_tpu_torch.ops.shared_attention import IdentityRef, build_identity_kv_cache
 from instantrestore_tpu_torch.parallel.distributed import local_rows
+from instantrestore_tpu_torch.utils import profiling
 
 
 def _maybe_preprocess(images: torch.Tensor, resolution: int) -> torch.Tensor:
@@ -339,16 +346,19 @@ class ServingEngine:
 
     def _restore_rows(self, images, ids, generator, noise) -> torch.Tensor:
         """The warm restore of ``images`` of identities ``ids`` here."""
-        ids = ids.to(device=self.device, dtype=torch.long)
-        if self.identity_cache:
-            ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
-        else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
-            ref_kv = [(k[ids], v[ids]) for k, v in self.kv_cache]
-        out = restore_forward(
-            self.params, _maybe_preprocess(images.to(self.device), self.resolution),
-            statics=self.statics, timestep=self.timestep, precomputed_ref_kv=ref_kv,
-            generator=generator, noise=noise, use_fused_attention=self.use_fused_attention,
-        )
+        with profiling.span("restore", faces=images.shape[0], device=self.device):
+            with profiling.span("inputs"):
+                ids = ids.to(device=self.device, dtype=torch.long)
+                images = _maybe_preprocess(images.to(self.device), self.resolution)
+            if self.identity_cache:
+                ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
+            else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
+                ref_kv = [(k[ids], v[ids]) for k, v in self.kv_cache]
+            out = restore_forward(
+                self.params, images, statics=self.statics, timestep=self.timestep,
+                precomputed_ref_kv=ref_kv, generator=generator, noise=noise,
+                use_fused_attention=self.use_fused_attention,
+            )
         return out["output_image"]
 
     @torch.no_grad()
@@ -405,14 +415,16 @@ class ServingEngine:
         """The cold restore of ``images`` against ``cond_images`` here."""
         b, n = cond_images.shape[:2]
         res, dev = self.resolution, self.device
-        conds = _maybe_preprocess(cond_images.to(dev).reshape(b * n, *cond_images.shape[2:]),
-                                  res)
-        out = restore_forward(
-            self.params, _maybe_preprocess(images.to(dev), res),
-            conds.reshape(b, n, res, res, 3), statics=self.statics,
-            timestep=self.timestep, generator=generator, noise=noise,
-            use_fused_attention=self.use_fused_attention,
-        )
+        with profiling.span("restore_cold", faces=b, device=dev):
+            with profiling.span("inputs"):
+                conds = _maybe_preprocess(
+                    cond_images.to(dev).reshape(b * n, *cond_images.shape[2:]), res)
+                images = _maybe_preprocess(images.to(dev), res)
+            out = restore_forward(
+                self.params, images, conds.reshape(b, n, res, res, 3), statics=self.statics,
+                timestep=self.timestep, generator=generator, noise=noise,
+                use_fused_attention=self.use_fused_attention,
+            )
         return out["output_image"]
 
     @torch.no_grad()

@@ -51,6 +51,7 @@ from instantrestore_tpu_torch.models.vae import (
     vae_encode,
 )
 from instantrestore_tpu_torch.ops.shared_attention import IdentityRef
+from instantrestore_tpu_torch.utils import profiling
 
 NOISE_TIMESTEPS = (249, 499, 749)  # the training timesteps, one drawn per batch
 COND_TIMESTEP = 1      # noise level of the reference branch
@@ -306,8 +307,9 @@ def restore_forward(
     ``statics.noise_timesteps`` with ``generator`` (as a 0-d tensor);
     ``timestep`` may be an int or a 0-d integer tensor, which is read on its
     device only (a step captured in a CUDA graph takes it so), and comes
-    back as given. ``remat`` checkpoints each stage (encode, capture, UNet,
-    decode): its activations are rebuilt in the backward instead of kept;
+    back as given. Each stage (encode, capture, unet, decode) is a span of
+    ``utils/profiling.py``. ``remat`` checkpoints each stage: its
+    activations are rebuilt in the backward instead of kept;
     all noise is drawn outside the stages, so the rebuilt forward is the
     first one.
 
@@ -320,16 +322,18 @@ def restore_forward(
     unet_eps, x0, decoded, cond_latent, cond_latent_noised, unet.<stage>,
     ref_kv.<i>.k/v}."""
 
-    def stage(fn, *args):
-        # no stage draws random numbers, so there is no RNG state to preserve
-        return (checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-                if remat else fn(*args))
+    def stage(name, fn, *args):
+        # the stage's span (``utils/profiling.py``); no stage draws random
+        # numbers, so there is no RNG state to preserve
+        with profiling.span(name):
+            return (checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+                    if remat else fn(*args))
 
     b = image.shape[0]
     abar = sched.make_alphas_cumprod(device=image.device)
     sf = statics.vae_cfg.scaling_factor
     mean, logvar, skip_acts = stage(
-        lambda p, img: vae_encode(
+        "encode", lambda p, img: vae_encode(
             p, img, cfg=statics.vae_cfg, lora_scaling=statics.vae_lora_scaling,
             compute_dtype=statics.compute_dtype, use_fused_attention=use_fused_attention),
         params["vae"], image)
@@ -348,7 +352,7 @@ def restore_forward(
         cond_noise = {k: _noise(given, k, like, generator)
                       for k in (("latent",) if sample_posterior else ()) + ("diffusion",)}
         ref_kv, decoded_conds, *rest = stage(
-            lambda p, conds, valid: get_conditioning_kv(
+            "capture", lambda p, conds, valid: get_conditioning_kv(
                 p, conds, valid, statics=statics, alphas_cumprod=abar, noise=cond_noise,
                 sample_posterior=sample_posterior, decode_conditions=decode_conditions,
                 use_fused_attention=use_fused_attention, debug_taps=debug_taps),
@@ -375,7 +379,7 @@ def restore_forward(
     if not statics.use_shared_attention:
         ref_kv = None
     eps_pred, aux = stage(
-        lambda p, zt_, ref_kv_, caption_: unet_apply(
+        "unet", lambda p, zt_, ref_kv_, caption_: unet_apply(
             p, zt_, tb, caption_, cfg=statics.unet_cfg, ref_kv=ref_kv_,
             use_adain=statics.use_adain, train_input=statics.train_input,
             save_attn_probs=save_attn_probs, probs_layers=probs_layers,
@@ -385,7 +389,7 @@ def restore_forward(
         params["unet"], zt, ref_kv, caption)
     x0 = sched.pred_original_sample(abar, eps_pred, zt, tb)
     out = stage(
-        lambda p, z_, skips: vae_decode(
+        "decode", lambda p, z_, skips: vae_decode(
             p, z_, cfg=statics.vae_cfg, skip_acts=skips,
             lora_scaling=statics.vae_lora_scaling, compute_dtype=statics.compute_dtype,
             use_fused_attention=use_fused_attention),
