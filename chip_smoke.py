@@ -46,7 +46,15 @@ Without arguments every phase runs and the last two lines are the result;
    An identity id outside the cache makes exactly its sample's outputs NaN in
    both bound kernels that read the cache by id. Every d=64 serving kernel
    also runs at RAGGED_SHAPES (Sq or S off the tiles' 64 rows, as the JAX
-   kernels take them), against its plain version, two launches bit for bit;
+   kernels take them), against its plain version, two launches bit for bit.
+   GroupNorm (csrc/group_norm.cu) at every GroupNorm shape of a batch-16
+   warm restore and of the batch-32 cold capture (GN_ENCODER, GN_UNET,
+   GN_DECODER: with SiLU, conv1's bias and the time-embedding term where the
+   model passes them) against its plain version, two launches bit for bit,
+   timed beside the plain version, F.group_norm + F.silu and its bound (one
+   read of x for the statistics, one read and one write for the output);
+   the warm and cold phases check that each of their restores launched it
+   113 and 196 times;
 3b. flash-VJP kernel phase ("vjp"): flash_fwd_lse, flash_bwd_dq and
    flash_bwd_dkv at the shapes a batch-2 train step gives them (the 9 shared
    layers on K/V widened over 4 references, the UNet's down/mid
@@ -339,6 +347,36 @@ LSE_TOL = 1e-3  # flash_fwd_lse's LSE against its plain version, max-abs in log2
 # at 100 keys (Sq != S), one masked 64-key tile of 36, 16, 9, 4 and 1 keys.
 RAGGED_SHAPES = [(2, 4, 144, 144), (2, 4, 200, 100), (2, 2, 36, 36), (2, 2, 16, 16),
                  (2, 2, 9, 9), (2, 4, 4, 4), (2, 2, 1, 1)]
+# (H, W, C, act, bias terms, calls a pass) of the GroupNorms of a 512 px
+# restore: the VAE encoder's 22 and the UNet's 61 (a warm restore at batch
+# 16, and the capture at batch B * N = 32 again), the VAE decoder's 30; "c":
+# conv1's bias [C], "c+bc": it and the UNet's time-embedding term [B, C]
+GN_ENCODER = [(512, 512, 128, "silu", "", 2), (512, 512, 128, "silu", "c", 2),
+              (256, 256, 128, "silu", "", 1), (256, 256, 256, "silu", "", 1),
+              (256, 256, 256, "silu", "c", 2), (128, 128, 256, "silu", "", 1),
+              (128, 128, 512, "silu", "", 1), (128, 128, 512, "silu", "c", 2),
+              (64, 64, 512, "silu", "", 5), (64, 64, 512, "silu", "c", 4), (64, 64, 512, None, "", 1)]
+GN_UNET = [(64, 64, 320, "silu", "", 3), (64, 64, 320, "silu", "c+bc", 5), (64, 64, 320, None, "", 5),
+           (32, 32, 320, "silu", "", 1), (32, 32, 640, "silu", "", 1),
+           (32, 32, 640, "silu", "c+bc", 5), (32, 32, 640, None, "", 5), (16, 16, 640, "silu", "", 1),
+           (16, 16, 1280, "silu", "", 1), (16, 16, 1280, "silu", "c+bc", 5),
+           (16, 16, 1280, None, "", 5), (8, 8, 1280, "silu", "", 4), (8, 8, 1280, "silu", "c+bc", 7),
+           (8, 8, 1280, None, "", 1), (8, 8, 2560, "silu", "", 3), (16, 16, 2560, "silu", "", 2),
+           (16, 16, 1920, "silu", "", 1), (32, 32, 1920, "silu", "", 1), (32, 32, 1280, "silu", "", 1),
+           (32, 32, 960, "silu", "", 1), (64, 64, 960, "silu", "", 1), (64, 64, 640, "silu", "", 2)]
+GN_DECODER = [(64, 64, 512, "silu", "", 5), (64, 64, 512, "silu", "c", 5), (64, 64, 512, None, "", 1),
+              (128, 128, 512, "silu", "", 3), (128, 128, 512, "silu", "c", 3),
+              (256, 256, 512, "silu", "", 1), (256, 256, 256, "silu", "", 2),
+              (256, 256, 256, "silu", "c", 3), (512, 512, 256, "silu", "", 1),
+              (512, 512, 128, "silu", "", 3), (512, 512, 128, "silu", "c", 3)]
+# GroupNorm kernel launches: a pass of each net, of the capture (the frozen
+# encoder and UNet, also in a train step, whose every other GroupNorm wants
+# a gradient: the plain path) and of a restore
+GN_ENC, GN_UNET_PASS, GN_DEC = (sum(n for *_, n in t) for t in (GN_ENCODER, GN_UNET, GN_DECODER))
+GN_CAPTURE = GN_ENC + GN_UNET_PASS  # 83: a capture, and onboarding one identity
+GN_WARM = GN_CAPTURE + GN_DEC  # 113 a warm restore
+GN_COLD = GN_WARM + GN_CAPTURE  # 196: the capture's too
+CAPTURE_BATCH = 32
 # the small models of the serving and training paths: the same seeded
 # weights at sample_size 32 (256 px; the UNet mid block has 4 x 4 tokens)
 # and 24 (192 px; 576, 144, 36 and 9 tokens, the shared layers' too)
@@ -841,7 +879,75 @@ def kernel_phase(card: str):
             print(f"kernel {name} {json.dumps(r)} [{card}]")
     escape_hatch(card)
     out_of_cache_id(card)
-    return results
+    return results + [group_norm_rows(card)]
+
+
+def group_norm_rows(card: str):
+    """The GroupNorm kernel against its plain version at every GroupNorm
+    shape of a warm restore (batch 16) and of the cold capture (batch 32):
+    two launches bit for bit, then the kernel's, the plain version's and
+    the library's (``F.group_norm`` + ``F.silu``, the bias terms added
+    first) times beside the bound, one read of x for the statistics and one
+    read and one write for the output at 3.35 TB/s. Returns the result
+    entry of the warm restore's rows; prints the capture's sums."""
+    import torch
+    import torch.nn.functional as F
+
+    from instantrestore_tpu_torch.ops import primitives as prims
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def rows_at(batch, shapes, what):
+        rows = []
+        for h, w, c, act, terms, count in shapes:
+            x = (torch.randn((batch, h, w, c), generator=g, device=dev) * 2 + 0.5).to(
+                torch.bfloat16)
+            p = {"weight": (torch.randn(c, generator=g, device=dev) + 1).to(torch.bfloat16),
+                 "bias": (torch.randn(c, generator=g, device=dev) * 0.5).to(torch.bfloat16)}
+            bias = ()
+            if terms:
+                bias = ((torch.randn(c, generator=g, device=dev) * 0.3).to(torch.bfloat16),)
+            if terms == "c+bc":
+                bias += ((torch.randn((batch, c), generator=g, device=dev) * 0.3).to(
+                    torch.bfloat16),)
+            call = lambda: prims.group_norm(p, x, in_bias=bias, act=act)
+            plain = lambda: prims.group_norm_plain(p, x, in_bias=bias, act=act)
+
+            def lib():
+                xb = x
+                for t in bias:
+                    xb = xb + (t if t.ndim == 1 else t[:, None, None, :])
+                y = F.group_norm(xb.permute(0, 3, 1, 2), 32, p["weight"], p["bias"], 1e-5)
+                return F.silu(y) if act else y
+
+            out = call()
+            torch.cuda.synchronize()
+            err, tol, rel_rms = compare(f"group_norm {what} {(batch, h, w, c, act, terms)}", out,
+                                        plain())
+            if not torch.equal(out, call()):
+                raise AssertionError(f"group_norm {what} {(batch, h, w, c)}: two launches differ")
+            b_ms, b_by = bound(0.0, 3.0 * x.numel() * 2)
+            rows.append(dict(batch=batch, h=h, w=w, c=c, act=act or "none", terms=terms or "none",
+                             per_pass=count, max_abs_err=err, tol=tol, rel_rms=rel_rms,
+                             ms=cuda_ms(call, 10), plain_ms=cuda_ms(plain, 3),
+                             library_ms=cuda_ms(lib, 10), bound_ms=b_ms, bound_by=b_by))
+            del x, out
+        torch.cuda.empty_cache()
+        tot = {k: sum(r[k] * r["per_pass"] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"group_norm per {what}: kernel {tot['ms']:.2f} ms, bound {tot['bound_ms']:.2f} ms "
+              f"({tot['ms'] / tot['bound_ms']:.2f}x), plain {tot['plain_ms']:.2f} ms, "
+              f"F.group_norm + F.silu {tot['library_ms']:.2f} ms, "
+              f"{sum(r['per_pass'] for r in rows)} calls [{card}]")
+        return rows
+
+    warm = rows_at(BATCH, GN_ENCODER + GN_UNET + GN_DECODER, f"warm restore (batch {BATCH})")
+    rows_at(CAPTURE_BATCH, GN_ENCODER + GN_UNET, f"cold capture (batch {CAPTURE_BATCH})")
+    for r in warm:
+        print(f"kernel group_norm {json.dumps(r)} [{card}]")
+    return ("group_norm", "instantrestore_tpu_torch/csrc/group_norm.cu",
+            "none (the JAX package's GroupNorm is jnp, fused by XLA)", warm)
 
 
 def vjp_kernel_phase(card: str):
@@ -1297,14 +1403,15 @@ def profile_run(fn, what: str, card: str, shares=None, top: int = 15, api_calls=
     return busy
 
 
-# kernel name -> its wrapper (ops/shared_attention.py, ops/flash_vjp.py for the
-# last three), which holds the launch count
+# kernel name -> the name of its wrapper in ``flash_vjp.KERNEL_WRAPPERS``
+# (ops/shared_attention.py, ops/flash_vjp.py, ops/primitives.py for
+# group_norm), which holds the launch count
 KERNEL_WRAPPERS = {
     "shared_identity_attention": "shared_identity", "flash_attention_bound": "flash_attention",
     "shared_flash_bound": "shared_flash_bound", "flash_attention_online": "flash_online",
     "shared_online": "shared_online", "shared_online_pair": "shared_online_pair",
     "flash_fwd_lse": "flash_fwd_lse", "flash_bwd_dq": "flash_bwd_dq",
-    "flash_bwd_dkv": "flash_bwd_dkv",
+    "flash_bwd_dkv": "flash_bwd_dkv", "group_norm": "group_norm",
 }
 KERNEL_NAMES = tuple(KERNEL_WRAPPERS)
 
@@ -1318,11 +1425,10 @@ def reset_counts():
 
 def launch_counts():
     """Launches since the last reset, by kernel name."""
-    from instantrestore_tpu_torch.ops import flash_vjp as fv
-    from instantrestore_tpu_torch.ops import shared_attention as sa
+    from instantrestore_tpu_torch.ops import flash_vjp
 
-    return {name: getattr(sa if hasattr(sa, wrapper) else fv, wrapper).launches
-            for name, wrapper in KERNEL_WRAPPERS.items()}
+    by_wrapper = flash_vjp.launch_counts()
+    return {name: by_wrapper[wrapper] for name, wrapper in KERNEL_WRAPPERS.items()}
 
 
 def algo_env(attn=None, flash=None):
@@ -1355,6 +1461,10 @@ def check_launches(failures, what: str, got: dict, runs: int, **per_run):
     print(f"launches, {what}: {got}")
     if got != want:
         failures.append(f"{what}: launches {got}, expected {want}")
+
+
+# the profiles' share of the GroupNorm kernels
+GN_SHARE = {"GroupNorm kernels": ("irt_group_norm_",)}
 
 
 def add_counts(total: dict, got: dict):
@@ -1426,11 +1536,10 @@ def warm_phase(card: str):
     n_restores = RESTORE_RUNS + 1
     failures = []
     check_launches(failures, f"onboarding {N_IDENT} identities", onboard_counts, N_IDENT,
-                   flash_attention_bound=17)
+                   flash_attention_bound=17, group_norm=GN_CAPTURE)
     check_launches(failures, f"{n_restores} warm restores", restore_counts, n_restores,
-                   shared_identity_attention=9, flash_attention_bound=9)
-    total = {}
-    add_counts(total, onboard_counts)
+                   shared_identity_attention=9, flash_attention_bound=9, group_norm=GN_WARM)
+    total = dict(onboard_counts)
     add_counts(total, restore_counts)
     if tuple(out.shape) != (BATCH, RES, RES, 3):
         failures.append(f"output shape {tuple(out.shape)}")
@@ -1458,7 +1567,8 @@ def warm_phase(card: str):
         failures.append("fused path disagrees with the unfused path")
 
     measure_slack(lambda: engine.restore(images, ids, noise=noise), "warm restore")
-    profile_run(lambda: engine.restore(images, ids, noise=noise), "one restore", card)
+    profile_run(lambda: engine.restore(images, ids, noise=noise), "one restore", card,
+                shares=GN_SHARE)
     if failures:
         raise AssertionError("warm phase failed: " + "; ".join(failures))
     return dict(engine=engine, refs=refs, images=images, ids=ids, noise=noise,
@@ -1499,7 +1609,7 @@ def cold_phase(card: str, w):
     peak = torch.cuda.max_memory_allocated() / 2**30
     failures = []
     check_launches(failures, f"{RESTORE_RUNS + 1} cold restores", counts, RESTORE_RUNS + 1,
-                   shared_flash_bound=9, flash_attention_bound=26)
+                   shared_flash_bound=9, flash_attention_bound=26, group_norm=GN_COLD)
     if tuple(out.shape) != (BATCH, RES, RES, 3):
         failures.append(f"cold output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all():
@@ -1532,7 +1642,8 @@ def cold_phase(card: str, w):
     worst = max(r[2] for r in records if r[0] == "shared_flash_bound")
     print(f"bound slack of shared_flash_bound over the cold restore's reference keys: max "
           f"{worst:.2f} log2 units over {sum(r[0] == 'shared_flash_bound' for r in records)} layers")
-    profile_run(lambda: engine.restore_cold(images, cond, noise=noise), "one cold restore", card)
+    profile_run(lambda: engine.restore_cold(images, cond, noise=noise), "one cold restore", card,
+                shares=GN_SHARE)
     if failures:
         raise AssertionError("cold phase failed: " + "; ".join(failures))
     return dict(cond=cond, noise=noise, out=out), counts
@@ -1572,7 +1683,8 @@ def online_phase(card: str, w, cold):
                     "one warm restore under FLASH_ALGO=online", card, shares=D512_SHARE)
     failures = []
     check_launches(failures, f"{RESTORE_RUNS + 1} cold restores under kv_outer + online", counts,
-                   RESTORE_RUNS + 1, shared_online=9, flash_attention_online=26)
+                   RESTORE_RUNS + 1, shared_online=9, flash_attention_online=26,
+                   group_norm=GN_COLD)
     if tuple(out.shape) != (BATCH, RES, RES, 3):
         failures.append(f"online cold output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all():
@@ -1623,7 +1735,8 @@ def other_paths(card: str, w, cold):
     out = ti.restore(images[:4], torch.arange(4), noise=noise4)
     counts = launch_counts()
     check_launches(failures, "train_input engine: onboard 4 + restore batch 4", counts, 1,
-                   flash_attention_bound=17 * 4 + 9, shared_flash_bound=9)
+                   flash_attention_bound=17 * 4 + 9, shared_flash_bound=9,
+                   group_norm=4 * GN_CAPTURE + GN_WARM)
     add_counts(total, counts)
     finite("train_input restore", out, (4, RES, RES, 3))
     ti.use_fused_attention = False
@@ -1647,7 +1760,8 @@ def other_paths(card: str, w, cold):
                                         use_fused_attention=True)["output_image"]
     counts = launch_counts()
     check_launches(failures, "multistep (749, 499, 249), batch 4", counts, 1,
-                   shared_flash_bound=27, flash_attention_bound=17 + 1 + 3 * 7 + 1)
+                   shared_flash_bound=27, flash_attention_bound=17 + 1 + 3 * 7 + 1,
+                   group_norm=GN_CAPTURE + GN_ENC + 3 * GN_UNET_PASS + GN_DEC)
     add_counts(total, counts)
     finite("multistep", out, (4, RES, RES, 3))
 
@@ -1668,7 +1782,8 @@ def other_paths(card: str, w, cold):
 
     cold2 = lambda: engine.restore_cold(images[:2], cold["cond"][:2], noise=_rows(cold["noise"], 2))
     under("cold restore batch 2, kv_outer_bound_paired", cold2, cold["out"][:2],
-          attn="kv_outer_bound_paired", shared_identity_attention=9, flash_attention_bound=26)
+          attn="kv_outer_bound_paired", shared_identity_attention=9, flash_attention_bound=26,
+          group_norm=GN_COLD)
 
     # 3b. the online-max family at reduced batch: a warm restore under
     # FLASH_ALGO=online (the identity cache takes no algorithm), the
@@ -1677,15 +1792,16 @@ def other_paths(card: str, w, cold):
     # layers fall through to shared_online)
     under("warm restore batch 4, FLASH_ALGO=online",
           lambda: engine.restore(images[:4], w["ids"][:4], noise=noise4), w["out"][:4],
-          attn="kv_outer", flash="online", shared_identity_attention=9, flash_attention_online=9)
+          attn="kv_outer", flash="online", shared_identity_attention=9, flash_attention_online=9,
+          group_norm=GN_WARM)
     under("train_input restore batch 4, kv_outer",
           lambda: ti.restore(images[:4], torch.arange(4), noise=noise4), ti_out,
-          attn="kv_outer", shared_online=9, flash_attention_bound=9)
+          attn="kv_outer", shared_online=9, flash_attention_bound=9, group_norm=GN_WARM)
     del ti
     under("cold restore batch 2, q_outer", cold2, cold["out"][:2], attn="q_outer",
-          shared_online=9, flash_attention_bound=26)
+          shared_online=9, flash_attention_bound=26, group_norm=GN_COLD)
     under("cold restore batch 2, kv_outer_packed", cold2, cold["out"][:2], attn="kv_outer_packed",
-          shared_online_pair=6, shared_online=3, flash_attention_bound=26)
+          shared_online_pair=6, shared_online=3, flash_attention_bound=26, group_norm=GN_COLD)
 
     # 4. the Predictor, array in and out
     pred = Predictor(params=engine.params, statics=engine.statics, device=dev, seed=6)
@@ -1693,7 +1809,7 @@ def other_paths(card: str, w, cold):
     arr = pred.predict_batch(pre[:2], conds[:2])
     counts = launch_counts()
     check_launches(failures, "Predictor.predict_batch, batch 2", counts, 1,
-                   shared_flash_bound=9, flash_attention_bound=26)
+                   shared_flash_bound=9, flash_attention_bound=26, group_norm=GN_COLD)
     add_counts(total, counts)
     finite("Predictor.predict_batch", arr, (2, RES, RES, 3))
     if failures:
@@ -1865,7 +1981,8 @@ def int8_phase(card: str):
     for eng in (fp, q):
         eng.onboard(refs, noise=onboard_noise)
     check_launches(failures, f"onboarding {N_IDENT} identities in the bf16 and int8 engines",
-                   launch_counts(), 2 * N_IDENT, flash_attention_bound=17)
+                   launch_counts(), 2 * N_IDENT, flash_attention_bound=17,
+                   group_norm=GN_CAPTURE)
     add_counts(total, launch_counts())
     same = all(torch.equal(getattr(a, f), getattr(b, f)) for a, b in zip(fp.kv_cache, q.kv_cache)
                for f in ("rk", "rv", "content_mean", "content_std", "kmax"))
@@ -1884,7 +2001,8 @@ def int8_phase(card: str):
                 for _ in range(RESTORE_RUNS + 1)]
         counts = launch_counts()
         check_launches(failures, f"{RESTORE_RUNS + 1} {what} warm restores", counts,
-                       RESTORE_RUNS + 1, shared_identity_attention=9, flash_attention_bound=9)
+                       RESTORE_RUNS + 1, shared_identity_attention=9, flash_attention_bound=9,
+                       group_norm=GN_WARM)
         add_counts(total, counts)
         steady = statistics.median(s for _, s in runs[1:])
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1938,7 +2056,7 @@ def int8_phase(card: str):
     cold, t_cold = _synced(lambda: q.restore_cold(images, refs[ids], noise=cold_noise))
     counts = launch_counts()
     check_launches(failures, "one int8 cold restore", counts, 1, shared_flash_bound=9,
-                   flash_attention_bound=26)
+                   flash_attention_bound=26, group_norm=GN_COLD)
     add_counts(total, counts)
     d_warm = mean_abs(cold, out_cal)
     print(f"int8 cold restore batch {BATCH}: {t_cold * 1e3:.1f} ms (first call), peak "
@@ -2110,7 +2228,7 @@ def training_phase(card: str):
     # wants no gradient, runs the bound kernel once and no backward kernel
     check_launches(failures, f"{TRAIN_STEPS} train steps", counts, TRAIN_STEPS,
                    flash_fwd_lse=2 * 18, flash_bwd_dq=18, flash_bwd_dkv=18,
-                   flash_attention_bound=17)
+                   flash_attention_bound=17, group_norm=GN_CAPTURE)
     grads_finite = all(bool(torch.isfinite(t.grad).all()) for t in leaves)
     if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)) or not grads_finite:
         failures.append(f"non-finite loss {losses} or gradient")
@@ -2300,6 +2418,8 @@ def options_phase(card: str):
     # encoder's at batch 8), each forward twice; one backward fewer than
     # forwards in the capture (the last up-block self-attention's output
     # reaches no captured K/V); no inference kernel
+    # the capture nets train their LoRA here, so every GroupNorm of the step
+    # wants a gradient and takes the plain path: no group_norm launch
     check_launches(failures, f"{OPTIONS_STEPS} G steps with use_shortcuts and "
                    "train_reference_networks", counts, OPTIONS_STEPS,
                    flash_fwd_lse=2 * 35, flash_bwd_dq=34, flash_bwd_dkv=34)
@@ -2365,7 +2485,7 @@ def options_phase(card: str):
     counts = launch_counts()
     add_counts(total, counts)
     check_launches(failures, "one batch-16 FaceID restore_forward", counts, 1,
-                   shared_flash_bound=9, flash_attention_bound=26)
+                   shared_flash_bound=9, flash_attention_bound=26, group_norm=GN_COLD)
     prompt = face_restore(None)
     other = face_restore(-embeds)
     unfused = face_restore(embeds[:2], fused=False, rows=slice(0, 2))
@@ -2418,7 +2538,7 @@ def options_phase(card: str):
                 f"provider: {dt * 1e3:.1f} ms")
     add_counts(total, counts)
     check_launches(failures, "one FaceID Predictor restore", counts, 1,
-                   shared_flash_bound=9, flash_attention_bound=26)
+                   shared_flash_bound=9, flash_attention_bound=26, group_norm=GN_COLD)
     print(f"{what}; output {'right' if ok else 'WRONG'} [{card}]")
     if not ok:
         failures.append("the FaceID Predictor's restore is wrong")
@@ -2722,7 +2842,7 @@ def recipe_phase(card: str):
     # the loss networks add no attention kernel: the training phase's counts
     check_launches(failures, f"{RECIPE_STEPS} recipe steps", counts, RECIPE_STEPS,
                    flash_fwd_lse=2 * 18, flash_bwd_dq=18, flash_bwd_dkv=18,
-                   flash_attention_bound=17)
+                   flash_attention_bound=17, group_norm=GN_CAPTURE)
     terms, bad = finite_terms(metrics, ("loss_l2", "loss_lpips", "loss_id", "sim_id", "loss_g",
                                         "loss"))
     if bad or not all(bool(torch.isfinite(t.grad).all()) for t in leaves):
@@ -2890,7 +3010,8 @@ def small_model_phase(card: str, serving_params):
         warm = engine.restore(images, ids, noise=noise)
         counts = launch_counts()
         check_launches(failures, f"{what}: onboard {SMALL_IDENT} + warm restore", counts, 1,
-                       flash_attention_bound=17 * SMALL_IDENT + 9, shared_identity_attention=9)
+                       flash_attention_bound=17 * SMALL_IDENT + 9, shared_identity_attention=9,
+                       group_norm=SMALL_IDENT * GN_CAPTURE + GN_WARM)
         add_counts(total, counts)
         # cold: each sample's identity references re-encoded, with its onboarding noise
         cond = refs[ids]
@@ -2901,14 +3022,14 @@ def small_model_phase(card: str, serving_params):
         cold = engine.restore_cold(images, cond, noise=cold_noise)
         counts = launch_counts()
         check_launches(failures, f"{what}: cold restore", counts, 1, shared_flash_bound=9,
-                       flash_attention_bound=26)
+                       flash_attention_bound=26, group_norm=GN_COLD)
         add_counts(total, counts)
         with algo_env(attn="kv_outer", flash="online"):
             reset_counts()
             online = engine.restore_cold(images, cond, noise=cold_noise)
             counts = launch_counts()
         check_launches(failures, f"{what}: cold restore under kv_outer + online", counts, 1,
-                       shared_online=9, flash_attention_online=26)
+                       shared_online=9, flash_attention_online=26, group_norm=GN_COLD)
         add_counts(total, counts)
         engine.use_fused_attention = False
         unfused_cold = engine.restore_cold(images, cond, noise=cold_noise)
@@ -2966,7 +3087,8 @@ def small_model_phase(card: str, serving_params):
             counts = launch_counts()
             loss_u, g_u = step_once(False)
         check_launches(failures, f"{what}: one train step", counts, 1, flash_fwd_lse=2 * 18,
-                       flash_bwd_dq=18, flash_bwd_dkv=18, flash_attention_bound=17)
+                       flash_bwd_dq=18, flash_bwd_dkv=18, flash_attention_bound=17,
+                       group_norm=GN_CAPTURE)
         add_counts(total, counts)
         finite = loss_f == loss_f and abs(loss_f) != float("inf") and all(
             bool(torch.isfinite(t).all()) for t in g_f)
@@ -3149,7 +3271,7 @@ def checkpoint_phase(card: str):
             want = ref.predict_batch(images, conds)
         check_launches(failures, f"Predictor from a FULL .pt: {RESTORE_RUNS + 1} predict_batch "
                        f"of {CKPT_BATCH} x {N_REFS} refs", counts, RESTORE_RUNS + 1,
-                       shared_flash_bound=9, flash_attention_bound=26)
+                       shared_flash_bound=9, flash_attention_bound=26, group_norm=GN_COLD)
         add_counts(total, counts)
         same = bool((outs[0] == want).all())
         print(f"Predictor from the FULL .pt vs Predictor(params=the same fp16 tree): "
@@ -3204,7 +3326,8 @@ def checkpoint_phase(card: str):
             want = serve.run(ref, refs, imgs, slots, batch=CKPT_SERVE_IMAGES, seed=0)
         check_launches(failures, f"serve engine from a LoRA-only .pt: onboard {CKPT_SERVE_IDENT} + "
                        f"restore batch {CKPT_SERVE_IMAGES}", counts, 1,
-                       flash_attention_bound=17 * CKPT_SERVE_IDENT + 9, shared_identity_attention=9)
+                       flash_attention_bound=17 * CKPT_SERVE_IDENT + 9, shared_identity_attention=9,
+                       group_norm=CKPT_SERVE_IDENT * GN_CAPTURE + GN_WARM)
         add_counts(total, counts)
         same = torch.equal(out, want)
         print(f"serve engine from the LoRA-only .pt vs ServingEngine(the same fp16 tree, LoRA "
@@ -3236,12 +3359,14 @@ def checkpoint_phase(card: str):
                                                   generator=host).numpy()).save(data / name / rel)
             for what, main, argv, per_run in (
                     ("cli.infer.main on the FULL .pt", infer.main, ["--checkpoint", str(full)],
-                     dict(shared_flash_bound=9 * 2, flash_attention_bound=26 * 2)),
+                     dict(shared_flash_bound=9 * 2, flash_attention_bound=26 * 2,
+                          group_norm=GN_COLD * 2)),
                     # as a user runs it: without a cfg in the file, the
                     # default statics (train_input) serve it, as in JAX
                     ("cli.serve.main on the LoRA-only .pt", serve.main,
                      ["--checkpoint", str(lora), "--base_weights_dir", str(base), "--batch", "2"],
-                     dict(flash_attention_bound=17 * 2 + 9, shared_flash_bound=9))):
+                     dict(flash_attention_bound=17 * 2 + 9, shared_flash_bound=9,
+                          group_norm=2 * GN_CAPTURE + GN_WARM))):
                 out_dir = tmp / what.split()[0]
                 with environ({TOKENIZER_DIR_ENV: str(tok_dir)}):
                     reset_counts()
@@ -3271,7 +3396,7 @@ def checkpoint_phase(card: str):
             counts = launch_counts()
             # two predictions, then one more on the dumped noise
             check_launches(failures, "cli.parity determinism", counts, 3, shared_flash_bound=9,
-                           flash_attention_bound=26)
+                           flash_attention_bound=26, group_norm=GN_COLD)
             add_counts(total, counts)
             det = json.loads((tmp / "det.json").read_text())
             print(f"cli.parity determinism on the FULL .pt at {RES} px: exit {rc}, deterministic "
@@ -3463,7 +3588,8 @@ def coach_phase(card: str):
                        flash_fwd_lse=36 * COACH_STEPS, flash_bwd_dq=18 * COACH_STEPS,
                        flash_bwd_dkv=18 * COACH_STEPS,
                        flash_attention_bound=17 * COACH_STEPS + 26 * 2 * val_batches,
-                       shared_flash_bound=9 * 2 * val_batches)
+                       shared_flash_bound=9 * 2 * val_batches,
+                       group_norm=GN_CAPTURE * COACH_STEPS + GN_COLD * 2 * val_batches)
         add_counts(total, counts)
         log = (Path(cfg.log.exp_dir) / "logs" / "log.txt").read_text()
         lines = [ln for ln in log.splitlines() if ": train: " in ln]
@@ -3545,7 +3671,7 @@ def coach_phase(card: str):
         counts = launch_counts()
         check_launches(failures, f"{COACH_TIMED} Coach G steps (the D steps launch nothing)",
                        counts, COACH_TIMED, flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18,
-                       flash_attention_bound=17)
+                       flash_attention_bound=17, group_norm=GN_CAPTURE)
         add_counts(total, counts)
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"Coach step batch {TRAIN_BATCH} x {N_REFS} refs, {RES} px, bf16, OptimConfig() "
@@ -3580,7 +3706,7 @@ def coach_phase(card: str):
                 vdev, coach.draw_eval(vdev, torch.Generator(device=dev).manual_seed(0))))[1])
         counts = launch_counts()
         check_launches(failures, "3 val batches (vis_attention off)", counts, 3,
-                       shared_flash_bound=9, flash_attention_bound=26)
+                       shared_flash_bound=9, flash_attention_bound=26, group_norm=GN_COLD)
         add_counts(total, counts)
         coach.cfg.log.vis_attention = True
         reset_counts()
@@ -3589,7 +3715,8 @@ def coach_phase(card: str):
         # the first six batches save probabilities: their shared layers run
         # unfused (models/attention.py), so no shared kernel launches
         check_launches(failures, f"validate() with vis_attention, {val_batches} batches saving "
-                       "probabilities", counts, val_batches, flash_attention_bound=26)
+                       "probabilities", counts, val_batches, flash_attention_bound=26,
+                       group_norm=GN_COLD)
         add_counts(total, counts)
         overlays = sorted(p.name for p in (Path(cfg.log.exp_dir) / "logs" / "val_attention")
                           .glob("*")) if importlib.util.find_spec("PIL") else None
@@ -3612,7 +3739,7 @@ def coach_phase(card: str):
         out = pred_cls.predict_batch(val["image"], val["conditioning_images"])
         counts = launch_counts()
         check_launches(failures, "Predictor(checkpoint_path=final).predict_batch", counts, 1,
-                       shared_flash_bound=9, flash_attention_bound=26)
+                       shared_flash_bound=9, flash_attention_bound=26, group_norm=GN_COLD)
         add_counts(total, counts)
         ok = torch.equal(served.float().cpu(), kept.to(served.dtype).float())
         print(f"Predictor(checkpoint_path=<run>/checkpoints/final): statics train_input "
@@ -3878,10 +4005,11 @@ def dispatch_phase(card: str):
         free()
 
         per_step = dict(flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18,
-                        flash_attention_bound=17)
+                        flash_attention_bound=17, group_norm=GN_CAPTURE)
         for what, counts in (("one-step run", counts_e), ("dispatch run", counts_d)):
             want = {k: n * DISPATCH_STEPS for k, n in per_step.items()}
             want["flash_attention_bound"] += 26 * val_batches  # train()'s own validation
+            want["group_norm"] += GN_COLD * val_batches
             want["shared_flash_bound"] = 9 * val_batches
             check_launches(failures, f"Coach.train, {what}: {DISPATCH_STEPS} G + D steps and a "
                            f"validation of {val_batches} batches", counts, 1, **want)
@@ -4259,11 +4387,13 @@ def run_workers(specs: list, tmp, limit: float) -> list:
 
 def device_guard_check(card: str, failures: list):
     """Every kernel at one 512 px shape (the (10 heads, 1024 tokens) shared
-    layer, 4 references; d=64) on cuda:1, launched from this thread at
+    layer, 4 references; d=64; GroupNorm at the UNet's 32 x 32 x 640 with
+    a [B, C] bias term and SiLU) on cuda:1, launched from this thread at
     current device 0, against the same launch on cuda:0: bit for bit."""
     import torch
 
     from instantrestore_tpu_torch.ops import flash_vjp as fv
+    from instantrestore_tpu_torch.ops import primitives as prims
     from instantrestore_tpu_torch.ops import shared_attention as sa
 
     if torch.cuda.device_count() < 2:
@@ -4304,9 +4434,14 @@ def device_guard_check(card: str, failures: list):
                                                   t["delta"], scale=sc),
         "flash_bwd_dkv": lambda t: fv.flash_bwd_dkv(t["q"], t["k"], t["v"], t["do"], t["lse"],
                                                     t["delta"], scale=sc),
+        "group_norm": lambda t: prims.group_norm(
+            {"weight": t["gn_w"], "bias": t["gn_b"]}, t["gn_x"], in_bias=(t["gn_t"],),
+            act="silu"),
     }
     on0 = dict(q=q, k=k, v=v, do=do, rk=rk, rv=rv, aff=aff, kmax=kmax, ids=ids, lse=lse0,
-               delta=delta0)
+               delta=delta0, gn_x=rnd(b, 32, 32, 640), gn_t=rnd(b, 640),
+               gn_w=1 + 0.1 * rnd(640, dtype=torch.float32),
+               gn_b=0.1 * rnd(640, dtype=torch.float32))
     on1 = {key: x.to("cuda:1") for key, x in on0.items()}
     same = []
     for name, call in calls.items():
@@ -4380,7 +4515,7 @@ def parallel_serving(card: str, failures: list) -> dict:
     reset_counts()
     c2, onboard_s = _synced_all(lambda: multi.onboard(refs, noise=onboard_noise))
     check_launches(failures, f"multi-device onboarding of {N_IDENT} identities on {devices}",
-                   launch_counts(), N_IDENT, flash_attention_bound=17)
+                   launch_counts(), N_IDENT, flash_attention_bound=17, group_norm=GN_CAPTURE)
     add_counts(total, launch_counts())
     caches = multi.device_caches()
     same = [all(torch.equal(getattr(a, f), getattr(b, f).to(getattr(a, f).device))
@@ -4410,9 +4545,11 @@ def parallel_serving(card: str, failures: list) -> dict:
             im, ii, nz, cnz, cr = rows(n)
             runm = ((lambda: multi.restore(im, ii, noise=nz)) if what == "warm"
                     else (lambda: multi.restore_cold(im, cr, noise=cnz)))
-            per = (dict(shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev)
+            per = (dict(shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev,
+                        group_norm=GN_WARM * n_dev)
                    if what == "warm" else
-                   dict(shared_flash_bound=9 * n_dev, flash_attention_bound=26 * n_dev))
+                   dict(shared_flash_bound=9 * n_dev, flash_attention_bound=26 * n_dev,
+                        group_norm=GN_COLD * n_dev))
             _synced_all(runm)  # the workers' cuDNN set-up at this batch
             reset_counts()
             outm, _ = _synced_all(runm)
@@ -4487,7 +4624,8 @@ def parallel_int8(card: str, failures: list, params, statics, devices, refs, onb
     outm, tm = _synced_all(lambda: multi.restore(images, ids, noise=noise))
     counts = launch_counts()
     check_launches(failures, f"one multi-device int8 warm restore on {devices}", counts, 1,
-                   shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev)
+                   shared_identity_attention=9 * n_dev, flash_attention_bound=9 * n_dev,
+                   group_norm=GN_WARM * n_dev)
     add_counts(total, counts)
     per = BATCH // n_dev
     rows = torch.cat([one.restore(images[j * per:(j + 1) * per], ids[j * per:(j + 1) * per],
@@ -4586,7 +4724,7 @@ def parallel_phase(card: str):
         check_launches(failures, f"NCCL world size 1: {DDP_STEPS} G + D steps as one dispatch",
                        {k: ws1["dispatch_counts"].get(k, 0) for k in KERNEL_NAMES}, DDP_STEPS,
                        flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18,
-                       flash_attention_bound=17)
+                       flash_attention_bound=17, group_norm=GN_CAPTURE)
         add_counts(rank_counts, ws1["dispatch_counts"])
         same = (ws1["dispatch_digest"] == ws1["digest"] and ws1["dispatch_loss"] == ws1["loss"][-1]
                 and ws1["dispatch_loss_d"] == ws1["loss_d"][-1])
@@ -4598,7 +4736,8 @@ def parallel_phase(card: str):
         if not same:
             failures.append("the dispatch in an NCCL group of world size 1 differs from its eager "
                             "steps")
-        want = dict(flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18, flash_attention_bound=17)
+        want = dict(flash_fwd_lse=36, flash_bwd_dq=18, flash_bwd_dkv=18, flash_attention_bound=17,
+                    group_norm=GN_CAPTURE)
         for what, rec in (("no group", ref), ("NCCL world size 1", ws1)):
             check_launches(failures, f"{what}: {DDP_STEPS} G + D steps",
                            {k: rec["counts"].get(k, 0) for k in KERNEL_NAMES}, DDP_STEPS, **want)

@@ -20,6 +20,7 @@ from instantrestore_tpu_torch.models.attention import attention
 from instantrestore_tpu_torch.models.freeu import FreeUParams, apply_freeu
 from instantrestore_tpu_torch.ops.primitives import (
     conv2d,
+    conv2d_bias_apart,
     dense,
     geglu,
     group_norm,
@@ -192,10 +193,13 @@ def init_unet_params(gen: torch.Generator, cfg: UNetConfig = UNetConfig(), *, de
 
 
 def _resnet(p, x, temb, *, cfg: UNetConfig, lora_scaling: float):
-    h = silu(group_norm(p["norm1"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
-    h = conv2d(p["conv1"], h, lora_scaling=lora_scaling)
-    h = h + dense(p["time_emb_proj"], silu(temb), lora_scaling=lora_scaling)[:, None, None, :]
-    h = silu(group_norm(p["norm2"], h, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
+    """diffusers ResnetBlock2D; conv1's bias, then the time-embedding
+    projection [B, C], are added inside norm2."""
+    h = group_norm(p["norm1"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps, act="silu")
+    h, bias = conv2d_bias_apart(p["conv1"], h, lora_scaling=lora_scaling)
+    t = dense(p["time_emb_proj"], silu(temb), lora_scaling=lora_scaling)
+    h = group_norm(p["norm2"], h, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps,
+                   in_bias=bias + (t,), act="silu")
     h = conv2d(p["conv2"], h, lora_scaling=lora_scaling)
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding=0, lora_scaling=lora_scaling)
@@ -347,7 +351,8 @@ def unet_apply(
         if capture_taps:
             taps[f"up_block_{i}"] = x
 
-    x = silu(group_norm(params["conv_norm_out"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
+    x = group_norm(params["conv_norm_out"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps,
+                   act="silu")
     x = conv2d(params["conv_out"], x, lora_scaling=lora_scaling)
     aux_out: Dict[str, Any] = {}
     if capture_kv:

@@ -17,13 +17,13 @@ import torch.nn.functional as F
 from instantrestore_tpu_torch.models.attention import softmax_attention
 from instantrestore_tpu_torch.ops.primitives import (
     conv2d,
+    conv2d_bias_apart,
     dense,
     group_norm,
     init_conv2d,
     init_dense,
     init_norm,
     quantize_block_convs_int8,
-    silu,
     upsample2x_conv,
 )
 from instantrestore_tpu_torch.ops.flash_vjp import flash_attention
@@ -136,9 +136,11 @@ def init_vae_params(gen: torch.Generator, cfg: VAEConfig = VAEConfig(), *, devic
 
 
 def _resnet(p, x, *, cfg: VAEConfig, lora_scaling: float):
-    h = silu(group_norm(p["norm1"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
-    h = conv2d(p["conv1"], h, lora_scaling=lora_scaling)
-    h = silu(group_norm(p["norm2"], h, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
+    """diffusers ResnetBlock2D; conv1's bias is added inside norm2."""
+    h = group_norm(p["norm1"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps, act="silu")
+    h, bias = conv2d_bias_apart(p["conv1"], h, lora_scaling=lora_scaling)
+    h = group_norm(p["norm2"], h, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps,
+                   in_bias=bias, act="silu")
     h = conv2d(p["conv2"], h, lora_scaling=lora_scaling)
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding=0, lora_scaling=lora_scaling)
@@ -192,7 +194,8 @@ def vae_encode(
             x = conv2d(block["downsamplers"][0]["conv"], x, stride=2, padding=0,
                        lora_scaling=lora_scaling)
     x = _mid(p["mid_block"], x, cfg=cfg, lora_scaling=lora_scaling, use_fused=use_fused_attention)
-    x = silu(group_norm(p["conv_norm_out"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
+    x = group_norm(p["conv_norm_out"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps,
+                   act="silu")
     x = conv2d(p["conv_out"], x, lora_scaling=lora_scaling)
     moments = conv2d(params["quant_conv"], x, padding=0, lora_scaling=lora_scaling)
     mean, logvar = moments.float().chunk(2, dim=-1)
@@ -234,7 +237,8 @@ def vae_decode(
             x = _resnet(rp, x, cfg=cfg, lora_scaling=lora_scaling)
         if "upsamplers" in block:
             x = upsample2x_conv(block["upsamplers"][0]["conv"], x, lora_scaling=lora_scaling)
-    x = silu(group_norm(p["conv_norm_out"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps))
+    x = group_norm(p["conv_norm_out"], x, num_groups=cfg.norm_num_groups, eps=cfg.norm_eps,
+                   act="silu")
     return conv2d(p["conv_out"], x, lora_scaling=lora_scaling)
 
 

@@ -8,9 +8,11 @@ compiles in seconds with
 
 into the git-ignored ``instantrestore_tpu_torch/_build/``. The file name
 carries a hash of the sources, so an edited kernel rebuilds and a current
-one is reused. ``build()`` starts one nvcc per source, all at once; the
-kernel wrappers call ``load()``, which builds on first use. Nothing here
-runs at import time. Every pointer and the stream cross ctypes as
+one is reused. ``build()`` starts one nvcc per source, all at once;
+``load()`` builds on first use. The kernel wrappers (``ops/shared_attention.py``,
+``ops/flash_vjp.py``, ``ops/primitives.py``) check their tensors with
+``check_cuda`` and call an entry point only through ``launch``. Nothing
+here runs at import time. Every pointer and the stream cross ctypes as
 ``c_void_p``; every C entry point returns ``cudaGetLastError()``.
 """
 
@@ -25,12 +27,14 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_bound", "shared_identity", "shared_flash_bound", "flash_online",
            "shared_online", "shared_online_pair", "flash_fwd_lse", "flash_bwd_dq",
-           "flash_bwd_dkv")
+           "flash_bwd_dkv", "group_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +69,9 @@ SIGNATURES = {
     },
     "flash_bwd_dkv": {
         "irt_flash_bwd_dkv_bf16": ([_P] * 9 + [_I] * 8 + [_F, _P], _I),
+    },
+    "group_norm": {
+        "irt_group_norm_bf16": ([_P] * 3 + [_I, _P, _I, _P, _I, _P, _P] + [_I] * 6 + [_F, _P], _I),
     },
 }
 
@@ -133,3 +140,37 @@ def load(name: str) -> ctypes.CDLL:
                     getattr(lib, fn).restype = restype
                 _loaded[name] = lib
     return lib
+
+
+count_lock = threading.Lock()  # callers may launch, and add counts, from several threads
+
+
+def launch(wrapper, source: str, q: torch.Tensor, *args) -> None:
+    """Call ``irt_<source>_bf16`` of ``csrc/<source>.cu`` with ``args`` and
+    the current stream of q's device, with q's device the calling thread's
+    current one: the C launcher's ``cudaFuncSetAttribute``, tensor-map
+    encode and launch all act on the current device, so a tensor on
+    ``cuda:1`` from a thread at device 0 would otherwise launch on the wrong
+    card. Raises on a CUDA error; counts the launch on ``wrapper``."""
+    entry = getattr(load(source), f"irt_{source}_bf16")
+    with torch.cuda.device(q.device):
+        rc = entry(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
+    with count_lock:
+        wrapper.launches += 1
+
+
+def check_cuda(name: str, *typed) -> None:
+    """Each (tensor, dtype) pair: on the first tensor's device, contiguous,
+    16-byte aligned and of that dtype."""
+    dev = typed[0][0].device
+    for t, dtype in typed:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data is not 16-byte aligned")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")

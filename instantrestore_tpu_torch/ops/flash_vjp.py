@@ -23,7 +23,7 @@ At d = 64 the two backward kernels run on the wgmma + TMA tile of
 before any launch, a shape the tiles do not take.
 
 A wrapper given CUDA tensors launches its kernel (bf16 only) on their card
-(``shared_attention._launch``) or raises; given CPU tensors it runs the
+(``_build.launch``) or raises; given CPU tensors it runs the
 plain version. ``<wrapper>.launches`` counts kernel launches and nothing
 else.
 
@@ -57,6 +57,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from instantrestore_tpu_torch.ops import _build, primitives
 from instantrestore_tpu_torch.ops import shared_attention as sa
 from instantrestore_tpu_torch.ops.shared_attention import (  # re-exported
     LOG2E,
@@ -96,7 +97,7 @@ def flash_fwd_lse(q, k, v, *, scale: float,
     sa.check_flash_chunk("flash_fwd_lse", skv, d, block_k)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    sa._launch(flash_fwd_lse, "flash_fwd_lse", q,
+    _build.launch(flash_fwd_lse, "flash_fwd_lse", q,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E))
     return out, lse
@@ -204,12 +205,12 @@ def _check_backward(name: str, q, k, v, do, lse, delta, qs) -> BwdTiles:
     their tiles; raises before any launch."""
     sa._check_flash(name, q, k, v, sa._flash_tiles_fit)
     f32 = torch.float32
-    sa._check_cuda(name, (q, torch.bfloat16), (do, torch.bfloat16), (lse, f32), (delta, f32))
+    _build.check_cuda(name, (q, torch.bfloat16), (do, torch.bfloat16), (lse, f32), (delta, f32))
     if do.shape != q.shape or lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
         raise ValueError(f"{name}: dO {tuple(do.shape)}, lse {tuple(lse.shape)}, delta "
                          f"{tuple(delta.shape)} do not fit q {tuple(q.shape)}")
     if qs is not None:
-        sa._check_cuda(name, (q, torch.bfloat16), (qs, torch.bfloat16))
+        _build.check_cuda(name, (q, torch.bfloat16), (qs, torch.bfloat16))
         if qs.shape != q.shape:
             raise ValueError(f"{name}: qs {tuple(qs.shape)} does not fit q {tuple(q.shape)}")
     return flash_bwd_tiles(q.shape[2], k.shape[2], q.shape[-1])
@@ -258,7 +259,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
     b, h, sq, d = q.shape
     lse, delta, pitch = _lse_rows(lse, delta)
     dq = torch.empty_like(q)
-    sa._launch(flash_bwd_dq, "flash_bwd_dq", q,
+    _build.launch(flash_bwd_dq, "flash_bwd_dq", q,
                q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d,
                tiles.dq_rows, tiles.dq_chunk, pitch, ctypes.c_float(scale))
@@ -281,7 +282,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     b, h, sq, d = q.shape
     lse, delta, pitch = _lse_rows(lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    sa._launch(flash_bwd_dkv, "flash_bwd_dkv", q,
+    _build.launch(flash_bwd_dkv, "flash_bwd_dkv", q,
                q.data_ptr(), qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
                k.shape[2], d, tiles.dkv_rows, tiles.dkv_chunk, pitch, ctypes.c_float(scale))
@@ -435,7 +436,9 @@ def shared_flash_attention(q, k_in, v_in, ref_k, ref_v, *, scale: float,
                          bool(include_input))
 
 
-KERNEL_WRAPPERS = sa.KERNEL_WRAPPERS + (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv)
+# every kernel wrapper of the port: the attention kernels and GroupNorm's
+KERNEL_WRAPPERS = sa.KERNEL_WRAPPERS + (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv,
+                                       primitives.group_norm)
 
 
 def reset_launch_counts() -> None:
@@ -454,6 +457,6 @@ def add_launch_counts(counts: Dict[str, int]) -> None:
     serving engine's worker processes, ``inference/workers.py``) to the
     wrappers' counts, so that they count every launch of a call."""
     by_name = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
-    with sa._count_lock:
+    with _build.count_lock:
         for name, n in counts.items():
             by_name[name].launches += n

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from instantrestore_tpu_torch import device_constant
+from instantrestore_tpu_torch.ops import _build
 
 
 def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -74,34 +75,110 @@ def conv2d(
     return y.permute(0, 2, 3, 1)
 
 
+def conv2d_bias_apart(p: dict, x: torch.Tensor, *, stride: int = 1, padding: int = 1,
+                      lora_scaling: float = 1.0) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``conv2d`` with its bias left for the consumer to add: (the conv
+    without it, (bias in x's dtype,)), for ``group_norm``'s ``in_bias``. A
+    conv whose bias cannot wait returns (``conv2d``, ()): an int8 conv adds it
+    in its epilogue, a LoRA conv before its delta."""
+    if "bias" not in p or "weight_int8" in p or "lora_A" in p:
+        return conv2d(p, x, stride=stride, padding=padding, lora_scaling=lora_scaling), ()
+    y = conv2d({"weight": p["weight"]}, x, stride=stride, padding=padding)
+    return y, (p["bias"].to(x.dtype),)
+
+
 # ---------------------------------------------------------------------------
 # normalisation (fp32 statistics)
 # ---------------------------------------------------------------------------
 
+GN_MAX_SLOTS = 4096  # blocks a card holds at once, at most (csrc/group_norm.cu's grid)
+_GN_ACTS = {None: 0, "silu": 1}
 
-def group_norm(p: dict, x: torch.Tensor, *, num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over NHWC input with fp32 statistics.
+
+def group_norm(p: dict, x: torch.Tensor, *, num_groups: int = 32, eps: float = 1e-5,
+               in_bias: Tuple[torch.Tensor, ...] = (), act: Optional[str] = None) -> torch.Tensor:
+    """GroupNorm over NHWC input with fp32 statistics, of ``x`` plus the
+    per-channel terms ``in_bias`` (at most two, each [C] or [B, C]),
+    followed by SiLU where ``act="silu"``.
+
+    A CUDA bf16 input that wants no gradient takes the kernel
+    ``csrc/group_norm.cu`` (two launches, counted once on
+    ``group_norm.launches``): contiguous NHWC with C a multiple of 8 and of
+    ``num_groups``, else it raises. So does every such call, serving or not:
+    an evaluation under ``torch.no_grad``, and the frozen parts of a training
+    step whose inputs and weights want no gradient. A CPU tensor, an fp32 one
+    or one that wants a gradient takes ``group_norm_plain``.
+    """
+    if act not in _GN_ACTS:
+        raise ValueError(f"group_norm: act is None or 'silu', got {act!r}")
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, p["weight"], p["bias"], *in_bias))
+    if x.device.type == "cpu" or x.dtype == torch.float32 or wants_grad:
+        return group_norm_plain(p, x, num_groups=num_groups, eps=eps, in_bias=in_bias, act=act)
+    return _group_norm_kernel(p, x, num_groups, eps, in_bias, act)
+
+
+group_norm.launches = 0
+
+
+def _group_norm_kernel(p, x, num_groups: int, eps: float, terms, act) -> torch.Tensor:
+    b, c = x.shape[0], x.shape[-1]
+    w, beta = p["weight"], p["bias"]
+    if (c % 8 or c % num_groups or c > 4096 or num_groups > 256 or len(terms) > 2
+            or w.shape != (c,) or any(t.shape not in ((c,), (b, c)) for t in terms)):
+        raise ValueError(f"group_norm: the kernel takes C a multiple of 8 and of the groups, "
+                         f"C <= 4096, at most 256 groups, weights [C] and at most two bias "
+                         f"terms [C] or [B, C]; got x {tuple(x.shape)}, {num_groups} groups, "
+                         f"terms {[tuple(t.shape) for t in terms]}")
+    _build.check_cuda("group_norm", (x, torch.bfloat16))
+    if any(t.device != x.device for t in (w, beta, *terms)):
+        raise ValueError(f"group_norm: weights or bias terms off {x.device}")
+    if not w.dtype == beta.dtype == torch.bfloat16:
+        w, beta = w.float(), beta.float()
+    w, beta = w.contiguous(), beta.contiguous()
+    terms = [t.to(torch.bfloat16).contiguous() for t in terms]
+    term_args = []
+    for t in terms + [None] * (2 - len(terms)):  # (pointer, row stride) of each
+        term_args += [None, 0] if t is None else [t.data_ptr(), 0 if t.ndim == 1 else c]
+    out = torch.empty_like(x)
+    max_blocks = max(1, GN_MAX_SLOTS // b)
+    ws = torch.empty(2 * b * max_blocks * num_groups, dtype=torch.float32, device=x.device)
+    _build.launch(group_norm, "group_norm", x, x.data_ptr(), w.data_ptr(), beta.data_ptr(),
+            int(w.dtype == torch.float32), *term_args, out.data_ptr(), ws.data_ptr(), b,
+            math.prod(x.shape[1:-1]), c, num_groups, max_blocks, _GN_ACTS[act], float(eps))
+    return out
+
+
+def group_norm_plain(p: dict, x: torch.Tensor, *, num_groups: int = 32, eps: float = 1e-5,
+                     in_bias: Tuple[torch.Tensor, ...] = (),
+                     act: Optional[str] = None) -> torch.Tensor:
+    """``group_norm`` in plain PyTorch: each term of ``in_bias`` added to x in
+    x's dtype, in order, then the norm, then ``F.silu`` where asked.
 
     fp32 inputs use the exact two-pass formula. Reduced-precision inputs take
     the JAX package's memory-light form: fp32 mean and mean-square reduced
     straight from the NHWC activation (no fp32 copy, no NCHW relayout), then
     one ``x * a + b`` pass with per-(batch, channel) coefficients in x's dtype.
     """
+    b, c = x.shape[0], x.shape[-1]
+    for t in in_bias:
+        x = x + t.to(x.dtype).view((t.shape[0] if t.ndim == 2 else 1,) + (1,) * (x.ndim - 2)
+                                   + (c,))
     if x.dtype == torch.float32:
         y = F.group_norm(x.permute(0, 3, 1, 2), num_groups, p["weight"].float(),
-                         p["bias"].float(), eps)
-        return y.permute(0, 2, 3, 1)
-    b, c = x.shape[0], x.shape[-1]
-    cg = c // num_groups
-    xg = x.reshape(b, -1, num_groups, cg)
-    n = xg.shape[1] * cg
-    mean = xg.mean(dim=(1, 3), dtype=torch.float32)  # [B, G]
-    m2 = torch.linalg.vector_norm(xg, dim=(1, 3), dtype=torch.float32).square() / n
-    inv = torch.rsqrt((m2 - mean * mean).clamp_min(0.0) + eps)
-    a = inv.repeat_interleave(cg, dim=1) * p["weight"].float()  # [B, C]
-    shift = p["bias"].float() - mean.repeat_interleave(cg, dim=1) * a
-    shape = (b,) + (1,) * (x.ndim - 2) + (c,)
-    return torch.addcmul(shift.to(x.dtype).view(shape), x, a.to(x.dtype).view(shape))
+                         p["bias"].float(), eps).permute(0, 2, 3, 1)
+    else:
+        cg = c // num_groups
+        xg = x.reshape(b, -1, num_groups, cg)
+        n = xg.shape[1] * cg
+        mean = xg.mean(dim=(1, 3), dtype=torch.float32)  # [B, G]
+        m2 = torch.linalg.vector_norm(xg, dim=(1, 3), dtype=torch.float32).square() / n
+        inv = torch.rsqrt((m2 - mean * mean).clamp_min(0.0) + eps)
+        a = inv.repeat_interleave(cg, dim=1) * p["weight"].float()  # [B, C]
+        shift = p["bias"].float() - mean.repeat_interleave(cg, dim=1) * a
+        shape = (b,) + (1,) * (x.ndim - 2) + (c,)
+        y = torch.addcmul(shift.to(x.dtype).view(shape), x, a.to(x.dtype).view(shape))
+    return F.silu(y) if act == "silu" else y
 
 
 def layer_norm(p: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:

@@ -37,8 +37,8 @@ always runs a bound kernel, as in the JAX package.
 
 A wrapper given CUDA tensors launches its kernel (bf16 only) on their card or
 raises; given CPU tensors it runs the plain version. Every launch goes
-through ``_launch``, which makes the tensors' card the current one for the
-C launcher. ``<wrapper>.launches`` counts kernel launches and nothing else.
+through ``_build.launch``, which makes the tensors' card the current one for
+the C launcher. ``<wrapper>.launches`` counts kernel launches and nothing else.
 
 Numerics (shared with the JAX package): logits in log2 units, q pre-scaled
 by ``scale * log2 e`` in the input dtype, fp32 scores and accumulator, P @ V
@@ -73,7 +73,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import threading
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -88,44 +87,6 @@ SHARED_ONLINE_BLOCK_K = 128  # key chunk of the online kernels on csrc/attn_wgmm
 D512_BLOCK_K = 32  # key chunk of the flash kernels at d=512 (csrc/attn_wgmma_d512.cuh)
 # plain versions materialise fp32 score blocks of at most this many elements
 _PLAIN_BLOCK_ELEMS = 1 << 28
-
-
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-_count_lock = threading.Lock()
-
-
-def _launch(wrapper, source: str, q: torch.Tensor, *args) -> None:
-    """Call ``irt_<source>_bf16`` of ``csrc/<source>.cu`` with ``args`` and
-    the current stream of q's device, with q's device the calling thread's
-    current one: the C launcher's ``cudaFuncSetAttribute``, tensor-map
-    encode and launch all act on the current device, so a tensor on
-    ``cuda:1`` from a thread at device 0 would otherwise launch on the wrong
-    card. Raises on a CUDA error; counts the launch on ``wrapper``."""
-    entry = getattr(_build.load(source), f"irt_{source}_bf16")
-    with torch.cuda.device(q.device):
-        rc = entry(*args, _stream_ptr(q))
-    if rc != 0:
-        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
-    with _count_lock:  # callers may launch from several threads
-        wrapper.launches += 1
-
-
-def _check_cuda(name: str, *typed) -> None:
-    """Each (tensor, dtype) pair: on the first tensor's device, contiguous,
-    16-byte aligned and of that dtype."""
-    dev = typed[0][0].device
-    for t, dtype in typed:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor data is not 16-byte aligned")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
 
 
 def _q_scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -275,7 +236,7 @@ def _check_flash(name: str, q, k, v, fits) -> None:
     b, h, sq, d = q.shape
     skv = k.shape[2]
     bf = torch.bfloat16
-    _check_cuda(name, (q, bf), (k, bf), (v, bf))
+    _build.check_cuda(name, (q, bf), (k, bf), (v, bf))
     if k.shape != (b, h, skv, d) or v.shape != k.shape or not fits(sq, skv, d):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
 
@@ -301,7 +262,7 @@ def flash_attention(q, k, v, *, scale: float, algo: Optional[str] = None) -> tor
     block_k = flash_bound_chunk(sq, skv, d)
     kmax = _key_norm_max_one_pass(k, 2).contiguous()
     out = torch.empty_like(q)
-    _launch(flash_attention, "flash_bound", q,
+    _build.launch(flash_attention, "flash_bound", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(), out.data_ptr(),
             b, h, sq, skv, d, block_k, ctypes.c_float(scale * LOG2E))
     return out
@@ -368,7 +329,7 @@ def flash_online(q, k, v, *, scale: float) -> torch.Tensor:
     b, h, sq, d = q.shape
     skv = k.shape[2]
     out = torch.empty_like(q)
-    _launch(flash_online, "flash_online", q,
+    _build.launch(flash_online, "flash_online", q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, sq, skv, d, flash_online_chunk(skv, d), ctypes.c_float(scale * LOG2E))
     return out
@@ -496,7 +457,7 @@ def shared_identity(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
     i_rows, n, _, s, _ = rk.shape
     ids32 = ids.to(device=q.device, dtype=torch.int32).contiguous()
     bf, f32 = torch.bfloat16, torch.float32
-    _check_cuda("shared_identity", (q, bf), (rk, bf), (rv, bf), (aff, f32), (kmax, f32),
+    _build.check_cuda("shared_identity", (q, bf), (rk, bf), (rv, bf), (aff, f32), (kmax, f32),
                 (ids32, torch.int32))
     if (d != 64 or rk.shape != (i_rows, n, h, s, d) or rv.shape != rk.shape
             or aff.shape != (b, h, n, 2, d) or kmax.shape != (i_rows, h)
@@ -505,7 +466,7 @@ def shared_identity(q, rk, rv, aff, kmax, ids, *, scale: float) -> torch.Tensor:
             f"shared_identity: unsupported shapes q {tuple(q.shape)} "
             f"cache {tuple(rk.shape)} ids {tuple(ids32.shape)}")
     out = torch.empty_like(q)
-    _launch(shared_identity, "shared_identity", q,
+    _build.launch(shared_identity, "shared_identity", q,
             q.data_ptr(), rk.data_ptr(), rv.data_ptr(), kmax.data_ptr(), aff.data_ptr(),
             ids32.data_ptr(), out.data_ptr(),
             b, h, sq, s, n, i_rows, d, ctypes.c_float(scale * LOG2E))
@@ -576,7 +537,7 @@ def shared_flash_bound(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: flo
     if ids is not None:
         ids32 = ids.to(device=q.device, dtype=torch.int32).contiguous()
         typed.append((ids32, torch.int32))
-    _check_cuda("shared_flash_bound", *typed)
+    _build.check_cuda("shared_flash_bound", *typed)
     if (d != 64 or rk.shape != (rows, n, h, s, d) or rv.shape != rk.shape
             or aff.shape != (b, h, n, 2, d) or kmax.shape != (b, h) or min(sq, s) <= 0
             or (ids32 is None and rows != b) or (ids32 is not None and ids32.shape != (b,))
@@ -585,7 +546,7 @@ def shared_flash_bound(q, k_in, v_in, rk, rv, aff, kmax, ids=None, *, scale: flo
             f"shared_flash_bound: unsupported shapes q {tuple(q.shape)} refs {tuple(rk.shape)}"
             f" input {tuple(k_in.shape) if include_input else None}")
     out = torch.empty_like(q)
-    _launch(shared_flash_bound, "shared_flash_bound", q,
+    _build.launch(shared_flash_bound, "shared_flash_bound", q,
             q.data_ptr(), k_in.data_ptr() if include_input else None,
             v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
             kmax.data_ptr(), aff.data_ptr(), None if ids32 is None else ids32.data_ptr(),
@@ -671,7 +632,7 @@ def _launch_shared_online(wrapper, source: str, q, k_in, v_in, rk, rv, aff, *, s
     typed = [(q, bf), (rk, bf), (rv, bf), (aff, f32)]
     if include_input:
         typed += [(k_in, bf), (v_in, bf)]
-    _check_cuda(source, *typed)
+    _build.check_cuda(source, *typed)
     if (d != 64 or rk.shape != (b, n, h, s, d) or rv.shape != rk.shape
             or aff.shape != (b, h, n, 2, d)
             or (include_input and (k_in.shape != (b, h, s, d) or v_in.shape != k_in.shape))):
@@ -680,7 +641,7 @@ def _launch_shared_online(wrapper, source: str, q, k_in, v_in, rk, rv, aff, *, s
             f" input {tuple(k_in.shape) if include_input else None}")
     shared_online_tile(sq, s, h, pair=heads_per_block == 2)  # raises on a refused shape
     out = torch.empty_like(q)
-    _launch(wrapper, source, q,
+    _build.launch(wrapper, source, q,
             q.data_ptr(), k_in.data_ptr() if include_input else None,
             v_in.data_ptr() if include_input else None, rk.data_ptr(), rv.data_ptr(),
             aff.data_ptr(), out.data_ptr(), b, h, sq, s, n, int(include_input), d,

@@ -114,7 +114,7 @@ def test_flash_attention_refuses_before_launch(monkeypatch, sq, skv, d):
     kernel alike (at both widths they run on the same tiles: Sq = 96 at d =
     512 no longer fits flash_online either); one that fits, every Sq and Skv
     at d = 64 among them, reaches the load (the fixture's refusal)."""
-    monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tsa._build, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
 
     def meta(n, width=d):

@@ -114,7 +114,7 @@ def test_backward_refuses_before_launch(monkeypatch, name, sq, skv, d):
     ValueError before the kernel is loaded; one that fits (at d = 64 any Sq
     and Skv, their lse2 and delta padded to the tile's 64 rows) reaches the
     load (the fixture's refusal)."""
-    monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tsa._build, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     wrapper = getattr(tfv, name)
 

@@ -162,7 +162,7 @@ def test_flash_fwd_lse_refuses_a_chunk_the_kernel_does_not_take(monkeypatch, skv
     take raises ValueError before the kernel is loaded; a chunk it takes
     reaches the load (the fixture's refusal). 128 keys over 192 is such a
     chunk at d = 64: 128, then 64 in a masked tile."""
-    monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tsa._build, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
 
     def meta(n):
@@ -229,7 +229,7 @@ def test_d512_wrappers_refuse_what_the_tile_does_not_take(monkeypatch, wrapper, 
     of 64 or Skv not a multiple of 32 raises ValueError before the kernel is
     loaded; a shape the tile takes (Sq != Skv) reaches the load (the
     fixture's refusal)."""
-    monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tsa._build, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
 
     def meta(n):

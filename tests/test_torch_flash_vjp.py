@@ -44,10 +44,15 @@ def no_kernel_build(monkeypatch):
 
 
 def test_nine_kernel_wrappers():
+    """The nine attention kernels' wrappers, then GroupNorm's
+    (``ops/primitives.py``), each beside its plain version."""
+    from instantrestore_tpu_torch.ops import primitives as tprim
+
     names = [fn.__name__ for fn in tfv.KERNEL_WRAPPERS]
-    assert len(names) == len(set(names)) == 9
-    assert names[-3:] == ["flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"]
-    assert all(hasattr(tfv, n + "_plain") for n in names[-3:])
+    assert len(names) == len(set(names)) == 10
+    assert names[-4:] == ["flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "group_norm"]
+    assert all(hasattr(tfv, n + "_plain") for n in names[-4:-1])
+    assert tfv.KERNEL_WRAPPERS[-1] is tprim.group_norm and hasattr(tprim, "group_norm_plain")
 
 
 def _qkv(rng, b, h, sq, skv, d):

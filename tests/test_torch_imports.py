@@ -59,16 +59,16 @@ def test_parity_cli_and_console_scripts_are_covered():
 
 def test_every_kernel_source_is_in_the_checkout():
     """The list of ops/_build.py, its ctypes signatures and csrc/*.cu name the same
-    nine kernels, the online-max family and the three flash-VJP kernels among
-    them, and each source includes nothing but the shared tiles and the CUDA
-    toolkit's headers."""
+    ten kernels, the online-max family, the three flash-VJP kernels and
+    GroupNorm among them, and each source includes nothing but the shared
+    tiles and the CUDA toolkit's headers."""
     from instantrestore_tpu_torch.ops import _build
 
     on_disk = {p.stem for p in _build.CSRC.glob("*.cu")}
     assert set(_build.SOURCES) == set(_build.SIGNATURES) == on_disk
     assert {"flash_online", "shared_online", "shared_online_pair"} <= on_disk
-    assert {"flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"} <= on_disk
-    assert len(_build.SOURCES) == 9
+    assert {"flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "group_norm"} <= on_disk
+    assert len(_build.SOURCES) == 10
     for path in sorted(_build.CSRC.glob("*.cu*")):
         includes = [ln.split()[1] for ln in path.read_text().splitlines()
                     if ln.startswith("#include")]

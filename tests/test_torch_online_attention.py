@@ -305,7 +305,7 @@ def test_shared_online_wrapper_refuses_what_the_kernel_refuses(monkeypatch):
     reach the load (the fixture fails a load)."""
     def meta(*shape, dtype=torch.bfloat16):
         return torch.empty(shape, dtype=dtype, device="meta")
-    monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tsa._build, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     for wrapper, source, hpb, (h, sq, s) in [
             (tsa.shared_online, "shared_online", 1, (2, 96, 64)),

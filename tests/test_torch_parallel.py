@@ -53,6 +53,7 @@ from instantrestore_tpu_torch.models import unet as tunet
 from instantrestore_tpu_torch.models import vae as tvae
 from instantrestore_tpu_torch.ops import _build
 from instantrestore_tpu_torch.ops import flash_vjp as tfv
+from instantrestore_tpu_torch.ops import primitives as tprim
 from instantrestore_tpu_torch.ops import shared_attention as tsa
 from instantrestore_tpu_torch.parallel import distributed as pdist
 from instantrestore_tpu_torch.training import coach as tcoach_mod
@@ -787,8 +788,9 @@ def test_launch_counts_lose_no_update_across_threads(monkeypatch):
     before = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [tsa._launch(tsa.flash_online, "flash_online",
-                                                                q) for _ in range(per)])
+        threads = [threading.Thread(target=lambda: [_build.launch(tsa.flash_online,
+                                                                  "flash_online", q)
+                                                    for _ in range(per)])
                    for _ in range(n_threads)]
         for t in threads:
             t.start()
@@ -802,18 +804,19 @@ def test_launch_counts_lose_no_update_across_threads(monkeypatch):
 
 
 def test_every_kernel_launch_runs_under_its_tensors_device(monkeypatch):
-    """All eight ctypes launch sites of the nine kernels, given tensors on
+    """All nine ctypes launch sites of the ten kernels, given tensors on
     cuda:1 (fake tensors: no card here) from a thread whose current device is
     0, call their C entry point with cuda:1 current, through the one helper
-    beside ``_stream_ptr``; no other code calls an entry point."""
+    ``_build.launch``; no kernel wrapper loads a library or calls an entry
+    point itself."""
     import inspect
     import warnings
 
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    assert inspect.getsource(tsa).count("_build.load(") == 1
-    assert "_build.load(" in inspect.getsource(tsa._launch)
-    assert "_build" not in inspect.getsource(tfv)
+    assert "load(" in inspect.getsource(_build.launch)
+    for wrappers in (tsa, tfv, tprim):
+        assert "load(" not in inspect.getsource(wrappers)
     seen = _fake_cuda_launches(monkeypatch)
     tfv.reset_launch_counts()
     bf, f32 = torch.bfloat16, torch.float32
@@ -839,10 +842,13 @@ def test_every_kernel_launch_runs_under_its_tensors_device(monkeypatch):
         delta = t(b, h, sq, dtype=f32)
         tfv.flash_bwd_dq(q, k, v, q, lse, delta, scale=0.125)
         tfv.flash_bwd_dkv(q, k, v, q, lse, delta, scale=0.125)
+        c = 64
+        tprim.group_norm({"weight": t(c, dtype=f32), "bias": t(c, dtype=f32)}, t(b, 8, 8, c),
+                         num_groups=32, in_bias=(t(c), t(b, c)), act="silu")
     names = [fn for fn, _ in seen]
     assert names == [f"irt_{s}_bf16" for s in (
         "flash_bound", "flash_online", "shared_identity", "shared_flash_bound", "shared_online",
-        "shared_online_pair", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")]
+        "shared_online_pair", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "group_norm")]
     assert all(d == torch.device("cuda", 1) for _, d in seen), seen
     assert all(fn.launches == 1 for fn in tfv.KERNEL_WRAPPERS)
     tfv.reset_launch_counts()

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from instantrestore_tpu.models import freeu as jfreeu
 from instantrestore_tpu.models import lora as jlora
@@ -158,16 +159,215 @@ def test_freeu_single_pixel_follows_diffusers():
     torch.testing.assert_close(out, 0.9 * skip)
 
 
-def test_group_norm_bf16_matches_jax_memory_light_path(rng):
+@pytest.mark.parametrize("fold", [False, True], ids=["norm", "conv_bias_norm_silu"])
+def test_group_norm_bf16_matches_jax_memory_light_path(rng, fold):
     """bf16 takes the JAX package's memory-light branch (fp32 mean and
     mean-square, one x * a + b pass in bf16): same up to bf16 rounding. JAX
     rounds x * a and + b separately, the port once, so allow two bf16 ulps:
-    1e-2 relative plus 1e-2 absolute."""
+    1e-2 relative plus 1e-2 absolute. ``conv_bias_norm_silu``: the port's
+    conv without its bias, the bias handed to the norm as ``in_bias`` and
+    SiLU as ``act``, against JAX's conv (bias added after it in bf16), norm
+    and SiLU."""
     x = (rng.normal(size=(2, 6, 5, 16)) * 3 + 1).astype(np.float32)
     p = {"scale": jnp.asarray(rng.normal(size=16), jnp.float32),
          "bias": jnp.asarray(rng.normal(size=16), jnp.float32)}
-    ref = jprim.group_norm(p, jnp.asarray(x, jnp.bfloat16), num_groups=4, eps=1e-6)
-    out = tprim.group_norm(from_jax_tree(p), _t(x).bfloat16(), num_groups=4, eps=1e-6)
+    if not fold:
+        ref = jprim.group_norm(p, jnp.asarray(x, jnp.bfloat16), num_groups=4, eps=1e-6)
+        out = tprim.group_norm(from_jax_tree(p), _t(x).bfloat16(), num_groups=4, eps=1e-6)
+    else:
+        pc = jprim.init_conv2d(jax.random.PRNGKey(5), 16, 16, 3)
+        pc["bias"] = jnp.asarray(rng.normal(size=16) * 2, jnp.float32)
+        pc_bf = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), pc)
+        ref = jax.nn.silu(jprim.group_norm(
+            p, jprim.conv2d(pc_bf, jnp.asarray(x, jnp.bfloat16)), num_groups=4, eps=1e-6))
+        tpc = {k: v.bfloat16() for k, v in from_jax_tree(pc).items()}
+        h, bias = tprim.conv2d_bias_apart(tpc, _t(x).bfloat16())
+        assert len(bias) == 1
+        out = tprim.group_norm(from_jax_tree(p), h, num_groups=4, eps=1e-6, in_bias=bias,
+                               act="silu")
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
                                rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [False, True], ids=["bias_C", "bias_BC"])
+def test_group_norm_plain_takes_bias_terms_and_silu(dtype, rows):
+    """The plain path of ``group_norm(..., in_bias=b, act="silu")`` is
+    ``silu(group_norm(x + b))`` in x's dtype, for a [C] and a [B, C] term,
+    and a tuple of terms is added in order."""
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(2, 5, 3, 16, generator=gen) * 3 + 1).to(dtype)
+    p = {"weight": torch.randn(16, generator=gen), "bias": torch.randn(16, generator=gen)}
+    b = torch.randn((2, 16) if rows else (16,), generator=gen).to(dtype)
+    c = torch.randn(16, generator=gen).to(dtype)
+    bb = b[:, None, None, :] if rows else b
+    ref = F.silu(tprim.group_norm(p, x + bb, num_groups=4))
+    out = tprim.group_norm(p, x, num_groups=4, in_bias=(b,), act="silu")
+    assert out.dtype == dtype and torch.equal(out, ref)
+    two = tprim.group_norm(p, x, num_groups=4, in_bias=(c, b))
+    assert torch.equal(two, tprim.group_norm(p, x + c + bb, num_groups=4))
+
+
+def _vae_resnet_old(p, x, cfg, lora_scaling):
+    """The VAE resnet as it was called before conv1's bias moved into norm2."""
+    h = tprim.silu(tprim.group_norm(p["norm1"], x, num_groups=cfg.norm_num_groups,
+                                    eps=cfg.norm_eps))
+    h = tprim.conv2d(p["conv1"], h, lora_scaling=lora_scaling)
+    h = tprim.silu(tprim.group_norm(p["norm2"], h, num_groups=cfg.norm_num_groups,
+                                    eps=cfg.norm_eps))
+    h = tprim.conv2d(p["conv2"], h, lora_scaling=lora_scaling)
+    if "conv_shortcut" in p:
+        x = tprim.conv2d(p["conv_shortcut"], x, padding=0, lora_scaling=lora_scaling)
+    return x + h
+
+
+def _unet_resnet_old(p, x, temb, cfg, lora_scaling):
+    """The UNet resnet as it was called before conv1's bias and the
+    time-embedding projection moved into norm2."""
+    h = tprim.silu(tprim.group_norm(p["norm1"], x, num_groups=cfg.norm_num_groups,
+                                    eps=cfg.norm_eps))
+    h = tprim.conv2d(p["conv1"], h, lora_scaling=lora_scaling)
+    h = h + tprim.dense(p["time_emb_proj"], tprim.silu(temb),
+                        lora_scaling=lora_scaling)[:, None, None, :]
+    h = tprim.silu(tprim.group_norm(p["norm2"], h, num_groups=cfg.norm_num_groups,
+                                    eps=cfg.norm_eps))
+    h = tprim.conv2d(p["conv2"], h, lora_scaling=lora_scaling)
+    if "conv_shortcut" in p:
+        x = tprim.conv2d(p["conv_shortcut"], x, padding=0, lora_scaling=lora_scaling)
+    return x + h
+
+
+def _conv_bias_after(fn, *modules):
+    """``fn`` with every plain conv's bias, through ``conv2d`` of the
+    primitives and of ``modules``, added after the conv in the compute dtype,
+    as the JAX package and cuDNN's path do (oneDNN, the CPU's conv, adds it
+    inside the conv before rounding)."""
+    orig = tprim.conv2d
+    modules = (tprim,) + modules
+
+    def conv_then_bias(p, x, **kw):
+        if "bias" not in p or "weight_int8" in p:
+            return orig(p, x, **kw)
+        y = orig({k: v for k, v in p.items() if k != "bias"}, x, **kw)
+        return y + p["bias"].to(y.dtype)
+
+    def wrapped():
+        for m in modules:
+            m.conv2d = conv_then_bias
+        try:
+            return fn()
+        finally:
+            for m in modules:
+                m.conv2d = orig
+    return wrapped
+
+
+@pytest.mark.parametrize("conv1", ["plain", "lora", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("model", ["vae", "unet"])
+def test_resnet_with_the_fold_equals_the_old_call_order(model, dtype, conv1):
+    """A VAE and a UNet resnet whose conv1 bias (and time-embedding term) is
+    added inside norm2 equal, bit for bit on the CPU, the same resnet called
+    as before: in fp32 against it as it is; in bf16 against it with the conv
+    bias added after the conv in bf16 (the JAX package's and cuDNN's order;
+    the CPU's fused bias differs by bf16 rounding, within 2e-2). A LoRA conv1
+    keeps its bias (added before its delta), an int8 one in its epilogue."""
+    from instantrestore_tpu_torch.models import unet as tunet
+    from instantrestore_tpu_torch.models import vae as tvae
+
+    gen = torch.Generator().manual_seed(1)
+    cin, cout, groups = 16, 24, 4
+    if model == "vae":
+        cfg = tvae.VAEConfig(norm_num_groups=groups)
+        p = tvae._init_resnet(gen, cin, cout, None)
+    else:
+        cfg = tunet.UNetConfig(norm_num_groups=groups)
+        p = tunet._init_resnet(gen, cin, cout, 32, None)
+    for name in ("conv1", "conv2", "conv_shortcut"):
+        p[name]["bias"] = torch.randn(cout, generator=gen)
+    for name in ("norm1", "norm2"):
+        p[name] = {k: torch.randn(v.shape, generator=gen) for k, v in p[name].items()}
+    if conv1 == "lora":
+        p["conv1"] = tprim.add_lora(p["conv1"], gen, 4, b_std=0.1)
+    elif conv1 == "int8":
+        p["conv1"] = tprim.quantize_conv_int8(p["conv1"])
+    p = {k: {kk: (vv.to(dtype) if vv.is_floating_point() else vv) for kk, vv in v.items()}
+         for k, v in p.items()}
+    x = torch.randn(2, 6, 5, cin, generator=gen).to(dtype)
+    temb = torch.randn(2, 32, generator=gen).to(dtype)
+    if model == "vae":
+        new = lambda: tvae._resnet(p, x, cfg=cfg, lora_scaling=0.5)
+        old = lambda: _vae_resnet_old(p, x, cfg, 0.5)
+    else:
+        new = lambda: tunet._resnet(p, x, temb, cfg=cfg, lora_scaling=0.5)
+        old = lambda: _unet_resnet_old(p, x, temb, cfg, 0.5)
+    out = new()
+    if dtype == torch.float32:
+        assert torch.equal(out, old())
+    else:
+        mod = tvae if model == "vae" else tunet
+        assert torch.equal(_conv_bias_after(new, mod)(), _conv_bias_after(old)())
+        ref = old().float()
+        assert float((out.float() - ref).norm() / ref.norm()) < 2e-2
+
+
+def test_group_norm_routes_by_device_dtype_and_grad(monkeypatch):
+    """CPU tensors take the plain path (the kernel loader fails if reached);
+    fp32 CUDA tensors and CUDA inputs that want a gradient take it too, and a
+    CUDA bf16 NHWC-contiguous input launches the kernel once with its shape
+    (fake CUDA tensors, no card here: the plain path and the launcher are
+    stubbed and record which ran); other CUDA inputs raise before any
+    launch."""
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from instantrestore_tpu_torch.ops import _build
+
+    def no_kernel(name):
+        raise AssertionError(f"the plain path reached the kernel loader for {name}")
+
+    monkeypatch.setattr(_build, "load", no_kernel)
+    p_cpu = {"weight": torch.ones(64), "bias": torch.zeros(64)}
+    x_cpu = torch.randn(2, 4, 4, 64).bfloat16().requires_grad_()
+    for x in (x_cpu, x_cpu.detach()):
+        assert torch.equal(tprim.group_norm(p_cpu, x, act="silu"),
+                           tprim.group_norm_plain(p_cpu, x, act="silu"))
+
+    ran = []
+    monkeypatch.setattr(tprim, "group_norm_plain", lambda p, x, **kw: ran.append("plain") or x)
+    # the launcher's arguments after (fn, source, x): pointers of x, weight
+    # and bias, affine fp32, b1, its stride, b2, its stride, out, workspace,
+    # B, HW, C, G, blocks, act, eps
+    monkeypatch.setattr(_build, "launch", lambda fn, src, x, *a: ran.append(
+        (src, a[3], a[5], a[6] is None, a[7]) + a[10:14] + (a[15],)))
+    with FakeTensorMode(allow_non_fake_inputs=True), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # data_ptr() of a fake tensor
+        dev = torch.device("cuda", 0)
+
+        def t(*shape, dtype=torch.bfloat16):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        p = {"weight": t(64, dtype=torch.float32), "bias": t(64, dtype=torch.float32)}
+        xg = t(2, 4, 4, 64).requires_grad_()
+        tprim.group_norm(p, t(2, 4, 4, 64, dtype=torch.float32))
+        tprim.group_norm(p, xg, in_bias=(t(64),), act="silu")
+        tprim.group_norm(p, t(2, 4, 4, 64), in_bias=(t(2, 64).requires_grad_(),))
+        with torch.no_grad():
+            tprim.group_norm(p, xg, act="silu")
+        out = tprim.group_norm(p, t(2, 4, 4, 64), num_groups=32, in_bias=(t(64), t(2, 64)),
+                               act="silu")
+        assert out.shape == (2, 4, 4, 64) and out.dtype == torch.bfloat16
+        n_ran = len(ran)
+        for bad, err in ((t(2, 64, 4, 4).permute(0, 2, 3, 1), ValueError),  # NCHW in memory
+                         (t(2, 4, 4, 64, dtype=torch.float16), TypeError),
+                         (t(2, 4, 4, 36), ValueError)):  # C not a multiple of 8
+            pb = {k: t(bad.shape[-1], dtype=torch.float32) for k in ("weight", "bias")}
+            with pytest.raises(err):
+                tprim.group_norm(pb, bad, num_groups=4)
+        with pytest.raises(ValueError):
+            tprim.group_norm(p, t(2, 4, 4, 64), in_bias=(t(3, 64),))  # a term of no row count
+        assert len(ran) == n_ran
+    assert ran == ["plain"] * 3 + [("group_norm", 1, 0, True, 0, 2, 16, 64, 32, 1),
+                                   ("group_norm", 1, 0, False, 64, 2, 16, 64, 32, 1)]

@@ -87,7 +87,7 @@ def jax_takes(sq: int, skv: int, d: int) -> bool:
 
 
 def _cuda_like(monkeypatch):
-    monkeypatch.setattr(tsa, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tsa._build, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
 
 

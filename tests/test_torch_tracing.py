@@ -130,6 +130,42 @@ def test_records_hold_the_faces_and_each_stages_ms(engine, path, names):
     assert sum(rec["stages"].values()) <= rec["device_ms"]
 
 
+# (GroupNorms, resnets, attention norms) of the VAE encoder, the UNet and the
+# VAE decoder, at SD-Turbo's block layout (the tiny models' too)
+_ENC, _UNET, _DEC = (22, 10, 1), (61, 22, 16), (30, 14, 1)
+
+
+@pytest.mark.parametrize("path, nets", [(_warm, (_ENC, _UNET, _DEC)),
+                                        (_cold, (_ENC, _UNET, _ENC, _UNET, _DEC))],
+                         ids=["warm", "cold"])
+def test_every_group_norm_of_a_restore_fits_the_kernel(engine, path, nets, monkeypatch):
+    """Every GroupNorm of a restore (a cold call's capture runs the encoder
+    and the UNet once more) gets a contiguous NHWC input whose channels
+    divide by 8 and by the groups, so that on the card each takes the kernel
+    and none raises. Each resnet's norm2 takes conv1's bias (the VAE's) or
+    it and the time-embedding projection (the UNet's); all but the
+    attention norms take SiLU."""
+    from instantrestore_tpu_torch.ops import primitives
+
+    seen = []
+
+    def recording(p, x, *, num_groups=32, eps=1e-5, in_bias=(), act=None):
+        seen.append((x.is_contiguous() and x.shape[-1] % 8 == 0 and x.shape[-1] % num_groups == 0,
+                     len(in_bias), act))
+        return primitives.group_norm(p, x, num_groups=num_groups, eps=eps, in_bias=in_bias,
+                                     act=act)
+
+    monkeypatch.setattr(tunet, "group_norm", recording)
+    monkeypatch.setattr(tvae, "group_norm", recording)
+    path(engine)
+    assert len(seen) == sum(n for n, _, _ in nets) and all(ok for ok, _, _ in seen)
+    vae_resnets = sum(r for n, r, _ in nets if n != _UNET[0])
+    unet_resnets = sum(r for n, r, _ in nets if n == _UNET[0])
+    terms = [t for _, t, _ in seen]
+    assert (terms.count(1), terms.count(2)) == (vae_resnets, unet_resnets)
+    assert [a for _, _, a in seen].count(None) == sum(a for _, _, a in nets)
+
+
 def test_tracing_records_without_a_profiler_and_not_after(engine):
     assert not torch.autograd._profiler_enabled()
     with profiling.tracing():
@@ -245,3 +281,28 @@ def test_stage_readers_average_the_profiled_calls(monkeypatch):
     assert _reader("encode_ms_per_face.serve")(run) == pytest.approx(40.0 / 6)
     assert _reader("unet_ms_per_face.serve")(run) == pytest.approx(3.0 / 6)
     assert _reader("capture_ms_per_face.serve")(run) is None  # a warm call has no capture
+
+
+def test_norm_reader_sums_the_norm_family_per_face():
+    """``norm_ms_per_face.serve``: device ms of the kernels the ``norm``
+    family names (``gpubench/kernels/group_norm.json``), per profiled face;
+    nothing where none ran, as on a tree without the kernel."""
+    import json
+
+    trace = _load(GPUBENCH / "trace.py")
+    families = {p.stem: json.loads(p.read_text())
+                for p in sorted((GPUBENCH / "kernels").glob("*.json"))}
+
+    def x(name, ts, dur):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": dur}
+
+    names = ["(anonymous namespace)::irt_group_norm_stats_kernel(__nv_bfloat16 const*, int)",
+             "(anonymous namespace)::irt_group_norm_apply_kernel(__nv_bfloat16 const*, int)",
+             "void at::native::elementwise_kernel<128, 4>(int)"]
+    run = {"trace": trace.Summary([x(names[0], 0, 30), x(names[1], 40, 50), x(names[2], 100, 80),
+                                   x(names[0], 200, 20)], 1e-3),
+           "profiled_faces": 4, "kernel_families": families}
+    assert _reader("norm_ms_per_face.serve")(run) == pytest.approx(1e-3 * 100 / 4)
+    run["trace"] = trace.Summary([x(names[2], 0, 80)], 1e-3)
+    assert _reader("norm_ms_per_face.serve")(run) is None
+
