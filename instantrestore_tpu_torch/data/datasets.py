@@ -45,8 +45,8 @@ from instantrestore_tpu_torch.training.losses.composite import facial_comp_sizes
 
 IMAGE_SUFFIXES = (".jpg", ".png", ".jpeg")
 
-# (heads, spatial size) of the 9 shared self-attention layers in traversal
-# order at 512 px
+# (heads, spatial size) of SD-Turbo's 9 shared self-attention layers in
+# traversal order at 512 px
 SHARED_LAYER_STATS = [(20, 16)] * 3 + [(10, 32)] * 3 + [(5, 64)] * 3
 
 PROMPT = "A high-quality photo of a person; professional, 8k"

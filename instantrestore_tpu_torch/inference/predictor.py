@@ -5,7 +5,8 @@ gradio demo).
 Preprocess with LANCZOS resize, center crop and [-1, 1] normalisation, run
 one cold restore forward at timestep 249 against up to 4 references
 (missing ones padded by flipped copies), and optionally report the
-per-reference attention-mass percentages summed over the 9 shared layers.
+per-reference attention-mass percentages summed over the UNet's shared layers
+(``UNetConfig.num_shared_attn_layers``).
 
 Weights come as a parameter bundle (``params``) or from a checkpoint
 (``checkpoint_path``): a reference ``.pt`` of either schema, or the port's own

@@ -2,16 +2,17 @@
 ``instantrestore_tpu/inference/serving.py``).
 
 Warm path: identities are onboarded once; their reference images go through
-the frozen VAE and UNet, and the 9 shared layers' reference K/V land in a
-cache. A restore then runs one VAE encode, one UNet whose shared attentions
-read that cache, and one VAE decode. With ``identity_cache`` (by default on
+the frozen VAE and UNet, and the reference K/V of the UNet's shared layers
+(``UNetConfig.num_shared_attn_layers``: 9 for SD-Turbo, 36 for SDXL-Turbo)
+land in a cache. A restore then runs one VAE encode, one UNet whose shared
+attentions read that cache, and one VAE decode. With ``identity_cache`` (by default on
 for the fused attention of a refs-only model, ``train_input=False``, unless
 ``INSTANTRESTORE_IDENT_CACHE`` is set to anything but ``1``, as in the JAX
 engine) the cache holds each layer's AdaIN statistics and key-norm bounds
 too and is read by identity id (the ``shared_identity`` kernel, no gather
-copy). Otherwise it is a plain ``[(k, v) x 9]`` list of ``[I, N, H, S, d]``
-leaves: each restore gathers its rows and takes the per-call shared
-attention (``shared_flash_bound``, with its input segment for
+copy). Otherwise it is a plain ``[(k, v)]`` list, a pair of ``[I, N, H, S,
+d]`` leaves a shared layer: each restore gathers its rows and takes the
+per-call shared attention (``shared_flash_bound``, with its input segment for
 ``train_input`` models, which attend to the input image's own K/V as well,
 what the identity cache does not model).
 
@@ -264,7 +265,8 @@ class ServingEngine:
         return torch.cat([o.to(self.device) for o in outs])
 
     def _refs_kv(self, refs: torch.Tensor, generator, noise):
-        """One identity's references [N, H, W, 3] -> 9 (k, v) [N, H, S, d]."""
+        """One identity's references [N, H, W, 3] -> (k, v) [N, H, S, d] a
+        shared layer."""
         n, dev = refs.shape[0], self.device
         refs = _maybe_preprocess(refs.to(dev), self.resolution)
         kv, _ = get_conditioning_kv(
@@ -292,8 +294,8 @@ class ServingEngine:
     def onboard(self, identity_refs: torch.Tensor, *, generator: Optional[torch.Generator] = None,
                 noise: Optional[Dict[str, torch.Tensor]] = None) -> List[Any]:
         """identity_refs [I, N, H, W, 3] (uint8, or float in [-1, 1]) -> the
-        warm cache: 9 ``IdentityKVCache`` layers, or (k, v) [I, N, H, S, d]
-        pairs without ``identity_cache``. I fixes the capacity; ``onboard_one``
+        warm cache: an ``IdentityKVCache`` a shared layer, or (k, v) [I, N, H,
+        S, d] pairs without ``identity_cache``. I fixes the capacity; ``onboard_one``
         replaces rows. ``noise`` may give ``latent``/``diffusion``
         [I, N, h, w, 4]."""
         n_ident, n_dev = identity_refs.shape[0], len(self.devices)

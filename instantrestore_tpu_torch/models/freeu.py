@@ -1,6 +1,8 @@
 """FreeU on the up-block skips (counterpart of
-``instantrestore_tpu/models/freeu.py``), always on with s1=0.9, s2=0.2,
-b1=1.4, b2=1.6 as in the reference.
+``instantrestore_tpu/models/freeu.py``). Its factors are the model's
+(``RestorerStatics.freeu``): ``FreeUParams()`` holds SD 2.1's, which the
+reference uses (s1=0.9, s2=0.2, b1=1.4, b2=1.6); diffusers' FreeU guide
+gives SDXL's (s1=0.6, s2=0.4, b1=1.1, b2=1.2).
 
 At up-block resolution index 0 (resp. 1) the first half of the backbone
 channels is scaled by b1 (b2) and the skip's lowest Fourier bins are scaled

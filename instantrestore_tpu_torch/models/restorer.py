@@ -42,6 +42,7 @@ from instantrestore_tpu_torch.models.lora import (
     merge_lora,
     strip_lora,
 )
+from instantrestore_tpu_torch.models.freeu import FreeUParams
 from instantrestore_tpu_torch.models.unet import UNetConfig, init_unet_params, unet_apply
 from instantrestore_tpu_torch.models.vae import (
     VAEConfig,
@@ -67,6 +68,8 @@ class RestorerStatics:
 
     unet_cfg: UNetConfig = UNetConfig()
     vae_cfg: VAEConfig = VAEConfig()
+    # FreeU's factors for this UNet (SD 2.1's by default; None: off)
+    freeu: Optional[FreeUParams] = FreeUParams()
     use_shared_attention: bool = True
     use_adain: bool = False
     train_input: bool = True
@@ -109,7 +112,10 @@ def init_restorer_params(
     reference's target modules (and the VAE's skip convs with
     ``use_shortcuts``), ``unet_orig_conv_in`` (its own copy of the UNet's
     conv_in, which training updates in place) and the prompt embedding
-    ``caption_enc`` [1, 77, ctx]; the UNet's FaceID projections with
+    ``caption_enc`` [1, 77, ctx]; for a text-time UNet (SDXL) the pooled
+    prompt embedding ``caption_pooled`` [1, D] and the time ids
+    ``add_time_ids`` (``text_time_ids`` at the model's resolution); the
+    UNet's FaceID projections with
     ``condition_on_face_embeds``; with ``train_reference_networks`` explicit
     ``original_unet`` / ``original_vae`` with rank-16 LoRA, which share only
     frozen base weights with the restoration nets (their ``conv_in`` and
@@ -124,6 +130,12 @@ def init_restorer_params(
     vae = attach_lora(base_vae, gen, lora_rank_vae, vae_targets, b_std=LORA_B_STD, device=device)
     caption = torch.randn((1, 77, statics.unet_cfg.cross_attention_dim),
                           generator=gen, device=device)
+    added = {}
+    if statics.unet_cfg.addition_embed_type == "text_time":
+        res = statics.unet_cfg.sample_size * 2 ** (len(statics.vae_cfg.block_out_channels) - 1)
+        added = {"caption_pooled": torch.randn((1, statics.unet_cfg.added_text_embed_dim),
+                                               generator=gen, device=device),
+                 "add_time_ids": text_time_ids(res, device=device)}
     if statics.condition_on_face_embeds:
         unet = attach_faceid(unet, gen, cross_dim=statics.unet_cfg.cross_attention_dim,
                              device=device)
@@ -132,6 +144,7 @@ def init_restorer_params(
         "unet_orig_conv_in": {k: v.clone() for k, v in unet["conv_in"].items()},
         "vae": vae,
         "caption_enc": caption,
+        **added,
     }
     if statics.train_reference_networks:
         # in-place updates: a leaf trainable in one tree gets its own tensor
@@ -144,6 +157,24 @@ def init_restorer_params(
         bundle["original_vae"] = attach_lora(ovae, gen, 16, vae_targets, b_std=LORA_B_STD,
                                              device=device)
     return bundle
+
+
+def text_time_ids(resolution: int, *, device=None) -> torch.Tensor:
+    """SDXL's time ids [1, 6] (int64) of an uncropped square photo served at
+    ``resolution``: original size, crop top-left (0, 0), target size."""
+    r = int(resolution)
+    return torch.tensor([[r, r, 0, 0, r, r]], dtype=torch.long, device=device)
+
+
+def added_conditioning(params: Dict[str, Any], statics: RestorerStatics,
+                       batch: int) -> Optional[Dict[str, torch.Tensor]]:
+    """The UNet's ``added_cond`` for ``batch`` rows from the bundle's
+    ``caption_pooled`` and ``add_time_ids`` (beside ``caption_enc``), or
+    None for a UNet without added conditioning."""
+    if statics.unet_cfg.addition_embed_type is None:
+        return None
+    return {"text_embeds": params["caption_pooled"].expand(batch, -1),
+            "time_ids": params["add_time_ids"].expand(batch, -1)}
 
 
 def original_unet_view(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -164,14 +195,18 @@ def original_vae_view(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def serving_bundle(params: Dict[str, Any], statics: RestorerStatics) -> Dict[str, Any]:
     """Inference bundle: LoRA merged into the restoration nets, the frozen
-    originals materialised explicitly for the capture branch."""
-    return {
+    originals materialised explicitly for the capture branch, the prompt
+    embedding (and a text-time UNet's ``caption_pooled`` and
+    ``add_time_ids``) as given."""
+    bundle = {
         "unet": merge_lora(params["unet"], statics.unet_lora_scaling),
         "vae": merge_lora(params["vae"], statics.vae_lora_scaling),
         "original_unet": original_unet_view(params),
         "original_vae": original_vae_view(params),
         "caption_enc": params["caption_enc"],
     }
+    bundle.update({k: params[k] for k in ("caption_pooled", "add_time_ids") if k in params})
+    return bundle
 
 
 def mask_ref_kv(kv, valid_indices: torch.Tensor, batch: int, n_refs: int):
@@ -213,8 +248,9 @@ def get_conditioning_kv(
     use_fused_attention: bool = False,
     debug_taps: bool = False,
 ):
-    """Reference branch: cond_images [B, N, H, W, 3] in [-1, 1] -> (9 masked
-    (K, V) pairs [B, N, H, S, d] from the frozen nets at t=1, the decoded
+    """Reference branch: cond_images [B, N, H, W, 3] in [-1, 1] -> (the
+    masked (K, V) pairs [B, N, H, S, d] of the UNet's
+    ``num_shared_attn_layers`` shared layers from the frozen nets at t=1, the decoded
     references [B, N, H, W, 3] when ``decode_conditions`` else None), plus
     the taps {cond_latent, cond_latent_noised} [B*N, h, w, 4] as a third
     element when ``debug_taps``. ``noise`` may give ``latent`` and
@@ -237,8 +273,9 @@ def get_conditioning_kv(
     caption = params["caption_enc"].expand(b * n, *params["caption_enc"].shape[1:])
     eps_pred, aux = unet_apply(
         original_unet_view(params), zt, t1, caption, cfg=statics.unet_cfg,
-        capture_kv=True, lora_scaling=ref_scaling, use_fused_attention=use_fused_attention,
-        compute_dtype=statics.compute_dtype,
+        capture_kv=True, freeu=statics.freeu,
+        added_cond=added_conditioning(params, statics, b * n), lora_scaling=ref_scaling,
+        use_fused_attention=use_fused_attention, compute_dtype=statics.compute_dtype,
     )
     ref_kv = mask_ref_kv(aux["kv"], valid_indices, b, n)
     decoded = None
@@ -295,7 +332,8 @@ def restore_forward(
     The references are either encoded here from ``cond_images``
     [B, N, H, W, 3] in [-1, 1] with ``valid_indices`` [B] valid counts (all
     N when None; cold restore), or given as ``precomputed_ref_kv``: a list of
-    9 ``(k, v)`` [B, N, H, S, d] or ``IdentityRef`` entries (warm restore).
+    ``(k, v)`` [B, N, H, S, d] or ``IdentityRef`` entries, one for each of
+    the UNet's ``num_shared_attn_layers`` shared layers (warm restore).
     Neither runs without shared attention.
 
     ``face_embeds`` [B, M, 512] (face embeddings of the references) replace
@@ -378,14 +416,16 @@ def restore_forward(
         caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
     if not statics.use_shared_attention:
         ref_kv = None
+    added = added_conditioning(params, statics, b)
     eps_pred, aux = stage(
         "unet", lambda p, zt_, ref_kv_, caption_: unet_apply(
             p, zt_, tb, caption_, cfg=statics.unet_cfg, ref_kv=ref_kv_,
             use_adain=statics.use_adain, train_input=statics.train_input,
             save_attn_probs=save_attn_probs, probs_layers=probs_layers,
             save_seg_sums=save_seg_sums, use_fused_attention=use_fused_attention,
-            use_faceid=use_faceid, capture_taps=debug_taps,
-            lora_scaling=statics.unet_lora_scaling, compute_dtype=statics.compute_dtype),
+            use_faceid=use_faceid, capture_taps=debug_taps, freeu=statics.freeu,
+            added_cond=added, lora_scaling=statics.unet_lora_scaling,
+            compute_dtype=statics.compute_dtype),
         params["unet"], zt, ref_kv, caption)
     x0 = sched.pred_original_sample(abar, eps_pred, zt, tb)
     out = stage(
@@ -454,6 +494,7 @@ def restore_forward_multistep(
         )
 
     caption = params["caption_enc"].expand(b, *params["caption_enc"].shape[1:])
+    added = added_conditioning(params, statics, b)
     t0 = torch.full((b,), timesteps[0], dtype=torch.long, device=z.device)
     x = sched.add_noise(abar, z, _noise(noise, "diffusion", z, generator), t0)
     for i, t in enumerate(timesteps):
@@ -461,8 +502,8 @@ def restore_forward_multistep(
         eps_pred, _ = unet_apply(
             params["unet"], x, tb, caption, cfg=statics.unet_cfg, ref_kv=ref_kv,
             use_adain=statics.use_adain, train_input=statics.train_input,
-            use_fused_attention=use_fused_attention, lora_scaling=statics.unet_lora_scaling,
-            compute_dtype=statics.compute_dtype,
+            use_fused_attention=use_fused_attention, freeu=statics.freeu, added_cond=added,
+            lora_scaling=statics.unet_lora_scaling, compute_dtype=statics.compute_dtype,
         )
         t_next = timesteps[i + 1] if i + 1 < len(timesteps) else -1
         x = sched.ddim_step(abar, eps_pred, x, tb, torch.full_like(tb, t_next))

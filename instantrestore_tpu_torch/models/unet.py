@@ -1,18 +1,27 @@
-"""SD-Turbo (SD2.1-base) conditional UNet, NHWC (counterpart of
-``instantrestore_tpu/models/unet.py``).
+"""The conditional UNet of SD-Turbo (SD2.1-base) and of SDXL-Turbo, NHWC
+(counterpart of ``instantrestore_tpu/models/unet.py``, which runs SD-Turbo's).
 
-``capture_kv=True`` returns the K/V of the 9 up-block self-attentions (the
-frozen capture pass); ``ref_kv=[...]`` injects one entry per shared layer, in
-traversal order (the reference's self_attn_idx 0..8); ``save_attn_probs``
-returns those layers' attention probabilities and ``save_seg_sums`` their
-streamed per-segment softmax masses. FreeU is always on
-(DEFAULT_FREEU) and LoRA rides in the param tree with a caller-given scaling.
+A ``UNetConfig`` gives each level's Transformer2DModel depth
+(``transformer_layers_per_block``; the mid block takes the last level's) and
+SDXL's text-time added conditioning (``addition_embed_type="text_time"``:
+``unet_apply(added_cond=...)``); ``unet_config_from_diffusers`` reads a
+diffusers ``unet/config.json``. The shared layers are the self-attentions
+of every transformer block of the cross-attention up blocks
+(``UNetConfig.num_shared_attn_layers``: 9 for SD-Turbo, 36 for SDXL-Turbo),
+in traversal order (the reference's self_attn_idx): ``capture_kv=True``
+returns their K/V (the frozen capture pass), ``ref_kv=[...]`` injects one
+entry per shared layer, ``save_attn_probs`` returns their attention
+probabilities and ``save_seg_sums`` their streamed per-segment softmax
+masses. FreeU is on with the caller's ``freeu`` values (SD 2.1's by
+default) and LoRA rides in the param tree with a caller-given scaling. Each
+Transformer2DModel is a ``transformer`` span of ``utils/profiling.py``
+whose count is its blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -33,8 +42,10 @@ from instantrestore_tpu_torch.ops.primitives import (
     timestep_embedding,
     upsample2x_conv,
 )
+from instantrestore_tpu_torch.utils import profiling
 
-DEFAULT_FREEU = FreeUParams(s1=0.9, s2=0.2, b1=1.4, b2=1.6)
+# SDXL's text-time ids: original size (h, w), crop top-left (y, x), target size (h, w)
+ADDED_TIME_IDS = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,16 +69,90 @@ class UNetConfig:
     transformer_norm_eps: float = 1e-6
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    # transformer blocks of each level's Transformer2DModels (one int for all)
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
+    # SDXL's added conditioning: None or "text_time", whose add_embedding
+    # takes the pooled text embedding and the ADDED_TIME_IDS time ids, each
+    # as a sinusoid of addition_time_embed_dim
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 0
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
 
     @property
+    def transformer_depths(self) -> Tuple[int, ...]:
+        """Transformer blocks a Transformer2DModel at each level (down order)."""
+        d = self.transformer_layers_per_block
+        return (d,) * len(self.block_out_channels) if isinstance(d, int) else tuple(d)
+
+    @property
+    def added_text_embed_dim(self) -> int:
+        """Width of the pooled text embedding of the text-time conditioning."""
+        return (self.projection_class_embeddings_input_dim
+                - ADDED_TIME_IDS * self.addition_time_embed_dim)
+
+    @property
     def num_shared_attn_layers(self) -> int:
-        """Self-attention layers in cross-attn up blocks (9 for SD2)."""
-        return sum(self.layers_per_block + 1 for t in self.up_block_types
-                   if t == "CrossAttnUpBlock2D")
+        """Transformer blocks (each one shared self-attention) in the
+        cross-attention up blocks: 9 for SD-Turbo, 36 for SDXL-Turbo."""
+        depths = self.transformer_depths[::-1]
+        return sum((self.layers_per_block + 1) * depths[i]
+                   for i, t in enumerate(self.up_block_types) if t == "CrossAttnUpBlock2D")
+
+
+# diffusers config keys whose other values the port does not build
+_DIFFUSERS_FIXED = {
+    "act_fn": "silu", "attention_type": "default", "center_input_sample": False,
+    "class_embed_type": None, "class_embeddings_concat": False, "conv_in_kernel": 3,
+    "conv_out_kernel": 3, "cross_attention_norm": None, "downsample_padding": 1,
+    "dual_cross_attention": False, "encoder_hid_dim": None, "encoder_hid_dim_type": None,
+    "mid_block_scale_factor": 1, "mid_block_type": "UNetMidBlock2DCrossAttn",
+    "num_class_embeds": None, "only_cross_attention": False, "resnet_out_scale_factor": 1.0,
+    "resnet_skip_time_act": False, "resnet_time_scale_shift": "default",
+    "reverse_transformer_layers_per_block": None, "time_cond_proj_dim": None,
+    "time_embedding_act_fn": None, "time_embedding_dim": None,
+    "time_embedding_type": "positional", "timestep_post_act": None,
+    "use_linear_projection": True,
+}
+
+
+def unet_config_from_diffusers(config: Dict[str, Any]) -> UNetConfig:
+    """A diffusers ``unet/config.json`` dict -> ``UNetConfig``. Its
+    ``attention_head_dim`` holds head COUNTS where ``num_attention_heads`` is
+    null (diffusers' quirk, kept for SD 2 and SDXL). A key the port does not
+    build (a conv ``proj_in``, class embeddings, ...) at another value than
+    ``_DIFFUSERS_FIXED``'s raises ``ValueError``; keys that change no
+    computation (``sample_size`` aside, which sets the default resolution)
+    are ignored. ``transformer_norm_eps`` is not a diffusers key
+    (Transformer2DModel's GroupNorm eps is fixed at 1e-6) and is read where
+    given."""
+    bad = {k: config[k] for k, v in _DIFFUSERS_FIXED.items() if k in config and config[k] != v}
+    if bad:
+        raise ValueError(f"UNet config values the port does not build: {bad}")
+    if config.get("addition_embed_type") not in (None, "text_time"):
+        raise ValueError(f"addition_embed_type {config['addition_embed_type']!r} is not built")
+    n = len(config["block_out_channels"])
+
+    def per_level(v):
+        return (v,) * n if isinstance(v, int) else tuple(v)
+
+    heads = per_level(config.get("num_attention_heads") or config["attention_head_dim"])
+    depth = config.get("transformer_layers_per_block", 1)
+    kw = {k: config[k] for k in (
+        "sample_size", "in_channels", "out_channels", "layers_per_block", "cross_attention_dim",
+        "norm_num_groups", "norm_eps", "flip_sin_to_cos", "transformer_norm_eps",
+        "addition_time_embed_dim", "projection_class_embeddings_input_dim",
+    ) if config.get(k) is not None}
+    return UNetConfig(
+        block_out_channels=tuple(config["block_out_channels"]),
+        down_block_types=tuple(config["down_block_types"]),
+        up_block_types=tuple(config["up_block_types"]),
+        attention_heads=heads, freq_shift=float(config.get("freq_shift", 0)),
+        transformer_layers_per_block=depth if isinstance(depth, int) else tuple(depth),
+        addition_embed_type=config.get("addition_embed_type"), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +182,8 @@ def _init_attention(gen, query_dim, context_dim, device) -> Dict[str, Any]:
     }
 
 
-def _init_transformer(gen, ch, ctx_dim, device) -> Dict[str, Any]:
-    block = {
+def _init_transformer(gen, ch, ctx_dim, depth, device) -> Dict[str, Any]:
+    blocks = [{
         "norm1": init_norm(ch, device=device),
         "attn1": _init_attention(gen, ch, ch, device),
         "norm2": init_norm(ch, device=device),
@@ -108,11 +193,11 @@ def _init_transformer(gen, ch, ctx_dim, device) -> Dict[str, Any]:
             "net_0_proj": init_dense(gen, ch, ch * 8, device=device),  # GEGLU: 2 * 4ch
             "net_2": init_dense(gen, ch * 4, ch, device=device),
         },
-    }
+    } for _ in range(depth)]
     return {
         "norm": init_norm(ch, device=device),
         "proj_in": init_dense(gen, ch, ch, device=device),
-        "transformer_blocks": [block],
+        "transformer_blocks": blocks,
         "proj_out": init_dense(gen, ch, ch, device=device),
     }
 
@@ -143,6 +228,13 @@ def init_unet_params(gen: torch.Generator, cfg: UNetConfig = UNetConfig(), *, de
         "conv_norm_out": init_norm(ch0, device=device),
         "conv_out": init_conv2d(gen, ch0, cfg.out_channels, 3, device=device),
     }
+    if cfg.addition_embed_type == "text_time":
+        params["add_embedding"] = {
+            "linear_1": init_dense(gen, cfg.projection_class_embeddings_input_dim, temb,
+                                   device=device),
+            "linear_2": init_dense(gen, temb, temb, device=device),
+        }
+    depths = cfg.transformer_depths
     down_blocks = []
     out_ch = ch0
     for i, btype in enumerate(cfg.down_block_types):
@@ -151,7 +243,7 @@ def init_unet_params(gen: torch.Generator, cfg: UNetConfig = UNetConfig(), *, de
         for j in range(cfg.layers_per_block):
             block["resnets"].append(_init_resnet(gen, in_ch if j == 0 else out_ch, out_ch, temb, device))
             if btype == "CrossAttnDownBlock2D":
-                block["attentions"].append(_init_transformer(gen, out_ch, ctx, device))
+                block["attentions"].append(_init_transformer(gen, out_ch, ctx, depths[i], device))
         if not block["attentions"]:
             del block["attentions"]
         if i != len(cfg.down_block_types) - 1:
@@ -162,7 +254,7 @@ def init_unet_params(gen: torch.Generator, cfg: UNetConfig = UNetConfig(), *, de
     mid_ch = cfg.block_out_channels[-1]
     params["mid_block"] = {
         "resnets": [_init_resnet(gen, mid_ch, mid_ch, temb, device) for _ in range(2)],
-        "attentions": [_init_transformer(gen, mid_ch, ctx, device)],
+        "attentions": [_init_transformer(gen, mid_ch, ctx, depths[-1], device)],
     }
 
     up_blocks = []
@@ -177,7 +269,8 @@ def init_unet_params(gen: torch.Generator, cfg: UNetConfig = UNetConfig(), *, de
             block["resnets"].append(_init_resnet(gen, hidden_ch + skips[j], out_ch, temb, device))
             hidden_ch = out_ch
             if btype == "CrossAttnUpBlock2D":
-                block["attentions"].append(_init_transformer(gen, out_ch, ctx, device))
+                block["attentions"].append(
+                    _init_transformer(gen, out_ch, ctx, depths[-1 - i], device))
         if not block["attentions"]:
             del block["attentions"]
         if i != len(cfg.up_block_types) - 1:
@@ -207,37 +300,58 @@ def _resnet(p, x, temb, *, cfg: UNetConfig, lora_scaling: float):
 
 
 def _transformer(p, x, ctx, *, cfg: UNetConfig, heads: int, lora_scaling: float,
-                 shared: dict):
-    """Transformer2DModel with linear projections; ``shared`` carries the
-    self-attention's options (ref_kv, use_adain, train_input, capture_kv,
-    save_probs, save_seg_sums, use_fused) and the cross-attention's
-    use_faceid. Returns (out, aux)."""
-    b, hh, ww, c = x.shape
-    h = group_norm(p["norm"], x, num_groups=cfg.norm_num_groups, eps=cfg.transformer_norm_eps)
-    h = dense(p["proj_in"], h.reshape(b, hh * ww, c), lora_scaling=lora_scaling)
-    aux_out = {}
-    for bp in p["transformer_blocks"]:
-        attn_out, aux = attention(
-            bp["attn1"], layer_norm(bp["norm1"], h), heads=heads,
-            ref_kv=shared.get("ref_kv"),
-            use_adain=shared.get("use_adain", False),
-            train_input=shared.get("train_input", True),
-            capture_kv=shared.get("capture_kv", False),
-            save_probs=shared.get("save_probs", False),
-            save_seg_sums=shared.get("save_seg_sums", False),
-            use_fused=shared.get("use_fused", False),
-            lora_scaling=lora_scaling,
-        )
-        aux_out.update(aux)
-        h = h + attn_out
-        attn_out, _ = attention(bp["attn2"], layer_norm(bp["norm2"], h), heads=heads,
-                                encoder_hidden=ctx, lora_scaling=lora_scaling,
-                                use_faceid=shared.get("use_faceid", False))
-        h = h + attn_out
-        ff = geglu(bp["ff"]["net_0_proj"], layer_norm(bp["norm3"], h), lora_scaling=lora_scaling)
-        h = h + dense(bp["ff"]["net_2"], ff, lora_scaling=lora_scaling)
-    h = dense(p["proj_out"], h, lora_scaling=lora_scaling)
-    return h.reshape(b, hh, ww, c) + x, aux_out
+                 shared: Sequence[dict]):
+    """Transformer2DModel with linear projections, a ``transformer`` span
+    whose count is its blocks; ``shared`` holds each block's options: its
+    self-attention's (ref_kv, use_adain, train_input, capture_kv, save_probs,
+    save_seg_sums, use_fused) and its cross-attention's use_faceid. Returns
+    (out, [each block's aux])."""
+    blocks = p["transformer_blocks"]
+    with profiling.span("transformer", count=len(blocks)):
+        b, hh, ww, c = x.shape
+        h = group_norm(p["norm"], x, num_groups=cfg.norm_num_groups, eps=cfg.transformer_norm_eps)
+        h = dense(p["proj_in"], h.reshape(b, hh * ww, c), lora_scaling=lora_scaling)
+        auxes = []
+        for bp, opts in zip(blocks, shared, strict=True):
+            attn_out, aux = attention(
+                bp["attn1"], layer_norm(bp["norm1"], h), heads=heads,
+                ref_kv=opts.get("ref_kv"),
+                use_adain=opts.get("use_adain", False),
+                train_input=opts.get("train_input", True),
+                capture_kv=opts.get("capture_kv", False),
+                save_probs=opts.get("save_probs", False),
+                save_seg_sums=opts.get("save_seg_sums", False),
+                use_fused=opts.get("use_fused", False),
+                lora_scaling=lora_scaling,
+            )
+            auxes.append(aux)
+            h = h + attn_out
+            attn_out, _ = attention(bp["attn2"], layer_norm(bp["norm2"], h), heads=heads,
+                                    encoder_hidden=ctx, lora_scaling=lora_scaling,
+                                    use_faceid=opts.get("use_faceid", False))
+            h = h + attn_out
+            ff = geglu(bp["ff"]["net_0_proj"], layer_norm(bp["norm3"], h),
+                       lora_scaling=lora_scaling)
+            h = h + dense(bp["ff"]["net_2"], ff, lora_scaling=lora_scaling)
+        h = dense(p["proj_out"], h, lora_scaling=lora_scaling)
+        return h.reshape(b, hh, ww, c) + x, auxes
+
+
+def _text_time_embedding(p, added_cond: Optional[Dict[str, torch.Tensor]], cfg: UNetConfig,
+                         dtype) -> torch.Tensor:
+    """SDXL's added conditioning [B, temb]: add_embedding (linear, SiLU,
+    linear) of the pooled text embedding ``text_embeds`` [B, D] beside the
+    sinusoid of each of the ``time_ids`` [B, 6] (diffusers' add_time_proj)."""
+    if added_cond is None:
+        raise ValueError("a text_time UNet needs added_cond={'text_embeds': [B, D], "
+                         "'time_ids': [B, 6]}")
+    text, ids = added_cond["text_embeds"], added_cond["time_ids"]
+    time = timestep_embedding(ids.reshape(-1), cfg.addition_time_embed_dim,
+                              flip_sin_to_cos=cfg.flip_sin_to_cos,
+                              downscale_freq_shift=cfg.freq_shift)
+    h = torch.cat([text.float(), time.reshape(text.shape[0], -1)], dim=-1).to(dtype)
+    h = dense(p["linear_1"], h)
+    return dense(p["linear_2"], silu(h))
 
 
 def unet_apply(
@@ -254,7 +368,8 @@ def unet_apply(
     save_seg_sums: bool = False,
     use_adain: bool = False,
     train_input: bool = True,
-    freeu: Optional[FreeUParams] = DEFAULT_FREEU,
+    freeu: Optional[FreeUParams] = FreeUParams(),
+    added_cond: Optional[Dict[str, torch.Tensor]] = None,
     lora_scaling: float = 1.0,
     use_fused_attention: bool = False,
     use_faceid: bool = False,
@@ -263,14 +378,18 @@ def unet_apply(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """sample [B, H, W, 4] NHWC latents, timesteps [B] (or scalar) int,
     encoder_hidden_states [B, 77, ctx] -> (epsilon [B, H, W, 4] in the sample
-    dtype, aux = {'kv': [(k, v) x 9] when capture_kv, 'attn_probs': [p x 9]
-    when save_attn_probs (fp32 [B, h, Sq, Skv]; None at layers outside
-    ``probs_layers`` when given), 'seg_sums': [s x 9] when save_seg_sums
-    (fp32 [B, h, Sq, n_seg]), 'taps': {...} when capture_taps}). Tap
-    names match the JAX package: conv_in, down_block_i, mid_block,
-    shared_attn_i, up_block_i. ``use_faceid``: ``encoder_hidden_states`` are
-    face embeddings [B, M, 512], read through every cross-attention's FaceID
-    projections."""
+    dtype, aux = {'kv': [(k, v) a shared layer] when capture_kv,
+    'attn_probs': [p a shared layer] when save_attn_probs (fp32 [B, h, Sq,
+    Skv]; None at layers outside ``probs_layers`` when given), 'seg_sums':
+    [s a shared layer] when save_seg_sums (fp32 [B, h, Sq, n_seg]), 'taps':
+    {...} when capture_taps}), with ``cfg.num_shared_attn_layers`` shared
+    layers. Tap names match the JAX package: conv_in, down_block_i,
+    mid_block, shared_attn_i (the output of the transformer whose first
+    shared layer is i), up_block_i. ``use_faceid``: ``encoder_hidden_states``
+    are face embeddings [B, M, 512], read through every cross-attention's
+    FaceID projections. ``freeu``: FreeU's factors (None: off).
+    ``added_cond``: {'text_embeds' [B, D], 'time_ids' [B, 6]} for a
+    ``text_time`` UNet."""
     if timesteps.ndim == 0:
         timesteps = timesteps.expand(sample.shape[0])
     x = sample.to(compute_dtype)
@@ -282,6 +401,9 @@ def unet_apply(
     ).to(compute_dtype)
     temb = dense(params["time_embedding"]["linear_1"], t_emb)
     temb = dense(params["time_embedding"]["linear_2"], silu(temb))
+    if cfg.addition_embed_type == "text_time":
+        temb = temb + _text_time_embedding(params["add_embedding"], added_cond, cfg,
+                                           compute_dtype)
 
     x = conv2d(params["conv_in"], x, lora_scaling=lora_scaling)
     taps: Dict[str, torch.Tensor] = {}
@@ -294,9 +416,10 @@ def unet_apply(
         for j, rp in enumerate(bp["resnets"]):
             x = _resnet(rp, x, temb, cfg=cfg, lora_scaling=lora_scaling)
             if btype == "CrossAttnDownBlock2D":
-                x, _ = _transformer(bp["attentions"][j], x, ctx, cfg=cfg,
-                                    heads=cfg.attention_heads[i], lora_scaling=lora_scaling,
-                                    shared=plain)
+                tp = bp["attentions"][j]
+                x, _ = _transformer(tp, x, ctx, cfg=cfg, heads=cfg.attention_heads[i],
+                                    lora_scaling=lora_scaling,
+                                    shared=[plain] * len(tp["transformer_blocks"]))
             skips.append(x)
         if "downsamplers" in bp:
             x = conv2d(bp["downsamplers"][0]["conv"], x, stride=2, lora_scaling=lora_scaling)
@@ -306,8 +429,9 @@ def unet_apply(
 
     mp = params["mid_block"]
     x = _resnet(mp["resnets"][0], x, temb, cfg=cfg, lora_scaling=lora_scaling)
-    x, _ = _transformer(mp["attentions"][0], x, ctx, cfg=cfg, heads=cfg.attention_heads[-1],
-                        lora_scaling=lora_scaling, shared=plain)
+    tp = mp["attentions"][0]
+    x, _ = _transformer(tp, x, ctx, cfg=cfg, heads=cfg.attention_heads[-1],
+                        lora_scaling=lora_scaling, shared=[plain] * len(tp["transformer_blocks"]))
     x = _resnet(mp["resnets"][1], x, temb, cfg=cfg, lora_scaling=lora_scaling)
     if capture_taps:
         taps["mid_block"] = x
@@ -324,28 +448,31 @@ def unet_apply(
             x = torch.cat([x, skip.to(x.dtype)], dim=-1)
             x = _resnet(rp, x, temb, cfg=cfg, lora_scaling=lora_scaling)
             if btype == "CrossAttnUpBlock2D":
-                shared = {
-                    "ref_kv": ref_kv[shared_idx] if ref_kv is not None else None,
+                tp = bp["attentions"][j]
+                layers = range(shared_idx, shared_idx + len(tp["transformer_blocks"]))
+                shared = [{
+                    "ref_kv": ref_kv[layer] if ref_kv is not None else None,
                     "use_adain": use_adain,
                     "train_input": train_input,
                     "capture_kv": capture_kv,
                     "save_probs": save_attn_probs and (probs_layers is None
-                                                       or shared_idx in probs_layers),
+                                                       or layer in probs_layers),
                     "save_seg_sums": save_seg_sums,
                     "use_fused": use_fused_attention,
                     "use_faceid": use_faceid,
-                }
-                x, aux = _transformer(bp["attentions"][j], x, ctx, cfg=cfg, heads=heads,
-                                      lora_scaling=lora_scaling, shared=shared)
-                if capture_kv:
-                    kv_list.append(aux["kv"])
-                if save_attn_probs:
-                    probs_list.append(aux.get("probs"))
-                if save_seg_sums and "seg_sums" in aux:
-                    seg_sums_list.append(aux["seg_sums"])
+                } for layer in layers]
+                x, auxes = _transformer(tp, x, ctx, cfg=cfg, heads=heads,
+                                        lora_scaling=lora_scaling, shared=shared)
+                for aux in auxes:
+                    if capture_kv:
+                        kv_list.append(aux["kv"])
+                    if save_attn_probs:
+                        probs_list.append(aux.get("probs"))
+                    if save_seg_sums and "seg_sums" in aux:
+                        seg_sums_list.append(aux["seg_sums"])
                 if capture_taps:
                     taps[f"shared_attn_{shared_idx}"] = x
-                shared_idx += 1
+                shared_idx += len(layers)
         if "upsamplers" in bp:
             x = upsample2x_conv(bp["upsamplers"][0]["conv"], x, lora_scaling=lora_scaling)
         if capture_taps:

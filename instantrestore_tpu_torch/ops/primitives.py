@@ -182,10 +182,20 @@ def group_norm_plain(p: dict, x: torch.Tensor, *, num_groups: int = 32, eps: flo
 
 
 def layer_norm(p: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, computed in fp32 and cast back."""
-    y = F.layer_norm(
-        x.float(), (x.shape[-1],), p["weight"].float(), p["bias"].float(), eps
-    )
+    """LayerNorm over the last axis, computed in fp32 and cast back.
+
+    A contiguous, 16-byte aligned CUDA bf16 input with a bf16 affine that
+    wants no gradient runs ``F.layer_norm`` on the bf16 tensors: its kernel
+    computes in fp32 and rounds once, as the fp32 round trip does, so the
+    numbers are the same (``tests/test_torch_layer_norm_cuda.py``) in one
+    launch instead of five. Any other input takes the round trip.
+    """
+    w, b = p["weight"], p["bias"]
+    if (x.is_cuda and x.dtype == w.dtype == b.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)))
+            and x.is_contiguous() and all(t.data_ptr() % 16 == 0 for t in (x, w, b))):
+        return F.layer_norm(x, (x.shape[-1],), w, b, eps)
+    y = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
     return y.to(x.dtype)
 
 

@@ -2,7 +2,8 @@
 ``instantrestore_tpu/utils/profiling.py``, whose observability is wall-clock
 prints, a timing decorator and ``jax.named_scope`` on the stages).
 
-- ``span(name, faces=None, device=None)``: a named stage of the program.
+- ``span(name, faces=None, device=None, count=None)``: a named stage of the
+  program.
   Off, it costs one check and records nothing. It is on while a
   ``torch.profiler`` records, or inside ``with tracing():``; then it opens a
   ``record_function`` range ``ir/<name>`` (a ``user_annotation`` in the
@@ -11,13 +12,18 @@ prints, a timing decorator and ``jax.named_scope`` on the stages).
   a CUDA device (none while the stream is captured into a graph), else the
   host clock. A span given ``faces`` while no call is open on the thread
   opens a call (the serving engine's restores, on ``device``); the spans
-  inside it are its stages. A span with no call open (a training forward
-  under the profiler) is a range only.
+  directly inside it are its stages, and the spans inside a stage (the
+  UNet's ``transformer`` spans) are nested spans. ``count`` is what the
+  span ran of its kind (a transformer's blocks). A span with no call open
+  (a training forward under the profiler) is a range only.
 - ``records()``: the newest calls, oldest first, at most ``RING`` of them:
-  ``{"name", "faces", "device_ms", "stages": {stage: device_ms}}``. A
-  ``device_ms`` is event to event, so it includes the card's idle time in
-  the stage. The events are read here, outside the calls: a span never
-  synchronises. ``reset()`` empties the ring.
+  ``{"name", "faces", "device_ms", "stages": {stage: device_ms}, "nested":
+  {span: device_ms}, "counts": {span: count}}``, each nested span's ms and
+  each span's ``count`` summed over the call by name. A ``device_ms`` is
+  event to event, so it includes the card's idle time in the span. The
+  stages do not overlap, so their sum is at most the call's. The events are
+  read here, outside the calls: a span never synchronises. ``reset()``
+  empties the ring.
 - ``trace``: a ``torch.profiler`` capture of a block exported as a Chrome
   trace (viewable in Perfetto or chrome://tracing), the spans included.
 """
@@ -63,25 +69,31 @@ def _ms(start, end) -> Optional[float]:
 
 
 class _Call:
-    """One outermost span with ``faces``: its marks and its stages' marks."""
+    """One outermost span with ``faces``: its marks and its inner spans'."""
 
     def __init__(self, name: str, faces: int, device: Optional[torch.device]):
         self.name, self.faces, self.device = name, faces, device
         self.start = self.end = None
-        self.stages: List[tuple] = []  # (name, start mark, end mark)
+        self.depth = 0  # inner spans open: 0 outside the stages
+        self.spans: List[tuple] = []  # (name, depth, start mark, end mark, count)
 
     def resolve(self) -> Dict[str, Any]:
         stages: Dict[str, float] = {}
-        for name, start, end in self.stages:
+        nested: Dict[str, float] = {}
+        counts: Dict[str, int] = {}
+        for name, depth, start, end, count in self.spans:
             ms = _ms(start, end)
+            into = stages if depth == 0 else nested
             if ms is not None:
-                stages[name] = stages.get(name, 0.0) + ms
+                into[name] = into.get(name, 0.0) + ms
+            if count is not None:
+                counts[name] = counts.get(name, 0) + count
         return {"name": self.name, "faces": self.faces, "device_ms": _ms(self.start, self.end),
-                "stages": stages}
+                "stages": stages, "nested": nested, "counts": counts}
 
 
 @contextlib.contextmanager
-def span(name: str, faces: Optional[int] = None, device=None):
+def span(name: str, faces: Optional[int] = None, device=None, count: Optional[int] = None):
     """The block as stage ``name`` (the module's docstring)."""
     if not (_tracing or torch.autograd._profiler_enabled()):
         yield
@@ -91,19 +103,25 @@ def span(name: str, faces: Optional[int] = None, device=None):
     if opened:
         call = _open.call = _Call(name, int(faces),
                                   None if device is None else torch.device(device))
+    inner = call is not None and not opened
+    if inner:
+        depth = call.depth
+        call.depth += 1
     try:
         with torch.profiler.record_function("ir/" + name):
             start = None if call is None else _mark(call.device)
             yield
             if call is not None:
                 end = _mark(call.device)
-                if not opened:
-                    call.stages.append((name, start, end))
+                if inner:
+                    call.spans.append((name, depth, start, end, count))
                 elif start is not None:  # a call inside a graph capture is not recorded
                     call.start, call.end = start, end
                     with _lock:
                         _calls.append(call)
     finally:
+        if inner:
+            call.depth -= 1
         if opened:
             _open.call = None
 
@@ -128,7 +146,8 @@ def records() -> List[Dict[str, Any]]:
         for i in range(len(_calls)):
             if isinstance(_calls[i], _Call):
                 _calls[i] = _calls[i].resolve()
-        return [dict(r, stages=dict(r["stages"])) for r in _calls]
+        return [dict(r, stages=dict(r["stages"]), nested=dict(r["nested"]),
+                     counts=dict(r["counts"])) for r in _calls]
 
 
 def reset() -> None:

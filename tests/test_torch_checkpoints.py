@@ -29,6 +29,7 @@ from instantrestore_tpu.configs import config as jcfg
 from instantrestore_tpu.inference import predictor as jpred
 from instantrestore_tpu.models import restorer as jrest
 from instantrestore_tpu.models import text_encoder as jte
+from instantrestore_tpu.models import unet as junet
 from instantrestore_tpu.training import checkpoints as jck
 from instantrestore_tpu.utils import torch_convert as jtc
 from instantrestore_tpu_torch import convert
@@ -322,11 +323,22 @@ def test_lora_only_checkpoint_matches_jax(files, lora_pt, tmp_path, dtype):
 # ---------------------------------------------------------------------------
 
 
+# the port's UNetConfig fields that the JAX package's lacks (SDXL's), at the
+# values that build SD-Turbo's UNet
+SD_TURBO_UNET_EXTRAS = {"transformer_layers_per_block": 1, "addition_embed_type": None,
+                        "addition_time_embed_dim": 256, "projection_class_embeddings_input_dim": 0}
+
+
 def assert_same_statics(port, ref):
     for field in dataclasses.fields(port):
-        a, b = getattr(port, field.name), getattr(ref, field.name)
+        a = getattr(port, field.name)
+        if field.name == "freeu":  # the JAX package's FreeU is its module constant
+            assert dataclasses.asdict(a) == dataclasses.asdict(junet.DEFAULT_FREEU)
+            continue
+        b = getattr(ref, field.name)
         if field.name in ("unet_cfg", "vae_cfg"):
-            assert a.__dict__ == b.__dict__, field.name
+            extras = SD_TURBO_UNET_EXTRAS if field.name == "unet_cfg" else {}
+            assert a.__dict__ == {**b.__dict__, **extras}, field.name
         elif field.name == "compute_dtype":
             assert str(a) == f"torch.{jnp.dtype(b).name}"
         else:

@@ -84,13 +84,15 @@ def _cold(engine):
     return engine.restore_cold(images, refs, generator=gen)
 
 
-def _ranges(run):
+def _ranges(run, nested=False):
     """(name, start, end) of the ``ir/`` ranges a CPU profile of ``run()``
-    holds, in order of start."""
+    holds, in order of start: the calls and their stages, or with ``nested``
+    only the ranges inside a stage (the UNet's ``ir/transformer``)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         run()
     return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.name.startswith("ir/")), key=lambda r: r[1])
+                   if e.name.startswith("ir/")
+                   and (e.name == "ir/transformer") == nested), key=lambda r: r[1])
 
 
 def test_spans_are_off_without_a_profiler(engine, monkeypatch):

@@ -16,6 +16,7 @@ import torch
 
 from instantrestore_tpu.configs import config as jcfg
 from instantrestore_tpu.models import restorer as jrest
+from instantrestore_tpu.models import unet as junet
 from instantrestore_tpu.training import train_step as jstep
 from instantrestore_tpu.training.losses import lpips as jlpips
 from instantrestore_tpu_torch import convert
@@ -168,12 +169,16 @@ def test_default_loss_fn_and_statics_from_model_config(rng):
         lora_rank_unet=8, use_adain=True, train_input=False)
     js, ts = jrest.RestorerStatics.from_model_config(mj), trest.RestorerStatics.from_model_config(mt)
     for f in dataclasses.fields(ts):
-        if f.name not in ("unet_cfg", "vae_cfg", "compute_dtype"):
+        if f.name == "freeu":  # the JAX package's FreeU is its module constant
+            assert dataclasses.asdict(ts.freeu) == dataclasses.asdict(junet.DEFAULT_FREEU)
+        elif f.name not in ("unet_cfg", "vae_cfg", "compute_dtype"):
             assert getattr(ts, f.name) == getattr(js, f.name), f.name
     for kw in (dict(train_reference_networks=True), dict(use_shortcuts=True),
                dict(condition_on_face_embeds=True)):
         js = jrest.RestorerStatics.from_model_config(jcfg.ModelConfig(**kw))
         ts = trest.RestorerStatics.from_model_config(tcfg.ModelConfig(**kw))
         for f in dataclasses.fields(ts):
-            if f.name not in ("unet_cfg", "vae_cfg", "compute_dtype"):
+            if f.name == "freeu":
+                assert dataclasses.asdict(ts.freeu) == dataclasses.asdict(junet.DEFAULT_FREEU)
+            elif f.name not in ("unet_cfg", "vae_cfg", "compute_dtype"):
                 assert getattr(ts, f.name) == getattr(js, f.name), (kw, f.name)
