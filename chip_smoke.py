@@ -4535,12 +4535,20 @@ def parallel_serving(card: str, failures: list) -> dict:
                  for k, v in cold_noise.items()}, cold_refs[sel])
 
     sizes = [BATCH] + ([big] if big != BATCH else [])
+    ref = {}  # the one-device engine's output and time of each path
     for what in ("warm", "cold"):
         im, ii, nz, cnz, cr = rows(BATCH)
         run1 = ((lambda: one.restore(im, ii, noise=nz)) if what == "warm"
                 else (lambda: one.restore_cold(im, cr, noise=cnz)))
         out1, _ = _synced_all(run1)  # first calls: cuDNN's set-up
-        t1 = statistics.median(_synced_all(run1)[1] for _ in range(RESTORE_RUNS))
+        ref[what] = out1, statistics.median(_synced_all(run1)[1] for _ in range(RESTORE_RUNS))
+    # its graphs keep each captured forward's activations (a cold batch of
+    # 16: ~17 GB); dropped before the multi-device engine's processes fill
+    # the card (one card holds both devices' shares)
+    one.close()
+    torch.cuda.empty_cache()
+    for what in ("warm", "cold"):
+        out1, t1 = ref[what]
         for n in sizes:
             im, ii, nz, cnz, cr = rows(n)
             runm = ((lambda: multi.restore(im, ii, noise=nz)) if what == "warm"

@@ -52,6 +52,39 @@ a calibration slot. Restores then quantize each conv's input with a
 per-sample dynamic scale until ``calibrate_int8`` bakes static scales
 observed on representative batches (every worker receives them too).
 
+Graphs (a restore's rows on one device; each worker of ``devices=`` keeps
+its own): a call is keyed on what its launches depend on that the engine
+can observe: warm or cold; the inputs' shapes and dtypes (images,
+references, ids); the noise entries given; the ``INSTANTRESTORE_*``
+variables; whether spans are on; the int8 calibration; the engine's own
+settings, the backends' TF32 and cuDNN switches, and the params and cache
+it reads. The first call of a forward (a key but for the span state) runs
+eagerly, as a plain forward. On a CUDA device the next call of each key runs
+once on a side stream over static input buffers and is then captured into
+``torch.cuda.CUDAGraph`` (every key's into one pool of the engine); every
+later call copies its inputs into the buffers (from pinned memory without
+blocking: a pinned input is not to be written again before the output is
+ready) and replays. Noise a call draws from ``generator`` is drawn into the
+buffers first, in the one-device forward's order, so a replay is bit for bit
+the eager call. The preprocess and the identity lookup run inside the graph.
+A call returns a fresh tensor, never a graph's buffer. Every engine of the
+process captures on one side stream and into one graph pool a device, so a
+capture reuses the blocks earlier captures freed and the graphs hold about
+the largest forward's activations, not their sum; the engines' calls are
+therefore not to run at the same time from several threads (nor is one
+engine's). ``onboard`` (a new
+cache), ``calibrate_int8`` (new params) and ``close()`` drop every graph;
+``onboard_one`` writes rows in place, which a replay reads. A call inside
+``int8_records`` (calibration) or inside another capture runs a plain
+forward; off CUDA the static-buffer call runs eagerly. A capture error
+raises. A replay adds the capture's kernel launches to the wrappers'
+counters. With spans on, the graph is captured in pieces, cut at every stage
+and nested span (``profiling.cuts``), and a replay opens those spans between
+the pieces, so each call's record holds its own times; the outer
+``restore`` / ``restore_cold`` span stays around the replay. Each call's
+record has ``graph`` ("eager", "capture" or "replay"), and ``graph_stats()``
+counts the calls of each kind.
+
 Differences from the JAX engine: onboarding is a Python loop over
 identities (no ``lax.map``), and a restore draws its batch noise from one
 ``torch.Generator`` (or takes it through ``noise``) instead of per-row PRNG
@@ -62,15 +95,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
-from typing import Any, Callable, Dict, List, Optional
+import sys
+import warnings
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from instantrestore_tpu_torch import resolve_device
 from instantrestore_tpu_torch.convert import tree_to
-from instantrestore_tpu_torch.inference.workers import WorkerPool
+from instantrestore_tpu_torch.inference.workers import ENV_PREFIX, WorkerPool
 from instantrestore_tpu_torch.models import scheduler as sched
 from instantrestore_tpu_torch.models.lora import merge_lora
 from instantrestore_tpu_torch.models.restorer import (
@@ -82,10 +119,12 @@ from instantrestore_tpu_torch.models.restorer import (
 )
 from instantrestore_tpu_torch.models.unet import quantize_unet_int8
 from instantrestore_tpu_torch.models.vae import quantize_decoder_int8
+from instantrestore_tpu_torch.ops.flash_vjp import add_launch_counts, launch_counts
 from instantrestore_tpu_torch.ops.image_ops import preprocess
 from instantrestore_tpu_torch.ops.primitives import (
     apply_int8_calibration,
     assign_calib_slots,
+    int8_recording,
     int8_records,
     stack_records,
 )
@@ -115,6 +154,158 @@ _logger = logging.getLogger(__name__)
 def _on(device: torch.device):
     """``device`` the calling thread's current CUDA device (no-op off CUDA)."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+# a device's capture stream, graph pool and live static calls holding graphs,
+# for every engine of the process (the module's docstring)
+_CAPTURES: Dict[torch.device, list] = {}
+
+
+def _capture_slot(device: torch.device):
+    """(stream, pool) for one more static call's captures on ``device``; a
+    new pool once no graph holds the last (the allocator takes a pool no
+    graph holds as ended). ``_release_slot`` when the call is gone."""
+    if device not in _CAPTURES:
+        _CAPTURES[device] = [torch.cuda.Stream(device=device), None, 0]
+    slot = _CAPTURES[device]
+    if slot[2] == 0:
+        slot[1] = torch.cuda.graph_pool_handle()
+    slot[2] += 1
+    return slot[0], slot[1]
+
+
+def _release_slot(device: torch.device) -> None:
+    _CAPTURES[device][2] -= 1
+
+
+def _draw_rows(cold: bool, b: int, n: int) -> List[Tuple[str, int]]:
+    """A one-device forward's draws in order: (noise key, rows), for ``b``
+    faces with ``n`` references each (cold)."""
+    if not cold:
+        return [("latent", b), ("diffusion", b)]
+    return [("latent", b), ("cond_latent", b * n), ("cond_diffusion", b * n), ("diffusion", b)]
+
+
+class _StaticCall:
+    """One key's restore over static device buffers (the module's
+    docstring), made by the key's first call after its forward ran
+    eagerly, which it serves. ``forward(engine, load, generator)`` is the
+    engine's warm or cold forward; ``load()``, called inside its ``inputs``
+    stage, gives the inputs and the noise on the device. It holds no
+    reference to the engine, so that an engine nothing else holds is freed
+    at once, with its graphs."""
+
+    def __init__(self, engine: "ServingEngine", forward, inputs: Dict[str, torch.Tensor],
+                 draws: List[Tuple[str, int]]):
+        dev = engine.device
+        self.forward, self.draws = forward, draws
+        self.reads = (engine.params, engine.kv_cache)  # held: a graph reads their memory
+        self.inputs = {k: torch.empty(v.shape, dtype=torch.long if k == "ids" else v.dtype,
+                                      device=dev) for k, v in inputs.items()}
+        side, c = engine._latent_side(), engine.statics.vae_cfg.latent_channels
+        self.noise = {k: torch.empty((rows, side, side, c), device=dev) for k, rows in draws}
+        self.graphs: List[Any] = []
+        self.events: List[tuple] = []  # ("graph", i), ("load",), ("enter", name, count), ("exit",)
+        self.launches: Dict[str, int] = {}
+        self.output: Optional[torch.Tensor] = None
+
+    def fill(self, engine: "ServingEngine", inputs, noise, generator) -> None:
+        """The call's inputs and noise copied into the buffers; the noise it
+        does not give drawn from ``generator`` first, in the forward's order."""
+        for k, t in inputs.items():
+            self.inputs[k].copy_(t, non_blocking=True)
+        given = noise or {}
+        missing = [(k, rows) for k, rows in self.draws if k not in given]
+        drawn = engine._draw(missing, generator) if missing else {}
+        for k, buf in self.noise.items():
+            buf.copy_(given[k] if k in given else drawn[k], non_blocking=True)
+
+    def _buffers(self) -> Dict[str, Any]:
+        return dict(self.inputs, noise=self.noise)
+
+    def __call__(self, engine: "ServingEngine", inputs, noise,
+                 generator) -> Tuple[torch.Tensor, str]:
+        """(the call's output, "eager" / "capture" / "replay")."""
+        fill = functools.partial(self.fill, engine, inputs, noise, generator)
+        if self.graphs:
+            return self._replay(fill), "replay"
+        load = lambda: (fill(), self._buffers())[1]  # noqa: E731
+        if engine.device.type != "cuda":
+            return self.forward(engine, load, None), "eager"
+        dev = torch.device("cuda", torch.cuda.current_device())  # the engine's (``_on``)
+        side, pool = _capture_slot(dev)
+        weakref.finalize(self, _release_slot, dev)
+        main = torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):  # the call itself, and every lazy set-up of the stream
+            out = self.forward(engine, load, None)
+        torch.cuda.synchronize(dev)
+        # as torch.cuda.graph does: a capture cannot free cached blocks to
+        # make room, so they are freed before it
+        torch.cuda.empty_cache()
+        before = launch_counts()
+        self._capture(engine, side, pool)
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        add_launch_counts({k: -n for k, n in self.launches.items()})  # nothing ran yet
+        main.wait_stream(side)
+        out.record_stream(main)
+        return out, "capture"
+
+    def _capture(self, engine: "ServingEngine", side, pool) -> None:
+        """The forward over the buffers captured on ``side`` into ``pool``:
+        one graph, cut where ``load`` runs and, with spans on, at every
+        span's boundary."""
+
+        def begin():
+            self.events.append(("graph", len(self.graphs)))
+            self.graphs.append(torch.cuda.CUDAGraph())
+            self.graphs[-1].capture_begin(pool=pool, capture_error_mode="thread_local")
+
+        def cut(event):
+            self.graphs[-1].capture_end()
+            self.events.append(event)
+            begin()
+
+        def load():
+            cut(("load",))
+            return self._buffers()
+
+        with torch.cuda.stream(side), warnings.catch_warnings():
+            # a piece between two boundaries may hold no work
+            warnings.filterwarnings("ignore", message="The CUDA Graph is empty")
+            begin()
+            try:
+                with profiling.cuts(cut):
+                    self.output = self.forward(engine, load, None)
+            except BaseException:
+                with contextlib.suppress(RuntimeError):  # the capture's own error is raised
+                    self.graphs[-1].capture_end()
+                raise
+            self.graphs[-1].capture_end()
+
+    def _replay(self, fill) -> torch.Tensor:
+        """The pieces replayed in order, the buffers filled where ``load``
+        ran and the spans opened between the pieces: a copy of the output."""
+        opened = []
+        try:
+            for event in self.events:
+                if event[0] == "graph":
+                    self.graphs[event[1]].replay()
+                elif event[0] == "load":
+                    fill()
+                elif event[0] == "enter":
+                    opened.append(profiling.span(event[1], count=event[2]))
+                    opened[-1].__enter__()
+                else:
+                    opened.pop().__exit__(None, None, None)
+        except BaseException:
+            exc = sys.exc_info()
+            while opened:
+                opened.pop().__exit__(*exc)
+            raise
+        add_launch_counts(self.launches)
+        return self.output.clone()
 
 
 def quantize_bundle(params: Dict[str, Any], statics: RestorerStatics, *, decoder: bool,
@@ -151,6 +342,14 @@ class ServingEngine:
     of ``device``): serve on each of them, a worker process for each after
     the first (the module's docstring); ``close()`` or a ``with`` block
     stops them.
+
+    On a CUDA device, once a restore's forward has run eagerly, the next
+    call of each key (shapes, noise keys, algorithm variables, span and
+    calibration state; the module's docstring) is captured into a CUDA
+    graph, and every later call of the key replays it; ``onboard``,
+    ``calibrate_int8`` and ``close()`` drop the graphs. Every call returns
+    a fresh tensor. ``graph_stats()`` counts the calls that ran eagerly,
+    captured and replayed.
     """
 
     def __init__(
@@ -191,6 +390,10 @@ class ServingEngine:
         self.identity_cache = identity_cache
         self.kv_cache: Optional[List[Any]] = None
         self._pool: Optional[WorkerPool] = None
+        self._static: Dict[tuple, _StaticCall] = {}  # by key (the module's docstring)
+        self._warmed: set = set()  # keys but for the span state whose forward ran eagerly
+        self._calibrations = 0
+        self._graph_counts = {"eager": 0, "captures": 0, "replays": 0}
         if len(self.devices) > 1:
             self._pool = WorkerPool(
                 self.devices[1:], self.params, statics,
@@ -204,9 +407,23 @@ class ServingEngine:
                      resolution, [str(d) for d in self.devices])
 
     def close(self) -> None:
-        """Stop the worker processes (a no-op on one device)."""
+        """Drop the graphs and stop the worker processes."""
+        self._drop_graphs()
         if self._pool is not None:
             self._pool.close()
+
+    def graph_stats(self) -> Dict[str, int]:
+        """This process's restore calls so far: ``eager`` (a plain forward,
+        or the static-buffer call off CUDA), ``captures``, ``replays``."""
+        return dict(self._graph_counts)
+
+    def _drop_graphs(self) -> None:
+        """Forget every static call and its graphs (once the card has done
+        with their buffers)."""
+        if self._static and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._static.clear()
+        self._warmed.clear()
 
     def __enter__(self) -> "ServingEngine":
         return self
@@ -231,6 +448,7 @@ class ServingEngine:
         return self._run("cache", [()] * len(self._pool.workers), lambda: self.kv_cache)
 
     def _set_cache(self, cache: List[Any]) -> None:
+        self._drop_graphs()
         self.kv_cache = cache
         if self._pool is not None:
             self._pool.run("set_cache", [(cache,)] * len(self._pool.workers))
@@ -238,14 +456,64 @@ class ServingEngine:
     def _latent_side(self) -> int:
         return self.resolution // 2 ** (len(self.statics.vae_cfg.block_out_channels) - 1)
 
-    def _draw(self, names, rows: int, generator) -> Dict[str, torch.Tensor]:
-        """Standard-normal latents [rows, l, l, 4] from ``generator`` on its
-        device, one per name in order (a one-device forward's draws)."""
+    def _draw(self, rows: List[Tuple[str, int]], generator) -> Dict[str, torch.Tensor]:
+        """Standard-normal latents [rows, l, l, c] from ``generator`` on its
+        device, one per (name, rows) in order (a one-device forward's draws)."""
         if generator is None:
             raise ValueError("pass noise= or a torch.Generator")
-        side = self._latent_side()
-        return {k: torch.randn((rows, side, side, 4), generator=generator,
-                               device=generator.device) for k in names}
+        side, c = self._latent_side(), self.statics.vae_cfg.latent_channels
+        return {k: torch.randn((r, side, side, c), generator=generator, device=generator.device)
+                for k, r in rows}
+
+    def _key(self, path: str, inputs: Dict[str, torch.Tensor], noise) -> tuple:
+        """A call's key but for the span state (the module's docstring)."""
+        bk = torch.backends
+        return (path, tuple((k, tuple(t.shape), t.dtype) for k, t in inputs.items()),
+                tuple(sorted((k, tuple(t.shape), t.dtype) for k, t in (noise or {}).items())),
+                tuple(sorted((k, v) for k, v in os.environ.items() if k.startswith(ENV_PREFIX))),
+                self._calibrations, self.use_fused_attention, self.identity_cache, self.timestep,
+                self.resolution, id(self.params), id(self.kv_cache), bk.cuda.matmul.allow_tf32,
+                bk.cudnn.allow_tf32, bk.cudnn.benchmark, bk.cudnn.deterministic)
+
+    def _call(self, path: str, forward, inputs: Dict[str, torch.Tensor], generator,
+              noise) -> torch.Tensor:
+        """``forward(self, load, generator)`` for one call: a plain forward,
+        or the key's static call (the module's docstring). ``inputs`` are
+        the caller's tensors, by name."""
+        dev = self.device
+        if int8_recording() or (dev.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            out, mode = self._plain(forward, inputs, generator, noise), "eager"
+        else:
+            base = self._key(path, inputs, noise)
+            key = (base, profiling.on())
+            static = self._static.get(key)
+            if static is None and base not in self._warmed:
+                out, mode = self._plain(forward, inputs, generator, noise), "eager"
+                self._warmed.add(base)
+            else:
+                if static is None:
+                    b = inputs["images"].shape[0]
+                    n = inputs["conds"].shape[1] if "conds" in inputs else 0
+                    static = _StaticCall(self, forward, inputs, _draw_rows("conds" in inputs, b, n))
+                with _on(dev):
+                    out, mode = static(self, inputs, noise, generator)
+                self._static[key] = static
+        self._graph_counts[{"eager": "eager", "capture": "captures",
+                            "replay": "replays"}[mode]] += 1
+        profiling.note(graph=mode)
+        return out
+
+    def _plain(self, forward, inputs: Dict[str, torch.Tensor], generator, noise) -> torch.Tensor:
+        """The forward of the caller's tensors copied to the device, drawing
+        from ``generator`` where it draws."""
+        dev = self.device
+
+        def load():
+            x = {k: v.to(device=dev, dtype=torch.long) if k == "ids" else v.to(dev)
+                 for k, v in inputs.items()}
+            return dict(x, noise=noise)
+
+        return forward(self, load, generator)
 
     def _split_batch(self, b: int, noise, cmd: str, inputs: Callable[[slice], tuple],
                      own: Callable[[slice, Any], Any]) -> List[Any]:
@@ -301,7 +569,7 @@ class ServingEngine:
         n_ident, n_dev = identity_refs.shape[0], len(self.devices)
         if n_dev > 1 and noise is None:  # each identity's draws, in the one-device order
             n_refs = identity_refs.shape[1]
-            draws = [self._draw(("latent", "diffusion"), n_refs, generator)
+            draws = [self._draw([("latent", n_refs), ("diffusion", n_refs)], generator)
                      for _ in range(n_ident)]
             noise = {k: torch.stack([d[k] for d in draws]) for k in ("latent", "diffusion")}
         if n_dev > 1 and n_ident % n_dev == 0:  # identities split over the devices
@@ -346,30 +614,39 @@ class ServingEngine:
         first = self.kv_cache[0]
         return (first.rk if self.identity_cache else first[0]).shape[0]
 
+    def _warm_forward(self, load, generator) -> torch.Tensor:
+        """The warm forward: ``load()`` gives {ids, images, noise} on the
+        device."""
+        with profiling.span("inputs"):
+            x = load()
+            ids = x["ids"]
+            images = _maybe_preprocess(x["images"], self.resolution)
+        if self.identity_cache:
+            ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
+        else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
+            ref_kv = [(k[ids], v[ids]) for k, v in self.kv_cache]
+        out = restore_forward(
+            self.params, images, statics=self.statics, timestep=self.timestep,
+            precomputed_ref_kv=ref_kv, generator=generator, noise=x["noise"],
+            use_fused_attention=self.use_fused_attention,
+        )
+        return out["output_image"]
+
     def _restore_rows(self, images, ids, generator, noise) -> torch.Tensor:
         """The warm restore of ``images`` of identities ``ids`` here."""
         with profiling.span("restore", faces=images.shape[0], device=self.device):
-            with profiling.span("inputs"):
-                ids = ids.to(device=self.device, dtype=torch.long)
-                images = _maybe_preprocess(images.to(self.device), self.resolution)
-            if self.identity_cache:
-                ref_kv = [IdentityRef(c, ids) for c in self.kv_cache]
-            else:  # gather each sample's identity K/V: [I, N, H, S, d] -> [B, N, H, S, d]
-                ref_kv = [(k[ids], v[ids]) for k, v in self.kv_cache]
-            out = restore_forward(
-                self.params, images, statics=self.statics, timestep=self.timestep,
-                precomputed_ref_kv=ref_kv, generator=generator, noise=noise,
-                use_fused_attention=self.use_fused_attention,
-            )
-        return out["output_image"]
+            return self._call("restore", ServingEngine._warm_forward,
+                              {"ids": ids, "images": images}, generator, noise)
 
     @torch.no_grad()
     def restore(self, images: torch.Tensor, identity_ids, *,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Warm restore: images [B, H, W, 3] (uint8, or float in [-1, 1]) of
-        identities ``identity_ids`` [B] -> [B, res, res, 3] in [-1, 1].
-        ``noise`` may give ``latent``/``diffusion`` [B, h, w, 4]."""
+        identities ``identity_ids`` [B] -> a new [B, res, res, 3] tensor in
+        [-1, 1]. ``noise`` may give ``latent``/``diffusion`` [B, h, w, 4].
+        Once its key is captured, a call on a CUDA device replays a graph
+        (the module's docstring)."""
         if self.kv_cache is None:
             raise RuntimeError("call onboard() first")
         ids = torch.as_tensor(identity_ids)
@@ -381,13 +658,15 @@ class ServingEngine:
         if len(self.devices) == 1:
             return self._restore_rows(images, ids, generator, noise)
         if noise is None and b % len(self.devices) == 0:
-            noise = self._draw(("latent", "diffusion"), b, generator)
+            noise = self._draw(_draw_rows(False, b, 0), generator)
         return self._gather(self._split_batch(
             b, noise, "restore", lambda sel: (images[sel], ids[sel]),
             lambda sel, nz: self._restore_rows(images[sel], ids[sel], None, nz)))
 
     def _calibrate(self, slots: torch.Tensor, scales: torch.Tensor, margin: float) -> None:
+        self._drop_graphs()
         self.params = apply_int8_calibration(self.params, slots, scales, margin=margin)
+        self._calibrations += 1
 
     @torch.no_grad()
     def calibrate_int8(self, batches, *, margin: float = 1.05) -> int:
@@ -396,7 +675,8 @@ class ServingEngine:
         tuples. Each is restored on the first device with every conv's
         per-sample dynamic scale recorded; each conv keeps its max over the
         batches, times ``margin``, as its static ``a_scale`` (on every
-        device). Returns the number of convs calibrated."""
+        device). Returns the number of convs calibrated. The batches run
+        eagerly, and the new params drop every graph."""
         if self.kv_cache is None:
             raise RuntimeError("call onboard() first")
         slots, scales = [torch.zeros(0, dtype=torch.int32)], [torch.zeros(0)]
@@ -413,21 +693,27 @@ class ServingEngine:
             self._pool.run("calibrate", [(slots, scales, margin)] * len(self._pool.workers))
         return int(torch.unique(slots).numel())
 
+    def _cold_forward(self, load, generator) -> torch.Tensor:
+        """The cold forward: ``load()`` gives {conds, images, noise} on the
+        device."""
+        res = self.resolution
+        with profiling.span("inputs"):
+            x = load()
+            b, n = x["conds"].shape[:2]
+            conds = _maybe_preprocess(x["conds"].reshape(b * n, *x["conds"].shape[2:]), res)
+            images = _maybe_preprocess(x["images"], res)
+        out = restore_forward(
+            self.params, images, conds.reshape(b, n, res, res, 3), statics=self.statics,
+            timestep=self.timestep, generator=generator, noise=x["noise"],
+            use_fused_attention=self.use_fused_attention,
+        )
+        return out["output_image"]
+
     def _restore_cold_rows(self, images, cond_images, generator, noise) -> torch.Tensor:
         """The cold restore of ``images`` against ``cond_images`` here."""
-        b, n = cond_images.shape[:2]
-        res, dev = self.resolution, self.device
-        with profiling.span("restore_cold", faces=b, device=dev):
-            with profiling.span("inputs"):
-                conds = _maybe_preprocess(
-                    cond_images.to(dev).reshape(b * n, *cond_images.shape[2:]), res)
-                images = _maybe_preprocess(images.to(dev), res)
-            out = restore_forward(
-                self.params, images, conds.reshape(b, n, res, res, 3), statics=self.statics,
-                timestep=self.timestep, generator=generator, noise=noise,
-                use_fused_attention=self.use_fused_attention,
-            )
-        return out["output_image"]
+        with profiling.span("restore_cold", faces=cond_images.shape[0], device=self.device):
+            return self._call("restore_cold", ServingEngine._cold_forward,
+                              {"conds": cond_images, "images": images}, generator, noise)
 
     @torch.no_grad()
     def restore_cold(self, images: torch.Tensor, cond_images: torch.Tensor, *,
@@ -435,17 +721,16 @@ class ServingEngine:
                      noise: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """Cold restore: images [B, H, W, 3] with their references
         cond_images [B, N, H, W, 3] (each uint8, or float in [-1, 1]),
-        re-encoded in this call -> [B, res, res, 3] in [-1, 1]. ``noise``
-        may give ``latent``/``diffusion`` [B, h, w, 4] and
-        ``cond_latent``/``cond_diffusion`` [B*N, h, w, 4]."""
+        re-encoded in this call -> a new [B, res, res, 3] tensor in [-1, 1].
+        ``noise`` may give ``latent``/``diffusion`` [B, h, w, 4] and
+        ``cond_latent``/``cond_diffusion`` [B*N, h, w, 4]. Once its key is
+        captured, a call on a CUDA device replays a graph (the module's
+        docstring)."""
         b, n = cond_images.shape[:2]
         if len(self.devices) == 1:
             return self._restore_cold_rows(images, cond_images, generator, noise)
         if noise is None and b % len(self.devices) == 0:  # in a one-device forward's order
-            noise = self._draw(("latent",), b, generator)
-            noise.update({f"cond_{k}": v for k, v in
-                          self._draw(("latent", "diffusion"), b * n, generator).items()})
-            noise.update(self._draw(("diffusion",), b, generator))
+            noise = self._draw(_draw_rows(True, b, n), generator)
         return self._gather(self._split_batch(
             b, noise, "restore_cold", lambda sel: (images[sel], cond_images[sel]),
             lambda sel, nz: self._restore_cold_rows(images[sel], cond_images[sel], None, nz)))

@@ -505,6 +505,12 @@ def int8_records():
         _CALIB_RECORDS.reset(token)
 
 
+def int8_recording() -> bool:
+    """Whether an ``int8_records`` block is open (its forwards must run
+    eagerly: a graph's replay would record nothing)."""
+    return _CALIB_RECORDS.get() is not None
+
+
 def stack_records(records: list) -> Tuple[torch.Tensor, torch.Tensor]:
     """Records -> (slots int32 [R], scales fp32 [R]) on the CPU."""
     if not records:

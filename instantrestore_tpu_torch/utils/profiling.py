@@ -16,10 +16,19 @@ prints, a timing decorator and ``jax.named_scope`` on the stages).
   UNet's ``transformer`` spans) are nested spans. ``count`` is what the
   span ran of its kind (a transformer's blocks). A span with no call open
   (a training forward under the profiler) is a range only.
+- ``note(**fields)``: fields added to the record of the call open on the
+  thread (the serving engine's ``graph``); nothing with no call open.
+- ``cuts(hook)``: while a CUDA graph is captured in pieces. Spans that are
+  on then open no range and record nothing; each calls ``hook(("enter",
+  name, count))`` on entry and ``hook(("exit",))`` on exit instead, where the
+  capture ends one graph and begins the next. Replaying the pieces with the
+  same spans opened between them (``inference/serving.py``) gives each
+  replayed call its own stage times, with fresh events.
 - ``records()``: the newest calls, oldest first, at most ``RING`` of them:
   ``{"name", "faces", "device_ms", "stages": {stage: device_ms}, "nested":
-  {span: device_ms}, "counts": {span: count}}``, each nested span's ms and
-  each span's ``count`` summed over the call by name. A ``device_ms`` is
+  {span: device_ms}, "counts": {span: count}}`` and the call's noted
+  fields, each nested span's ms and each span's ``count`` summed over the
+  call by name. A ``device_ms`` is
   event to event, so it includes the card's idle time in the span. The
   stages do not overlap, so their sum is at most the call's. The events are
   read here, outside the calls: a span never synchronises. ``reset()``
@@ -76,6 +85,7 @@ class _Call:
         self.start = self.end = None
         self.depth = 0  # inner spans open: 0 outside the stages
         self.spans: List[tuple] = []  # (name, depth, start mark, end mark, count)
+        self.fields: Dict[str, Any] = {}  # ``note``'s
 
     def resolve(self) -> Dict[str, Any]:
         stages: Dict[str, float] = {}
@@ -89,14 +99,20 @@ class _Call:
             if count is not None:
                 counts[name] = counts.get(name, 0) + count
         return {"name": self.name, "faces": self.faces, "device_ms": _ms(self.start, self.end),
-                "stages": stages, "nested": nested, "counts": counts}
+                "stages": stages, "nested": nested, "counts": counts, **self.fields}
 
 
 @contextlib.contextmanager
 def span(name: str, faces: Optional[int] = None, device=None, count: Optional[int] = None):
     """The block as stage ``name`` (the module's docstring)."""
-    if not (_tracing or torch.autograd._profiler_enabled()):
+    if not on():
         yield
+        return
+    cut = getattr(_open, "cut", None)
+    if cut is not None and faces is None:  # a graph captured in pieces
+        cut(("enter", name, count))
+        yield
+        cut(("exit",))
         return
     call = getattr(_open, "call", None)
     opened = call is None and faces is not None
@@ -124,6 +140,30 @@ def span(name: str, faces: Optional[int] = None, device=None, count: Optional[in
             call.depth -= 1
         if opened:
             _open.call = None
+
+
+def on() -> bool:
+    """Whether spans are on: under a profiler or inside ``tracing()``."""
+    return bool(_tracing or torch.autograd._profiler_enabled())
+
+
+def note(**fields) -> None:
+    """``fields`` added to the record of the call open on this thread."""
+    call = getattr(_open, "call", None)
+    if call is not None:
+        call.fields.update(fields)
+
+
+@contextlib.contextmanager
+def cuts(hook):
+    """The block's spans call ``hook`` at their boundaries and record
+    nothing (the module's docstring); the open call is set aside."""
+    call = getattr(_open, "call", None)
+    _open.call, _open.cut = None, hook
+    try:
+        yield
+    finally:
+        _open.call, _open.cut = call, None
 
 
 @contextlib.contextmanager

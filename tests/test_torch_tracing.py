@@ -285,6 +285,21 @@ def test_stage_readers_average_the_profiled_calls(monkeypatch):
     assert _reader("capture_ms_per_face.serve")(run) is None  # a warm call has no capture
 
 
+@pytest.mark.parametrize("metric", ["graph_replay_share.serve", "graph_replay_share.serve_sdxl"])
+def test_replay_share_reads_the_profiled_calls_graph_field(monkeypatch, metric):
+    def rec(graph=None):
+        r = {"name": "restore", "faces": 2, "device_ms": 9.0, "stages": {}}
+        return r if graph is None else dict(r, graph=graph)
+
+    run = {"trace": _summary(500.0)}  # two ir/restore ranges: the last two records
+    read = _reader(metric)
+    for recs, want in (([rec("eager"), rec("capture"), rec("replay")], 50.0),
+                       ([rec("eager"), rec("replay"), rec("replay")], 100.0),
+                       ([rec("replay"), rec()], None)):  # a program that notes no graph
+        monkeypatch.setattr(profiling, "records", lambda: list(recs))
+        assert read(run) == want
+
+
 def test_norm_reader_sums_the_norm_family_per_face():
     """``norm_ms_per_face.serve``: device ms of the kernels the ``norm``
     family names (``gpubench/kernels/group_norm.json``), per profiled face;
